@@ -1,0 +1,72 @@
+"""Loss gradients and losses, dense part (the worker hot path).
+
+Counterpart of ``asyncframework_tpu/ops/gradients.py``.  A shard's sampled
+mini-batch gradient is ``g = X^T (mask * (f(X w) - y))``; where the JAX
+package hands the two matmuls to XLA, the port runs them as one pass of the
+hand-written kernel :func:`~asyncframework_tpu_torch.ops.masked_grad.masked_grad`.
+Losses stay plain PyTorch, as the originals stay plain XLA.
+
+Parity targets: the least-squares ``gradfun`` of the ASYNC drivers
+(``SparkASGDThread.scala:420-435``, per sample ``(x.w - y) x``, summed) and
+MLlib's ``LogisticGradient`` (binary, labels in {0, 1}).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from asyncframework_tpu_torch.ops.masked_grad import masked_grad
+
+#: rows widened to f32 at a time when a bf16 matrix meets a vector
+_MM_CHUNK_ROWS = 1 << 16
+
+
+def mm_f32(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``A @ v`` in ``A``'s storage dtype with f32 accumulation.
+
+    ``v`` (``(d,)`` or ``(d, S)``) is rounded to ``A.dtype`` first, as the
+    JAX package's ``mm_f32`` does, and the product is f32.  For f32 ``A``
+    this is the plain matmul.  A bf16 ``A`` is widened to f32 a block of
+    rows at a time (bf16 products are exact in f32), so no f32 copy of a
+    whole shard is made.
+    """
+    v = v.to(A.dtype)
+    if A.dtype == torch.float32:
+        return A @ v
+    vf = v.float()
+    parts = [
+        A[i:i + _MM_CHUNK_ROWS].float() @ vf
+        for i in range(0, A.shape[0], _MM_CHUNK_ROWS)
+    ]
+    if not parts:
+        return torch.zeros((0,) + tuple(v.shape[1:]), device=A.device)
+    return torch.cat(parts)
+
+
+def least_squares_residual(X, y, w):
+    """Per-sample scalar ``x_i . w - y_i``."""
+    return mm_f32(X, w) - y
+
+
+def least_squares_grad_sum(X, y, w, mask, idx=None):
+    """Sum over masked samples of ``(x_i . w - y_i) x_i`` (with ``idx``:
+    over the rows ``X[idx]``, weighted by ``mask`` per slot)."""
+    return masked_grad(X, y, w, mask, idx, "least_squares")
+
+
+def least_squares_loss(X, y, w):
+    """Unnormalised squared error ``sum_i (x_i.w - y_i)^2`` over the shard;
+    the caller divides by the global N."""
+    r = mm_f32(X, w) - y
+    return torch.sum(r * r)
+
+
+def logistic_grad_sum(X, y, w, mask, idx=None):
+    """Sum over masked samples of ``(sigmoid(x_i.w) - y_i) x_i``."""
+    return masked_grad(X, y, w, mask, idx, "logistic")
+
+
+def logistic_loss(X, y, w):
+    """Unnormalised logistic loss, stable ``log(1 + e^m) - y m`` form."""
+    margin = mm_f32(X, w)
+    return torch.sum(torch.logaddexp(torch.zeros_like(margin), margin) - y * margin)

@@ -1,0 +1,176 @@
+"""Step functions of the dense ASGD path: worker step, appliers, helpers.
+
+Counterpart of the dense ASGD subset of ``asyncframework_tpu/ops/steps.py``.
+Every tensor the per-update cycle touches stays on the device; the host
+threads move only tensor handles and Python ints.
+
+Model versions: in JAX an old ``w`` handle *is* an old model version, and
+trajectory snapshots and in-flight worker tasks hold such handles.  So the
+appliers here build the new ``w`` out of place and never write into ``w``.
+Only the buffers the JAX package donates are written in place: the
+iteration counter ``k`` and the sync drain's accumulator.
+
+- :func:`make_asgd_worker_step`: Bernoulli(b) sample + summed gradient
+  (``SparkASGDThread.scala:311-318``), full-shard masked for b > 0.5,
+  compacted to :func:`sparse_step_capacity` rows for b <= 0.5.
+- :func:`make_asgd_apply`: ``w -= gamma/sqrt(k/numPart+1) * g/(b*N/numPart)``
+  (``SparkASGDThread.scala:185-189``), with ``k`` a device f32 scalar.
+- :func:`make_sync_apply`: ``w -= gamma/sqrt(k+1) * accGrad/(b*N)``
+  (``SparkASGDSync.scala:267-272``).
+- :func:`make_asgd_apply_batch`: m drained gradients in one masked
+  weighted sum.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from asyncframework_tpu_torch.ops.gradients import (
+    least_squares_grad_sum,
+    logistic_grad_sum,
+    mm_f32,
+)
+from asyncframework_tpu_torch.ops.sampling import bernoulli_mask
+
+
+def sparse_step_capacity(batch_rate: float, n_rows: int) -> int:
+    """Static slot count for a compacted step: E[count] + 6 sigma of the
+    Bernoulli draw, rounded up to 8 and capped at the shard size.  Overflow
+    probability per step is ~1e-9; overflowing rows are dropped (the sample
+    is fractionally smaller that step, nothing corrupts)."""
+    mean = batch_rate * n_rows
+    sigma = math.sqrt(max(batch_rate * (1.0 - batch_rate) * n_rows, 0.0))
+    cap = int(math.ceil(mean + 6.0 * sigma))
+    cap = max(8, ((cap + 7) // 8) * 8)
+    return min(cap, n_rows)
+
+
+def compact_mask(mask: torch.Tensor, cap: int):
+    """``(valid, idx)`` for a boolean ``(n,)`` mask: ``idx`` lists the first
+    ``cap`` set positions in order, padded with 0; ``valid`` is 1.0 on the
+    slots below the count.  Built from a cumsum and a scatter, with no
+    device-to-host copy (``jnp.nonzero(size=cap, fill_value=0)`` parity)."""
+    n = mask.shape[0]
+    dev = mask.device
+    pos = torch.cumsum(mask, 0) - 1
+    # set positions scatter to their slot; everything else (and any
+    # overflow beyond cap) lands in the extra slot `cap`, which is cut off
+    slot = torch.where(mask & (pos < cap), pos, cap)
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    idx.scatter_(0, slot, torch.arange(n, device=dev))
+    valid = (torch.arange(cap, device=dev) < mask.sum()).float()
+    return valid, idx[:cap]
+
+
+def make_asgd_worker_step(batch_rate: float, loss: str = "least_squares"):
+    """``step(X, y, w, gen) -> g``: draw the round's sample from the
+    worker's generator, then the summed gradient over it.
+
+    For ``batch_rate <= 0.5`` the sampled rows are compacted to a fixed
+    capacity first (:func:`sparse_step_capacity`), so the kernel reads
+    only ~b of the shard.  The two halves are exposed for tests that feed
+    both packages the same sample: ``step.sample(gen, n) -> (weights,
+    idx)`` and ``step.grad(X, y, w, weights, idx) -> g``.
+    """
+    if loss == "least_squares":
+        grad_sum = least_squares_grad_sum
+    elif loss == "logistic":
+        grad_sum = logistic_grad_sum
+    else:
+        raise ValueError(f"unknown loss {loss!r}")
+    compact = batch_rate <= 0.5
+
+    def sample(gen: torch.Generator, n: int):
+        mask = bernoulli_mask(gen, n, batch_rate)
+        if compact:
+            return compact_mask(mask, sparse_step_capacity(batch_rate, n))
+        return mask.float(), None
+
+    def grad(X, y, w, weights, idx=None):
+        return grad_sum(X, y, w, weights, idx)
+
+    def step(X, y, w, gen):
+        return grad(X, y, w, *sample(gen, X.shape[0]))
+
+    step.sample = sample
+    step.grad = grad
+    return step
+
+
+def make_asgd_apply(gamma: float, batch_rate: float, n: int, num_workers: int):
+    """``apply(w, g, k) -> (w', k)`` with ``k`` advanced by one in place.
+    ``w'`` is a new tensor: ``w`` is a model version others may hold."""
+    par_recs = batch_rate * n / num_workers
+
+    def apply(w, g, k):
+        lr = gamma / torch.sqrt(k / num_workers + 1.0)
+        w_new = w - (lr / par_recs) * g
+        k.add_(1.0)
+        return w_new, k
+
+    return apply
+
+
+def make_sync_apply(gamma: float, batch_rate: float, n: int):
+    """``apply(w, acc_g, k) -> (w', k)`` -- the full-drain synchronous
+    update; ``k`` advances in place, ``w`` is kept for snapshots."""
+
+    def apply(w, acc_g, k):
+        lr = gamma / torch.sqrt(k + 1.0)
+        w_new = w - (lr / (batch_rate * n)) * acc_g
+        k.add_(1.0)
+        return w_new, k
+
+    return apply
+
+
+def make_asgd_apply_batch(
+    gamma: float, batch_rate: float, n: int, num_workers: int
+):
+    """``apply_batch(w, G (m, d), mask (m,), k) -> (w', k)``: m drained
+    gradients in one masked weighted sum.
+
+    The sequential accept path is ``w <- w - c_j g_j`` with step sizes
+    ``c_j = (gamma / sqrt(k_j/P + 1)) / parRecs`` that do not depend on
+    ``w``, so a drained batch folds into one product -- the same model up
+    to float addition order.  ``mask`` marks accepted slots; ``k`` advances
+    in place by their number.
+    """
+    par_recs = batch_rate * n / num_workers
+
+    def apply_batch(w, G, mask, k):
+        kk = k + (torch.cumsum(mask, 0) - mask)  # accepted before each slot
+        lr = gamma / torch.sqrt(kk / num_workers + 1.0)
+        coeff = (lr / par_recs) * mask
+        w_new = w - coeff @ G
+        k.add_(mask.sum())
+        return w_new, k
+
+    return apply_batch
+
+
+def add_grads(a, b):
+    """Sync drain combine (comOp parity: vector add), accumulated in ``a``
+    in place -- the drain's accumulator is dead the moment the next partial
+    arrives."""
+    return a.add_(b)
+
+
+def make_trajectory_loss_eval(loss: str = "least_squares"):
+    """``eval_shard(X, y, W (S, d)) -> (S,)`` per-snapshot loss sums over a
+    shard: all snapshots in one product (``SparkASGDThread.scala:386-401``)."""
+    if loss not in ("least_squares", "logistic"):
+        raise ValueError(f"unknown loss {loss!r}")
+
+    def eval_shard(X, y, W):
+        R = mm_f32(X, W.T)  # (n, S)
+        if loss == "least_squares":
+            E = R - y[:, None]
+            return torch.sum(E * E, dim=0)
+        return torch.sum(
+            torch.logaddexp(torch.zeros_like(R), R) - y[:, None] * R, dim=0
+        )
+
+    return eval_shard

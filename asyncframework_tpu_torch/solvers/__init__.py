@@ -1,0 +1,6 @@
+"""Solvers: ASGD (async and sync) and the shared configuration types."""
+
+from asyncframework_tpu_torch.solvers.asgd import ASGD
+from asyncframework_tpu_torch.solvers.base import SolverConfig, TrainResult
+
+__all__ = ["ASGD", "SolverConfig", "TrainResult"]

@@ -1,0 +1,127 @@
+"""Guards of the PyTorch port: no JAX, no reference imports, no silent CPU.
+
+The port (``asyncframework_tpu_torch``) and ``chip_smoke.py`` must import
+neither ``jax`` nor anything of ``asyncframework_tpu``; its entry points
+default to CUDA and raise without a GPU; a CUDA tensor never reaches the
+plain version of a kernel.  The import checks run in a subprocess, so the
+JAX this test session already imported cannot hide an import.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "asyncframework_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "asyncframework_tpu")
+
+
+def _port_sources():
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames[:] = [d for d in dirnames if not d.startswith(("_build", "__"))]
+        for fn in filenames:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_package_imports_with_jax_blocked():
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {REPO!r})
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "asyncframework_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in ("jax", "jaxlib", "asyncframework_tpu"):
+        del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+import asyncframework_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="imported")
+print(len(names))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd="/")
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_no_jax_or_reference_import_in_the_source():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(path, n) for n in names if _forbidden(n)]
+    assert not offenders
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is the GPU")
+    import numpy as np
+
+    from asyncframework_tpu_torch.data import ShardedDataset
+    from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
+
+    X = np.zeros((16, 4), np.float32)
+    y = np.zeros(16, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedDataset(X, y, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedDataset.generate_on_device(16, 4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ASGD(X, y, SolverConfig(num_workers=2))
+    ds = ShardedDataset(X, y, 2, devices=[torch.device("cpu")])
+    assert ds.shard(1).device == torch.device("cpu")
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the kernel would launch")
+    from asyncframework_tpu_torch.ops import masked_grad as mg
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(mg, "masked_grad_reference", plain)
+
+    def fake(t):
+        return torch.Tensor._make_subclass(_CudaTyped, t)
+
+    X, y, w = fake(torch.ones(6, 3)), fake(torch.ones(6)), fake(torch.ones(3))
+    assert X.device.type == "cuda"
+    before = mg.masked_grad.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mg.masked_grad(X, y, w)
+    assert mg.masked_grad.launches == before
