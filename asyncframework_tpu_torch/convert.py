@@ -7,7 +7,7 @@ taken out with ``np.asarray``, become the port's tensors here.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,3 +36,26 @@ def dataset_from_reference(
     ``dtype``."""
     d = int(shards[0][0].shape[1])
     return ShardedDataset.from_shards(shards, d, devices, dtype)
+
+
+def saga_state_from_reference(
+    w: np.ndarray,
+    alpha_slices: Mapping[int, np.ndarray],
+    alpha_bar: np.ndarray,
+    k: int,
+    devices: Sequence,
+) -> Tuple[torch.Tensor, Dict[int, torch.Tensor], torch.Tensor, int]:
+    """ASAGA state of the JAX package as the port's: ``(w, alpha, alpha_bar,
+    k)`` with ``w`` and ``alpha_bar`` f32 ``(d,)`` tensors on ``devices[0]``
+    and worker ``wid``'s history slice on ``devices[wid % len(devices)]``
+    (the solvers' placement), so both packages start from the same table
+    (e.g. ``res.extras["alpha"]`` of a JAX run)."""
+    devs = resolve_devices(devices)
+    alpha = {
+        int(wid): torch.tensor(np.asarray(a, np.float32),
+                               device=devs[int(wid) % len(devs)])
+        for wid, a in alpha_slices.items()
+    }
+    w_t = torch.tensor(np.asarray(w, np.float32), device=devs[0])
+    ab_t = torch.tensor(np.asarray(alpha_bar, np.float32), device=devs[0])
+    return w_t, alpha, ab_t, int(k)

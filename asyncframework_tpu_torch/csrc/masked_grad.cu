@@ -3,7 +3,13 @@
 //     g = X^T (mask * (f(X w) - y)),   f = identity or sigmoid
 //
 // over the full shard (row i of the sum is X[i]) or over a compacted index
-// list (row i is X[idx[i]], with no gathered copy of X).
+// list (row i is X[idx[i]], with no gathered copy of X).  Two more forms
+// serve ASAGA (asyncframework_tpu/ops/gradients.py:99-123, ops/steps.py:
+// 165-182,218-237), full shard only:
+//
+//   saga:     diff_i = x_i w - y_i for every row (written out), and
+//             g = X^T (mask * (diff - alpha))
+//   xt_coeff: g = X^T c  (the history table delta, c given)
 //
 // Replaces the Pallas TPU kernel
 // asyncframework_tpu/ops/pallas_kernels.py::_fused_masked_grad_padded
@@ -35,7 +41,10 @@
 // bf16 contract (asyncframework_tpu/ops/gradients.py:32-43 mm_f32): w is
 // rounded to bf16 before the first product and c_i is rounded to bf16
 // before the X^T product; both products accumulate in f32.  For f32 X both
-// roundings are the identity.
+// roundings are the identity.  The xt_coeff form is a plain X^T c in the
+// JAX package (steps.py:232-235), where jnp promotes a bf16 X to f32: c is
+// NOT rounded there, and not here.  Each form reads X from HBM once, so
+// each is bound by X's bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +60,14 @@ constexpr int kTileRows = kWarps;  // one row per warp per tile
 constexpr long long kMaxSmemAccBytes = 200 * 1024;
 constexpr int kReduceCols = 32;
 constexpr int kReduceRows = 16;
+
+// what phase A makes of a row (the C interface's `mode`)
+enum Mode : int {
+  kLeastSquares = 0,  // c_i = mask_i * (x_i w - y_i)
+  kLogistic = 1,      // c_i = mask_i * (sigmoid(x_i w) - y_i)
+  kSaga = 2,          // diff_i = x_i w - y_i;  c_i = mask_i * (diff_i - alpha_i)
+  kXtCoeff = 3,       // c_i = mask_i, with no product and no rounding
+};
 
 // V consecutive elements of a row, widened to f32.  V > 1 needs the address
 // aligned to 16 bytes (checked by the host wrapper).
@@ -144,7 +161,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ w,
                         const float* __restrict__ mask,
                         const long long* __restrict__ idx, long long m,
-                        int logistic, int acc_in_smem,
+                        int mode, const float* __restrict__ alpha,
+                        float* __restrict__ diff_out, int acc_in_smem,
                         float* __restrict__ partial) {
   extern __shared__ float smem_acc[];
   __shared__ float s_coef[kTileRows];
@@ -168,7 +186,9 @@ __global__ void __launch_bounds__(kThreads)
       if (r >= 0 && r < n) row = r;
     }
     float coef = 0.f;
-    if (row >= 0) {
+    if (row >= 0 && mode == kXtCoeff) {
+      coef = mask[i];
+    } else if (row >= 0) {
       const T* xr = X + row * d;
       float dot = 0.f;
       // unrolled so several 16-byte loads per lane are in flight at once
@@ -182,9 +202,15 @@ __global__ void __launch_bounds__(kThreads)
         for (int k = 0; k < V; ++k) dot = fmaf(xv[k], round_like<T>(wv[k]), dot);
       }
       dot = warp_sum(dot);
-      const float f = logistic ? 1.f / (1.f + expf(-dot)) : dot;
       const float wt = mask != nullptr ? mask[i] : 1.f;
-      coef = round_like<T>(wt * (f - y[row]));
+      if (mode == kSaga) {
+        const float diff = dot - y[row];
+        if (lane == 0) diff_out[row] = diff;
+        coef = round_like<T>(wt * (diff - alpha[row]));
+      } else {
+        const float f = mode == kLogistic ? 1.f / (1.f + expf(-dot)) : dot;
+        coef = round_like<T>(wt * (f - y[row]));
+      }
     }
     if (lane == 0) {
       s_coef[warp] = coef;
@@ -246,8 +272,9 @@ __global__ void __launch_bounds__(kReduceCols* kReduceRows)
 template <typename T, int V>
 cudaError_t launch_partial(const void* X, long long n, long long d,
                            const float* y, const float* w, const float* mask,
-                           const long long* idx, long long m, int logistic,
-                           float* partial, int nblocks, cudaStream_t stream) {
+                           const long long* idx, long long m, int mode,
+                           const float* alpha, float* diff, float* partial,
+                           int nblocks, cudaStream_t stream) {
   const long long acc_bytes = d * (long long)sizeof(float);
   const int in_smem = acc_bytes <= kMaxSmemAccBytes;
   const size_t smem = in_smem ? (size_t)acc_bytes : 0;
@@ -258,8 +285,8 @@ cudaError_t launch_partial(const void* X, long long n, long long d,
     if (e != cudaSuccess) return e;
   }
   kernel<<<nblocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(X), n, d, y, w, mask, idx, m, logistic, in_smem,
-      partial);
+      static_cast<const T*>(X), n, d, y, w, mask, idx, m, mode, alpha, diff,
+      in_smem, partial);
   return cudaGetLastError();
 }
 
@@ -270,33 +297,41 @@ extern "C" {
 // Rows of X one stage-1 tile covers (the host sizes the grid from it).
 int masked_grad_tile_rows(void) { return kTileRows; }
 
-// Enqueue g = X^T (mask * (f(X w) - y)) on `stream`; no synchronisation.
+// Enqueue one form of the contraction on `stream`; no synchronisation.
 //   X: (n, d) row-major, f32 (x_is_bf16 = 0) or bf16 (1)
-//   y: (n,) f32   w: (d,) f32   mask: (m,) f32 or NULL (all ones)
-//   idx: (m,) int64 or NULL (m == n, row i is X[i])
+//   mode 0 / 1 (least squares / logistic): g = X^T (mask * (f(X w) - y))
+//     y: (n,) f32   w: (d,) f32   mask: (m,) f32 or NULL (all ones)
+//     idx: (m,) int64 or NULL (m == n, row i is X[i])
+//   mode 2 (saga, idx NULL, m == n): also alpha (n,) f32 and diff (n,) f32,
+//     diff_i = x_i w - y_i, g = X^T (mask * (diff - alpha))
+//   mode 3 (xt_coeff, idx NULL, m == n): g = X^T mask (y, w unused)
 //   vec: 1 when d and the X / w addresses allow 16-byte loads, else 0
 //   partial: (nblocks, d) f32 scratch   g: (d,) f32 output
 // Returns the cudaError_t of the launches (0 on success).
 int masked_grad_launch(const void* X, int x_is_bf16, long long n, long long d,
                        const float* y, const float* w, const float* mask,
-                       const long long* idx, long long m, int logistic,
-                       int vec, float* partial, int nblocks, float* g,
-                       void* stream) {
+                       const long long* idx, long long m, int mode,
+                       const float* alpha, float* diff, int vec,
+                       float* partial, int nblocks, float* g, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode < kLeastSquares || mode > kXtCoeff) return cudaErrorInvalidValue;
+  if (mode >= kSaga && (idx != nullptr || m != n)) return cudaErrorInvalidValue;
   if (d == 0) return cudaSuccess;
   if (m == 0) nblocks = 0;
   if (nblocks > 0) {
     cudaError_t e;
     if (x_is_bf16) {
       e = vec ? launch_partial<__nv_bfloat16, 8>(X, n, d, y, w, mask, idx, m,
-                                                 logistic, partial, nblocks, s)
+                                                 mode, alpha, diff, partial,
+                                                 nblocks, s)
               : launch_partial<__nv_bfloat16, 1>(X, n, d, y, w, mask, idx, m,
-                                                 logistic, partial, nblocks, s);
+                                                 mode, alpha, diff, partial,
+                                                 nblocks, s);
     } else {
-      e = vec ? launch_partial<float, 4>(X, n, d, y, w, mask, idx, m,
-                                         logistic, partial, nblocks, s)
-              : launch_partial<float, 1>(X, n, d, y, w, mask, idx, m,
-                                         logistic, partial, nblocks, s);
+      e = vec ? launch_partial<float, 4>(X, n, d, y, w, mask, idx, m, mode,
+                                         alpha, diff, partial, nblocks, s)
+              : launch_partial<float, 1>(X, n, d, y, w, mask, idx, m, mode,
+                                         alpha, diff, partial, nblocks, s);
     }
     if (e != cudaSuccess) return e;
   }

@@ -7,15 +7,20 @@ hand-written kernel :func:`~asyncframework_tpu_torch.ops.masked_grad.masked_grad
 Losses stay plain PyTorch, as the originals stay plain XLA.
 
 Parity targets: the least-squares ``gradfun`` of the ASYNC drivers
-(``SparkASGDThread.scala:420-435``, per sample ``(x.w - y) x``, summed) and
-MLlib's ``LogisticGradient`` (binary, labels in {0, 1}).
+(``SparkASGDThread.scala:420-435``, per sample ``(x.w - y) x``, summed),
+MLlib's ``LogisticGradient`` (binary, labels in {0, 1}), and ASAGA's
+per-sample scalar form (``SparkASAGAThread.scala:500-515``): for least
+squares a per-sample gradient is ``scalar * x`` with ``scalar = x.w - y``,
+so the history table holds one scalar per sample.  The ASAGA contraction
+runs through the same kernel's history form
+(:func:`~asyncframework_tpu_torch.ops.masked_grad.saga_grad`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from asyncframework_tpu_torch.ops.masked_grad import masked_grad
+from asyncframework_tpu_torch.ops.masked_grad import masked_grad, saga_grad
 
 #: rows widened to f32 at a time when a bf16 matrix meets a vector
 _MM_CHUNK_ROWS = 1 << 16
@@ -44,8 +49,11 @@ def mm_f32(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def least_squares_residual(X, y, w):
-    """Per-sample scalar ``x_i . w - y_i``."""
-    return mm_f32(X, w) - y
+    """Per-sample scalar ``x_i . w - y_i`` (the ASAGA 'scalar' form), as the
+    ``diff`` of one pass of the kernel's history form (with a zero mask,
+    so its gradient is zero and discarded)."""
+    zeros = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    return saga_grad(X, y, w, zeros, zeros)[1]
 
 
 def least_squares_grad_sum(X, y, w, mask, idx=None):
@@ -70,3 +78,23 @@ def logistic_loss(X, y, w):
     """Unnormalised logistic loss, stable ``log(1 + e^m) - y m`` form."""
     margin = mm_f32(X, w)
     return torch.sum(torch.logaddexp(torch.zeros_like(margin), margin) - y * margin)
+
+
+def saga_shard_step(X, y, w, alpha, mask):
+    """One ASAGA worker computation over a shard: ``(g, diff)`` with
+    ``diff_i = x_i.w - y_i`` (the candidate history scalars) and
+    ``g = sum_i mask_i (diff_i - alpha_i) x_i`` (the history-corrected
+    gradient sum), in one pass of the kernel over ``X``.  Committing
+    ``alpha[i] <- diff_i`` is :func:`saga_commit_history`, issued by the
+    updater only for accepted results."""
+    return saga_grad(X, y, w, alpha, mask)
+
+
+def saga_commit_history(alpha, diff, mask):
+    """``alpha[i] <- diff[i]`` where ``mask_i > 0`` (an accepted update).
+
+    The new slice is written into ``diff``'s buffer (the JAX package
+    donates ``diff``: it is dead after the commit) and returned.  ``alpha``
+    is never written: an in-flight task dispatched before this commit may
+    still hold the old slice."""
+    return torch.where(mask > 0, diff, alpha, out=diff)

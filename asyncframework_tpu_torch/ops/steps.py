@@ -19,6 +19,12 @@ iteration counter ``k`` and the sync drain's accumulator.
   (``SparkASGDSync.scala:267-272``).
 - :func:`make_asgd_apply_batch`: m drained gradients in one masked
   weighted sum.
+- :func:`make_saga_worker_step` / :func:`make_saga_apply` /
+  :func:`make_saga_table_delta` / :func:`saga_commit_history`: the ASAGA
+  decomposition (``SparkASAGAThread.scala:199-213,369-380``) with the
+  per-sample scalar history table on the device, one slice per worker.
+  The worker step and the table delta are launches of the masked-gradient
+  kernel's history forms.
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ from asyncframework_tpu_torch.ops.gradients import (
     least_squares_grad_sum,
     logistic_grad_sum,
     mm_f32,
+    saga_commit_history,  # re-exported: the solvers' committed-history op
+    saga_shard_step,
 )
+from asyncframework_tpu_torch.ops.masked_grad import xt_coeff
 from asyncframework_tpu_torch.ops.sampling import bernoulli_mask
 
 
@@ -149,6 +158,59 @@ def make_asgd_apply_batch(
         return w_new, k
 
     return apply_batch
+
+
+def make_saga_worker_step(batch_rate: float):
+    """``step(X, y, w, alpha, gen) -> (g, diff, mask)``: a Bernoulli(b)
+    mask over the full shard (no compaction, as in the JAX package), then
+    ``g = X^T (mask * (diff - alpha))`` and the candidate scalars ``diff``
+    in one kernel pass.  The halves are exposed as for the ASGD step:
+    ``step.sample(gen, n) -> mask`` (f32) and
+    ``step.grad(X, y, w, alpha, mask) -> (g, diff)``."""
+
+    def sample(gen: torch.Generator, n: int):
+        return bernoulli_mask(gen, n, batch_rate).float()
+
+    def step(X, y, w, alpha, gen):
+        mask = sample(gen, X.shape[0])
+        return (*saga_shard_step(X, y, w, alpha, mask), mask)
+
+    step.sample = sample
+    step.grad = saga_shard_step
+    return step
+
+
+def make_saga_apply(gamma: float, batch_rate: float, n: int, num_workers: int):
+    """``apply(w, alpha_bar, g, delta) -> (w', alpha_bar')``:
+    ``w' = w - gamma*g/parRecs - gamma*alpha_bar`` (a new tensor: ``w`` is a
+    model version others may hold) and ``alpha_bar' = alpha_bar + delta/N``,
+    written in place (the JAX package donates ``alpha_bar``).  The sync
+    drain passes one accumulator as both ``g`` and ``delta``, which is
+    safe: neither is written."""
+    par_recs = batch_rate * n / num_workers
+
+    def apply(w, alpha_bar, g, delta):
+        w_new = w - (gamma / par_recs) * g - gamma * alpha_bar
+        alpha_bar.add_(delta / n)
+        return w_new, alpha_bar
+
+    return apply
+
+
+def make_saga_table_delta():
+    """``delta(X, diff, mask, alpha_cur) -> X^T (mask * (diff - alpha_cur))``.
+
+    The exact change the commit makes to the mean history gradient, taken
+    against the slice as it is at commit time, so ``alpha_bar`` stays the
+    table's mean even when a worker was re-dispatched before its previous
+    result was committed (``steps.py:218-237`` of the JAX package).  A plain
+    ``X^T c`` there, so a bf16 ``X`` is promoted and ``c`` not rounded: the
+    kernel's ``xt_coeff`` form."""
+
+    def delta(X, diff, mask, alpha_cur):
+        return xt_coeff(X, mask * (diff - alpha_cur))
+
+    return delta
 
 
 def add_grads(a, b):

@@ -28,14 +28,12 @@ calibrated delays measure device work, not the enqueue.
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
 import time
 from collections import deque
 from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from asyncframework_tpu_torch.broadcast import VersionedModelStore
@@ -48,40 +46,27 @@ from asyncframework_tpu_torch.ops import steps
 from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.base import (
     DelayCalibrator,
-    FlopsAccountingMixin,
+    ShardedSolverMixin,
     SolverConfig,
     TrainResult,
     WaitingTimeTable,
     check_hbm_plan,
     check_ported,
-    collect_checked,
     resolve_dataset,
 )
-from asyncframework_tpu_torch.solvers.instrumentation import (
-    FaultTolerantRun,
-    RunInstruments,
+from asyncframework_tpu_torch.solvers.instrumentation import RunInstruments
+from asyncframework_tpu_torch.utils.devices import (
+    device_scope,
+    fence,
+    resolve_devices,
 )
-from asyncframework_tpu_torch.utils.devices import resolve_devices
 
 # minimum drained-batch size for the stacked one-launch apply: below this,
 # the stack copy costs more than the launches it saves
 BATCH_DRAIN_MIN = 3
 
 
-def _device_scope(device: torch.device):
-    """Make ``device`` current on this thread (CUDA only)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
-def _fence(device: torch.device) -> None:
-    """Wait for all work queued on ``device`` (a no-op on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class ASGD(FlopsAccountingMixin):
+class ASGD(ShardedSolverMixin):
     def __init__(self, X, y, config: SolverConfig, devices=None):
         """``X`` may be a host array (sharded here) or a pre-built
         :class:`ShardedDataset` (e.g. generated on device), with ``y=None``.
@@ -108,28 +93,6 @@ class ASGD(FlopsAccountingMixin):
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float32, device=self.driver_device)
-
-    def _generators(self):
-        """Per-worker mask generators on each shard's device, and a lock
-        per worker so two tasks of one worker never draw concurrently."""
-        gens = {
-            wid: worker_generator(self.cfg.seed, wid, self._shard_device(wid))
-            for wid in range(self.cfg.num_workers)
-        }
-        return gens, {wid: threading.Lock() for wid in gens}
-
-    def _fault_tolerance(self, sched, inst):
-        cfg = self.cfg
-        if not cfg.heartbeat:
-            return None
-        ft = FaultTolerantRun(
-            sched, self._recovery, inst, cfg.num_workers,
-            heartbeat_timeout_ms=cfg.heartbeat_timeout_ms,
-            check_interval_s=cfg.heartbeat_interval_s,
-            max_slot_failures=cfg.max_slot_failures,
-        )
-        ft.start()
-        return ft
 
     # ------------------------------------------------------------------ async
     def run(self) -> TrainResult:
@@ -328,7 +291,7 @@ class ASGD(FlopsAccountingMixin):
             final_w_dev = state["w"]
         # fence BEFORE taking elapsed, so updates/s covers the work done on
         # the device, not merely enqueued
-        _fence(drv)
+        fence(drv)
         final_w = final_w_dev.cpu().numpy()
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, final_w_dev))
@@ -439,7 +402,7 @@ class ASGD(FlopsAccountingMixin):
             if not run_ok:
                 inst.close()  # crash path
 
-        _fence(drv)  # see the async path
+        fence(drv)  # see the async path
         final_w = w.cpu().numpy()
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, w))
@@ -461,23 +424,6 @@ class ASGD(FlopsAccountingMixin):
         )
 
     # ---------------------------------------------------------------- helpers
-    def _collect_checked(self, ctx: AsyncContext, waiter, timeout_s: float,
-                         pool=None, cohort=None, collected=None):
-        """Shared fail-fast drain (solvers/base.py): surfaces job aborts,
-        and -- given the pool -- aborts promptly with the per-worker
-        liveness diagnostic when a cohort executor dies unreplaced."""
-        grace = (
-            4.0 * self.cfg.heartbeat_interval_s + 2.0
-            if self.cfg.heartbeat else 0.5
-        )
-        return collect_checked(
-            ctx, waiter, timeout_s, pool=pool, cohort=cohort,
-            dead_grace_s=grace, collected=collected,
-        )
-
-    def _shard_device(self, wid: int) -> torch.device:
-        return self.devices[wid % len(self.devices)]
-
     def _warm_hot_path(self, apply_batch=None, max_drain: int = 0,
                        sync: bool = False) -> None:
         """Run this mode's hot path once before the trajectory clock starts.
@@ -498,7 +444,7 @@ class ASGD(FlopsAccountingMixin):
             if key in seen:
                 continue
             seen.add(key)
-            with _device_scope(shard.device):
+            with device_scope(shard.device):
                 w0 = torch.zeros(d, dtype=torch.float32, device=shard.device)
                 g = self._step(shard.X, shard.y, w0,
                                worker_generator(0, 0, shard.device))
@@ -512,7 +458,7 @@ class ASGD(FlopsAccountingMixin):
                 apply_batch(self._zeros(d), self._zeros(max_drain, d),
                             self._zeros(max_drain), self._zeros())
         for dev in set(self.devices):
-            _fence(dev)
+            fence(dev)
 
     def _make_task(self, wid: int, w_pub, gen, gen_lock, delay_model):
         # recovery view: a re-homed shard is transparently computed on its
@@ -530,7 +476,7 @@ class ASGD(FlopsAccountingMixin):
             if delay_ms > 0 and not delay_fired.is_set():
                 delay_fired.set()
                 time.sleep(delay_ms / 1e3)
-            with _device_scope(dev):
+            with device_scope(dev):
                 w_local = w_pub if w_pub.device == dev else w_pub.to(dev)
                 # the generator advances at draw time: one draw at a time
                 with gen_lock:
@@ -559,18 +505,3 @@ class ASGD(FlopsAccountingMixin):
             )
 
         return handler
-
-    def _evaluate_trajectory(
-        self, snapshots: List[Tuple[float, torch.Tensor]]
-    ) -> List[Tuple[float, float]]:
-        """One-pass objective evaluation for all snapshots (optVars parity):
-        snapshots stacked into (S, d); per shard one product gives (S,)
-        losses, summed on the host in f64."""
-        W = torch.stack([h for (_t, h) in snapshots])
-        totals = np.zeros(len(snapshots), np.float64)
-        for wid in range(self.cfg.num_workers):
-            shard = self._recovery.shard(wid)  # follows re-homed shards
-            part = self._eval(shard.X, shard.y, W.to(shard.device))
-            totals += part.cpu().numpy().astype(np.float64)
-        totals /= self.ds.n
-        return [(t, float(l)) for (t, _), l in zip(snapshots, totals)]

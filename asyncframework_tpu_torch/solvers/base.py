@@ -1,9 +1,11 @@
 """Common solver configuration and result types.
 
 Counterpart of the part of ``asyncframework_tpu/solvers/base.py`` that
-``solvers/asgd.py`` uses.  ``SolverConfig`` carries the reference drivers'
-algorithmic knobs (``SparkASGDThread.scala:28-48``) under their long names,
-plus the engine's own settings.  The switches of subsystems not ported yet
+``solvers/asgd.py`` and ``solvers/asaga.py`` use, plus the helpers the two
+share around their loops (:class:`ShardedSolverMixin`).  ``SolverConfig``
+carries the reference drivers' algorithmic knobs
+(``SparkASGDThread.scala:28-48``) under their long names, plus the
+engine's own settings.  The switches of subsystems not ported yet
 (checkpointing, speculation, dynamic allocation, the metrics sinks) keep
 their names and defaults and raise ``NotImplementedError`` when turned on.
 """
@@ -18,8 +20,11 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
+from asyncframework_tpu_torch.ops.sampling import worker_generator
+from asyncframework_tpu_torch.solvers.instrumentation import FaultTolerantRun
 
 
 class DeadWorkerError(RuntimeError):
@@ -81,13 +86,16 @@ def collect_checked(ctx, waiter, timeout_s: float, pool=None,
                 raise TimeoutError("sync drain timed out")
 
 
-def check_hbm_plan(X, cfg: "SolverConfig", devices) -> None:
+def check_hbm_plan(X, cfg: "SolverConfig", devices,
+                   history_table: bool = False) -> None:
     """Consult the device-memory planner before committing to a run: host
     arrays are planned from shape before placement; a pre-built dataset has
     its actual residency measured.  Raises ``MemoryError`` with the
     planner's accounting when the budget is oversubscribed."""
     from asyncframework_tpu_torch.utils.hbm import plan_for_run
 
+    if not isinstance(X, (np.ndarray, ShardedDataset)):
+        return  # resolve_dataset refuses it, naming its ROADMAP item
     versions = (
         cfg.max_live_versions if cfg.stale_read_offset is not None else 2
     )
@@ -99,6 +107,7 @@ def check_hbm_plan(X, cfg: "SolverConfig", devices) -> None:
         devices[0],
         model_versions=versions,
         budget_bytes=cfg.hbm_budget_bytes,
+        history_table=history_table,
     ).require_fits()
 
 
@@ -154,6 +163,69 @@ class FlopsAccountingMixin:
             cached = _fl.dense_task_flops(rows, self.ds.d)
             cache[wid] = cached
         return cached
+
+
+class ShardedSolverMixin(FlopsAccountingMixin):
+    """What ASGD and ASAGA share around their loops: worker placement, mask
+    generators, fault tolerance, the fail-fast drain and the trajectory
+    evaluation.  Hosts provide ``cfg``, ``ds``, ``devices``, ``_recovery``
+    (shard view) and ``_eval`` (per-shard loss of stacked snapshots)."""
+
+    def _shard_device(self, wid: int):
+        return self.devices[wid % len(self.devices)]
+
+    def _generators(self):
+        """Per-worker mask generators on each shard's device, and a lock
+        per worker so two tasks of one worker never draw concurrently."""
+        gens = {
+            wid: worker_generator(self.cfg.seed, wid, self._shard_device(wid))
+            for wid in range(self.cfg.num_workers)
+        }
+        return gens, {wid: threading.Lock() for wid in gens}
+
+    def _fault_tolerance(self, sched, inst, on_moved=None):
+        """Heartbeat + executor replacement + shard re-homing for one run
+        (None with ``heartbeat`` off); ``on_moved(shard_id, shard)`` lets
+        per-worker state follow a re-homed shard."""
+        cfg = self.cfg
+        if not cfg.heartbeat:
+            return None
+        ft = FaultTolerantRun(
+            sched, self._recovery, inst, cfg.num_workers,
+            heartbeat_timeout_ms=cfg.heartbeat_timeout_ms,
+            check_interval_s=cfg.heartbeat_interval_s,
+            max_slot_failures=cfg.max_slot_failures,
+            on_moved=on_moved,
+        )
+        ft.start()
+        return ft
+
+    def _collect_checked(self, ctx, waiter, timeout_s: float, pool=None,
+                         cohort=None, collected=None):
+        """Shared fail-fast drain: surfaces job aborts, and -- given the
+        pool -- aborts promptly with the per-worker liveness diagnostic
+        when a cohort executor dies unreplaced."""
+        grace = (
+            4.0 * self.cfg.heartbeat_interval_s + 2.0
+            if self.cfg.heartbeat else 0.5
+        )
+        return collect_checked(
+            ctx, waiter, timeout_s, pool=pool, cohort=cohort,
+            dead_grace_s=grace, collected=collected,
+        )
+
+    def _evaluate_trajectory(self, snapshots) -> List[Tuple[float, float]]:
+        """One-pass objective evaluation for all snapshots (optVars parity):
+        snapshots stacked into (S, d); per shard one product gives (S,)
+        losses, summed on the host in f64."""
+        W = torch.stack([h for (_t, h) in snapshots])
+        totals = np.zeros(len(snapshots), np.float64)
+        for wid in range(self.cfg.num_workers):
+            shard = self._recovery.shard(wid)  # follows re-homed shards
+            part = self._eval(shard.X, shard.y, W.to(shard.device))
+            totals += part.cpu().numpy().astype(np.float64)
+        totals /= self.ds.n
+        return [(t, float(l)) for (t, _), l in zip(snapshots, totals)]
 
 
 @dataclass

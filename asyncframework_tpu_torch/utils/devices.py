@@ -7,6 +7,7 @@ the CPU silently: without a GPU the caller must ask for the CPU with
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import torch
@@ -35,3 +36,17 @@ def resolve_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
             "devices=[torch.device('cpu')] to run on the CPU"
         )
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` current on this thread (CUDA only), so launches and
+    allocations of a block of work go to that card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def fence(device: torch.device) -> None:
+    """Wait for all work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

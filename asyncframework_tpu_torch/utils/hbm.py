@@ -75,14 +75,17 @@ def plan_for_run(
     model_versions: int = 2,
     budget_bytes: Optional[int] = None,
     headroom: float = 0.85,
+    history_table: bool = False,
 ) -> ShardPlan:
     """Placement plan for one training run.
 
     ``ds_or_shape`` is either a *placed* dataset (actual residency measured
     from its shards) or an ``(n, d)`` tuple for f32 host data not yet placed
     (planned from shapes: workers sharing a device stack their shards).
-    ``model_versions`` live copies of ``w`` are added; ``headroom`` keeps a
-    share of the budget for scratch and the caching allocator.
+    ``model_versions`` live copies of ``w`` are added, and with
+    ``history_table`` ASAGA's history slices (one f32 per sample, stacked
+    like the shards); ``headroom`` keeps a share of the budget for scratch
+    and the caching allocator.
     """
     if num_devices < 1 or num_workers < 1:
         raise ValueError("num_workers and num_devices must be >= 1")
@@ -95,4 +98,8 @@ def plan_for_run(
         d = ds_or_shape.d
         per_dev = dataset_residency_bytes(ds_or_shape)
         worst = max(per_dev.values()) if per_dev else 0
-    return _plan(worst + model_versions * nbytes((d,)), budget, headroom)
+    total = worst + model_versions * nbytes((d,))
+    if history_table:
+        n = ds_or_shape[0] if isinstance(ds_or_shape, tuple) else ds_or_shape.n
+        total += -(-num_workers // num_devices) * nbytes((-(-n // num_workers),))
+    return _plan(total, budget, headroom)

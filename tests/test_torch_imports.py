@@ -125,3 +125,56 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         mg.masked_grad(X, y, w)
     assert mg.masked_grad.launches == before
+
+
+def test_long_context_and_asaga_entry_points_refuse_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is the GPU")
+    import numpy as np
+
+    from asyncframework_tpu_torch.parallel import make_mesh
+    from asyncframework_tpu_torch.solvers import ASAGA, SolverConfig
+    from asyncframework_tpu_torch.tools import ring_attention_demo
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ring_attention_demo.main(t=16, h=1, d=4)
+    X = np.zeros((16, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ASAGA(X, np.zeros(16, np.float32), SolverConfig(num_workers=2))
+    assert make_mesh(2, devices=[torch.device("cpu")] * 2).shape == {"sp": 2}
+
+
+@pytest.mark.parametrize("kernel", ["chunk_attention", "saga_grad", "xt_coeff"])
+def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
+        kernel, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the kernel would launch")
+    from asyncframework_tpu_torch.ops import chunk_attention as ca
+    from asyncframework_tpu_torch.ops import masked_grad as mg
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for mod, name in ((ca, "chunk_attention_reference"),
+                      (mg, "saga_grad_reference"),
+                      (mg, "xt_coeff_reference")):
+        monkeypatch.setattr(mod, name, plain)
+
+    def fake(t):
+        return torch.Tensor._make_subclass(_CudaTyped, t)
+
+    before = (ca.chunk_attention.launches, mg.masked_grad.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if kernel == "chunk_attention":
+            q = fake(torch.ones(1, 8, 2, 4))
+            ca.chunk_attention(q, q, q)
+        elif kernel == "saga_grad":
+            X, v6, v3 = fake(torch.ones(6, 3)), fake(torch.ones(6)), fake(torch.ones(3))
+            mg.saga_grad(X, v6, v3, v6, v6)
+        else:
+            mg.xt_coeff(fake(torch.ones(6, 3)), fake(torch.ones(6)))
+    assert (ca.chunk_attention.launches, mg.masked_grad.launches) == before
