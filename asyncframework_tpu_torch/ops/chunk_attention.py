@@ -1,13 +1,7 @@
 """Block attention with local softmax statistics, ``(o, m, l)``.
 
 Counterpart of ``asyncframework_tpu/ops/pallas_kernels.py::chunk_attention``
-(the Pallas TPU kernel, ``pallas_call`` at ``:155``).  On CUDA tensors
-:func:`chunk_attention` launches the hand-written Hopper kernel in
-``csrc/chunk_attention.cu`` (built by nvcc at first use, bound with
-ctypes); on CPU tensors it runs :func:`chunk_attention_reference`, the
-plain PyTorch version the tests and ``chip_smoke.py`` hold the kernel
-against.  There is no fallback between the two: a CUDA tensor goes to the
-kernel or raises.
+(the Pallas TPU kernel, ``pallas_call`` at ``:155``).
 
 Semantics (``pallas_kernels.py:127-227``), for each (batch, head):
 ``s = (q k^T) * scale`` with ``scale = f32(1/sqrt(D))`` multiplied in, set
@@ -15,8 +9,28 @@ to ``-1e30`` where ``mask == 0``; ``m = rowmax s``, ``p = exp(s - m)``,
 ``l = rowsum p``, ``o = p v`` unnormalised, all in f32 (q, k and v are
 widened to f32 before the products).  The TPU kernel pads Tk to a multiple
 of 8 with masked columns, so a row with no unmasked key comes back as
-``m = -1e30``, ``o = sum_k v_k`` and ``l = Tk`` rounded up to 8; both
-versions here return the same.
+``m = -1e30``, ``o = sum_k v_k`` and ``l = Tk`` rounded up to 8; every
+version here returns the same.
+
+On CPU tensors :func:`chunk_attention` runs
+:func:`chunk_attention_reference`, the plain PyTorch version the tests and
+``chip_smoke.py`` hold the kernel against.  On CUDA tensors it launches the
+hand-written Hopper kernel in ``csrc/chunk_attention.cu`` (built by nvcc at
+first use, bound with ctypes) by one of two routes, picked explicitly by
+:func:`tensor_core_route`:
+
+* the tensor-core route, for bf16 q/k/v with D a multiple of 16 whose views
+  TMA can read: ``q k^T`` in bf16 ``wgmma`` with f32 accumulation (bf16
+  products are exact in f32), and ``p v`` as three bf16 ``wgmma`` passes
+  over ``p = p1 + p2 + p3`` (:func:`split_p`, exact for p in [2^-100, 1]),
+  so p stays the f32 value; counted in ``chunk_attention.launches_tc``;
+* the f32 route (f32 inputs, and bf16 views the first route does not
+  take): f32 FMAs on the CUDA cores.
+
+Both count in ``chunk_attention.launches``.  There is no fallback between
+routes or to the plain version: a CUDA tensor goes to its route's kernel or
+raises.  :func:`chunk_attention_tc_emulation` repeats the tensor-core
+route's arithmetic in plain PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -62,6 +76,70 @@ def chunk_attention_reference(q, k, v, mask=None):
     return o, m, l
 
 
+def split_p(p):
+    """``(p1, p2, p3)``, bf16 tensors with ``p1 + p2 + p3 == p`` exactly for
+    f32 ``p`` in [2^-100, 1]: each term takes the next 8 significant bits
+    (rounded to nearest), and each remainder is exact in f32."""
+    p1 = p.to(torch.bfloat16)
+    r = p - p1.float()
+    p2 = r.to(torch.bfloat16)
+    p3 = (r - p2.float()).to(torch.bfloat16)
+    return p1, p2, p3
+
+
+def chunk_attention_tc_emulation(q, k, v, mask=None, tile: int = 64):
+    """The tensor-core route's arithmetic in plain PyTorch (used by the
+    tests only): bf16 inputs, f32 products, an online max and sum over
+    ``tile``-key tiles as the kernel runs them, and each tile's
+    ``p1 v + p2 v + p3 v`` (the three bf16 terms of its p) folded into the
+    rescaled ``o`` in f32."""
+    B, tq, H, D = q.shape
+    tk = k.shape[1]
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    scale = _scale(D).to(q.device)
+    m = torch.full((B, H, tq), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, tq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, H, tq, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, tk, tile):
+        ks = slice(k0, min(k0 + tile, tk))
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, ks]) * scale
+        if mask is not None:
+            s = torch.where(mask[None, None, :, ks] != 0, s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        vt = vf[:, ks].transpose(1, 2)  # (B, H, keys, D)
+        p1, p2, p3 = (term.float() for term in split_p(p))
+        o = o * corr[..., None] + ((p1 @ vt + p2 @ vt) + p3 @ vt)
+        m = m_new
+    l = l + ((-tk) % 8) * torch.exp(NEG - m)
+    return o.transpose(1, 2), m, l
+
+
+def _view_strides(t):
+    """Element strides of a (B, T, H, D) view along b, t and h; a dimension
+    of size 1 gets the stride it would have in a packed layout (any value
+    is right for it, and TMA asks for multiples of 16 bytes)."""
+    st = list(t.stride()[:3])
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = t.shape[i + 1] * (st[i + 1] if i < 2 else t.stride(3))
+    return st
+
+
+def tensor_core_route(q, k, v) -> bool:
+    """Whether CUDA tensors take the tensor-core route: bf16 inputs, D a
+    multiple of 16, and views TMA can read (every b/t/h stride a multiple
+    of 8 elements, every base 16-byte aligned)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] % 16:
+        return False
+    return all(
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _view_strides(t))
+        for t in (q, k, v)
+    )
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -72,6 +150,11 @@ def _library():
             vp, vp, vp, vp,
         ]
         lib.chunk_attention_launch.restype = i
+        lib.chunk_attention_launch_tc.argtypes = [
+            vp, vp, vp, vp, i, i, i, i, i, vp, ctypes.c_float, i,
+            vp, vp, vp, vp,
+        ]
+        lib.chunk_attention_launch_tc.restype = i
         lib.chunk_attention_error_string.argtypes = [i]
         lib.chunk_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -112,9 +195,9 @@ def _check(q, k, v, mask):
             raise ValueError("mask must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "chunk_attention has no backward kernel (neither has the TPU "
-            "kernel); differentiate the 'torch' block path instead "
-            "(ROADMAP.md queue B: B2 backward)"
+            "chunk_attention has no backward kernel, as the TPU kernel has "
+            "none (ROADMAP.md, B2); differentiate the 'torch' block path "
+            "instead"
         )
 
 
@@ -126,7 +209,9 @@ def chunk_attention(q, k, v, mask=None):
     dtype, any strides with a unit stride along D (no copy is made);
     ``mask``: (Tq, Tk) contiguous bool or uint8 (nonzero = attend) or None.
     ``1 <= D <= 256``.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (counted in ``chunk_attention.launches``) or raise.
+    launch the kernel by the route :func:`tensor_core_route` picks
+    (counted in ``chunk_attention.launches``, and the tensor-core route
+    also in ``chunk_attention.launches_tc``) or raise.
     """
     _check(q, k, v, mask)
     device = q.device
@@ -146,23 +231,35 @@ def chunk_attention(q, k, v, mask=None):
     if tq == 0 or B == 0 or H == 0:
         return o, m, l
     lib = _library()
+    tc = tensor_core_route(q, k, v)
     strides = (ctypes.c_longlong * 9)(
-        *(t.stride(i) for t in (q, k, v) for i in range(3))
+        *(s for t in (q, k, v) for s in _view_strides(t))
+    )
+    args = (
+        None if mask is None else mask.data_ptr(), B, H, tq, tk, D,
+        ctypes.cast(strides, ctypes.c_void_p), float(_scale(D)),
+        (-tk) % 8, o.data_ptr(), m.data_ptr(), l.data_ptr(),
     )
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.chunk_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype],
-            None if mask is None else mask.data_ptr(), B, H, tq, tk, D,
-            ctypes.cast(strides, ctypes.c_void_p), float(_scale(D)),
-            (-tk) % 8, o.data_ptr(), m.data_ptr(), l.data_ptr(), stream,
-        )
+        if tc:
+            rc = lib.chunk_attention_launch_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), *args, stream)
+        else:
+            rc = lib.chunk_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype],
+                *args, stream)
     if rc != 0:
         msg = lib.chunk_attention_error_string(rc).decode()
-        raise RuntimeError(f"chunk_attention kernel launch failed: {msg} ({rc})")
+        route = "tensor-core" if tc else "f32"
+        raise RuntimeError(
+            f"chunk_attention kernel launch failed ({route} route): {msg} ({rc})"
+        )
     with _count_lock:
         chunk_attention.launches += 1
+        chunk_attention.launches_tc += tc
     return o, m, l
 
 
-chunk_attention.launches = 0
+chunk_attention.launches = 0  # every kernel launch, both routes
+chunk_attention.launches_tc = 0  # the tensor-core route's launches

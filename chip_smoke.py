@@ -14,8 +14,10 @@ exits non-zero without a result line):
    kernel, the plain version and a library yardstick, beside the least
    time the card could take (its bound).  masked_grad at the epsilon and
    mnist8m shapes, its two ASAGA forms (saga_grad, xt_coeff) at the epsilon
-   shard, and chunk_attention at a ring block (f), a Ulysses block (g) and
-   small ragged shapes (h);
+   shard, and chunk_attention at a ring block (f), a Ulysses block (g),
+   small f32 shapes (h) and the tensor-core route's bf16 edges (i), each
+   with the route it took, its bound at the bf16 tensor-core rate (bf16)
+   or the f32 FMA rate (f32), and SDPA in f32 and bf16 beside it;
 3. main path -- ASGD ``run()`` and ``run_sync()`` on the full-size epsilon
    deployment (400,000 x 2,000 f32, 8 workers, b = 0.1) generated on the
    card, with every kernel's launch count set to 0 just before and read
@@ -24,8 +26,9 @@ exits non-zero without a result line):
 4. long_context -- ``ring_attention`` and ``ulysses_attention`` at
    Llama-2-7B's attention width (32 heads x 128) over a 32,768-token bf16
    sequence on a 4-rank mesh of this one card, through the chunk_attention
-   kernel: 256 query rows against exact f32 attention, the two paths
-   against each other, and the launch counts;
+   kernel's tensor-core route: 256 query rows against exact f32
+   attention, the two paths against each other, the launch counts per
+   route, and each path's share in the kernel;
 5. asaga -- ASAGA ``run()`` and ``run_sync()`` on the same epsilon
    deployment through the masked_grad kernel's history forms: the
    objective halves, ``alpha_bar`` is the history table's mean, and the
@@ -49,6 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # an H100 SXM (NVIDIA data sheet, full power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # f32 FMA rate outside the tensor cores
+BF16_TC_FLOPS = 989e12  # bf16 dense tensor-core rate
 L2_FLUSH_BYTES = 128 << 20
 TIMED_LAUNCHES = 25
 TIMED_ATTENTION = 5  # calls of up to ~0.1 s each at the full-width blocks
@@ -252,8 +256,13 @@ def needed_pairs(mask, tq, tk, torch) -> int:
 def attention_case(name, B, tq, tk, H, D, dtype, mask_kind, torch, ca, flush,
                    gen):
     """One chunk_attention shape against its plain version, with
-    scaled_dot_product_attention (f32, same boolean mask) as a yardstick:
-    it computes o / l only, and the port never calls it."""
+    scaled_dot_product_attention (same boolean mask) as a yardstick: in f32
+    (the comparison) and in bf16 (another function: bf16 p; printed only as
+    what the card's tensor cores reach here).  It computes o / l only, and
+    the port never calls it.  bf16 inputs with D % 16 == 0 must take the
+    kernel's tensor-core route; their bound is the function's operations
+    at the bf16 tensor-core rate (or its bytes), beside the f32-FMA bound
+    of the CUDA-core design and the three-pass design's own floor."""
     F = torch.nn.functional
     dev = torch.device("cuda", 0)
     q, k, v = (torch.randn(B, t, H, D, device=dev, generator=gen).to(dtype)
@@ -282,13 +291,23 @@ def attention_case(name, B, tq, tk, H, D, dtype, mask_kind, torch, ca, flush,
     def library():
         return F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask)
 
+    qb, kb, vb = (x.to(torch.bfloat16).transpose(1, 2) for x in (q, k, v))
+
+    def library_bf16():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+
+    tc_before = ca.chunk_attention.launches_tc
     got, again = kernel(), kernel()
+    tc_launches = ca.chunk_attention.launches_tc - tc_before
     ref = plain()
     torch.cuda.synchronize()
+    tensor_core = dtype == torch.bfloat16 and D % 16 == 0
     rec = {"phase": "kernel", "kernel": "chunk_attention", "case": name,
            "B": B, "Tq": tq, "Tk": tk, "H": H, "D": D,
-           "dtype": str(dtype).replace("torch.", ""), "mask": mask_kind}
-    ok = True
+           "dtype": str(dtype).replace("torch.", ""), "mask": mask_kind,
+           "route": "tensor_core" if tc_launches else "f32",
+           "tc_launches": tc_launches}
+    ok = tc_launches == (2 if tensor_core else 0)
     for key, a, r in zip("oml", got, ref):
         err = (a - r).abs()
         rel = float((err / r.abs().clamp(min=1.0)).max())
@@ -298,7 +317,9 @@ def attention_case(name, B, tq, tk, H, D, dtype, mask_kind, torch, ca, flush,
         ok = ok and rel <= ATT_TOL[key] and bool(torch.isfinite(a).all())
     if mask_kind == "random":
         # the TPU kernel's padded-Tk count for a row with no unmasked key
-        ok = ok and bool((got[2][:, :, tq // 2] == -(-tk // 8) * 8).all())
+        rec["masked_row_l_ok"] = bool((got[2][:, :, tq // 2]
+                                       == -(-tk // 8) * 8).all())
+        ok = ok and rec["masked_row_l_ok"]
     del ref
     bit_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     del got, again
@@ -307,7 +328,10 @@ def attention_case(name, B, tq, tk, H, D, dtype, mask_kind, torch, ca, flush,
     bytes_moved = (sum(x.numel() * x.element_size() for x in (q, k, v))
                    + (0 if mask is None else mask.numel())
                    + B * tq * H * D * 4 + 2 * B * H * tq * 4)
-    flop_s, byte_s = flops / F32_FLOPS, bytes_moved / HBM_BYTES_PER_S
+    fma_s, byte_s = flops / F32_FLOPS, bytes_moved / HBM_BYTES_PER_S
+    # bf16 q k^T and p v on the tensor cores (989 TFLOP/s); f32 inputs keep
+    # the CUDA-core design and its f32-FMA count
+    flop_s = flops / BF16_TC_FLOPS if tensor_core else fma_s
     calls = TIMED_ATTENTION if flops > 1e10 else TIMED_LAUNCHES
     rec.update({
         "within_tol": ok, "bit_equal": bit_equal,
@@ -315,13 +339,25 @@ def attention_case(name, B, tq, tk, H, D, dtype, mask_kind, torch, ca, flush,
         "plain_ms": median_ms(plain, torch, flush, calls),
         "library_ms": median_ms(library, torch, flush, calls),
         "library": "scaled_dot_product_attention, f32, o/l only (yardstick)",
+        "library_bf16_ms": median_ms(library_bf16, torch, flush, calls),
+        "library_bf16": "scaled_dot_product_attention, bf16 (bf16 p: another "
+                        "function; reference only)",
         "bound_ms": max(flop_s, byte_s) * 1e3,
         "bound_by": "operations" if flop_s >= byte_s else "bytes",
+        "bound_f32_fma_ms": max(fma_s, byte_s) * 1e3,
+        # the tensor-core route runs four passes (q k^T and three p v)
+        # where the function needs two
+        "design_floor_ms": (2 * max(flop_s, byte_s) * 1e3 if tensor_core
+                            else None),
         "flop": flops,
     })
     rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["faster_than_sdpa_f32"] = rec["ms"] < rec["library_ms"]
     emit(rec)
-    del q, k, v, qf, kf, vf, mask
+    # a time under the least the card could take means a wrong bound
+    ok = ok and rec["bound_share"] <= 1.0
+    del q, k, v, qf, kf, vf, qb, kb, vb, mask
     torch.cuda.empty_cache()
     if not ok or not bit_equal:
         raise RuntimeError(f"chunk_attention disagrees with its plain version: {rec}")
@@ -347,9 +383,13 @@ ULYSSES_BLOCK = 512
 EXACT_ROWS = 256
 
 
-def long_context_phase(torch, ca, card):
+def long_context_phase(torch, ca, card, recs):
     """Ring and Ulysses attention at Llama-2-7B's attention width over a
-    32,768-token sequence on a 4-rank mesh of this one card."""
+    32,768-token sequence on a 4-rank mesh of this one card.  Every fold
+    must take the kernel's tensor-core route.  Each path's share in the
+    kernel is priced at phase 2's medians of its fold shapes (``recs``):
+    the ring's diagonal folds at (f) causal and its past folds at (f)
+    unmasked, Ulysses' folds at (g)."""
     from asyncframework_tpu_torch.parallel import (
         make_mesh,
         ring_attention,
@@ -382,18 +422,22 @@ def long_context_phase(torch, ca, card):
     )
     ring_flop = 4.0 * B * H * D * ring_pairs
     ulysses_flop = 4.0 * B * (H // P) * D * ulysses_pairs
+    ring_priced_ms = (P * recs["f_ring_block_causal"]["ms"]
+                      + P * (P - 1) // 2 * recs["f_ring_block_nomask"]["ms"])
     ca.chunk_attention.launches = 0
-    outs, recs = {}, {}
-    for name, fn, flop, folds in (
+    ca.chunk_attention.launches_tc = 0
+    outs, paths = {}, {}
+    for name, fn, flop, folds, fold_ms in (
         ("ring", lambda: ring_attention(q, k, v, mesh, causal=True,
                                         block_kernel="cuda"),
-         ring_flop, P * (P + 1) // 2),
+         ring_flop, P * (P + 1) // 2, ring_priced_ms / (P * (P + 1) // 2)),
         ("ulysses", lambda: ulysses_attention(q, k, v, mesh, causal=True,
                                               block_kernel="cuda",
                                               pallas_block=BLK),
-         ulysses_flop, P * (T // BLK)),
+         ulysses_flop, P * (T // BLK), recs["g_ulysses_block_causal"]["ms"]),
     ):
         before = ca.chunk_attention.launches
+        before_tc = ca.chunk_attention.launches_tc
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
@@ -401,21 +445,30 @@ def long_context_phase(torch, ca, card):
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
         launched = ca.chunk_attention.launches - before
-        recs[name] = {
+        launched_tc = ca.chunk_attention.launches_tc - before_tc
+        bound_s = flop / BF16_TC_FLOPS
+        paths[name] = {
             "phase": "long_context", "fn": name, "card": card,
             "B": B, "T": T, "H": H, "D": D, "ranks": P, "dtype": "bfloat16",
             "causal": True, "seconds": secs, "launches": launched,
+            "launches_tc": launched_tc, "launches_f32": launched - launched_tc,
             "folds_expected": folds, "flop": flop,
             "tflops": flop / secs / 1e12,
-            "bound_s": flop / F32_FLOPS,
-            "bound_share": flop / F32_FLOPS / secs,
+            "bound_s": bound_s,
+            "bound_share": bound_s / secs,
+            "bound_f32_fma_s": flop / F32_FLOPS,
+            # the kernel's share of the call, its folds priced at phase 2
+            "kernel_priced_s": launched * fold_ms / 1e3,
+            "kernel_share": launched * fold_ms / 1e3 / secs,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
         }
-        if launched < folds:
-            emit(recs[name])
+        if launched < folds or launched_tc != launched:
+            emit(paths[name])
             raise RuntimeError(f"{name} made {launched} chunk_attention "
-                               f"launches, fewer than its {folds} folds")
+                               f"launches ({launched_tc} on the tensor-core "
+                               f"route), not all {folds} folds on that route")
     launches = ca.chunk_attention.launches
+    launches_tc = ca.chunk_attention.launches_tc
     # 256 rows against exact f32 attention: the first and last row of each
     # rank's chunk, and the rest from a seeded draw
     edges = [p * tl + e for p in range(P) for e in (0, tl - 1)]
@@ -433,25 +486,26 @@ def long_context_phase(torch, ca, card):
         got = outs[name][0, rows_t].float()
         err = (got - exact).abs()
         bad = int((err > 2 ** -8 * exact.abs() + floor).sum())
-        recs[name].update({"rows_checked": len(rows),
+        paths[name].update({"rows_checked": len(rows),
                            "max_abs_err_vs_exact": float(err.max()),
                            "rows_tol": "2^-8 * |exact| + 1e-4 * max|exact|",
                            "outside_tol": bad,
                            "finite": bool(torch.isfinite(outs[name]).all())})
-        emit(recs[name])
-        ok = ok and bad == 0 and recs[name]["finite"]
+        emit(paths[name])
+        ok = ok and bad == 0 and paths[name]["finite"]
     a, b = outs["ring"].float(), outs["ulysses"].float()
     cross = (a - b).abs()
     cross_bad = int((cross > 2 ** -7 * b.abs() + 1e-4 * float(b.abs().max())).sum())
     emit({"phase": "long_context_agreement", "max_abs_diff": float(cross.max()),
           "tol": "2^-7 * |ulysses| + 1e-4 * max|ulysses|",
-          "outside_tol": cross_bad, "chunk_attention_launches": launches})
+          "outside_tol": cross_bad, "chunk_attention_launches": launches,
+          "chunk_attention_launches_tc": launches_tc})
     if not ok or cross_bad:
         raise RuntimeError("long-context attention disagrees with exact "
                            "attention or across the two paths")
     del q, k, v, outs, exact, a, b, cross
     torch.cuda.empty_cache()
-    return launches, recs
+    return launches, paths
 
 
 # ASAGA step size: 0.5, the largest of {0.5, 0.2, 0.1, 0.05, 0.02} for which
@@ -602,6 +656,12 @@ def main() -> int:
         ("h_ragged_24x18", 2, 24, 18, 3, 20, f32, "random"),
         ("h_tq1", 1, 1, 18, 3, 64, f32, "none"),
         ("h_d64_f32", 1, 300, 257, 4, 64, f32, "causal"),
+        # the tensor-core route's edges: ragged Tq and Tk (TMA's zero fill
+        # plus the mask), D = 64, a fully masked row, one query row
+        ("i_bf16_ragged_300x257", 1, 300, 257, 4, 128, bf16, "causal"),
+        ("i_bf16_d64", 2, 200, 130, 4, 64, bf16, "none"),
+        ("i_bf16_random", 2, 100, 77, 3, 128, bf16, "random"),
+        ("i_bf16_tq1", 1, 1, 18, 3, 128, bf16, "none"),
     ]
     for name, *shape in att_cases:
         recs[name] = attention_case(name, *shape, torch, ca, flush, gen)
@@ -662,7 +722,7 @@ def main() -> int:
         raise RuntimeError("run_sync on the card disagrees with the CPU path")
 
     # ---------------------------------------------------- 4. long context
-    att_launches, _ = long_context_phase(torch, ca, card)
+    att_launches, _ = long_context_phase(torch, ca, card, recs)
 
     # ------------------------------------------------------------ 5. asaga
     saga_launches = asaga_phase(ds, torch, np, mg, card)

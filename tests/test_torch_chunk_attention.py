@@ -185,3 +185,123 @@ def test_cpu_tensors_are_not_counted_as_launches():
     chunk_attention(*_torch(*_qkv(rs)))
     assert chunk_attention.launches == before
     assert ca.chunk_attention is chunk_attention
+
+
+# ------------------------------------------------ the tensor-core route
+# ``chip_smoke.py``'s tolerance for the kernel against its plain version,
+# relative with a floor of 1: o to 1e-4, m and l to 1e-5
+ATT_TOL = {"o": 1e-4, "m": 1e-5, "l": 1e-5}
+
+
+def _within_att_tol(got, want):
+    for key, a, b in zip("oml", got, want):
+        a, b = (torch.from_numpy(np.array(x, np.float32)) for x in (a, b))
+        rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        assert rel <= ATT_TOL[key], (key, rel)
+
+
+def test_split_p_is_exact_over_the_unit_interval():
+    """p1 + p2 + p3 == p, bit for bit, for f32 p in [2^-100, 1]: random
+    significands at every exponent, full significands, and the ends."""
+    rs = np.random.default_rng(10)
+    exps = rs.integers(-100, 1, size=200_000)
+    sig = rs.integers(0, 1 << 23, size=200_000)
+    p = np.ldexp((sig + (1 << 23)).astype(np.float64) / (1 << 23), exps)
+    full = np.ldexp(np.float64((1 << 24) - 1) / (1 << 23), np.arange(-100, 0))
+    p = np.concatenate([p, full, [2.0 ** -100, 1.0, 0.5 + 2.0 ** -24]])
+    p = torch.from_numpy(np.minimum(p, 1.0).astype(np.float32))
+    p1, p2, p3 = ca.split_p(p)
+    assert p1.dtype == p2.dtype == p3.dtype == torch.bfloat16
+    assert torch.equal((p1.float() + p2.float()) + p3.float(), p)
+    # each term carries its own bits: the first alone is not p
+    assert not torch.equal(p1.float(), p)
+
+
+def _bf16_case(rs, b, tq, tk, h, d, mask_kind):
+    q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+               for x in _qkv(rs, b=b, tq=tq, tk=tk, h=h, d=d))
+    if mask_kind == "causal":
+        mask = np.tril(np.ones((tq, tk), bool), k=tk - tq)
+    elif mask_kind == "random":
+        mask = rs.random((tq, tk)) > 0.3
+        mask[tq // 2] = False  # a row with no unmasked key
+    else:
+        mask = None
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,mask_kind", [
+    (1, 130, 200, 2, 128, "causal"),   # ragged Tq and Tk, several key tiles
+    (2, 100, 77, 3, 64, "random"),     # D = 64, a fully masked row
+    (1, 1, 18, 3, 64, "none"),         # one query row
+    (2, 70, 70, 2, 16, "none"),        # the narrowest head the route takes
+])
+def test_tensor_core_emulation_matches_plain_and_pallas(b, tq, tk, h, d,
+                                                        mask_kind):
+    """The tensor-core route's arithmetic (bf16 inputs, f32 products, the
+    three-term split of p) against the plain version and the Pallas kernel
+    in interpret mode, within chip_smoke.py's ATT_TOL."""
+    rs = np.random.default_rng(11)
+    q, k, v, mask = _bf16_case(rs, b, tq, tk, h, d, mask_kind)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    tq_, tk_, tv_ = (t.to(torch.bfloat16) for t in _torch(q, k, v))
+    got = ca.chunk_attention_tc_emulation(tq_, tk_, tv_, tmask)
+    assert got[0].shape == (b, tq, h, d) and got[1].shape == (b, h, tq)
+    _within_att_tol(got, chunk_attention_reference(tq_, tk_, tv_, tmask))
+    want = jax_chunk(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                     mask, interpret=True)
+    _within_att_tol(got, want)
+    if mask_kind == "random":
+        assert torch.all(got[2][:, :, tq // 2] == -(-tk // 8) * 8)
+        assert torch.all(got[1][:, :, tq // 2] == np.float32(-1e30))
+
+
+def test_tensor_core_emulation_skipped_tile_changes_no_bit():
+    """A key tile wholly masked for rows that already hold a key leaves
+    their (o, m, l) bit-equal: the kernel may skip it."""
+    rs = np.random.default_rng(12)
+    q, k, v, _ = _bf16_case(rs, 1, 64, 128, 2, 32, "none")
+    mask = torch.zeros(64, 128, dtype=torch.bool)
+    mask[:, :64] = torch.from_numpy(rs.random((64, 64)) > 0.2)
+    mask[:, 0] = True
+    qt, kt, vt = (t.to(torch.bfloat16) for t in _torch(q, k, v))
+    full = ca.chunk_attention_tc_emulation(qt, kt, vt, mask)
+    head = ca.chunk_attention_tc_emulation(qt, kt[:, :64], vt[:, :64],
+                                           mask[:, :64].contiguous())
+    # Tk = 128 and Tk = 64 both pad nothing, so l is comparable
+    for a, b in zip(full, head):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("bf16_d128", True), ("bf16_d16", True), ("f32_d128", False),
+    ("bf16_d20", False), ("bf16_odd_stride", False), ("bf16_size1_dims", True),
+    ("bf16_unaligned_base", False),
+])
+def test_route_is_picked_by_dtype_width_and_view(case, route):
+    dt = torch.float32 if case.startswith("f32") else torch.bfloat16
+    d = {"bf16_d16": 16, "bf16_d20": 20}.get(case, 128)
+    q = torch.zeros(2, 8, 3, d, dtype=dt)
+    if case == "bf16_odd_stride":
+        # heads 68 elements apart: TMA needs strides of 16 bytes
+        q = torch.zeros(2, 8, 3 * 68, dtype=dt).view(2, 8, 3, 68)[..., :64]
+    elif case == "bf16_size1_dims":
+        # size-1 dimensions may carry any stride; they are packed
+        q = torch.zeros(1, 1, 1, d, dtype=dt).as_strided((1, 1, 1, d), (3, 5, 7, 1))
+    elif case == "bf16_unaligned_base":
+        q = torch.zeros(2 * 8 * 3 * d + 1, dtype=dt)[1:].view(2, 8, 3, d)
+    assert ca.tensor_core_route(q, q, q) is route
+
+
+def test_view_strides_pack_size_one_dimensions():
+    t = torch.zeros(1, 1, 1, 64).as_strided((1, 1, 1, 64), (3, 5, 7, 1))
+    assert ca._view_strides(t) == [64, 64, 64]
+    t = torch.zeros(2, 10, 4, 64)[:, 2:7, 1:3]
+    assert ca._view_strides(t) == [2560, 256, 64]
+
+
+def test_cpu_tensors_do_not_count_as_tensor_core_launches():
+    rs = np.random.default_rng(13)
+    before = (chunk_attention.launches, chunk_attention.launches_tc)
+    chunk_attention(*(t.to(torch.bfloat16) for t in _torch(*_qkv(rs, d=64))))
+    assert (chunk_attention.launches, chunk_attention.launches_tc) == before

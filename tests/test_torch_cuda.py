@@ -167,6 +167,14 @@ def test_chunk_attention_matches_plain_version(dev, dtype, b, tq, tk, h, d,
         assert torch.all(got[2][:, :, tq // 2] == float(-(-tk // 8) * 8))
 
 
+def _tc_launches(fn):
+    """The result of ``fn()`` and the tensor-core launches it made."""
+    before = chunk_attention.launches_tc
+    out = fn()
+    return out, chunk_attention.launches_tc - before
+
+
+# f32 inputs take the f32 route, bf16 ones (D = 64) the tensor-core route
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_attention_skipped_tiles_change_no_bit(dev, dtype):
     """Under a causal mask the first 64 query rows skip every key tile
@@ -175,7 +183,8 @@ def test_chunk_attention_skipped_tiles_change_no_bit(dev, dtype):
     first key tile alone."""
     q, k, v = _qkv(dev, 2, 200, 200, 3, 64, dtype, seed=5)
     mask = torch.ones(200, 200, dtype=torch.bool, device=dev).tril()
-    full = chunk_attention(q, k, v, mask)
+    full, tc = _tc_launches(lambda: chunk_attention(q, k, v, mask))
+    assert tc == (dtype == torch.bfloat16)
     head = chunk_attention(q[:, :64], k[:, :64], v[:, :64],
                            mask[:64, :64].contiguous())
     assert torch.equal(full[0][:, :64], head[0])
@@ -183,11 +192,13 @@ def test_chunk_attention_skipped_tiles_change_no_bit(dev, dtype):
     assert torch.equal(full[2][:, :, :64], head[2])
 
 
-def test_chunk_attention_reads_strided_views(dev):
-    q, k, v = _qkv(dev, 2, 90, 90, 4, 64, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_attention_reads_strided_views(dev, dtype):
+    q, k, v = _qkv(dev, 2, 90, 90, 4, 64, dtype)
     qs, ks, vs = q[:, 10:70], k[:, 5:50, 1:3], v[:, 5:50, 1:3]
     qs = qs[:, :, 1:3]
-    got = chunk_attention(qs, ks, vs)
+    got, tc = _tc_launches(lambda: chunk_attention(qs, ks, vs))
+    assert tc == (dtype == torch.bfloat16)  # the views suit TMA
     want = chunk_attention(qs.contiguous(), ks.contiguous(), vs.contiguous())
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -197,6 +208,60 @@ def test_chunk_attention_counts_launches(dev):
     before = chunk_attention.launches
     chunk_attention(q, k, v)
     assert chunk_attention.launches == before + 1
+
+
+# ------------------------------------- chunk_attention, tensor-core route
+@pytest.mark.parametrize("b,tq,tk,h,d", [
+    (1, 300, 257, 4, 128), (2, 100, 77, 3, 64), (1, 1, 18, 3, 128),
+    (1, 64, 64, 2, 64), (2, 130, 200, 2, 128), (1, 70, 90, 2, 16),
+    (1, 65, 300, 2, 256),
+])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "random"])
+def test_tensor_core_route_matches_plain_version(dev, b, tq, tk, h, d,
+                                                 mask_kind):
+    q, k, v = _qkv(dev, b, tq, tk, h, d, torch.bfloat16, seed=6)
+    if mask_kind == "causal":
+        mask = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(tk - tq)
+    elif mask_kind == "random":
+        mask = torch.tensor(np.random.default_rng(2).random((tq, tk)) > 0.3,
+                            device=dev)
+        mask[tq // 2] = False  # a fully masked row
+    else:
+        mask = None
+    got, tc = _tc_launches(lambda: chunk_attention(q, k, v, mask))
+    assert tc == 1
+    _attention_close(got, chunk_attention_reference(q, k, v, mask))
+    again = chunk_attention(q, k, v, mask)
+    assert all(torch.equal(a, b2) for a, b2 in zip(got, again))
+    if mask_kind == "random":
+        assert torch.all(got[2][:, :, tq // 2] == float(-(-tk // 8) * 8))
+
+
+def test_bf16_views_tma_cannot_read_take_the_f32_route(dev):
+    """Heads 68 elements apart (no multiple of 16 bytes): the f32 route
+    reads the bf16 view, and agrees with the tensor-core route on a
+    packed copy within the tolerance."""
+    rs = np.random.default_rng(7)
+    base = torch.tensor(rs.normal(size=(1, 96, 2 * 68)), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    x = base.view(1, 96, 2, 68)[..., :64]
+    got, tc = _tc_launches(lambda: chunk_attention(x, x, x))
+    assert tc == 0
+    packed, tc = _tc_launches(
+        lambda: chunk_attention(x.contiguous(), x.contiguous(), x.contiguous()))
+    assert tc == 1
+    _attention_close(got, packed)
+
+
+def test_chunk_attention_counts_launches_per_route(dev):
+    f32 = _qkv(dev, 1, 8, 8, 1, 16, torch.float32)
+    bf16 = _qkv(dev, 1, 8, 8, 1, 16, torch.bfloat16)
+    odd = _qkv(dev, 1, 8, 8, 1, 20, torch.bfloat16)  # D % 16 != 0
+    before = (chunk_attention.launches, chunk_attention.launches_tc)
+    for qkv in (f32, bf16, odd, bf16):
+        chunk_attention(*qkv)
+    after = (chunk_attention.launches, chunk_attention.launches_tc)
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 2)
 
 
 @pytest.mark.parametrize("causal", [False, True])
