@@ -14,15 +14,19 @@ exits non-zero without a result line):
    kernel, the plain version and a library yardstick, beside the least
    time the card could take (its bound).  masked_grad at the epsilon and
    mnist8m shapes, its two ASAGA forms (saga_grad, xt_coeff) at the epsilon
-   shard, and chunk_attention at a ring block (f), a Ulysses block (g),
+   and mnist8m shards, each with the route it took (staged or tiled) and
+   the other route's time (pinned; on the staged route that is the earlier
+   design) taken in turns with it, and chunk_attention at a ring block (f),
+   a Ulysses block (g),
    small f32 shapes (h) and the tensor-core route's bf16 edges (i), each
    with the route it took, its bound at the bf16 tensor-core rate (bf16)
    or the f32 FMA rate (f32), and SDPA in f32 and bf16 beside it;
 3. main path -- ASGD ``run()`` and ``run_sync()`` on the full-size epsilon
    deployment (400,000 x 2,000 f32, 8 workers, b = 0.1) generated on the
    card, with every kernel's launch count set to 0 just before and read
-   just after; then the same solver on a small input, on the card and on
-   the CPU (plain path), must agree;
+   just after (every task on masked_grad's staged route); then the same
+   solver on a small input, on the card and on the CPU (plain path), must
+   agree;
 4. long_context -- ``ring_attention`` and ``ulysses_attention`` at
    Llama-2-7B's attention width (32 heads x 128) over a 32,768-token bf16
    sequence on a 4-rank mesh of this one card, through the chunk_attention
@@ -32,7 +36,7 @@ exits non-zero without a result line):
 5. asaga -- ASAGA ``run()`` and ``run_sync()`` on the same epsilon
    deployment through the masked_grad kernel's history forms: the
    objective halves, ``alpha_bar`` is the history table's mean, and the
-   launch counts;
+   launch counts (every task and commit on masked_grad's staged route);
 6. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -77,27 +81,99 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, torch, flush, calls: int = TIMED_LAUNCHES) -> float:
-    """Median device time of one call of ``fn`` over ``calls`` calls,
-    each timed alone with CUDA events after the L2 was flushed (the main
+# the kernels' names in csrc/, longest first (one may contain another)
+KERNEL_FUNCTIONS = ("masked_grad_staged", "masked_grad_partial",
+                    "reduce_partials", "chunk_attn_tc_kernel",
+                    "chunk_attn_kernel")
+
+
+def ptxas_lines(report: str):
+    """(kernel function, line) for each register and spill line of an
+    ``nvcc -Xptxas -v`` report; the function is its source name, with
+    "bf16" for a bfloat16 instance."""
+    function = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            function = next((f for f in KERNEL_FUNCTIONS if f in mangled),
+                            mangled)
+            if "bfloat16" in mangled:
+                function += " bf16"
+        elif "registers" in line or "spill" in line:
+            yield function, line.strip()
+
+
+def turns_ms(fns, torch, flush, calls: int = TIMED_LAUNCHES):
+    """Median device time of one call of each of ``fns`` over ``calls``
+    calls each, taken in turns (so that all see the same card state), each
+    call timed alone with CUDA events after the L2 was flushed (the main
     path finds its shard cold: 8 shards of 400 MB do not fit a 50 MB L2).
     A sleep kernel queued ahead of each call keeps the device busy while
     the host enqueues it, so the interval holds device work only, not the
     wrapper's Python time."""
-    fn()
-    times = []
-    for _ in range(calls):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    times = [[] for _ in fns]
+    for _ in range(calls):
+        for k, fn in enumerate(fns):
+            flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
+def median_ms(fn, torch, flush, calls: int = TIMED_LAUNCHES) -> float:
+    """``fn``'s median device ms, timed as :func:`turns_ms` does."""
+    return turns_ms([fn], torch, flush, calls)[0]
+
+
+def routed(mg, fn):
+    """``fn()``'s result and the route of its one masked_grad launch."""
+    before = mg.masked_grad.launches_staged, mg.masked_grad.launches_tiled
+    out = fn()
+    staged = mg.masked_grad.launches_staged - before[0]
+    tiled = mg.masked_grad.launches_tiled - before[1]
+    if staged + tiled != 1:
+        raise RuntimeError(f"expected one masked_grad launch, got "
+                           f"{staged} staged and {tiled} tiled")
+    return out, "staged" if staged else "tiled"
+
+
+def time_routes(rec, kernel, route, other, torch, mg, flush):
+    """The kernel's median ms on its route and, where the other route
+    takes the shape too (``other``), that route's (pinned), the two timed
+    in turns: on the staged route ``tiled_ms`` is the earlier design's
+    time; on the tiled route ``staged_ms`` is what moving would give."""
+    if not other:
+        rec["ms"] = median_ms(kernel, torch, flush)
+        return
+    pinned = "tiled" if route == "staged" else "staged"
+
+    def pinned_kernel():
+        with mg.pinned_route(pinned):
+            return kernel()
+
+    rec["ms"], rec[f"{pinned}_ms"] = turns_ms([kernel, pinned_kernel], torch,
+                                              flush)
+
+
+# the route each phase-2 masked_grad case must take (chosen by shape and
+# dtype in ops/masked_grad.py::launch_plan)
+B1_ROUTES = {
+    "a_epsilon_full": "staged", "b_epsilon_idx": "staged",
+    "c_mnist8m_idx": "staged", "c_mnist8m_full": "staged",
+    "d_ragged_300x100": "tiled", "d_ragged_17x8": "tiled",
+    "d_empty_0x8": "tiled", "d_small_132x2000": "staged",
+    "e_epsilon_logistic": "staged",
+    "saga_epsilon": "staged", "xt_epsilon": "staged",
+    "saga_mnist8m_shard": "staged", "xt_mnist8m_shard": "staged",
+}
 
 
 def kernel_case(name, n, d, dtype, torch, mg, flush, gen, b,
@@ -132,7 +208,7 @@ def kernel_case(name, n, d, dtype, torch, mg, flush, gen, b,
         r = (torch.sigmoid(z) if loss == "logistic" else z) - ys
         return (Xs.T @ (weights * r).to(dtype)).float()
 
-    g1, g2 = kernel(), kernel()
+    (g1, route), g2 = routed(mg, kernel), kernel()
     ref = plain()
     torch.cuda.synchronize()
     dt = str(dtype).replace("torch.", "")
@@ -149,20 +225,28 @@ def kernel_case(name, n, d, dtype, torch, mg, flush, gen, b,
         "phase": "kernel", "kernel": "masked_grad", "case": name,
         "n": n, "d": d, "dtype": dt, "loss": loss,
         "form": "full" if idx is None else f"idx cap={cap}",
-        "rows_read": rows,
+        "route": route, "rows_read": rows,
         "max_abs_err": err,
         "max_rel_err": err / ref_inf if ref_inf else 0.0,
         "tol_abs": tol, "tol": f"{TOL_REL[dt]} * max|g_plain|",
         "within_tol": ok, "bit_equal": bit_equal,
-        "ms": median_ms(kernel, torch, flush),
+    }
+    other = route == "staged" or (
+        mg.staged_geometry(d, es) is not None
+        and X.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    time_routes(rec, kernel, route, other, torch, mg, flush)
+    rec.update({
         "plain_ms": median_ms(plain, torch, flush),
         "library_ms": median_ms(library, torch, flush),
         "bound_us": max(byte_s, flop_s) * 1e6,
         "bound_by": "bytes" if byte_s >= flop_s else "operations",
-    }
+    })
     emit(rec)
     if not ok or not bit_equal:
         raise RuntimeError(f"masked_grad disagrees with its plain version: {rec}")
+    if route != B1_ROUTES[name]:
+        raise RuntimeError(f"{name} took the {route} route, not "
+                           f"{B1_ROUTES[name]}")
     return rec
 
 
@@ -206,7 +290,7 @@ def saga_case(name, n, d, dtype, torch, mg, flush, gen, b):
 
         bytes_moved = n * d * es + n * 4 + d * 4
         tol_rel = TOL_REL["float32"]  # c is not rounded to bf16
-    got, again, ref = kernel(), kernel(), plain()
+    (got, route), again, ref = routed(mg, kernel), kernel(), plain()
     torch.cuda.synchronize()
     errs = [float((a - r).abs().max()) for a, r in zip(got, ref)]
     scales = [float(r.abs().max()) for r in ref]
@@ -219,20 +303,26 @@ def saga_case(name, n, d, dtype, torch, mg, flush, gen, b):
     rec = {
         "phase": "kernel", "kernel": "masked_grad",
         "form": "saga_grad" if name.startswith("saga") else "xt_coeff",
-        "case": name, "n": n, "d": d, "dtype": dt,
+        "case": name, "n": n, "d": d, "dtype": dt, "route": route,
         "max_abs_err": errs[0], "max_rel_err": errs[0] / scales[0],
         "diff_max_abs_err": errs[1] if len(errs) > 1 else None,
         "tol": f"{tol_rel} * max|plain| per output",
         "within_tol": ok, "bit_equal": bit_equal,
-        "ms": median_ms(kernel, torch, flush),
+    }
+    other = route == "staged" or mg.staged_geometry(d, es) is not None
+    time_routes(rec, kernel, route, other, torch, mg, flush)
+    rec.update({
         "plain_ms": median_ms(plain, torch, flush),
         "library_ms": median_ms(library, torch, flush),
         "bound_us": max(byte_s, flop_s) * 1e6,
         "bound_by": "bytes" if byte_s >= flop_s else "operations",
-    }
+    })
     emit(rec)
     if not ok or not bit_equal:
         raise RuntimeError(f"{rec['form']} disagrees with its plain version: {rec}")
+    if route != B1_ROUTES[name]:
+        raise RuntimeError(f"{name} took the {route} route, not "
+                           f"{B1_ROUTES[name]}")
     return rec
 
 
@@ -525,6 +615,8 @@ def asaga_phase(ds, torch, np, mg, card):
     cfg = dict(num_workers=8, gamma=SAGA_GAMMA, taw=2**31 - 1,
                batch_rate=0.1, bucket_ratio=0.7, printer_freq=100, seed=42)
     mg.masked_grad.launches = 0
+    mg.masked_grad.launches_staged = 0
+    mg.masked_grad.launches_tiled = 0
     mg.saga_grad.launches = 0
     mg.xt_coeff.launches = 0
     solver = ASAGA(ds, None, SolverConfig(num_iterations=SAGA_UPDATES, **cfg),
@@ -538,7 +630,9 @@ def asaga_phase(ds, torch, np, mg, card):
                      for m in sync_solver.scheduler.pool.all_metrics())
     launches = {"masked_grad": mg.masked_grad.launches,
                 "saga_grad": mg.saga_grad.launches,
-                "xt_coeff": mg.xt_coeff.launches}
+                "xt_coeff": mg.xt_coeff.launches,
+                "masked_grad_staged": mg.masked_grad.launches_staged,
+                "masked_grad_tiled": mg.masked_grad.launches_tiled}
     for mode, r in (("run", res), ("run_sync", res_sync)):
         obj0, obj1 = r.trajectory[0][1], r.final_objective
         rec = {
@@ -571,8 +665,10 @@ def asaga_phase(ds, torch, np, mg, card):
     emit({"phase": "asaga_invariant", "alpha_bar_max_abs_err": ab_err,
           "alpha_bar_max": float(np.abs(expected).max()),
           "tol": "1e-3 * |mean| + 1e-3 * max|mean|", "ok": ab_ok})
+    # both forms take the staged route at this shard
     need = {"saga_grad": tasks_async + tasks_sync, "xt_coeff": res.accepted,
-            "masked_grad": tasks_async + tasks_sync + res.accepted}
+            "masked_grad": tasks_async + tasks_sync + res.accepted,
+            "masked_grad_staged": tasks_async + tasks_sync + res.accepted}
     emit({"phase": "launches", "path": "asaga", **launches,
           "tasks_run": tasks_async + tasks_sync, "accepted_async": res.accepted})
     if not ab_ok:
@@ -619,9 +715,9 @@ def main() -> int:
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
     })
     for name in _build.sources():
-        for line in _build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                emit({"phase": "ptxas", "kernel": name, "info": line.strip()})
+        for function, info in ptxas_lines(_build.ptxas_report(name)):
+            emit({"phase": "ptxas", "kernel": name, "function": function,
+                  "info": info})
 
     # ---------------------------------------------------------- 2. kernel
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
@@ -636,6 +732,8 @@ def main() -> int:
         ("d_ragged_300x100", 300, 100, f32, 0.5, None, "least_squares"),
         ("d_ragged_17x8", 17, 8, f32, 0.5, None, "least_squares"),
         ("d_empty_0x8", 0, 8, f32, 0.5, None, "least_squares"),
+        # just over the staged route's least bytes of X (1 MB of 512 KB)
+        ("d_small_132x2000", 132, 2_000, f32, 1.0, None, "least_squares"),
         ("e_epsilon_logistic", 50_000, 2_000, f32, 0.7, None, "logistic"),
     ]
     recs = {}
@@ -674,6 +772,8 @@ def main() -> int:
     cfg = dict(num_workers=8, gamma=100.0, taw=2**31 - 1, batch_rate=0.1,
                bucket_ratio=0.7, printer_freq=25, seed=42)
     mg.masked_grad.launches = 0
+    mg.masked_grad.launches_staged = 0
+    mg.masked_grad.launches_tiled = 0
     solver = ASGD(ds, None, SolverConfig(num_iterations=1000, **cfg),
                   devices=[dev])
     res = solver.run()
@@ -683,6 +783,8 @@ def main() -> int:
     res_sync = sync_solver.run_sync()
     tasks += sum(m.succeeded for m in sync_solver.scheduler.pool.all_metrics())
     launches = mg.masked_grad.launches
+    staged = mg.masked_grad.launches_staged
+    tiled = mg.masked_grad.launches_tiled
     for mode, r in (("run", res), ("run_sync", res_sync)):
         obj0, obj1 = r.trajectory[0][1], r.final_objective
         rec = {
@@ -699,10 +801,15 @@ def main() -> int:
             raise RuntimeError(f"{mode} did not converge: {rec}")
     if res.accepted != 1000 or res_sync.rounds != 300:
         raise RuntimeError("main path stopped short of its iteration budget")
-    emit({"phase": "launches", "masked_grad": launches, "tasks_run": tasks})
+    emit({"phase": "launches", "masked_grad": launches,
+          "masked_grad_staged": staged, "masked_grad_tiled": tiled,
+          "tasks_run": tasks})
     if launches < tasks or tasks == 0:
         raise RuntimeError("the main path did not run every task through "
                            "the masked_grad kernel")
+    if staged < tasks:
+        raise RuntimeError(f"{tasks} ASGD tasks but {staged} launches on "
+                           f"masked_grad's staged route")
     del solver, sync_solver
     torch.cuda.empty_cache()
 

@@ -17,6 +17,7 @@ from asyncframework_tpu_torch.ops.chunk_attention import (
     chunk_attention,
     chunk_attention_reference,
 )
+from asyncframework_tpu_torch.ops import masked_grad as mg
 from asyncframework_tpu_torch.ops.masked_grad import (
     masked_grad,
     masked_grad_reference,
@@ -120,6 +121,152 @@ def test_saga_forms_are_counted(dev):
     xt_coeff(X, y)
     after = (masked_grad.launches, saga_grad.launches, xt_coeff.launches)
     assert [a - b for a, b in zip(after, before)] == [2, 1, 1]
+
+
+# ------------------------------------------------ masked_grad, staged route
+def _route_counts():
+    return masked_grad.launches_staged, masked_grad.launches_tiled
+
+
+def _routed(fn):
+    """The result of ``fn()`` and its (staged, tiled) launches."""
+    before = _route_counts()
+    out = fn()
+    return out, tuple(a - b for a, b in zip(_route_counts(), before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [784, 2_000])
+@pytest.mark.parametrize("loss", ["least_squares", "logistic"])
+@pytest.mark.parametrize("m", [1, 7, 131, 1_000, 40_000])
+def test_staged_route_matches_plain_version(dev, dtype, d, loss, m):
+    """Duplicate rows, padding slots (row 0, weight 0) and indices outside
+    [0, n), from one slot to many ring cycles and chunk rounds a block."""
+    n = 3_000
+    X, y, w, _ = _problem(n, d, dev, dtype, seed=8)
+    rs = np.random.default_rng(9)
+    idx_np = rs.integers(-5, n + 5, size=m)
+    weights_np = (rs.random(m) < 0.7).astype(np.float32)
+    pad = m // 10  # compact_mask's padding: index 0, weight 0
+    idx_np[m - pad:] = 0
+    weights_np[m - pad:] = 0.0
+    idx = torch.tensor(idx_np, device=dev)
+    weights = torch.tensor(weights_np, device=dev)
+    with mg.pinned_route("staged"):
+        (got, again), counts = _routed(
+            lambda: (masked_grad(X, y, w, weights, idx, loss),
+                     masked_grad(X, y, w, weights, idx, loss)))
+    assert counts == (2, 0)
+    inside = ((idx >= 0) & (idx < n)).float()
+    want = masked_grad_reference(X, y, w, weights * inside, idx.clamp(0, n - 1),
+                                 loss)
+    _close(got, want, REL[dtype])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_route_multiplies_padding_slots(dev, dtype):
+    """A padding slot reads row 0 and multiplies it by weight 0, as the
+    plain version does: a non-finite row 0 makes g NaN on both."""
+    X, y, w, sel = _problem(40_000, 784, dev, dtype, seed=10)
+    valid, idx = compact_mask(sel, 25_000)  # padding slots at the end
+    assert float(valid.min()) == 0.0
+    finite = masked_grad(X, y, w, valid, idx)
+    assert torch.isfinite(finite).all()
+    X[0, 3] = float("inf")
+    got, counts = _routed(lambda: masked_grad(X, y, w, valid, idx))
+    assert counts == (1, 0)
+    want = masked_grad_reference(X, y, w, valid, idx)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [784, 2_000])
+def test_saga_forms_on_their_routes(dev, dtype, d):
+    """saga_grad and xt_coeff take the staged route, and the tiled route
+    (pinned) agrees with them."""
+    n = 40_000
+    X, y, w, sel = _problem(n, d, dev, dtype, seed=11)
+    alpha = torch.randn(n, device=dev)
+    mask = sel.float()
+    (g, diff), counts = _routed(lambda: saga_grad(X, y, w, alpha, mask))
+    assert counts == (1, 0)
+    g_ref, diff_ref = saga_grad_reference(X, y, w, alpha, mask)
+    _close(diff, diff_ref, REL[torch.float32])
+    _close(g, g_ref, REL[dtype])
+    g2, diff2 = saga_grad(X, y, w, alpha, mask)
+    assert torch.equal(g, g2) and torch.equal(diff, diff2)
+    c = mask * torch.randn(n, device=dev)
+    got, counts = _routed(lambda: xt_coeff(X, c))
+    assert counts == (1, 0)
+    _close(got, xt_coeff_reference(X, c), REL[torch.float32])
+    assert torch.equal(got, xt_coeff(X, c))
+    with mg.pinned_route("tiled"):
+        tiled = xt_coeff(X, c)
+    _close(tiled, xt_coeff_reference(X, c), REL[torch.float32])
+
+
+def test_staged_launches_on_two_streams_at_once(dev):
+    """Staged launches on two streams of one card may overlap (the second's
+    blocks start as the first's drain); each stream claims chunks from its
+    own counter, so every launch gives the one-stream result, bit for bit."""
+    n = 20_000
+    Xa, ya, wa, sa = _problem(n, 2_000, dev, torch.float32, seed=13)
+    Xb, yb, wb, sb = _problem(n, 784, dev, torch.bfloat16, seed=14)
+    ma, mb = sa.float(), sb.float()
+    want_a = masked_grad(Xa, ya, wa, ma)
+    want_b = masked_grad(Xb, yb, wb, mb)
+    _close(want_a, masked_grad_reference(Xa, ya, wa, ma), REL[torch.float32])
+    _close(want_b, masked_grad_reference(Xb, yb, wb, mb), REL[torch.bfloat16])
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    outs = []
+    before = _route_counts()
+    for _ in range(50):
+        with torch.cuda.stream(streams[0]):
+            a = masked_grad(Xa, ya, wa, ma)
+        with torch.cuda.stream(streams[1]):
+            b = masked_grad(Xb, yb, wb, mb)
+        outs.append((a, b))
+    torch.cuda.synchronize(dev)
+    assert tuple(x - y for x, y in zip(_route_counts(), before)) == (100, 0)
+    for a, b in outs:
+        assert torch.equal(a, want_a) and torch.equal(b, want_b)
+    # whether two cooperative launches ever overlap is the card's choice:
+    # the streams must not share a counter either way
+    counters = [mg._counters[(dev, s.cuda_stream)] for s in streams]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert not any(int(c) for c in counters)
+
+
+def test_routes_are_chosen_by_shape_and_counted(dev):
+    n = 20_000
+    X, y, w, sel = _problem(n, 2_000, dev, torch.float32, seed=12)
+    mask = sel.float()
+    # aligned rows, 160 MB of X: staged
+    _, counts = _routed(lambda: masked_grad(X, y, w, mask))
+    assert counts == (1, 0)
+    # a width that is no multiple of 4: tiled
+    Xu, wu = X[:, 1:].contiguous(), w[1:].contiguous()
+    _, counts = _routed(lambda: masked_grad(Xu, y, wu, mask))
+    assert counts == (0, 1)
+    # rows at an address 4 bytes off 16: tiled
+    flat = torch.zeros(n * 2_000 + 1, device=dev)
+    Xo = flat[1:].view(n, 2_000)
+    Xo.copy_(X)
+    got, counts = _routed(lambda: masked_grad(Xo, y, w, mask))
+    assert counts == (0, 1)
+    _close(got, masked_grad_reference(X, y, w, mask), REL[torch.float32])
+    # under the least bytes of X: tiled
+    few = 16
+    _, counts = _routed(lambda: masked_grad(X[:few], y[:few], w, mask[:few]))
+    assert counts == (0, 1)
+    # the total counts every launch of both
+    before = masked_grad.launches
+    _routed(lambda: masked_grad(X, y, w, mask))
+    _routed(lambda: masked_grad(Xu, y, wu, mask))
+    assert masked_grad.launches == before + 2
 
 
 # ---------------------------------------------------------- chunk_attention

@@ -154,3 +154,176 @@ def test_cpu_path_is_the_plain_version_and_launches_nothing():
     assert masked_grad.launches == before
     assert mg.LOSSES == {"least_squares": 0, "logistic": 1}
 
+
+
+# ------------------------------------------------------------ launch plan
+# The staged route's plan is plain Python, so its layout is checked here;
+# the kernel computes the same chunks (``chunk_slots``) on the card.
+H100_SMS = 132
+
+
+def _occupancy(smem):
+    """An H100's answer for the staged block at any shared memory: one an
+    SM (544 threads at 80-94 registers each leave no room for a second)."""
+    return 1
+
+
+# chip_smoke.py's phase-2 B1 shapes: (name, d, m, elem bytes, mode, route)
+SMOKE_PLANS = [
+    ("a_epsilon_full", 2_000, 50_000, 4, 0, "staged"),
+    ("b_epsilon_idx", 2_000, 5_408, 4, 0, "staged"),
+    ("c_mnist8m_idx", 784, 103_064, 2, 0, "staged"),
+    ("c_mnist8m_full", 784, 1_012_500, 2, 0, "staged"),
+    ("d_ragged_300x100", 100, 300, 4, 0, "tiled"),
+    ("d_ragged_17x8", 8, 17, 4, 0, "tiled"),
+    ("d_empty_0x8", 8, 0, 4, 0, "tiled"),
+    ("d_small_132x2000", 2_000, 132, 4, 0, "staged"),
+    ("e_epsilon_logistic", 2_000, 50_000, 4, 1, "staged"),
+    ("saga_epsilon", 2_000, 50_000, 4, 2, "staged"),
+    ("xt_epsilon", 2_000, 50_000, 4, 3, "staged"),
+    ("saga_mnist8m_shard", 784, 1_012_500, 2, 2, "staged"),
+    ("xt_mnist8m_shard", 784, 1_012_500, 2, 3, "staged"),
+]
+
+# ragged edges on the staged route (pinned, as the probe pins it): m = 0,
+# 1, 7, fewer slots than blocks, just past a whole first round, many
+# rounds; d = 8, 784, 2,000 and the widest rows it takes
+EDGE_D = [(8, 4), (8, 2), (784, 4), (784, 2), (2_000, 4), (2_000, 2),
+          (2_048, 4), (4_096, 2)]
+EDGE_M = [0, 1, 7, 131, 133, 2 * 132 * 8 + 1, 40_000]
+
+
+def _check_plan(plan, d, m, elem_bytes):
+    geo = plan.geometry
+    vec = 16 // elem_bytes
+    pad = -(-(d // vec) // 32) * 32
+    assert geo.lanes == d // vec
+    assert geo.groups * pad <= mg.CONSUMERS
+    assert geo.rows % geo.groups == 0
+    assert geo.rows // geo.groups <= mg.MAX_GROUP_ROWS
+    assert geo.rows <= mg.MAX_STAGE_ROWS and geo.stages >= 2
+    assert geo.smem + mg.STAGED_STATIC_SMEM <= mg.SMEM_LIMIT
+    slots = geo.stages * geo.rows
+    assert geo.smem == (slots * d * elem_bytes + 8 * slots + 16 * geo.stages
+                        + 16 * slots + 8 * geo.stages
+                        + (4 * geo.groups * d if geo.groups > 1 else 0))
+    assert plan.blocks == H100_SMS * _occupancy(geo.smem)
+    chunks = plan.chunks()
+    assert len(chunks) == plan.nchunks
+    # every slot in exactly one chunk, in order
+    covered = [slot for lo, hi in chunks for slot in range(lo, hi)]
+    assert covered == list(range(m))
+    # chunks are whole stages (the last one cut at m), one round of
+    # `blocks` equal chunks after another, never growing
+    sizes = [hi - lo for lo, hi in chunks]
+    assert all(sz % geo.rows == 0 for sz in sizes[:-1])
+    assert all(a >= b for a, b in zip(sizes, sizes[1:]))
+    for r in range(0, len(sizes) - 1, plan.blocks):
+        rnd = sizes[r:r + plan.blocks]
+        assert len(set(rnd[:-1])) <= 1 and rnd[-1] <= rnd[0]
+    # the first round: one chunk a block, lengths within one stage
+    first = sizes[:plan.blocks]
+    assert not first or max(first) - min(first) <= geo.rows
+
+
+@pytest.mark.parametrize("name,d,m,elem_bytes,mode,route", SMOKE_PLANS)
+def test_plan_routes_chip_smoke_shapes(name, d, m, elem_bytes, mode, route):
+    plan = mg.launch_plan(d, m, elem_bytes, True, mode, H100_SMS, _occupancy)
+    assert plan.route == route, name
+    if route == "staged":
+        _check_plan(plan, d, m, elem_bytes)
+    else:
+        assert plan.blocks == min(-(-m // mg.TILE_ROWS), 2 * H100_SMS)
+
+
+@pytest.mark.parametrize("d,elem_bytes", EDGE_D)
+@pytest.mark.parametrize("m", EDGE_M)
+def test_plan_chunks_cover_every_slot_once(d, elem_bytes, m):
+    plan = mg.launch_plan(d, m, elem_bytes, True, 0, H100_SMS, _occupancy,
+                          route="staged")
+    assert plan.route == "staged"
+    _check_plan(plan, d, m, elem_bytes)
+
+
+@pytest.mark.parametrize("d,elem_bytes,why", [
+    (130, 4, "rows of 520 bytes are no multiple of 16"),
+    (130, 2, "rows of 260 bytes are no multiple of 16"),
+    (100, 2, "rows of 200 bytes are no multiple of 16"),
+    (2_052, 4, "513 column lanes, more than the consumer threads"),
+    (4_096, 4, "1,024 column lanes: too wide for the ring's groups"),
+    (8_200, 2, "1,025 column lanes"),
+])
+def test_plan_leaves_unaligned_and_wide_rows_on_the_tiled_route(
+        d, elem_bytes, why):
+    assert mg.staged_geometry(d, elem_bytes) is None, why
+    plan = mg.launch_plan(d, 50_000, elem_bytes, True, 0, H100_SMS,
+                          _occupancy)
+    assert plan.route == "tiled", why
+    with pytest.raises(ValueError):
+        mg.launch_plan(d, 50_000, elem_bytes, True, 0, H100_SMS, _occupancy,
+                       route="staged")
+
+
+def test_plan_leaves_unaligned_addresses_and_small_inputs_tiled():
+    # X or w off a 16-byte address: the tiled route, whatever the width
+    plan = mg.launch_plan(2_000, 50_000, 4, False, 0, H100_SMS, _occupancy)
+    assert plan.route == "tiled"
+    # just under and at the staged route's least bytes of X
+    rows_min = mg.STAGED_MIN_BYTES // (2_000 * 4)
+    small = mg.launch_plan(2_000, rows_min - 1, 4, True, 0, H100_SMS,
+                           _occupancy)
+    at = mg.launch_plan(2_000, -(-mg.STAGED_MIN_BYTES // 8_000), 4, True, 0,
+                        H100_SMS, _occupancy)
+    assert (small.route, at.route) == ("tiled", "staged")
+    # the form does not choose: every mode alike at the same shape
+    routes = {mg.launch_plan(2_000, 50_000, 4, True, mode, H100_SMS,
+                             _occupancy).route for mode in range(4)}
+    assert routes == {"staged"}
+    # pinning the tiled route keeps its grid
+    pinned = mg.launch_plan(2_000, 5_408, 4, True, 0, H100_SMS, _occupancy,
+                            route="tiled")
+    assert (pinned.route, pinned.blocks) == ("tiled", 2 * H100_SMS)
+
+
+def test_plan_needs_an_sm_that_holds_a_block():
+    with pytest.raises(RuntimeError):
+        mg.launch_plan(2_000, 5_408, 4, True, 0, H100_SMS, lambda smem: 0)
+
+
+def test_pinned_route_is_scoped_and_checked():
+    with pytest.raises(ValueError):
+        with mg.pinned_route("fast"):
+            pass
+    with mg.pinned_route("tiled"):
+        assert mg._pinned == "tiled"
+        with mg.pinned_route("staged"):
+            assert mg._pinned == "staged"
+        assert mg._pinned == "tiled"
+    assert mg._pinned is None
+
+
+@pytest.mark.parametrize("m", [7, 1_000, 5_408])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_sums_in_chunk_order_match_jax(m, dtype):
+    """The staged route's decomposition on the CPU: each chunk's sum of
+    c_i x_i over the plan's chunks, added in chunk order, against the JAX
+    package's gradient sum over the same compacted rows."""
+    n, d = 3_000, 784
+    X, y, w, _ = _problem(n, d, seed=6)
+    rs = np.random.default_rng(7)
+    idx = rs.integers(0, n, size=m).astype(np.int64)
+    weights = (rs.random(m) < 0.8).astype(np.float32)
+    if dtype == "bfloat16":
+        X, Xt = _bf16_rows(X)
+        Xj, rel, es = jnp.asarray(X, jnp.bfloat16), 1e-2, 2
+    else:
+        Xt, Xj, rel, es = torch.from_numpy(X), X, 1e-5, 4
+    plan = mg.launch_plan(d, m, es, True, 0, H100_SMS, _occupancy,
+                          route="staged")
+    yt, wt = torch.from_numpy(y), torch.from_numpy(w)
+    got = torch.zeros(d)
+    for lo, hi in plan.chunks():
+        got += masked_grad(Xt, yt, wt, torch.from_numpy(weights[lo:hi]),
+                           torch.from_numpy(idx[lo:hi]))
+    want = jgrad.least_squares_grad_sum(Xj[idx], y[idx], w, weights)
+    _close(got, want, rel)
