@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
+from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.utils.devices import resolve_devices
 
 
@@ -38,6 +39,19 @@ def dataset_from_reference(
     return ShardedDataset.from_shards(shards, d, devices, dtype)
 
 
+def sparse_dataset_from_reference(
+    shards: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+    d: int,
+    devices: Optional[Sequence] = None,
+    row_perm: Optional[np.ndarray] = None,
+) -> SparseShardedDataset:
+    """A port dataset holding a JAX ``SparseShardedDataset``'s padded-ELL
+    shards, worker by worker (``[(np.asarray(s.cols), np.asarray(s.vals),
+    np.asarray(s.y)) for s in ds.shards.values()]``, with ``d = ds.d`` and
+    ``row_perm = ds.row_perm``)."""
+    return SparseShardedDataset.from_shards(shards, d, devices, row_perm)
+
+
 def saga_state_from_reference(
     w: np.ndarray,
     alpha_slices: Mapping[int, np.ndarray],
@@ -49,7 +63,7 @@ def saga_state_from_reference(
     k)`` with ``w`` and ``alpha_bar`` f32 ``(d,)`` tensors on ``devices[0]``
     and worker ``wid``'s history slice on ``devices[wid % len(devices)]``
     (the solvers' placement), so both packages start from the same table
-    (e.g. ``res.extras["alpha"]`` of a JAX run)."""
+    (e.g. ``res.extras["alpha"]`` of a JAX run), dense or sparse alike."""
     devs = resolve_devices(devices)
     alpha = {
         int(wid): torch.tensor(np.asarray(a, np.float32),

@@ -10,11 +10,11 @@ surviving slot's device memory by a device-to-device copy of the live
 buffer (``Tensor.to``).
 
 ``plan_reassignment`` is the pure policy (balanced round-robin of dead slots
-over survivors); ``ShardRecovery`` applies a plan to a ``ShardedDataset`` by
-building per-worker *assignment views*: worker slots keep their identity, a
-surviving worker simply computes extra shards' gradients in subsequent
-rounds.  The solver layer stays oblivious -- it asks ``assignments(wid)`` for
-the shard list a worker currently owns.
+over survivors); ``ShardRecovery`` applies a plan to a ``ShardedDataset``
+or a ``SparseShardedDataset`` by building per-worker *assignment views*:
+worker slots keep their identity, a surviving worker simply computes extra
+shards' gradients in subsequent rounds.  The solver layer stays oblivious
+-- it asks ``assignments(wid)`` for the shard list a worker currently owns.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from asyncframework_tpu_torch.data.sharded import Shard, ShardedDataset
+from asyncframework_tpu_torch.data.sparse import SparseShard
 
 
 @dataclass(frozen=True)
@@ -95,13 +96,23 @@ class ShardRecovery:
             target_dev = self._device_of(new_owner)
             # a device-to-device copy (the same tensors when the adopting
             # worker shares the shard's device)
-            moved = Shard(
-                worker_id=shard_id,
-                X=cur.X.to(target_dev),
-                y=cur.y.to(target_dev),
-                start=cur.start,
-                size=cur.size,
-            )
+            if hasattr(cur, "cols"):  # padded-ELL sparse shard
+                moved = SparseShard(
+                    worker_id=shard_id,
+                    cols=cur.cols.to(target_dev),
+                    vals=cur.vals.to(target_dev),
+                    y=cur.y.to(target_dev),
+                    start=cur.start,
+                    size=cur.size,
+                )
+            else:
+                moved = Shard(
+                    worker_id=shard_id,
+                    X=cur.X.to(target_dev),
+                    y=cur.y.to(target_dev),
+                    start=cur.start,
+                    size=cur.size,
+                )
             self._placed[shard_id] = moved
             self._owner[shard_id] = new_owner
             return moved

@@ -42,6 +42,7 @@ import threading
 import torch
 
 from asyncframework_tpu_torch.ops import _build
+from asyncframework_tpu_torch.ops._checks import on_cuda
 
 NEG = -1e30  # the TPU kernel's mask fill
 MAX_D = 256  # widest head the kernel takes
@@ -215,12 +216,8 @@ def chunk_attention(q, k, v, mask=None):
     """
     _check(q, k, v, mask)
     device = q.device
-    if device.type == "cpu":
+    if not on_cuda(device, "chunk_attention"):
         return chunk_attention_reference(q, k, v, mask)
-    if device.type != "cuda":
-        raise ValueError(f"chunk_attention runs on cpu or cuda tensors, not {device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("chunk_attention got a CUDA tensor but CUDA is unavailable")
     B, tq, H, D = q.shape
     tk = k.shape[1]
     if B * H > 65535:

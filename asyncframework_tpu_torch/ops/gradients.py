@@ -1,4 +1,4 @@
-"""Loss gradients and losses, dense part (the worker hot path).
+"""Loss gradients and losses (the worker hot path).
 
 Counterpart of ``asyncframework_tpu/ops/gradients.py``.  A shard's sampled
 mini-batch gradient is ``g = X^T (mask * (f(X w) - y))``; where the JAX
@@ -13,7 +13,9 @@ per-sample scalar form (``SparkASAGAThread.scala:500-515``): for least
 squares a per-sample gradient is ``scalar * x`` with ``scalar = x.w - y``,
 so the history table holds one scalar per sample.  The ASAGA contraction
 runs through the same kernel's history form
-(:func:`~asyncframework_tpu_torch.ops.masked_grad.saga_grad`).
+(:func:`~asyncframework_tpu_torch.ops.masked_grad.saga_grad`).  The sparse
+(padded-ELL) residual and gradient sum run through kernel S1
+(:mod:`~asyncframework_tpu_torch.ops.sparse_grad`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ from __future__ import annotations
 import torch
 
 from asyncframework_tpu_torch.ops.masked_grad import masked_grad, saga_grad
+from asyncframework_tpu_torch.ops.sparse_grad import (
+    ell_residual,
+    segment_sum,
+    sort_keys,
+)
 
 #: rows widened to f32 at a time when a bf16 matrix meets a vector
 _MM_CHUNK_ROWS = 1 << 16
@@ -98,3 +105,27 @@ def saga_commit_history(alpha, diff, mask):
     is never written: an in-flight task dispatched before this commit may
     still hold the old slice."""
     return torch.where(mask > 0, diff, alpha, out=diff)
+
+
+# ------------------------------------------------------------------ sparse
+# rcv1-class data in padded ELL (data/sparse.py): cols/vals are (n, K) with
+# zero padding; w stays dense (the updater applies dense updates).  Both
+# run through kernel S1 (ops/sparse_grad.py) on the card.
+
+def sparse_residual(cols, vals, y, w):
+    """Per-sample ``x_i . w - y_i`` via a gather: padding contributes 0."""
+    return ell_residual(cols, vals, y, w)
+
+
+def make_sparse_grad_sum(d: int):
+    """``grad_sum(cols, vals, coeff) -> g (d,)``: ``g = sum_i coeff_i x_i``
+    (the sparse ``X^T coeff``) as a segment sum over the entries sorted by
+    column (a stable sort), added in that order -- the reference's sorted
+    scatter-add, and the same bits on every launch."""
+
+    def grad_sum(cols, vals, coeff):
+        keys = torch.where(vals != 0, cols, torch.full_like(cols, d))
+        skeys, perm = sort_keys(keys.reshape(-1))
+        return segment_sum(skeys, perm, vals, coeff, d)
+
+    return grad_sum

@@ -61,6 +61,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from asyncframework_tpu_torch.ops import _build
+from asyncframework_tpu_torch.ops._checks import check_tensor, on_cuda
 
 LOSSES = {"least_squares": 0, "logistic": 1}
 _SAGA, _XT_COEFF = 2, 3  # the kernel's other modes
@@ -125,19 +126,6 @@ def xt_coeff_reference(X, c):
     return X.float().T @ c
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, X on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _library():
     global _lib
     if _lib is None:
@@ -175,18 +163,6 @@ def _check_X(X):
     if not X.is_contiguous():
         raise ValueError("X must be contiguous (row-major)")
     return X.device, X.shape[0], X.shape[1]
-
-
-def _on_cuda(device) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one
-    (plain version); raises for anything else."""
-    if device.type == "cpu":
-        return False
-    if device.type != "cuda":
-        raise ValueError(f"masked_grad runs on cpu or cuda tensors, not {device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("masked_grad got a CUDA tensor but CUDA is unavailable")
-    return True
 
 
 class Geometry(NamedTuple):
@@ -423,13 +399,13 @@ def masked_grad(X, y, w, mask=None, idx=None, loss: str = "least_squares"):
         raise ValueError(f"unknown loss {loss!r}")
     device, n, d = _check_X(X)
     m = n if idx is None else idx.shape[0]
-    _check("y", y, torch.float32, (n,), device)
-    _check("w", w, torch.float32, (d,), device)
+    check_tensor("y", y, torch.float32, (n,), device)
+    check_tensor("w", w, torch.float32, (d,), device)
     if idx is not None:
-        _check("idx", idx, torch.int64, (m,), device)
+        check_tensor("idx", idx, torch.int64, (m,), device)
     if mask is not None:
-        _check("mask", mask, torch.float32, (m,), device)
-    if not _on_cuda(device):
+        check_tensor("mask", mask, torch.float32, (m,), device)
+    if not on_cuda(device, "masked_grad"):
         return masked_grad_reference(X, y, w, mask, idx, loss)
     if d == 0:
         return torch.zeros(0, dtype=torch.float32, device=device)
@@ -448,12 +424,12 @@ def saga_grad(X, y, w, alpha, mask=None):
     raise.
     """
     device, n, d = _check_X(X)
-    _check("y", y, torch.float32, (n,), device)
-    _check("w", w, torch.float32, (d,), device)
-    _check("alpha", alpha, torch.float32, (n,), device)
+    check_tensor("y", y, torch.float32, (n,), device)
+    check_tensor("w", w, torch.float32, (d,), device)
+    check_tensor("alpha", alpha, torch.float32, (n,), device)
     if mask is not None:
-        _check("mask", mask, torch.float32, (n,), device)
-    if not _on_cuda(device):
+        check_tensor("mask", mask, torch.float32, (n,), device)
+    if not on_cuda(device, "masked_grad"):
         return saga_grad_reference(X, y, w, alpha, mask)
     if d == 0:
         return torch.zeros(0, dtype=torch.float32, device=device), -y
@@ -468,8 +444,8 @@ def xt_coeff(X, c):
     version; CUDA tensors launch the kernel (counted in
     ``masked_grad.launches`` and ``xt_coeff.launches``) or raise."""
     device, n, d = _check_X(X)
-    _check("c", c, torch.float32, (n,), device)
-    if not _on_cuda(device):
+    check_tensor("c", c, torch.float32, (n,), device)
+    if not on_cuda(device, "masked_grad"):
         return xt_coeff_reference(X, c)
     if d == 0:
         return torch.zeros(0, dtype=torch.float32, device=device)

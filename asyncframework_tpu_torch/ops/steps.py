@@ -1,6 +1,8 @@
-"""Step functions of the dense ASGD path: worker step, appliers, helpers.
+"""Step functions of the ASGD and ASAGA paths: worker steps, appliers,
+helpers.
 
-Counterpart of the dense ASGD subset of ``asyncframework_tpu/ops/steps.py``.
+Counterpart of the engine-path subset of ``asyncframework_tpu/ops/steps.py``
+(dense and padded-ELL sparse).
 Every tensor the per-update cycle touches stays on the device; the host
 threads move only tensor handles and Python ints.
 
@@ -25,6 +27,11 @@ iteration counter ``k`` and the sync drain's accumulator.
   per-sample scalar history table on the device, one slice per worker.
   The worker step and the table delta are launches of the masked-gradient
   kernel's history forms.
+- :func:`make_sparse_asgd_worker_step`, :func:`make_sparse_saga_worker_step`,
+  :func:`make_sparse_saga_commit`, :func:`make_sparse_table_delta`,
+  :func:`make_sparse_trajectory_loss_eval`: the padded-ELL (rcv1) path
+  (``steps.py:504-670``), always compacted, through kernel S1
+  (:mod:`~asyncframework_tpu_torch.ops.sparse_grad`).
 """
 
 from __future__ import annotations
@@ -36,12 +43,18 @@ import torch
 from asyncframework_tpu_torch.ops.gradients import (
     least_squares_grad_sum,
     logistic_grad_sum,
+    make_sparse_grad_sum,
     mm_f32,
     saga_commit_history,  # re-exported: the solvers' committed-history op
     saga_shard_step,
 )
 from asyncframework_tpu_torch.ops.masked_grad import xt_coeff
 from asyncframework_tpu_torch.ops.sampling import bernoulli_mask
+from asyncframework_tpu_torch.ops.sparse_grad import (
+    ell_residual,
+    segment_sum,
+    sort_keys,
+)
 
 
 def sparse_step_capacity(batch_rate: float, n_rows: int) -> int:
@@ -234,5 +247,122 @@ def make_trajectory_loss_eval(loss: str = "least_squares"):
         return torch.sum(
             torch.logaddexp(torch.zeros_like(R), R) - y[:, None] * R, dim=0
         )
+
+    return eval_shard
+
+
+# ------------------------------------------------------------------ sparse
+# padded-ELL shards (data/sparse.py): the sampled rows are always compacted
+# to sparse_step_capacity slots, as in the JAX package
+
+def _sparse_sample(batch_rate: float):
+    """``sample(gen, n) -> (valid, idx)``: a Bernoulli(b) draw compacted to
+    :func:`sparse_step_capacity` slots."""
+
+    def sample(gen: torch.Generator, n: int):
+        mask = bernoulli_mask(gen, n, batch_rate)
+        return compact_mask(mask, sparse_step_capacity(batch_rate, n))
+
+    return sample
+
+
+def _compacted_sum(cols, vals, y, w, valid, idx, d, coeff_of):
+    """The sampled rows' residual ``r`` (read through ``idx``, unfilled
+    slots 0) and ``g = sum_j coeff_of(r)_j * x_{idx_j}``: kernel S1's
+    residual, which writes the sort keys, the stable sort, S1's segment
+    sum.  Returns ``(g, r)``."""
+    r, keys = ell_residual(cols, vals, y, w, idx, valid, with_keys=True)
+    skeys, perm = sort_keys(keys)
+    return segment_sum(skeys, perm, vals, coeff_of(r), d, idx, valid), r
+
+
+def make_sparse_asgd_worker_step(batch_rate: float, d: int):
+    """``step(cols, vals, y, w, gen) -> g (d,)``: the sparse worker step
+    (``steps.py:543-570``) -- a Bernoulli(b) sample compacted to a fixed
+    capacity, the sampled rows' residuals ``r_j = x_j . w - y_j`` and
+    ``g = sum_j r_j x_j``, reading only the sampled rows.  The halves are
+    exposed for tests that feed both packages one sample:
+    ``step.sample(gen, n) -> (valid, idx)`` and
+    ``step.grad(cols, vals, y, w, valid, idx) -> g``."""
+    sample = _sparse_sample(batch_rate)
+
+    def grad(cols, vals, y, w, valid, idx):
+        return _compacted_sum(cols, vals, y, w, valid, idx, d,
+                              lambda r: r)[0]
+
+    def step(cols, vals, y, w, gen):
+        return grad(cols, vals, y, w, *sample(gen, y.shape[0]))
+
+    step.sample = sample
+    step.grad = grad
+    return step
+
+
+def make_sparse_saga_worker_step(batch_rate: float, d: int):
+    """``step(cols, vals, y, w, alpha, gen) -> (g, diff_sel, idx, valid,
+    c_sel, v_sel)``, compacted (``steps.py:598-622``): ``diff_sel`` are the
+    candidate history scalars of the sampled rows (0 in unfilled slots),
+    ``g = sum_j (diff_sel_j - alpha[idx_j]) x_{idx_j}``, and the gathered
+    rows ``c_sel``/``v_sel`` (validity-zeroed) ride along for the
+    updater's table delta.  Halves as for the ASGD step:
+    ``step.sample(gen, n) -> (valid, idx)`` and
+    ``step.grad(cols, vals, y, w, alpha, valid, idx) -> (g, ...)``."""
+    sample = _sparse_sample(batch_rate)
+
+    def grad(cols, vals, y, w, alpha, valid, idx):
+        g, diff = _compacted_sum(cols, vals, y, w, valid, idx, d,
+                                 lambda r: r - alpha[idx])
+        return g, diff, idx, valid, cols[idx], vals[idx] * valid[:, None]
+
+    def step(cols, vals, y, w, alpha, gen):
+        return grad(cols, vals, y, w, alpha, *sample(gen, y.shape[0]))
+
+    step.sample = sample
+    step.grad = grad
+    return step
+
+
+def make_sparse_saga_commit():
+    """``commit(alpha, diff_sel, idx, valid) -> alpha'``: ``alpha[idx_j] <-
+    diff_sel_j`` for valid slots, into a new tensor (``alpha`` is a slice an
+    in-flight task may hold).  Unfilled slots scatter to one extra element
+    past the end, which is cut off -- the JAX package's out-of-bounds drop;
+    the valid ``idx`` are distinct, so the commit is exact."""
+
+    def commit(alpha, diff_sel, idx, valid):
+        n = alpha.shape[0]
+        tgt = torch.where(valid > 0, idx, n)
+        out = torch.empty(n + 1, dtype=alpha.dtype, device=alpha.device)
+        out[:n] = alpha
+        out.scatter_(0, tgt, diff_sel)
+        return out[:n]
+
+    return commit
+
+
+def make_sparse_table_delta(d: int):
+    """``delta(c_sel, v_sel, diff_sel, alpha_cur, idx) -> (d,)``: the exact
+    change the commit makes to the mean history gradient, against the
+    current slice (``steps.py:625-640``), as a segment sum over the
+    gathered rows."""
+    grad_sum = make_sparse_grad_sum(d)
+
+    def delta(c_sel, v_sel, diff_sel, alpha_cur, idx):
+        return grad_sum(c_sel, v_sel, diff_sel - alpha_cur[idx])
+
+    return delta
+
+
+def make_sparse_trajectory_loss_eval():
+    """``eval_shard(cols, vals, y, W (S, d)) -> (S,)`` per-snapshot loss
+    sums over a shard: one full-shard residual launch a snapshot, so peak
+    memory stays one ``(n_p,)`` residual."""
+
+    def eval_shard(cols, vals, y, W):
+        sums = []
+        for w in W:
+            r = ell_residual(cols, vals, y, w)
+            sums.append(torch.sum(r * r))
+        return torch.stack(sums)
 
     return eval_shard

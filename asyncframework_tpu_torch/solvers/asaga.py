@@ -1,20 +1,28 @@
 """ASAGA: asynchronous SAGA with a per-sample gradient-history table.
 
 Counterpart of ``asyncframework_tpu/solvers/asaga.py`` (parity targets
-``SparkASAGAThread.scala`` async and ``SparkASAGASync.scala``), dense
-shards.  For least squares a per-sample gradient is ``scalar_i * x_i`` with
-``scalar_i = x_i . w - y_i``, so the history compresses to one f32 per
-sample.  Each worker's slice of the table lives on its shard's device.
+``SparkASAGAThread.scala`` async and ``SparkASAGASync.scala``), dense and
+padded-ELL sparse shards.  For least squares a per-sample gradient is
+``scalar_i * x_i`` with ``scalar_i = x_i . w - y_i``, so the history
+compresses to one f32 per sample.  Each worker's slice of the table lives
+on its shard's device.
 
-A worker task is the mask draw plus one launch of the masked-gradient
-kernel's history form: ``g = X^T (mask * (diff - alpha))`` and the
-candidate scalars ``diff = X w - y`` in one pass over the shard.  The
-updater, for an accepted result, in this order: the exact table delta
+Dense shards: a worker task is the mask draw plus one launch of the
+masked-gradient kernel's history form: ``g = X^T (mask * (diff - alpha))``
+and the candidate scalars ``diff = X w - y`` in one pass over the shard.
+The updater, for an accepted result, in this order: the exact table delta
 ``X^T (mask * (diff - alpha_cur))`` against the slice as it is now (the
 kernel's ``xt_coeff`` form), the commit ``where(mask, diff, alpha_cur)``,
 then the apply ``w -= gamma * (g/parRecs + alpha_bar)``;
 ``alpha_bar += delta/N`` -- which keeps ``alpha_bar`` the table's mean
 exactly.
+
+Sparse shards: the sample is compacted to ``(idx, valid)`` slots and the
+task runs kernel S1 (residual, sort, segment sum) over the sampled rows
+only, returning ``(g, diff_sel, idx, valid, c_sel, v_sel)``; the table
+delta is an S1 segment sum over ``c_sel``/``v_sel`` against the current
+slice, and the commit a scatter of the valid slots.  The sync drain moves
+only ``(diff_sel, idx, valid)`` to the commit.
 
 Staleness filter quirk kept from the reference: ASAGA accepts iff
 ``k - staleness <= taw`` (the ASGD driver tests ``staleness <= taw``).
@@ -26,8 +34,8 @@ committed slice goes into the worker's ``diff`` buffer, and ``alpha_bar``
 is advanced in place.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): sparse datasets (A4), ``run_fused`` (A2/A4), checkpointing,
-speculation and dynamic allocation (A2).
+item): ``run_fused`` (A2/A4), checkpointing, speculation and dynamic
+allocation (A2).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from asyncframework_tpu_torch.utils.devices import (
     fence,
     resolve_devices,
 )
+from asyncframework_tpu_torch.utils.hbm import shard_tensors
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -86,9 +95,18 @@ class ASAGA(ShardedSolverMixin):
         check_hbm_plan(X, config, self.devices, history_table=True)
         self.ds = resolve_dataset(X, y, config.num_workers, self.devices)
         self.driver_device = self.devices[0]
-        self._step = steps.make_saga_worker_step(config.batch_rate)
-        self._table_delta = steps.make_saga_table_delta()
-        self._eval = steps.make_trajectory_loss_eval("least_squares")
+        self._sparse = bool(getattr(self.ds, "is_sparse", False))
+        if self._sparse:
+            self._step = steps.make_sparse_saga_worker_step(
+                config.batch_rate, self.ds.d
+            )
+            self._commit_slice = steps.make_sparse_saga_commit()
+            self._table_delta = steps.make_sparse_table_delta(self.ds.d)
+            self._eval = steps.make_sparse_trajectory_loss_eval()
+        else:
+            self._step = steps.make_saga_worker_step(config.batch_rate)
+            self._table_delta = steps.make_saga_table_delta()
+            self._eval = steps.make_trajectory_loss_eval("least_squares")
         self._apply = steps.make_saga_apply(
             config.gamma, config.batch_rate, self.ds.n, config.num_workers
         )
@@ -118,20 +136,36 @@ class ASAGA(ShardedSolverMixin):
     def _commit(self, wid: int, res, alpha, hot_lock, with_delta: bool):
         """Commit an accepted result's candidates into worker ``wid``'s
         slice, on the slice's current home; returns the exact table delta
-        against the slice as it was (``with_delta``), else None."""
+        against the slice as it was (``with_delta``), else None.  A sparse
+        result's payload is ``(diff_sel, idx, valid, c_sel, v_sel)``; the
+        sync drain (no delta) moves only its first three."""
         shard = self._recovery.shard(wid)
+        payload = res.data[1:]
+        if self._sparse and not with_delta:
+            payload = payload[:3]
         with hot_lock:
             alpha_cur = alpha[wid]
             home = alpha_cur.device
             # a shard re-homed while this result was in flight leaves the
             # payload on the old device
-            diff, mask = (_to(a, home) for a in res.data[1:])
+            payload = [_to(a, home) for a in payload]
             with device_scope(home):
-                delta = (
-                    self._table_delta(shard.X, diff, mask, alpha_cur)
-                    if with_delta else None
-                )
-                alpha[wid] = steps.saga_commit_history(alpha_cur, diff, mask)
+                if self._sparse:
+                    diff, idx, valid = payload[:3]
+                    delta = (
+                        self._table_delta(*payload[3:], diff, alpha_cur, idx)
+                        if with_delta else None
+                    )
+                    alpha[wid] = self._commit_slice(alpha_cur, diff, idx,
+                                                    valid)
+                else:
+                    diff, mask = payload
+                    delta = (
+                        self._table_delta(shard.X, diff, mask, alpha_cur)
+                        if with_delta else None
+                    )
+                    alpha[wid] = steps.saga_commit_history(alpha_cur, diff,
+                                                           mask)
         return delta
 
     # ------------------------------------------------------------------ async
@@ -428,7 +462,7 @@ class ASAGA(ShardedSolverMixin):
         """Run this mode's hot path once before the trajectory clock starts
         (parity: the reference's blocking first iteration,
         ``DAGScheduler.scala:641-656``); here the first use builds the CUDA
-        kernel (nvcc) and fills the caching allocator.  Each distinct
+        kernels (nvcc) and fills the caching allocator.  Each distinct
         (shard shape, device) runs the worker step, the table delta (async
         only) and the commit once, on fresh tensors; the applier runs on
         fresh tensors too, never on live state."""
@@ -440,19 +474,26 @@ class ASAGA(ShardedSolverMixin):
         for wid in range(self.cfg.num_workers):
             shard = self._recovery.shard(wid)
             dev = shard.device
-            key = (tuple(shard.X.shape), dev)
+            arrays = shard_tensors(shard)
+            key = (tuple(arrays[0].shape), dev)
             if key in seen:
                 continue
             seen.add(key)
             with device_scope(dev):
                 a0 = self._zeros(shard.size, dev)
-                g, diff, mask = self._step(
-                    shard.X, shard.y, self._zeros(d, dev), a0,
-                    worker_generator(0, 0, dev),
-                )
-                if not sync:
-                    delta = self._table_delta(shard.X, diff, mask, a0)
-                steps.saga_commit_history(a0, diff, mask)
+                out = self._step(*arrays, self._zeros(d, dev), a0,
+                                 worker_generator(0, 0, dev))
+                g, diff = out[0], out[1]
+                if self._sparse:
+                    _, _, idx, valid, c_sel, v_sel = out
+                    if not sync:
+                        delta = self._table_delta(c_sel, v_sel, diff, a0, idx)
+                    self._commit_slice(a0, diff, idx, valid)
+                else:
+                    mask = out[2]
+                    if not sync:
+                        delta = self._table_delta(shard.X, diff, mask, a0)
+                    steps.saga_commit_history(a0, diff, mask)
         with device_scope(drv):
             g = _to(g, drv)
             delta = g if sync else _to(delta, drv)
@@ -478,15 +519,19 @@ class ASAGA(ShardedSolverMixin):
                 time.sleep(delay_ms / 1e3)
             with device_scope(dev):
                 with gen_lock:
-                    mask = step.sample(gen, shard.size)
-                g, diff = step.grad(shard.X, shard.y, _to(w_pub, dev),
-                                    _to(alpha_slice, dev), mask)
+                    sample = step.sample(gen, shard.size)
+                # (valid, idx) sparse; the full-shard mask dense
+                drawn = sample if self._sparse else (sample,)
+                out = step.grad(*shard_tensors(shard), _to(w_pub, dev),
+                                _to(alpha_slice, dev), *drawn)
                 if dev.type == "cuda":
                     # completion only; the results stay on the device
                     done = torch.cuda.Event()
                     done.record()
                     done.synchronize()
-            return g, diff, mask
+            # (g, diff, mask) dense; (g, diff_sel, idx, valid, c_sel,
+            # v_sel) sparse
+            return out if self._sparse else (*out, sample)
 
         return fn
 

@@ -13,7 +13,9 @@ Counterpart of ``asyncframework_tpu/solvers/asgd.py``:
 
 Device hot path: every tensor the algorithm touches stays in device memory.
 A worker task is the mask draw plus one launch of the hand-written
-masked-gradient kernel on the worker's device; the updater's accept path is
+masked-gradient kernel on the worker's device (dense shards), or the
+compacted draw, kernel S1's residual, a sort and S1's segment sum
+(padded-ELL sparse shards, least squares only); the updater's accept path is
 a scaled axpy with the iteration counter ``k`` on the device.  The model is
 never written in place, so an old ``w`` tensor is an old model version
 (snapshots and in-flight tasks hold them).
@@ -60,6 +62,7 @@ from asyncframework_tpu_torch.utils.devices import (
     fence,
     resolve_devices,
 )
+from asyncframework_tpu_torch.utils.hbm import shard_tensors
 
 # minimum drained-batch size for the stacked one-launch apply: below this,
 # the stack copy costs more than the launches it saves
@@ -77,10 +80,22 @@ class ASGD(ShardedSolverMixin):
         check_hbm_plan(X, config, self.devices)
         self.ds = resolve_dataset(X, y, config.num_workers, self.devices)
         self.driver_device = self.devices[0]
-        self._step = steps.make_asgd_worker_step(config.batch_rate, config.loss)
-        # flops accounting mirrors the step's row compaction gate
-        self._dense_compact = config.batch_rate <= 0.5
-        self._eval = steps.make_trajectory_loss_eval(config.loss)
+        if getattr(self.ds, "is_sparse", False):
+            if config.loss != "least_squares":
+                raise ValueError(
+                    "sparse shards currently support least_squares only"
+                )
+            self._step = steps.make_sparse_asgd_worker_step(
+                config.batch_rate, self.ds.d
+            )
+            self._eval = steps.make_sparse_trajectory_loss_eval()
+        else:
+            self._step = steps.make_asgd_worker_step(
+                config.batch_rate, config.loss
+            )
+            # flops accounting mirrors the step's row compaction gate
+            self._dense_compact = config.batch_rate <= 0.5
+            self._eval = steps.make_trajectory_loss_eval(config.loss)
         self._apply = steps.make_asgd_apply(
             config.gamma, config.batch_rate, self.ds.n, config.num_workers
         )
@@ -430,7 +445,7 @@ class ASGD(ShardedSolverMixin):
 
         Parity: the reference's first iteration blocks to warm Spark's
         caches (``DAGScheduler.scala:641-656`` ``first_iter``); here the
-        first use builds the CUDA kernel (nvcc) and fills the caching
+        first use builds the CUDA kernels (nvcc) and fills the caching
         allocator.  Each distinct (shard shape, device) runs the worker
         step once; the appliers run on fresh tensors, never on live state.
         """
@@ -440,13 +455,14 @@ class ASGD(ShardedSolverMixin):
         seen = set()
         for wid in range(self.cfg.num_workers):
             shard = self._recovery.shard(wid)
-            key = (tuple(shard.X.shape), shard.device)
+            arrays = shard_tensors(shard)
+            key = (tuple(arrays[0].shape), shard.device)
             if key in seen:
                 continue
             seen.add(key)
             with device_scope(shard.device):
                 w0 = torch.zeros(d, dtype=torch.float32, device=shard.device)
-                g = self._step(shard.X, shard.y, w0,
+                g = self._step(*arrays, w0,
                                worker_generator(0, 0, shard.device))
         g = g.to(drv)
         if sync:
@@ -481,7 +497,7 @@ class ASGD(ShardedSolverMixin):
                 # the generator advances at draw time: one draw at a time
                 with gen_lock:
                     sample = step.sample(gen, shard.size)
-                g = step.grad(shard.X, shard.y, w_local, *sample)
+                g = step.grad(*shard_tensors(shard), w_local, *sample)
                 if dev.type == "cuda":
                     # completion only; the gradient stays on the device
                     done = torch.cuda.Event()

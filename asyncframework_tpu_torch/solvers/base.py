@@ -23,8 +23,10 @@ import numpy as np
 import torch
 
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
+from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.instrumentation import FaultTolerantRun
+from asyncframework_tpu_torch.utils.hbm import plan_for_run, shard_tensors
 
 
 class DeadWorkerError(RuntimeError):
@@ -92,10 +94,8 @@ def check_hbm_plan(X, cfg: "SolverConfig", devices,
     arrays are planned from shape before placement; a pre-built dataset has
     its actual residency measured.  Raises ``MemoryError`` with the
     planner's accounting when the budget is oversubscribed."""
-    from asyncframework_tpu_torch.utils.hbm import plan_for_run
-
-    if not isinstance(X, (np.ndarray, ShardedDataset)):
-        return  # resolve_dataset refuses it, naming its ROADMAP item
+    if not isinstance(X, (np.ndarray, ShardedDataset, SparseShardedDataset)):
+        return  # resolve_dataset refuses it
     versions = (
         cfg.max_live_versions if cfg.stale_read_offset is not None else 2
     )
@@ -112,9 +112,10 @@ def check_hbm_plan(X, cfg: "SolverConfig", devices,
 
 
 def resolve_dataset(X, y, num_workers: int, devices):
-    """Accept host arrays (sharded here) or a pre-built dense
-    :class:`ShardedDataset`; validate consistency with the solver's setup."""
-    if isinstance(X, ShardedDataset):
+    """Accept host arrays (sharded here) or a pre-built dataset
+    (:class:`ShardedDataset` or :class:`SparseShardedDataset`); validate
+    consistency with the solver's setup."""
+    if isinstance(X, (ShardedDataset, SparseShardedDataset)):
         if y is not None:
             raise ValueError(
                 "y must be None when passing a pre-built dataset "
@@ -137,8 +138,9 @@ def resolve_dataset(X, y, num_workers: int, devices):
         return X
     if not isinstance(X, np.ndarray):
         raise NotImplementedError(
-            "only dense host arrays and ShardedDataset are ported; sparse "
-            "datasets wait for ROADMAP item A4"
+            f"{type(X).__name__} is not taken as it is: pass a dense host "
+            "array or a pre-built dataset; sparse data goes in as a "
+            "SparseShardedDataset built from its CSR arrays (ROADMAP A4)"
         )
     return ShardedDataset(X, y, num_workers, devices)
 
@@ -147,8 +149,10 @@ class FlopsAccountingMixin:
     """Counted-flops accounting for the solvers (``utils/flops.py`` model).
 
     Hosts provide ``self._recovery`` (shard view), ``self.cfg`` and
-    ``self.ds``; a step that compacts sampled rows sets ``_dense_compact``
-    so only the compacted rows count."""
+    ``self.ds``; a dense step that compacts sampled rows sets
+    ``_dense_compact`` so only the compacted rows count.  The sparse step
+    always compacts (``utils/flops.sparse_task_flops`` of the compacted
+    rows and the shard's pad width)."""
 
     def _task_flops(self, wid: int) -> float:
         cache = self.__dict__.setdefault("_flops_cache", {})
@@ -157,10 +161,15 @@ class FlopsAccountingMixin:
             from asyncframework_tpu_torch.ops.steps import sparse_step_capacity
             from asyncframework_tpu_torch.utils import flops as _fl
 
-            rows = self._recovery.shard(wid).size
-            if getattr(self, "_dense_compact", False):
+            shard = self._recovery.shard(wid)
+            rows = shard.size
+            sparse = hasattr(shard, "cols")
+            if sparse or getattr(self, "_dense_compact", False):
                 rows = sparse_step_capacity(self.cfg.batch_rate, rows)
-            cached = _fl.dense_task_flops(rows, self.ds.d)
+            cached = (
+                _fl.sparse_task_flops(rows, shard.cols.shape[1]) if sparse
+                else _fl.dense_task_flops(rows, self.ds.d)
+            )
             cache[wid] = cached
         return cached
 
@@ -216,13 +225,13 @@ class ShardedSolverMixin(FlopsAccountingMixin):
 
     def _evaluate_trajectory(self, snapshots) -> List[Tuple[float, float]]:
         """One-pass objective evaluation for all snapshots (optVars parity):
-        snapshots stacked into (S, d); per shard one product gives (S,)
+        snapshots stacked into (S, d); per shard one pass gives (S,)
         losses, summed on the host in f64."""
         W = torch.stack([h for (_t, h) in snapshots])
         totals = np.zeros(len(snapshots), np.float64)
         for wid in range(self.cfg.num_workers):
             shard = self._recovery.shard(wid)  # follows re-homed shards
-            part = self._eval(shard.X, shard.y, W.to(shard.device))
+            part = self._eval(*shard_tensors(shard), W.to(shard.device))
             totals += part.cpu().numpy().astype(np.float64)
         totals /= self.ds.n
         return [(t, float(l)) for (t, _), l in zip(snapshots, totals)]

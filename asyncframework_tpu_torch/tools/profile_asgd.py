@@ -1,10 +1,13 @@
 """Where the time goes on the port's main path, on one GPU.
 
-    python3 -m asyncframework_tpu_torch.tools.profile_asgd [--updates N]
+    python3 -m asyncframework_tpu_torch.tools.profile_asgd \
+        [--config epsilon|rcv1] [--updates N]
 
 Generates the epsilon deployment on the card (400,000 x 2,000 f32, 8
-workers, b = 0.1), runs ``ASGD.run()`` once without the profiler and once
-under ``torch.profiler``, and prints one JSON line: updates/s of both runs,
+workers, b = 0.1; 1,000 updates) or the rcv1 one (``tools/rcv1.py``:
+697,641 x 47,236 padded ELL, b = 0.05; 1,200 updates, bench.py's recipe),
+runs ``ASGD.run()`` once without the profiler and once under
+``torch.profiler``, and prints one JSON line: updates/s of both runs,
 the device-busy share of the profiled ``run()`` call (summed kernel time
 over its wall time, warm-up and trajectory evaluation included -- one
 stream, so kernels do not overlap), device kernel launches and worker
@@ -23,11 +26,13 @@ import torch
 
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
 from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
+from asyncframework_tpu_torch.tools import rcv1
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--updates", type=int, default=1000)
+    ap.add_argument("--config", choices=("epsilon", "rcv1"), default="epsilon")
+    ap.add_argument("--updates", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_asgd: no CUDA device")
@@ -37,10 +42,17 @@ def main() -> None:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    ds = ShardedDataset.generate_on_device(400_000, 2_000, 8, [dev], seed=7)
-    cfg = SolverConfig(num_workers=8, num_iterations=args.updates, gamma=100.0,
-                       batch_rate=0.1, bucket_ratio=0.7, printer_freq=25,
-                       seed=42)
+    if args.config == "rcv1":
+        updates = args.updates or rcv1.ASGD_UPDATES
+        ds = rcv1.dataset(dev)
+        cfg = rcv1.config(updates, rcv1.ASGD_GAMMA)
+    else:
+        updates = args.updates or 1000
+        ds = ShardedDataset.generate_on_device(400_000, 2_000, 8, [dev],
+                                               seed=7)
+        cfg = SolverConfig(num_workers=8, num_iterations=updates,
+                           gamma=100.0, batch_rate=0.1, bucket_ratio=0.7,
+                           printer_freq=25, seed=42)
     plain = ASGD(ds, None, cfg, devices=[dev]).run()
     solver = ASGD(ds, None, cfg, devices=[dev])
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -63,7 +75,8 @@ def main() -> None:
     tasks = sum(m.succeeded for m in solver.scheduler.pool.all_metrics())
     print(json.dumps({
         "card": card,
-        "updates": args.updates,
+        "config": args.config,
+        "updates": updates,
         "updates_per_sec": plain.updates_per_sec,
         "updates_per_sec_profiled": res.updates_per_sec,
         "wall_s_profiled": wall_s,

@@ -56,13 +56,22 @@ def _plan(total: int, budget: int, headroom: float) -> ShardPlan:
     )
 
 
+def shard_tensors(shard):
+    """The tensors a shard holds: ``(cols, vals, y)`` for a padded-ELL
+    sparse shard, ``(X, y)`` for a dense one."""
+    if hasattr(shard, "cols"):
+        return shard.cols, shard.vals, shard.y
+    return shard.X, shard.y
+
+
 def dataset_residency_bytes(ds) -> Dict[torch.device, int]:
-    """Actual per-device bytes of an already-placed sharded dataset."""
+    """Actual per-device bytes of an already-placed sharded dataset (dense
+    or sparse)."""
     per_dev: Dict[torch.device, int] = {}
     for wid in range(ds.num_workers):
         s = ds.shard(wid)
         per_dev[s.device] = per_dev.get(s.device, 0) + sum(
-            t.numel() * t.element_size() for t in (s.X, s.y)
+            t.numel() * t.element_size() for t in shard_tensors(s)
         )
     return per_dev
 
@@ -79,8 +88,8 @@ def plan_for_run(
 ) -> ShardPlan:
     """Placement plan for one training run.
 
-    ``ds_or_shape`` is either a *placed* dataset (actual residency measured
-    from its shards) or an ``(n, d)`` tuple for f32 host data not yet placed
+    ``ds_or_shape`` is either a *placed* dataset, dense or sparse (actual
+    residency measured from its shards) or an ``(n, d)`` tuple for f32 host data not yet placed
     (planned from shapes: workers sharing a device stack their shards).
     ``model_versions`` live copies of ``w`` are added, and with
     ``history_table`` ASAGA's history slices (one f32 per sample, stacked

@@ -20,7 +20,13 @@ exits non-zero without a result line):
    a Ulysses block (g),
    small f32 shapes (h) and the tensor-core route's bf16 edges (i), each
    with the route it took, its bound at the bf16 tensor-core rate (bf16)
-   or the f32 FMA rate (f32), and SDPA in f32 and bf16 beside it;
+   or the f32 FMA rate (f32), and SDPA in f32 and bf16 beside it; and
+   sparse_grad's two entry points (kernel S1: ell_residual, segment_sum)
+   at rcv1's compacted task (4,752 slots of an 87,205 x 80 shard, d =
+   47,236), its full shard, and the edges (no valid slot, d = 1, every
+   update in one column, K = 8), each bit-equal to its plain version and
+   across launches, beside the sort it takes its order from and the
+   atomics route (index_add_) or a gather-and-sum as the yardstick;
 3. main path -- ASGD ``run()`` and ``run_sync()`` on the full-size epsilon
    deployment (400,000 x 2,000 f32, 8 workers, b = 0.1) generated on the
    card, with every kernel's launch count set to 0 just before and read
@@ -37,7 +43,14 @@ exits non-zero without a result line):
    deployment through the masked_grad kernel's history forms: the
    objective halves, ``alpha_bar`` is the history table's mean, and the
    launch counts (every task and commit on masked_grad's staged route);
-6. the ``{"kernels": [...]}`` line, the card line again, and last the
+6. sparse -- the rcv1 deployment (``tools/rcv1.py``: 697,641 x 47,236
+   padded ELL, K = 80, generated on the card, 8 workers): its bytes, pad
+   width and skew, then ASGD ``run()`` (bench.py's recipe, 1,200 updates)
+   and ``run_sync()``, ASAGA ``run()`` and ``run_sync()``, each held to
+   the JAX package's gate and run through kernel S1 (its launches set to 0
+   just before each run and read just after; 0 calls of its plain
+   versions);
+7. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It needs the package beside it and one CUDA device, and builds the kernels
@@ -84,7 +97,8 @@ def card_line() -> str:
 # the kernels' names in csrc/, longest first (one may contain another)
 KERNEL_FUNCTIONS = ("masked_grad_staged", "masked_grad_partial",
                     "reduce_partials", "chunk_attn_tc_kernel",
-                    "chunk_attn_kernel")
+                    "chunk_attn_kernel", "ell_residual_kernel",
+                    "segment_bounds_kernel", "segment_sum_kernel")
 
 
 def ptxas_lines(report: str):
@@ -598,6 +612,168 @@ def long_context_phase(torch, ca, card, recs):
     return launches, paths
 
 
+# kernel S1 (ops/sparse_grad.py) at the rcv1 shapes: (name, shard rows, K,
+# live entries a row, d, Bernoulli rate or None for the full shard,
+# compacted slots, every update in one column)
+S1_CASES = [
+    ("s_rcv1_task", 87_205, 80, 75, 47_236, 0.05, 4_752, False),
+    ("s_rcv1_shard", 87_205, 80, 75, 47_236, None, None, False),
+    ("s_no_valid", 87_205, 80, 75, 47_236, 0.0, 4_752, False),
+    ("s_d1", 87_205, 80, 75, 1, 0.05, 4_752, False),
+    ("s_one_column", 87_205, 80, 75, 47_236, 0.05, 4_752, True),
+    ("s_k8", 87_205, 8, 8, 47_236, 0.05, 4_752, False),
+]
+# the segment sum against its plain version on the card, whose index_add_
+# adds with atomics in another order: f32 sums of a few to 4e5 products
+S1_ATOMICS_TOL = 1e-5
+
+
+def s1_case(name, rows, K, nnz, d, rate, cap, one_column, torch, sg, flush,
+            gen):
+    """Kernel S1's two entry points at one shape, against their plain
+    versions: the residual (with the sort keys) bit-equal to its plain
+    version, which takes the kernel's order; the segment sum bit-equal to
+    its plain version on CPU copies (index_add_ there adds in sorted order,
+    as the kernel does) and within S1_ATOMICS_TOL of it on the card."""
+    from asyncframework_tpu_torch.ops.steps import compact_mask
+
+    dev = torch.device("cuda", 0)
+    cols = torch.randint(0, d, (rows, K), device=dev, generator=gen,
+                         dtype=torch.int32)
+    if one_column:
+        cols.fill_(d // 2)
+    vals = torch.randn(rows, K, device=dev, generator=gen) / math.sqrt(nnz)
+    cols[:, nnz:] = 0
+    vals[:, nnz:] = 0.0
+    y = torch.randn(rows, device=dev, generator=gen)
+    w = torch.randn(d, device=dev, generator=gen)
+    if rate is None:
+        valid = idx = None
+        m, rows_read = rows, rows
+    else:
+        sel = torch.rand(rows, device=dev, generator=gen) < rate
+        valid, idx = compact_mask(sel, cap)
+        m, rows_read = cap, int(torch.unique(idx).numel())
+    cols_l = cols.long()
+
+    def residual():
+        return sg.ell_residual(cols, vals, y, w, idx, valid, with_keys=True)
+
+    def residual_plain():
+        return sg.ell_residual_plain(cols, vals, y, w, idx, valid, True)
+
+    def residual_library():
+        if idx is None:
+            return (vals * w[cols_l]).sum(1) - y
+        return (vals[idx] * w[cols_l[idx]]).sum(1) - y[idx]
+
+    (r, keys), (r2, keys2) = residual(), residual()
+    r_ref, keys_ref = residual_plain()
+    skeys, perm = sg.sort_keys(keys)
+    live = int((skeys < d).sum())
+    counts = torch.unique_consecutive(skeys[skeys < d], return_counts=True)[1]
+    largest = int(counts.max()) if live else 0
+
+    def seg():
+        return sg.segment_sum(skeys, perm, vals, r, d, idx, valid)
+
+    def seg_plain():
+        return sg.segment_sum_plain(skeys, perm, vals, r, d, idx, valid)
+
+    flat_cols = (cols_l if idx is None else cols_l[idx]).reshape(-1)
+    rows_sel = vals if idx is None else vals[idx] * valid[:, None]
+    contrib = (rows_sel * r[:, None]).reshape(-1)
+
+    def seg_library():
+        return torch.zeros(d, device=dev).index_add_(0, flat_cols, contrib)
+
+    g, g2 = seg(), seg()
+    g_card = seg_plain()
+    cpu = [None if t is None else t.cpu() for t in (skeys, perm, vals, r, idx,
+                                                    valid)]
+    g_cpu = sg.segment_sum_plain(*cpu[:4], d, *cpu[4:])
+    torch.cuda.synchronize()
+    scale = float(g_card.abs().max()) if d else 0.0
+    seg_err = float((g - g_card).abs().max()) if d else 0.0
+    res_rec = {
+        "phase": "kernel", "kernel": "sparse_grad.ell_residual", "case": name,
+        "rows": rows, "K": K, "nnz_per_row": nnz, "d": d,
+        "slots": m, "rows_read": rows_read, "with_keys": True,
+        "bit_equal_plain": bool(torch.equal(r, r_ref)
+                                and torch.equal(keys, keys_ref)),
+        "bit_equal": bool(torch.equal(r, r2) and torch.equal(keys, keys2)),
+        "max_abs_err": float((r - r_ref).abs().max()) if m else 0.0,
+        "tol": "bit-equal to the plain version (same order of additions)",
+        "ms": median_ms(residual, torch, flush),
+        "plain_ms": median_ms(residual_plain, torch, flush),
+        "library_ms": median_ms(residual_library, torch, flush),
+        "library": "(vals[idx] * w[cols[idx]]).sum(1) - y[idx]",
+    }
+    # rows of cols and vals once, y once, the slots, w once; r and keys out
+    res_bytes = (rows_read * (K * 8 + 4) + (m * 12 if idx is not None else 0)
+                 + d * 4 + m * 4 + m * K * 4)
+    seg_rec = {
+        "phase": "kernel", "kernel": "sparse_grad.segment_sum", "case": name,
+        "rows": rows, "K": K, "d": d, "slots": m, "entries": m * K,
+        "live_entries": live, "largest_segment": largest,
+        "bit_equal_plain_cpu": bool(torch.equal(g.cpu(), g_cpu)),
+        "bit_equal": bool(torch.equal(g, g2)),
+        "max_abs_err": seg_err, "max_rel_err": seg_err / scale if scale else 0.0,
+        "tol": f"bit-equal to the plain version on the CPU; "
+               f"{S1_ATOMICS_TOL} * max|g| against it on the card (atomics)",
+        "ms": median_ms(seg, torch, flush),
+        "plain_ms": median_ms(seg_plain, torch, flush),
+        "library_ms": median_ms(seg_library, torch, flush),
+        "library": "index_add_ of the precomputed products (atomics)",
+        "sort_ms": median_ms(lambda: sg.sort_keys(keys), torch, flush),
+    }
+    # every key (the bounds pass reads them all), the live entries' perm
+    # and values, the slots' idx / valid / coeff, g out
+    seg_bytes = (m * K * 4 + live * 12 + m * (16 if idx is not None else 4)
+                 + d * 4)
+    for rec, nbytes, flop in ((res_rec, res_bytes, 2.0 * m * K),
+                              (seg_rec, seg_bytes, 2.0 * live)):
+        byte_s, flop_s = nbytes / HBM_BYTES_PER_S, flop / F32_FLOPS
+        rec["bound_ms"] = max(byte_s, flop_s) * 1e3
+        rec["bound_by"] = "bytes" if byte_s >= flop_s else "operations"
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+    ok = (res_rec["bit_equal_plain"] and res_rec["bit_equal"]
+          and seg_rec["bit_equal_plain_cpu"] and seg_rec["bit_equal"]
+          and seg_err <= S1_ATOMICS_TOL * max(scale, 1e-30)
+          and bool(torch.isfinite(g).all()))
+    if rate == 0.0:
+        ok = ok and not r.any() and not g.any()
+    if not ok:
+        raise RuntimeError(f"sparse_grad disagrees with its plain version: "
+                           f"{res_rec} {seg_rec}")
+    return res_rec, seg_rec
+
+
+def sparse_phase(torch, card):
+    """The rcv1 deployment through kernel S1 (``tools/rcv1.py``)."""
+    from asyncframework_tpu_torch.tools import rcv1
+
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    ds = rcv1.dataset(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "sparse_data", "card": card,
+          "generate_s": time.monotonic() - t0, **rcv1.describe(ds)})
+    launches = {"ell_residual": 0, "segment_sum": 0}
+    records = rcv1.phase(ds, dev)
+    for rec in records:
+        emit({"phase": "sparse", "card": card, **rec})
+        for key in launches:
+            launches[key] += rec["launches"][key]
+    del ds
+    torch.cuda.empty_cache()
+    failed = [f"{r['solver']}.{r['mode']}" for r in records if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"sparse phase gates failed: {failed}")
+    return launches
+
+
 # ASAGA step size: 0.5, the largest of {0.5, 0.2, 0.1, 0.05, 0.02} for which
 # the JAX package's ASAGA.run_sync halves the objective, over the 1,500
 # rounds run here, on a 16,000 x 2,000 draw of the same generator on the CPU
@@ -696,6 +872,7 @@ def main() -> int:
     from asyncframework_tpu_torch.ops import _build
     from asyncframework_tpu_torch.ops import chunk_attention as ca
     from asyncframework_tpu_torch.ops import masked_grad as mg
+    from asyncframework_tpu_torch.ops import sparse_grad as sg
     from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 
     t_start = time.monotonic()
@@ -763,6 +940,9 @@ def main() -> int:
     ]
     for name, *shape in att_cases:
         recs[name] = attention_case(name, *shape, torch, ca, flush, gen)
+    for name, *shape in S1_CASES:
+        recs[name] = s1_case(name, *shape, torch, sg, flush, gen)
+        torch.cuda.empty_cache()
     del flush
 
     # ------------------------------------------------------- 3. main path
@@ -836,7 +1016,10 @@ def main() -> int:
     del ds
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------- 6. results
+    # ----------------------------------------------------------- 6. sparse
+    s1_launches = sparse_phase(torch, card)
+
+    # ------------------------------------------------------- 7. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -853,6 +1036,7 @@ def main() -> int:
 
     b1 = "asyncframework_tpu/ops/pallas_kernels.py:58"
     f_rec = recs["f_ring_block_causal"]  # the ring's diagonal block
+    s_res, s_seg = recs["s_rcv1_task"]
     emit({"kernels": [
         # the main paths' shapes: ASGD's compacted epsilon shard (b = 0.1),
         # ASAGA's full epsilon shard, the ring block of the long-context path
@@ -867,6 +1051,13 @@ def main() -> int:
         entry("chunk_attention", "chunk_attention.cu",
               "asyncframework_tpu/ops/pallas_kernels.py:155", att_launches,
               f_rec, f_rec["bound_ms"]),
+        # rcv1's compacted task: no Pallas kernel on this path (XLA)
+        entry("sparse_grad.ell_residual", "sparse_grad.cu",
+              "asyncframework_tpu/ops/gradients.py:131 (XLA, no pallas_call)",
+              s1_launches["ell_residual"], s_res, s_res["bound_ms"]),
+        entry("sparse_grad.segment_sum", "sparse_grad.cu",
+              "asyncframework_tpu/ops/gradients.py:138 (XLA, no pallas_call)",
+              s1_launches["segment_sum"], s_seg, s_seg["bound_ms"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -354,6 +354,10 @@ def test_unported_features_raise(option, regression):
 
 
 def test_run_fused_and_sparse_data_are_not_ported_yet(regression):
+    """``run_fused`` is not ported; a scipy sparse matrix is not taken as
+    it is (sparse data goes in as a ``SparseShardedDataset`` built from its
+    CSR arrays, ``tests/test_torch_sparse.py``), and the refusal names
+    ROADMAP A4."""
     import scipy.sparse as sp
 
     X, y = regression

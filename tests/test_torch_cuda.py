@@ -18,6 +18,7 @@ from asyncframework_tpu_torch.ops.chunk_attention import (
     chunk_attention_reference,
 )
 from asyncframework_tpu_torch.ops import masked_grad as mg
+from asyncframework_tpu_torch.ops import sparse_grad as sg
 from asyncframework_tpu_torch.ops.masked_grad import (
     masked_grad,
     masked_grad_reference,
@@ -446,3 +447,111 @@ def test_asaga_run_sync_on_the_card_matches_the_cpu(dev):
     w_cpu = ASAGA(X, y, cfg, devices=[torch.device("cpu")]).run_sync().final_w
     np.testing.assert_allclose(w_gpu, w_cpu, rtol=1e-4,
                                atol=1e-4 * float(np.abs(w_cpu).max()))
+
+
+# ------------------------------------------------------------ sparse_grad
+def _ell(m, K, d, dev, rate=0.5, cap=None, one_column=False, seed=0):
+    """A padded-ELL shard of ``m`` rows, a quarter of each row padding, and
+    a compacted sample of ``cap`` slots."""
+    rs = np.random.default_rng(seed)
+    cols = rs.integers(0, d, size=(m, K)).astype(np.int32)
+    if one_column:
+        cols[:] = d // 2
+    vals = rs.normal(size=(m, K)).astype(np.float32)
+    live = K - K // 4
+    cols[:, live:], vals[:, live:] = 0, 0.0
+    y = rs.normal(size=m).astype(np.float32)
+    w = rs.normal(size=d).astype(np.float32)
+    sel = torch.tensor(rs.random(m) < rate, device=dev)
+    valid, idx = compact_mask(sel, cap if cap is not None else max(8, m // 2))
+    t = [torch.tensor(a, device=dev) for a in (cols, vals, y, w)]
+    return (*t, valid, idx)
+
+
+# (rows, K, d, rate, one_column): rcv1's pad width, the edges chip_smoke.py
+# times (no valid slot, d = 1, every update in one column, K = 8)
+SPARSE_CASES = [(2_000, 80, 47_236, 0.1, False), (300, 80, 5_000, 0.0, False),
+                (500, 16, 1, 0.5, False), (400, 80, 1_000, 0.5, True),
+                (999, 8, 300, 0.3, False), (64, 200, 77, 1.0, False)]
+
+
+@pytest.mark.parametrize("m,K,d,rate,one_column", SPARSE_CASES)
+def test_sparse_grad_matches_plain_versions(dev, m, K, d, rate, one_column):
+    """Both entry points bit-equal to their plain versions (the residual's
+    plain version takes the kernel's lane order; the segment sum's, on the
+    CPU, adds in sorted order as the kernel does) and across launches; the
+    segment sum within 1e-5 of the plain version on the card, whose
+    index_add_ sums with atomics in another order."""
+    cols, vals, y, w, valid, idx = _ell(m, K, d, dev, rate,
+                                        one_column=one_column)
+    for i, v in ((idx, valid), (None, None)):
+        r, keys = sg.ell_residual(cols, vals, y, w, i, v, with_keys=True)
+        r_ref, keys_ref = sg.ell_residual_plain(cols, vals, y, w, i, v, True)
+        assert torch.equal(r, r_ref) and torch.equal(keys, keys_ref)
+        r2, keys2 = sg.ell_residual(cols, vals, y, w, i, v, with_keys=True)
+        assert torch.equal(r, r2) and torch.equal(keys, keys2)
+        skeys, perm = sg.sort_keys(keys)
+        g = sg.segment_sum(skeys, perm, vals, r, d, i, v)
+        assert torch.equal(g, sg.segment_sum(skeys, perm, vals, r, d, i, v))
+        cpu = [None if t is None else t.cpu()
+               for t in (skeys, perm, vals, r, i, v)]
+        g_cpu = sg.segment_sum_plain(*cpu[:4], d, *cpu[4:])
+        assert torch.equal(g.cpu(), g_cpu)
+        _close(g, sg.segment_sum_plain(skeys, perm, vals, r, d, i, v), 1e-5)
+        if rate == 0.0 and i is not None:  # no valid slot
+            assert not r.any() and not g.any()
+
+
+def test_sparse_grad_steps_on_the_card_match_the_cpu(dev):
+    """The sparse ASGD and SAGA steps, the commit and the table delta on
+    the card equal the same calls on CPU copies bit for bit."""
+    from asyncframework_tpu_torch.ops import steps as st
+
+    cols, vals, y, w, valid, idx = _ell(3_000, 80, 4_000, dev, 0.2, cap=800)
+    alpha = torch.randn(3_000, device=dev)
+    on_cpu = [t.cpu() for t in (cols, vals, y, w, alpha, valid, idx)]
+    g = st.make_sparse_asgd_worker_step(0.2, 4_000).grad(
+        cols, vals, y, w, valid, idx)
+    g_cpu = st.make_sparse_asgd_worker_step(0.2, 4_000).grad(
+        *on_cpu[:4], *on_cpu[5:])
+    assert torch.equal(g.cpu(), g_cpu)
+    saga = st.make_sparse_saga_worker_step(0.2, 4_000)
+    out = saga.grad(cols, vals, y, w, alpha, valid, idx)
+    out_cpu = saga.grad(*on_cpu)
+    for a, b in zip(out, out_cpu):
+        assert torch.equal(a.cpu(), b)
+    _, diff, i, v, c_sel, v_sel = out
+    delta = st.make_sparse_table_delta(4_000)(c_sel, v_sel, diff, alpha, i)
+    delta_cpu = st.make_sparse_table_delta(4_000)(*out_cpu[4:], out_cpu[1],
+                                                  on_cpu[4], out_cpu[2])
+    assert torch.equal(delta.cpu(), delta_cpu)
+    commit = st.make_sparse_saga_commit()
+    assert torch.equal(commit(alpha, diff, i, v).cpu(),
+                       commit(on_cpu[4], *out_cpu[1:4]))
+
+
+def test_sparse_grad_counts_launches(dev):
+    cols, vals, y, w, valid, idx = _ell(64, 16, 40, dev)
+    before = (sg.ell_residual.launches, sg.segment_sum.launches,
+              sg.ell_residual_plain.calls, sg.segment_sum_plain.calls)
+    r, keys = sg.ell_residual(cols, vals, y, w, idx, valid, with_keys=True)
+    sg.segment_sum(*sg.sort_keys(keys), vals, r, 40, idx, valid)
+    after = (sg.ell_residual.launches, sg.segment_sum.launches,
+             sg.ell_residual_plain.calls, sg.segment_sum_plain.calls)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
+
+
+def test_sparse_asgd_run_sync_on_the_card_matches_the_cpu(dev):
+    from asyncframework_tpu_torch.data import (SparseShardedDataset,
+                                               make_sparse_regression)
+    from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
+
+    csr = make_sparse_regression(2_048, 3_000, 0.01, seed=4)
+    cfg = SolverConfig(num_workers=4, num_iterations=20, gamma=0.5,
+                       batch_rate=1.0, printer_freq=5)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        ds = SparseShardedDataset(*csr, 3_000, 4, [device])
+        runs.append(ASGD(ds, None, cfg, devices=[device]).run_sync().final_w)
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5,
+                               atol=1e-5 * float(np.abs(runs[1]).max()))

@@ -148,26 +148,34 @@ def test_long_context_and_asaga_entry_points_refuse_the_cpu():
     assert make_mesh(2, devices=[torch.device("cpu")] * 2).shape == {"sp": 2}
 
 
-@pytest.mark.parametrize("kernel", ["chunk_attention", "saga_grad", "xt_coeff"])
+@pytest.mark.parametrize("kernel", ["chunk_attention", "saga_grad", "xt_coeff",
+                                    "ell_residual", "segment_sum"])
 def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
         kernel, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the kernel would launch")
     from asyncframework_tpu_torch.ops import chunk_attention as ca
     from asyncframework_tpu_torch.ops import masked_grad as mg
+    from asyncframework_tpu_torch.ops import sparse_grad as sg
 
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
     for mod, name in ((ca, "chunk_attention_reference"),
                       (mg, "saga_grad_reference"),
-                      (mg, "xt_coeff_reference")):
+                      (mg, "xt_coeff_reference"),
+                      (sg, "ell_residual_plain"),
+                      (sg, "segment_sum_plain")):
         monkeypatch.setattr(mod, name, plain)
 
     def fake(t):
         return torch.Tensor._make_subclass(_CudaTyped, t)
 
-    before = (ca.chunk_attention.launches, mg.masked_grad.launches)
+    def counts():
+        return (ca.chunk_attention.launches, mg.masked_grad.launches,
+                sg.ell_residual.launches, sg.segment_sum.launches)
+
+    before = counts()
     with pytest.raises(RuntimeError, match="CUDA"):
         if kernel == "chunk_attention":
             q = fake(torch.ones(1, 8, 2, 4))
@@ -175,6 +183,41 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
         elif kernel == "saga_grad":
             X, v6, v3 = fake(torch.ones(6, 3)), fake(torch.ones(6)), fake(torch.ones(3))
             mg.saga_grad(X, v6, v3, v6, v6)
-        else:
+        elif kernel == "xt_coeff":
             mg.xt_coeff(fake(torch.ones(6, 3)), fake(torch.ones(6)))
-    assert (ca.chunk_attention.launches, mg.masked_grad.launches) == before
+        elif kernel == "ell_residual":
+            cols = fake(torch.zeros(6, 8, dtype=torch.int32))
+            vals, y = fake(torch.ones(6, 8)), fake(torch.ones(6))
+            sg.ell_residual(cols, vals, y, fake(torch.ones(3)))
+        else:
+            keys = fake(torch.zeros(48, dtype=torch.int32))
+            perm = fake(torch.arange(48))
+            sg.segment_sum(keys, perm, fake(torch.ones(6, 8)),
+                           fake(torch.ones(6)), 3)
+    assert counts() == before
+
+
+def test_sparse_entry_points_refuse_the_cpu():
+    """The sparse dataset and the solvers on it default to CUDA and raise
+    without a card; asked for the CPU, they run the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is the GPU")
+    import numpy as np
+
+    from asyncframework_tpu_torch.data import (SparseShardedDataset,
+                                               make_sparse_regression)
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+
+    csr = make_sparse_regression(16, 8, 0.25, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparseShardedDataset(*csr, 8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparseShardedDataset.generate_on_device(16, 8, 2, 2)
+    ds = SparseShardedDataset(*csr, 8, 2, devices=[torch.device("cpu")])
+    assert ds.shard(1).device == torch.device("cpu")
+    for solver in (ASGD, ASAGA):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solver(ds, None, SolverConfig(num_workers=2))
+    assert np.isfinite(ASGD(ds, None, SolverConfig(
+        num_workers=2, num_iterations=2, printer_freq=1),
+        devices=[torch.device("cpu")]).run_sync().final_w).all()
