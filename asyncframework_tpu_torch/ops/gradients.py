@@ -23,11 +23,7 @@ from __future__ import annotations
 import torch
 
 from asyncframework_tpu_torch.ops.masked_grad import masked_grad, saga_grad
-from asyncframework_tpu_torch.ops.sparse_grad import (
-    ell_residual,
-    segment_sum,
-    sort_keys,
-)
+from asyncframework_tpu_torch.ops.sparse_grad import ell_residual, grad_sum
 
 #: rows widened to f32 at a time when a bf16 matrix meets a vector
 _MM_CHUNK_ROWS = 1 << 16
@@ -119,13 +115,12 @@ def sparse_residual(cols, vals, y, w):
 
 def make_sparse_grad_sum(d: int):
     """``grad_sum(cols, vals, coeff) -> g (d,)``: ``g = sum_i coeff_i x_i``
-    (the sparse ``X^T coeff``) as a segment sum over the entries sorted by
-    column (a stable sort), added in that order -- the reference's sorted
-    scatter-add, and the same bits on every launch."""
+    (the sparse ``X^T coeff``) as kernel S1's segment sum over the entries
+    sorted by column (a stable sort inside the one launch), added in that
+    order -- the reference's sorted scatter-add for every column of at most
+    ``sparse_grad.CHUNK`` entries, and the same bits on every launch."""
 
-    def grad_sum(cols, vals, coeff):
-        keys = torch.where(vals != 0, cols, torch.full_like(cols, d))
-        skeys, perm = sort_keys(keys.reshape(-1))
-        return segment_sum(skeys, perm, vals, coeff, d)
+    def sparse_grad_sum(cols, vals, coeff):
+        return grad_sum(cols, vals, coeff, d)
 
-    return grad_sum
+    return sparse_grad_sum

@@ -50,11 +50,7 @@ from asyncframework_tpu_torch.ops.gradients import (
 )
 from asyncframework_tpu_torch.ops.masked_grad import xt_coeff
 from asyncframework_tpu_torch.ops.sampling import bernoulli_mask
-from asyncframework_tpu_torch.ops.sparse_grad import (
-    ell_residual,
-    segment_sum,
-    sort_keys,
-)
+from asyncframework_tpu_torch.ops.sparse_grad import compacted_grad, ell_residual
 
 
 def sparse_step_capacity(batch_rate: float, n_rows: int) -> int:
@@ -266,16 +262,6 @@ def _sparse_sample(batch_rate: float):
     return sample
 
 
-def _compacted_sum(cols, vals, y, w, valid, idx, d, coeff_of):
-    """The sampled rows' residual ``r`` (read through ``idx``, unfilled
-    slots 0) and ``g = sum_j coeff_of(r)_j * x_{idx_j}``: kernel S1's
-    residual, which writes the sort keys, the stable sort, S1's segment
-    sum.  Returns ``(g, r)``."""
-    r, keys = ell_residual(cols, vals, y, w, idx, valid, with_keys=True)
-    skeys, perm = sort_keys(keys)
-    return segment_sum(skeys, perm, vals, coeff_of(r), d, idx, valid), r
-
-
 def make_sparse_asgd_worker_step(batch_rate: float, d: int):
     """``step(cols, vals, y, w, gen) -> g (d,)``: the sparse worker step
     (``steps.py:543-570``) -- a Bernoulli(b) sample compacted to a fixed
@@ -287,8 +273,7 @@ def make_sparse_asgd_worker_step(batch_rate: float, d: int):
     sample = _sparse_sample(batch_rate)
 
     def grad(cols, vals, y, w, valid, idx):
-        return _compacted_sum(cols, vals, y, w, valid, idx, d,
-                              lambda r: r)[0]
+        return compacted_grad(cols, vals, y, w, idx, valid, d)[0]
 
     def step(cols, vals, y, w, gen):
         return grad(cols, vals, y, w, *sample(gen, y.shape[0]))
@@ -310,8 +295,7 @@ def make_sparse_saga_worker_step(batch_rate: float, d: int):
     sample = _sparse_sample(batch_rate)
 
     def grad(cols, vals, y, w, alpha, valid, idx):
-        g, diff = _compacted_sum(cols, vals, y, w, valid, idx, d,
-                                 lambda r: r - alpha[idx])
+        g, diff = compacted_grad(cols, vals, y, w, idx, valid, d, alpha)
         return g, diff, idx, valid, cols[idx], vals[idx] * valid[:, None]
 
     def step(cols, vals, y, w, alpha, gen):

@@ -12,7 +12,10 @@ the device-busy share of the profiled ``run()`` call (summed kernel time
 over its wall time, warm-up and trajectory evaluation included -- one
 stream, so kernels do not overlap), device kernel launches and worker
 tasks per accepted update, and the kernels and host-side operators that
-took the most time.  Needs a CUDA device.
+took the most time.  With ``--config rcv1`` it also names kernel S1's
+launches (its wrappers' counts over the profiled run, and the fused
+kernel's launches per task in the trace) and the share of device time in
+sort and memset launches.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import time
 import torch
 
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
+from asyncframework_tpu_torch.ops import sparse_grad as sg
 from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 from asyncframework_tpu_torch.tools import rcv1
 
@@ -55,6 +59,8 @@ def main() -> None:
                            printer_freq=25, seed=42)
     plain = ASGD(ds, None, cfg, devices=[dev]).run()
     solver = ASGD(ds, None, cfg, devices=[dev])
+    s1 = (sg.compacted_grad, sg.grad_sum, sg.ell_residual, sg.segment_sum)
+    s1_before = [fn.launches for fn in s1]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -73,6 +79,24 @@ def main() -> None:
         key=lambda e: -e.self_cpu_time_total,
     )[:8]
     tasks = sum(m.succeeded for m in solver.scheduler.pool.all_metrics())
+    extra = {}
+    if args.config == "rcv1":
+        sort_memset = [e for e in kernels
+                       if any(w in e.name.lower()
+                              for w in ("sort", "radix", "memset"))]
+        fused = sum(1 for e in kernels if "sparse_task_kernel" in e.name)
+        extra = {
+            "s1_launches": {fn.__name__: fn.launches - b
+                            for fn, b in zip(s1, s1_before)},
+            "s1_fused_launches_per_task": fused / max(tasks, 1),
+            "sort_memset_launches": len(sort_memset),
+            "sort_memset_device_share": sum(
+                e.time_range.elapsed_us() for e in sort_memset)
+            / max(busy_us, 1e-9),
+            "sort_memset_names": sorted({e.name[:60] for e in sort_memset}),
+            "host_memset_calls": sum(e.count for e in prof.key_averages()
+                                     if "memset" in e.key.lower()),
+        }
     print(json.dumps({
         "card": card,
         "config": args.config,
@@ -93,6 +117,7 @@ def main() -> None:
             {"name": name[:80], "device_ms": t / 1e3, "count": c}
             for name, (t, c) in top
         ],
+        **extra,
     }))
 
 

@@ -36,7 +36,6 @@ import torch
 from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.ops import masked_grad as mg
 from asyncframework_tpu_torch.ops import sparse_grad as sg
-from asyncframework_tpu_torch.ops.gradients import make_sparse_grad_sum
 from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
 
 N, D, NNZ, WORKERS = 697_641, 47_236, 75, 8
@@ -83,29 +82,38 @@ def describe(ds: SparseShardedDataset) -> dict:
 
 
 def table_mean(ds: SparseShardedDataset, alpha) -> np.ndarray:
-    """``(1/N) sum_i x_i alpha_i`` over every shard, as one S1 segment sum
-    over the shards' rows taken together (f32 products, each column added
-    in row order)."""
+    """``(1/N) sum_i x_i alpha_i`` over every shard, as one launch of
+    kernel S1's coefficient form over the shards' rows taken together (f32
+    products, each column added in row order, in chunks of
+    ``sparse_grad.CHUNK`` where it is longer)."""
     dev = ds.shard(0).device
     cols = torch.cat([ds.shard(w).cols.to(dev) for w in range(ds.num_workers)])
     vals = torch.cat([ds.shard(w).vals.to(dev) for w in range(ds.num_workers)])
     a = torch.cat([torch.as_tensor(alpha[w], device=dev)
                    for w in range(ds.num_workers)])
-    g = make_sparse_grad_sum(ds.d)(cols, vals, a)
+    g = sg.grad_sum(cols, vals, a, ds.d)
     return g.cpu().numpy().astype(np.float64) / ds.n
 
 
 def _counts():
-    return {"ell_residual": sg.ell_residual.launches,
+    return {"compacted_grad": sg.compacted_grad.launches,
+            "grad_sum": sg.grad_sum.launches,
+            "ell_residual": sg.ell_residual.launches,
             "segment_sum": sg.segment_sum.launches,
+            "compacted_grad_plain": sg.compacted_grad_plain.calls,
+            "grad_sum_plain": sg.grad_sum_plain.calls,
             "ell_residual_plain": sg.ell_residual_plain.calls,
             "segment_sum_plain": sg.segment_sum_plain.calls,
             "masked_grad": mg.masked_grad.launches}
 
 
 def _zero_counts():
-    sg.ell_residual.launches = sg.segment_sum.launches = 0
-    sg.ell_residual_plain.calls = sg.segment_sum_plain.calls = 0
+    for fn in (sg.compacted_grad, sg.grad_sum, sg.ell_residual,
+               sg.segment_sum):
+        fn.launches = 0
+    for fn in (sg.compacted_grad_plain, sg.grad_sum_plain,
+               sg.ell_residual_plain, sg.segment_sum_plain):
+        fn.calls = 0
     mg.masked_grad.launches = 0
 
 
@@ -143,13 +151,19 @@ def _gates(rec, res, ds, solver_cls) -> dict:
     budget_met = (res.rounds if rec["mode"] == "run_sync"
                   else res.accepted) == rec["budget"]
     launches = rec["launches"]
-    # a task is one residual and one segment sum; ASAGA's accepted async
-    # results add one segment sum each (the table delta)
+    # a task is one fused S1 launch; ASAGA's accepted async results add
+    # one launch of its coefficient form each (the table delta); the
+    # evaluation runs the residual alone; no launch of the earlier chain's
+    # segment sum, no plain version
     commits = res.accepted if solver_cls is ASAGA and rec["mode"] == "run" else 0
     gates = {
         "budget": budget_met, "finite": rec["finite"],
-        "through_s1": launches["ell_residual"] >= rec["tasks_run"] > 0
-        and launches["segment_sum"] >= rec["tasks_run"] + commits
+        "through_s1": launches["compacted_grad"] >= rec["tasks_run"] > 0
+        and launches["grad_sum"] >= commits
+        and launches["ell_residual"] > 0
+        and launches["segment_sum"] == 0
+        and launches["compacted_grad_plain"] == 0
+        and launches["grad_sum_plain"] == 0
         and launches["ell_residual_plain"] == 0
         and launches["segment_sum_plain"] == 0
         and launches["masked_grad"] == 0,

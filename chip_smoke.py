@@ -21,12 +21,22 @@ exits non-zero without a result line):
    small f32 shapes (h) and the tensor-core route's bf16 edges (i), each
    with the route it took, its bound at the bf16 tensor-core rate (bf16)
    or the f32 FMA rate (f32), and SDPA in f32 and bf16 beside it; and
-   sparse_grad's two entry points (kernel S1: ell_residual, segment_sum)
-   at rcv1's compacted task (4,752 slots of an 87,205 x 80 shard, d =
-   47,236), its full shard, and the edges (no valid slot, d = 1, every
-   update in one column, K = 8), each bit-equal to its plain version and
-   across launches, beside the sort it takes its order from and the
-   atomics route (index_add_) or a gather-and-sum as the yardstick;
+   kernel S1 (sparse_grad's fused launch, ``compacted_grad``: residual,
+   stable radix sort and segment sums in one cooperative launch, on the
+   local or the global route, which it picks from the data and which each
+   shape must take; the global route also timed in turns where the local
+   one runs) at
+   rcv1's compacted task (4,752 slots of an 87,205 x 80 shard, d =
+   47,236), its full shard, the edges (no valid slot, d = 1, every update
+   in one column, K = 8) and a Zipf(1.0)-skewed task (its largest column
+   ~30,000 entries, summed in chunks of L = 4,096), each bit-equal to its
+   plain version on CPU copies and across launches, within 1e-5 of
+   index_add_ and of an f64 sum, timed in turns with the earlier
+   three-launch chain (ell_residual, torch.sort, segment_sum) and the
+   library chain (a gather-and-sum residual, then index_add_); the
+   coefficient form (``grad_sum``, ASAGA's table delta) and the residual
+   alone (the evaluation, full shard) beside it, and whether the fused
+   launch is captured by a CUDA graph;
 3. main path -- ASGD ``run()`` and ``run_sync()`` on the full-size epsilon
    deployment (400,000 x 2,000 f32, 8 workers, b = 0.1) generated on the
    card, with every kernel's launch count set to 0 just before and read
@@ -48,8 +58,9 @@ exits non-zero without a result line):
    width and skew, then ASGD ``run()`` (bench.py's recipe, 1,200 updates)
    and ``run_sync()``, ASAGA ``run()`` and ``run_sync()``, each held to
    the JAX package's gate and run through kernel S1 (its launches set to 0
-   just before each run and read just after; 0 calls of its plain
-   versions);
+   just before each run and read just after: one fused launch a task, one
+   coefficient-form launch an ASAGA table delta, no launch of the earlier
+   chain's segment sum, 0 calls of its plain versions);
 7. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -98,7 +109,8 @@ def card_line() -> str:
 KERNEL_FUNCTIONS = ("masked_grad_staged", "masked_grad_partial",
                     "reduce_partials", "chunk_attn_tc_kernel",
                     "chunk_attn_kernel", "ell_residual_kernel",
-                    "segment_bounds_kernel", "segment_sum_kernel")
+                    "segment_bounds_kernel", "segment_sum_kernel",
+                    "sparse_task_kernel")
 
 
 def ptxas_lines(report: str):
@@ -113,6 +125,8 @@ def ptxas_lines(report: str):
                             mangled)
             if "bfloat16" in mangled:
                 function += " bf16"
+            if function == "sparse_task_kernel":  # the Pos instance
+                function += " wide" if "IyE" in mangled else " narrow"
         elif "registers" in line or "spill" in line:
             yield function, line.strip()
 
@@ -614,34 +628,76 @@ def long_context_phase(torch, ca, card, recs):
 
 # kernel S1 (ops/sparse_grad.py) at the rcv1 shapes: (name, shard rows, K,
 # live entries a row, d, Bernoulli rate or None for the full shard,
-# compacted slots, every update in one column)
+# compacted slots, the columns' law: "uniform", "one" (every update in one
+# column) or "zipf" (Zipf(1.0) over column rank, ranks shuffled over the
+# column ids: a synthetic stand-in for real rcv1's skew))
 S1_CASES = [
-    ("s_rcv1_task", 87_205, 80, 75, 47_236, 0.05, 4_752, False),
-    ("s_rcv1_shard", 87_205, 80, 75, 47_236, None, None, False),
-    ("s_no_valid", 87_205, 80, 75, 47_236, 0.0, 4_752, False),
-    ("s_d1", 87_205, 80, 75, 1, 0.05, 4_752, False),
-    ("s_one_column", 87_205, 80, 75, 47_236, 0.05, 4_752, True),
-    ("s_k8", 87_205, 8, 8, 47_236, 0.05, 4_752, False),
+    ("s_rcv1_task", 87_205, 80, 75, 47_236, 0.05, 4_752, "uniform"),
+    ("s_rcv1_shard", 87_205, 80, 75, 47_236, None, None, "uniform"),
+    ("s_no_valid", 87_205, 80, 75, 47_236, 0.0, 4_752, "uniform"),
+    ("s_d1", 87_205, 80, 75, 1, 0.05, 4_752, "uniform"),
+    ("s_one_column", 87_205, 80, 75, 47_236, 0.05, 4_752, "one"),
+    ("s_k8", 87_205, 8, 8, 47_236, 0.05, 4_752, "uniform"),
+    ("s_rcv1_skewed", 87_205, 80, 75, 47_236, 0.05, 4_752, "zipf"),
 ]
-# the segment sum against its plain version on the card, whose index_add_
-# adds with atomics in another order: f32 sums of a few to 4e5 products
-S1_ATOMICS_TOL = 1e-5
+# the route kernel S1 must take at each shape (chosen on the card from the
+# data: local where every top-digit bucket holds at most 4,096 live
+# entries, else global)
+S1_ROUTES = {
+    "s_rcv1_task": "local", "s_rcv1_shard": "global", "s_no_valid": "local",
+    "s_d1": "global", "s_one_column": "global", "s_k8": "local",
+    "s_rcv1_skewed": "global",
+}
+# S1 against the same products summed in f64: f32 sums of a few to 4e5
+# products.  Neither index_add_ (atomics in a changing order) nor the
+# earlier chain (one serial chain a column) is a reference for a column
+# longer than L: at d = 1 (325,000 entries in one column) each strays
+# 1.0e-5 to 1.3e-5 of max|g| from the f64 sum, the chunked sum 2.4e-7.
+S1_TOL = 1e-5
 
 
-def s1_case(name, rows, K, nnz, d, rate, cap, one_column, torch, sg, flush,
-            gen):
-    """Kernel S1's two entry points at one shape, against their plain
-    versions: the residual (with the sort keys) bit-equal to its plain
-    version, which takes the kernel's order; the segment sum bit-equal to
-    its plain version on CPU copies (index_add_ there adds in sorted order,
-    as the kernel does) and within S1_ATOMICS_TOL of it on the card."""
+def s1_columns(rows, K, d, law, torch, gen):
+    dev = torch.device("cuda", 0)
+    if law == "one":
+        return torch.full((rows, K), d // 2, device=dev, dtype=torch.int32)
+    if law == "zipf":
+        rank = torch.arange(1, d + 1, device=dev, dtype=torch.float32)
+        draw = torch.multinomial(1.0 / rank, rows * K, replacement=True,
+                                 generator=gen)
+        ids = torch.randperm(d, device=dev, generator=gen)
+        return ids[draw].reshape(rows, K).to(torch.int32)
+    return torch.randint(0, d, (rows, K), device=dev, generator=gen,
+                         dtype=torch.int32)
+
+
+def s1_bound(nbytes, flop):
+    byte_s, flop_s = nbytes / HBM_BYTES_PER_S, flop / F32_FLOPS
+    return (max(byte_s, flop_s) * 1e3,
+            "bytes" if byte_s >= flop_s else "operations")
+
+
+def s1_route(fn, torch, sg):
+    """The route S1's launch in ``fn()`` took ("local" or "global")."""
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    stamps = torch.zeros(blocks, sg.STAMPS, dtype=torch.int64, device="cuda")
+    with sg.record_timeline(stamps):
+        fn()
+    return "local" if int(stamps[0, sg.ROUTE_STAMP]) else "global"
+
+
+def s1_case(name, rows, K, nnz, d, rate, cap, law, torch, sg, flush, gen):
+    """Kernel S1 at one shape.  The fused design (``compacted_grad``: one
+    launch, on the route it picks) bit-equal to its plain version on CPU
+    copies and across launches, timed in turns with the earlier chain
+    (``ell_residual`` with keys, ``torch.sort``, ``segment_sum``), the
+    library chain (a gather-and-sum residual, then ``index_add_``) and,
+    where it took the local route, itself pinned to the global route; the
+    earlier chain still bit-equal to its own plain version on CPU
+    copies."""
     from asyncframework_tpu_torch.ops.steps import compact_mask
 
     dev = torch.device("cuda", 0)
-    cols = torch.randint(0, d, (rows, K), device=dev, generator=gen,
-                         dtype=torch.int32)
-    if one_column:
-        cols.fill_(d // 2)
+    cols = s1_columns(rows, K, d, law, torch, gen)
     vals = torch.randn(rows, K, device=dev, generator=gen) / math.sqrt(nnz)
     cols[:, nnz:] = 0
     vals[:, nnz:] = 0.0
@@ -655,99 +711,218 @@ def s1_case(name, rows, K, nnz, d, rate, cap, one_column, torch, sg, flush,
         valid, idx = compact_mask(sel, cap)
         m, rows_read = cap, int(torch.unique(idx).numel())
     cols_l = cols.long()
+    flat_cols = (cols_l if idx is None else cols_l[idx]).reshape(-1)
+    rows_sel = vals if idx is None else vals[idx] * valid[:, None]
+    y_sel = y if idx is None else y[idx] * valid
 
-    def residual():
-        return sg.ell_residual(cols, vals, y, w, idx, valid, with_keys=True)
+    def fused():
+        return sg.compacted_grad(cols, vals, y, w, idx, valid, d)
 
-    def residual_plain():
-        return sg.ell_residual_plain(cols, vals, y, w, idx, valid, True)
+    def chain():
+        r, keys = sg.ell_residual(cols, vals, y, w, idx, valid, with_keys=True)
+        skeys, perm = sg.sort_keys(keys)
+        return sg.segment_sum(skeys, perm, vals, r, d, idx, valid), r
 
-    def residual_library():
-        if idx is None:
-            return (vals * w[cols_l]).sum(1) - y
-        return (vals[idx] * w[cols_l[idx]]).sum(1) - y[idx]
+    def library():
+        r = (rows_sel * w[flat_cols].reshape(m, K)).sum(1) - y_sel
+        contrib = (rows_sel * r[:, None]).reshape(-1)
+        return torch.zeros(d, device=dev).index_add_(0, flat_cols, contrib), r
 
-    (r, keys), (r2, keys2) = residual(), residual()
-    r_ref, keys_ref = residual_plain()
+    def plain():
+        return sg.compacted_grad_plain(cols, vals, y, w, idx, valid, d)
+
+    def fused_global():
+        with sg.pinned_plan(route="global"):
+            return fused()
+
+    before = sg.compacted_grad.launches
+    (g, r), (g2, r2) = fused(), fused()
+    launches = sg.compacted_grad.launches - before
+    (g_chain, r_chain), (g_chain2, _) = chain(), chain()
+    g_lib, _ = library()
+    cpu = [None if t is None else t.cpu() for t in (cols, vals, y, w, idx,
+                                                    valid)]
+    g_cpu, r_cpu = sg.compacted_grad_plain(*cpu, d)
+    r_keys, keys = sg.ell_residual(cols, vals, y, w, idx, valid, True)
     skeys, perm = sg.sort_keys(keys)
     live = int((skeys < d).sum())
     counts = torch.unique_consecutive(skeys[skeys < d], return_counts=True)[1]
     largest = int(counts.max()) if live else 0
-
-    def seg():
-        return sg.segment_sum(skeys, perm, vals, r, d, idx, valid)
-
-    def seg_plain():
-        return sg.segment_sum_plain(skeys, perm, vals, r, d, idx, valid)
-
-    flat_cols = (cols_l if idx is None else cols_l[idx]).reshape(-1)
-    rows_sel = vals if idx is None else vals[idx] * valid[:, None]
-    contrib = (rows_sel * r[:, None]).reshape(-1)
-
-    def seg_library():
-        return torch.zeros(d, device=dev).index_add_(0, flat_cols, contrib)
-
-    g, g2 = seg(), seg()
-    g_card = seg_plain()
-    cpu = [None if t is None else t.cpu() for t in (skeys, perm, vals, r, idx,
-                                                    valid)]
-    g_cpu = sg.segment_sum_plain(*cpu[:4], d, *cpu[4:])
+    chain_cpu = sg.segment_sum_plain(skeys.cpu(), perm.cpu(), cpu[1],
+                                     r_keys.cpu(), d, *cpu[4:])
     torch.cuda.synchronize()
-    scale = float(g_card.abs().max()) if d else 0.0
-    seg_err = float((g - g_card).abs().max()) if d else 0.0
-    res_rec = {
-        "phase": "kernel", "kernel": "sparse_grad.ell_residual", "case": name,
-        "rows": rows, "K": K, "nnz_per_row": nnz, "d": d,
-        "slots": m, "rows_read": rows_read, "with_keys": True,
-        "bit_equal_plain": bool(torch.equal(r, r_ref)
-                                and torch.equal(keys, keys_ref)),
-        "bit_equal": bool(torch.equal(r, r2) and torch.equal(keys, keys2)),
-        "max_abs_err": float((r - r_ref).abs().max()) if m else 0.0,
-        "tol": "bit-equal to the plain version (same order of additions)",
-        "ms": median_ms(residual, torch, flush),
-        "plain_ms": median_ms(residual_plain, torch, flush),
-        "library_ms": median_ms(residual_library, torch, flush),
-        "library": "(vals[idx] * w[cols[idx]]).sum(1) - y[idx]",
-    }
-    # rows of cols and vals once, y once, the slots, w once; r and keys out
-    res_bytes = (rows_read * (K * 8 + 4) + (m * 12 if idx is not None else 0)
-                 + d * 4 + m * 4 + m * K * 4)
-    seg_rec = {
-        "phase": "kernel", "kernel": "sparse_grad.segment_sum", "case": name,
-        "rows": rows, "K": K, "d": d, "slots": m, "entries": m * K,
+    # the rounded products summed in f64 (atomics: the order matters not)
+    g64 = torch.zeros(d, device=dev, dtype=torch.float64).index_add_(
+        0, flat_cols, (rows_sel * r[:, None]).reshape(-1).double())
+    scale = float(g_cpu.abs().max()) if d else 0.0
+    lib_err = float((g - g_lib).abs().max()) if d else 0.0
+    chain_err = float((g - g_chain).abs().max()) if d else 0.0
+    f64_err = float((g.double() - g64).abs().max()) if d else 0.0
+    chain_f64_err = float((g_chain.double() - g64).abs().max()) if d else 0.0
+    plan = sg.launch_plan(m, K, d)
+    route = s1_route(fused, torch, sg)
+    g_global, r_global = fused_global()
+    timed = [fused, chain, library] + ([fused_global] if route == "local"
+                                       else [])
+    times = turns_ms(timed, torch, flush)
+    contrib = (rows_sel * r[:, None]).reshape(-1)
+    rec = {
+        "phase": "kernel", "kernel": "sparse_grad.compacted_grad",
+        "case": name, "law": law, "rows": rows, "K": K, "nnz_per_row": nnz,
+        "d": d, "slots": m, "rows_read": rows_read, "entries": m * K,
         "live_entries": live, "largest_segment": largest,
-        "bit_equal_plain_cpu": bool(torch.equal(g.cpu(), g_cpu)),
-        "bit_equal": bool(torch.equal(g, g2)),
-        "max_abs_err": seg_err, "max_rel_err": seg_err / scale if scale else 0.0,
+        "plan": plan._asdict(), "route": route,
+        "launches_per_call": launches / 2,
+        "bit_equal_plain_cpu": bool(torch.equal(g.cpu(), g_cpu)
+                                    and torch.equal(r.cpu(), r_cpu)),
+        "bit_equal": bool(torch.equal(g, g2) and torch.equal(r, r2)),
+        "residual_equal_chain": bool(torch.equal(r, r_chain)),
+        "bit_equal_chain": bool(torch.equal(g, g_chain)),
+        "chain_max_rel_err": chain_err / scale if scale else 0.0,
+        "f64_max_rel_err": f64_err / scale if scale else 0.0,
+        "chain_f64_max_rel_err": chain_f64_err / scale if scale else 0.0,
+        "max_abs_err": float((g.cpu() - g_cpu).abs().max()) if d else 0.0,
+        "library_max_rel_err": lib_err / scale if scale else 0.0,
         "tol": f"bit-equal to the plain version on the CPU; "
-               f"{S1_ATOMICS_TOL} * max|g| against it on the card (atomics)",
-        "ms": median_ms(seg, torch, flush),
-        "plain_ms": median_ms(seg_plain, torch, flush),
-        "library_ms": median_ms(seg_library, torch, flush),
-        "library": "index_add_ of the precomputed products (atomics)",
-        "sort_ms": median_ms(lambda: sg.sort_keys(keys), torch, flush),
+               f"{S1_TOL} * max|g| against the products summed in "
+               f"f64; bit-equal to the earlier chain where no column is "
+               f"longer than L (index_add_'s distance recorded, not held)",
+        "ms": times[0], "chain_ms": times[1], "library_ms": times[2],
+        "global_route_ms": times[3] if route == "local" else times[0],
+        "global_route_bit_equal": bool(torch.equal(g, g_global)
+                                       and torch.equal(r, r_global)),
+        "library": "(vals[idx] * w[cols[idx]]).sum(1) - y[idx], then "
+                   "index_add_ of the products (atomics)",
+        "plain_ms": median_ms(plain, torch, flush),
+        "index_add_ms": median_ms(
+            lambda: torch.zeros(d, device=dev).index_add_(0, flat_cols,
+                                                          contrib),
+            torch, flush),
+        "chain_bit_equal_plain_cpu": bool(torch.equal(g_chain.cpu(),
+                                                      chain_cpu)),
+        "chain_bit_equal": bool(torch.equal(g_chain, g_chain2)),
     }
-    # every key (the bounds pass reads them all), the live entries' perm
-    # and values, the slots' idx / valid / coeff, g out
-    seg_bytes = (m * K * 4 + live * 12 + m * (16 if idx is not None else 4)
-                 + d * 4)
-    for rec, nbytes, flop in ((res_rec, res_bytes, 2.0 * m * K),
-                              (seg_rec, seg_bytes, 2.0 * live)):
-        byte_s, flop_s = nbytes / HBM_BYTES_PER_S, flop / F32_FLOPS
-        rec["bound_ms"] = max(byte_s, flop_s) * 1e3
-        rec["bound_by"] = "bytes" if byte_s >= flop_s else "operations"
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        emit(rec)
-    ok = (res_rec["bit_equal_plain"] and res_rec["bit_equal"]
-          and seg_rec["bit_equal_plain_cpu"] and seg_rec["bit_equal"]
-          and seg_err <= S1_ATOMICS_TOL * max(scale, 1e-30)
+    # rows of cols and vals once, y (and idx, valid) once, w once; r and g
+    # out; a multiply-add an entry for r, a multiply and an add a live
+    # entry for g
+    nbytes = (rows_read * (K * 8 + 4) + (m * 12 if idx is not None else 0)
+              + d * 8 + m * 4)
+    rec["bound_ms"], rec["bound_by"] = s1_bound(nbytes, 2.0 * m * K + 2.0 * live)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    emit(rec)
+    ok = (rec["bit_equal_plain_cpu"] and rec["bit_equal"] and launches == 2
+          and route == S1_ROUTES[name] and rec["global_route_bit_equal"]
+          and rec["residual_equal_chain"] and rec["chain_bit_equal_plain_cpu"]
+          and rec["chain_bit_equal"]
+          and f64_err <= S1_TOL * max(scale, 1e-30)
+          and (largest > plan.chunk or rec["bit_equal_chain"])
           and bool(torch.isfinite(g).all()))
     if rate == 0.0:
         ok = ok and not r.any() and not g.any()
     if not ok:
         raise RuntimeError(f"sparse_grad disagrees with its plain version: "
-                           f"{res_rec} {seg_rec}")
-    return res_rec, seg_rec
+                           f"{rec}")
+    out = {"task": rec}
+    if rate is None:  # the evaluation's launch: the residual alone
+        out["residual"] = s1_residual_case(name, cols, vals, y, w, torch, sg,
+                                           flush)
+    if name == "s_rcv1_task":  # ASAGA's table delta: the coefficient form
+        out["grad_sum"] = s1_grad_sum_case(name, cols[idx], rows_sel, r, d,
+                                           torch, sg, flush)
+        out["graph"] = s1_graph_case(fused, g, torch)
+    return out
+
+
+def s1_residual_case(name, cols, vals, y, w, torch, sg, flush):
+    """``ell_residual`` over a full shard, without keys (the evaluation)."""
+    n, K = cols.shape
+    d = w.shape[0]
+    cols_l = cols.long()
+    r, r2 = sg.ell_residual(cols, vals, y, w), sg.ell_residual(cols, vals, y, w)
+    r_ref = sg.ell_residual_plain(cols, vals, y, w)
+    rec = {
+        "phase": "kernel", "kernel": "sparse_grad.ell_residual", "case": name,
+        "rows": n, "K": K, "d": d, "with_keys": False,
+        "bit_equal_plain": bool(torch.equal(r, r_ref)),
+        "bit_equal": bool(torch.equal(r, r2)),
+        "max_abs_err": float((r - r_ref).abs().max()),
+        "tol": "bit-equal to the plain version (same order of additions)",
+        "ms": median_ms(lambda: sg.ell_residual(cols, vals, y, w), torch,
+                        flush),
+        "plain_ms": median_ms(lambda: sg.ell_residual_plain(cols, vals, y, w),
+                              torch, flush),
+        "library_ms": median_ms(lambda: (vals * w[cols_l]).sum(1) - y, torch,
+                                flush),
+        "library": "(vals * w[cols]).sum(1) - y",
+    }
+    rec["bound_ms"], rec["bound_by"] = s1_bound(
+        n * (K * 8 + 4) + d * 4 + n * 4, 2.0 * n * K)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    emit(rec)
+    if not (rec["bit_equal_plain"] and rec["bit_equal"]):
+        raise RuntimeError(f"ell_residual disagrees with its plain version: "
+                           f"{rec}")
+    return rec
+
+
+def s1_grad_sum_case(name, c_sel, v_sel, coeff, d, torch, sg, flush):
+    """``grad_sum`` over gathered rows (ASAGA's table delta)."""
+    m, K = c_sel.shape
+    flat = c_sel.long().reshape(-1)
+    contrib = (v_sel * coeff[:, None]).reshape(-1)
+
+    def fused():
+        return sg.grad_sum(c_sel, v_sel, coeff, d)
+
+    g, g2 = fused(), fused()
+    g_cpu = sg.grad_sum_plain(c_sel.cpu(), v_sel.cpu(), coeff.cpu(), d)
+    times = turns_ms([fused, lambda: torch.zeros(
+        d, device=c_sel.device).index_add_(0, flat, contrib)], torch, flush)
+    live = int((v_sel != 0).sum())
+    rec = {
+        "phase": "kernel", "kernel": "sparse_grad.grad_sum", "case": name,
+        "slots": m, "K": K, "d": d, "live_entries": live,
+        "bit_equal_plain_cpu": bool(torch.equal(g.cpu(), g_cpu)),
+        "bit_equal": bool(torch.equal(g, g2)),
+        "max_abs_err": float((g.cpu() - g_cpu).abs().max()),
+        "tol": "bit-equal to the plain version on the CPU",
+        "ms": times[0], "library_ms": times[1],
+        "library": "index_add_ of the precomputed products (atomics)",
+        "plain_ms": median_ms(lambda: sg.grad_sum_plain(c_sel, v_sel, coeff,
+                                                        d), torch, flush),
+    }
+    # the gathered rows, coeff once; g out
+    rec["bound_ms"], rec["bound_by"] = s1_bound(m * K * 8 + m * 4 + d * 4,
+                                                2.0 * live)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    emit(rec)
+    if not (rec["bit_equal_plain_cpu"] and rec["bit_equal"]):
+        raise RuntimeError(f"grad_sum disagrees with its plain version: {rec}")
+    return rec
+
+
+def s1_graph_case(fused, g_ref, torch):
+    """Whether the fused launch (a cooperative launch) is captured by a CUDA
+    graph, and whether the replay gives the same bits: a record only."""
+    rec = {"phase": "s1_graph"}
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused()  # the capture stream's scratch, made outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out, _ = fused()
+        graph.replay()
+        torch.cuda.synchronize()
+        rec.update(captures=True, replay_bit_equal=bool(torch.equal(g_out,
+                                                                    g_ref)))
+    except Exception as e:  # a record of what CUDA refuses to capture
+        torch.cuda.synchronize()
+        rec.update(captures=False, error=f"{type(e).__name__}: {e}"[:300])
+    emit(rec)
+    return rec
 
 
 def sparse_phase(torch, card):
@@ -760,7 +935,8 @@ def sparse_phase(torch, card):
     torch.cuda.synchronize()
     emit({"phase": "sparse_data", "card": card,
           "generate_s": time.monotonic() - t0, **rcv1.describe(ds)})
-    launches = {"ell_residual": 0, "segment_sum": 0}
+    launches = {"compacted_grad": 0, "grad_sum": 0, "ell_residual": 0,
+                "segment_sum": 0}
     records = rcv1.phase(ds, dev)
     for rec in records:
         emit({"phase": "sparse", "card": card, **rec})
@@ -1036,7 +1212,9 @@ def main() -> int:
 
     b1 = "asyncframework_tpu/ops/pallas_kernels.py:58"
     f_rec = recs["f_ring_block_causal"]  # the ring's diagonal block
-    s_res, s_seg = recs["s_rcv1_task"]
+    s_task = recs["s_rcv1_task"]
+    s_eval = recs["s_rcv1_shard"]["residual"]
+    xla = "(XLA, no pallas_call)"
     emit({"kernels": [
         # the main paths' shapes: ASGD's compacted epsilon shard (b = 0.1),
         # ASAGA's full epsilon shard, the ring block of the long-context path
@@ -1051,13 +1229,21 @@ def main() -> int:
         entry("chunk_attention", "chunk_attention.cu",
               "asyncframework_tpu/ops/pallas_kernels.py:155", att_launches,
               f_rec, f_rec["bound_ms"]),
-        # rcv1's compacted task: no Pallas kernel on this path (XLA)
+        # rcv1: no Pallas kernel on this path (XLA).  The task (residual,
+        # sort and segment sum in one launch) at the compacted task, its
+        # coefficient form at ASAGA's table delta, the residual alone at
+        # the evaluation's full shard
+        entry("sparse_grad.compacted_grad", "sparse_grad.cu",
+              f"asyncframework_tpu/ops/steps.py:519 {xla}",
+              s1_launches["compacted_grad"], s_task["task"],
+              s_task["task"]["bound_ms"]),
+        entry("sparse_grad.grad_sum", "sparse_grad.cu",
+              f"asyncframework_tpu/ops/gradients.py:138 {xla}",
+              s1_launches["grad_sum"], s_task["grad_sum"],
+              s_task["grad_sum"]["bound_ms"]),
         entry("sparse_grad.ell_residual", "sparse_grad.cu",
-              "asyncframework_tpu/ops/gradients.py:131 (XLA, no pallas_call)",
-              s1_launches["ell_residual"], s_res, s_res["bound_ms"]),
-        entry("sparse_grad.segment_sum", "sparse_grad.cu",
-              "asyncframework_tpu/ops/gradients.py:138 (XLA, no pallas_call)",
-              s1_launches["segment_sum"], s_seg, s_seg["bound_ms"]),
+              f"asyncframework_tpu/ops/gradients.py:131 {xla}",
+              s1_launches["ell_residual"], s_eval, s_eval["bound_ms"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -555,3 +555,134 @@ def test_sparse_asgd_run_sync_on_the_card_matches_the_cpu(dev):
         runs.append(ASGD(ds, None, cfg, devices=[device]).run_sync().final_w)
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5,
                                atol=1e-5 * float(np.abs(runs[1]).max()))
+
+
+# ------------------------------------------------- sparse_grad, fused (S1)
+def _cpu(*ts):
+    return [None if t is None else t.cpu() for t in ts]
+
+
+def _fused_equal(cols, vals, y, w, idx, valid, d, alpha=None):
+    """compacted_grad and grad_sum on the card against their plain versions
+    on CPU copies (bit for bit) and against a second launch."""
+    g, r = sg.compacted_grad(cols, vals, y, w, idx, valid, d, alpha)
+    g2, r2 = sg.compacted_grad(cols, vals, y, w, idx, valid, d, alpha)
+    assert torch.equal(g, g2) and torch.equal(r, r2)
+    chunk = sg.launch_plan(1, 1, d).chunk
+    g_cpu, r_cpu = sg.compacted_grad_plain(*_cpu(cols, vals, y, w, idx, valid),
+                                           d, *_cpu(alpha), chunk=chunk)
+    assert torch.equal(r.cpu(), r_cpu)
+    assert torch.equal(g.cpu(), g_cpu)
+    coeff = torch.randn(r.shape[0], device=r.device)
+    h = sg.grad_sum(cols, vals, coeff, d, idx, valid)
+    assert torch.equal(h, sg.grad_sum(cols, vals, coeff, d, idx, valid))
+    h_cpu = sg.grad_sum_plain(*_cpu(cols, vals, coeff), d,
+                              *_cpu(idx, valid), chunk=chunk)
+    assert torch.equal(h.cpu(), h_cpu)
+    return g, r
+
+
+@pytest.mark.parametrize("route", ["auto", "global"])
+@pytest.mark.parametrize("m,K,d,rate,one_column", SPARSE_CASES)
+def test_compacted_grad_matches_plain_versions(dev, m, K, d, rate, one_column,
+                                               route):
+    """The fused kernel at every shape the earlier chain is tested at, with
+    and without slots and alpha, on the route it picks and on the global
+    route, bit-equal to its plain versions on CPU copies and across
+    launches; no valid slot gives r = 0 and g = 0."""
+    cols, vals, y, w, valid, idx = _ell(m, K, d, dev, rate,
+                                        one_column=one_column)
+    alpha = torch.randn(m, device=dev)
+    with sg.pinned_plan(route=route):
+        for i, v in ((idx, valid), (None, None)):
+            for a in (None, alpha):
+                g, r = _fused_equal(cols, vals, y, w, i, v, d, a)
+                if rate == 0.0 and i is not None and a is None:
+                    assert not r.any() and not g.any()
+
+
+def _route(*args):
+    stamps = torch.zeros(torch.cuda.get_device_properties(0)
+                         .multi_processor_count, sg.STAMPS,
+                         dtype=torch.int64, device="cuda")
+    with sg.record_timeline(stamps):
+        sg.compacted_grad(*args)
+    return "local" if int(stamps[0, sg.ROUTE_STAMP]) else "global"
+
+
+def test_compacted_grad_picks_its_route_from_the_buckets(dev):
+    """Local where every top-digit bucket of live entries holds at most
+    4,096 (and at most L); global with a bucket longer, keys of three
+    digits, or the route pinned."""
+    cols, vals, y, w, valid, idx = _ell(2_000, 80, 47_236, dev, 0.5, cap=1_200)
+    args = (cols, vals, y, w, idx, valid, 47_236)
+    assert _route(*args) == "local"
+    with sg.pinned_plan(route="global"):
+        assert _route(*args) == "global"
+    with sg.pinned_plan(chunk=64):  # buckets of ~400 > L
+        assert _route(*args) == "global"
+    one = _ell(2_000, 80, 47_236, dev, 0.5, cap=1_200, one_column=True)
+    assert _route(*one[:4], one[5], one[4], 47_236) == "global"
+    wide_d = _ell(500, 16, 70_000, dev, 0.5, cap=300)
+    assert _route(*wide_d[:4], wide_d[5], wide_d[4], 70_000) == "global"
+
+
+@pytest.mark.parametrize("chunk,wide", [(4096, False), (64, False),
+                                        (7, True), (4096, True),
+                                        (400, False)])
+def test_compacted_grad_splits_long_columns(dev, chunk, wide):
+    """Columns longer than L (one of ~7,500 entries, and with a small L
+    every column of a skewed shard) are summed in chunks of L, added in
+    chunk order, bit-equal to the plain version; also with 64-bit
+    positions."""
+    cols, vals, y, w, valid, idx = _ell(10_000, 16, 3_000, dev, 0.8,
+                                        cap=8_000)
+    cols[::4, :6] = 5  # one long column, ~7,500 live entries
+    with sg.pinned_plan(chunk=chunk, wide=wide):
+        _fused_equal(cols, vals, y, w, idx, valid, 3_000,
+                     torch.randn(10_000, device=dev))
+        _fused_equal(cols, vals, y, w, None, None, 3_000)
+
+
+@pytest.mark.parametrize("K", [13, 300, 700])
+def test_compacted_grad_row_widths(dev, K):
+    """Rows read without 16-byte loads (K = 13), one whole row a warp at a
+    time (K = 300), and rows longer than a warp stages, read twice in
+    pieces (K = 700), on both routes: bit-equal to the plain versions."""
+    cols, vals, y, w, valid, idx = _ell(300, K, 5_000, dev, 0.5, cap=160)
+    alpha = torch.randn(300, device=dev)
+    for route in ("auto", "global"):
+        with sg.pinned_plan(route=route):
+            _fused_equal(cols, vals, y, w, idx, valid, 5_000, alpha)
+            _fused_equal(cols, vals, y, w, None, None, 5_000)
+
+
+def test_compacted_grad_is_one_launch(dev):
+    cols, vals, y, w, valid, idx = _ell(500, 80, 2_000, dev, 0.3, cap=200)
+    names = ("compacted_grad", "grad_sum", "ell_residual", "segment_sum")
+    plains = ("compacted_grad_plain", "grad_sum_plain", "ell_residual_plain",
+              "segment_sum_plain")
+
+    def counts():
+        return ([getattr(sg, n).launches for n in names]
+                + [getattr(sg, n).calls for n in plains])
+
+    before = counts()
+    g, r = sg.compacted_grad(cols, vals, y, w, idx, valid, 2_000,
+                             torch.randn(500, device=dev))
+    sg.grad_sum(cols, vals, r, 2_000, idx, valid)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1] + [0] * 6
+
+
+def test_compacted_grad_edges(dev):
+    """No slot, no column, K = 0, and d = 1 with every entry in it."""
+    cols, vals, y, w, valid, idx = _ell(64, 8, 40, dev)
+    empty = idx[:0]
+    g, r = sg.compacted_grad(cols, vals, y, w, empty, valid[:0], 40)
+    assert r.shape == (0,) and torch.equal(g, torch.zeros(40, device=dev))
+    z = torch.zeros(64, 0, dtype=torch.int32, device=dev)
+    g, r = sg.compacted_grad(z, z.float(), y, w, idx, valid, 40)
+    assert torch.equal(r, -(y[idx] * valid)) and not g.any()
+    c1 = torch.zeros_like(cols)
+    _fused_equal(c1, vals, y, w[:1].contiguous(), idx, valid, 1)

@@ -149,7 +149,8 @@ def test_long_context_and_asaga_entry_points_refuse_the_cpu():
 
 
 @pytest.mark.parametrize("kernel", ["chunk_attention", "saga_grad", "xt_coeff",
-                                    "ell_residual", "segment_sum"])
+                                    "ell_residual", "segment_sum",
+                                    "compacted_grad", "grad_sum"])
 def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
         kernel, monkeypatch):
     if torch.cuda.is_available():
@@ -165,7 +166,9 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
                       (mg, "saga_grad_reference"),
                       (mg, "xt_coeff_reference"),
                       (sg, "ell_residual_plain"),
-                      (sg, "segment_sum_plain")):
+                      (sg, "segment_sum_plain"),
+                      (sg, "compacted_grad_plain"),
+                      (sg, "grad_sum_plain")):
         monkeypatch.setattr(mod, name, plain)
 
     def fake(t):
@@ -173,7 +176,8 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
 
     def counts():
         return (ca.chunk_attention.launches, mg.masked_grad.launches,
-                sg.ell_residual.launches, sg.segment_sum.launches)
+                sg.ell_residual.launches, sg.segment_sum.launches,
+                sg.compacted_grad.launches, sg.grad_sum.launches)
 
     before = counts()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -189,11 +193,19 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
             cols = fake(torch.zeros(6, 8, dtype=torch.int32))
             vals, y = fake(torch.ones(6, 8)), fake(torch.ones(6))
             sg.ell_residual(cols, vals, y, fake(torch.ones(3)))
-        else:
+        elif kernel == "segment_sum":
             keys = fake(torch.zeros(48, dtype=torch.int32))
             perm = fake(torch.arange(48))
             sg.segment_sum(keys, perm, fake(torch.ones(6, 8)),
                            fake(torch.ones(6)), 3)
+        else:
+            cols = fake(torch.zeros(6, 8, dtype=torch.int32))
+            vals, y = fake(torch.ones(6, 8)), fake(torch.ones(6))
+            if kernel == "compacted_grad":
+                sg.compacted_grad(cols, vals, y, fake(torch.ones(3)),
+                                  alpha=y)
+            else:
+                sg.grad_sum(cols, vals, y, 3)
     assert counts() == before
 
 

@@ -341,6 +341,130 @@ def test_s1_edge_shapes(case):
     _equal(tgrad.make_sparse_grad_sum(d)(*_t(cols, vals, coeff)), want_g)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("with_alpha", [False, True])
+def test_compacted_grad_and_grad_sum_match_the_jax_step(rate, with_alpha):
+    """The fused entry points' plain versions against the JAX step's
+    arithmetic (``steps.py:526-535``): the residual within its tolerance,
+    and ``g`` bit-equal to the JAX package's sorted scatter fed the same
+    coefficients (``r``, or ``r - alpha[idx]``); the coefficient form
+    bit-equal to ``make_sparse_grad_sum`` over the gathered rows."""
+    d = 64
+    js, ts = _small(128, d, 0.1, 3)
+    valid, idx = _sample(128, 48, rate, 1)
+    rs = np.random.default_rng(2)
+    w = rs.normal(size=d).astype(np.float32)
+    alpha = rs.normal(size=128).astype(np.float32) if with_alpha else None
+    coeff_of = (lambda r: r - alpha[idx]) if with_alpha else (lambda r: r)
+    _, jr = _jax_compacted(js, w, valid, idx, d, coeff_of)
+    vt, it, wt = _t(valid, idx, w)
+    at = None if alpha is None else torch.from_numpy(alpha)
+    before = sg.compacted_grad_plain.calls
+    g, r = sg.compacted_grad(ts.cols, ts.vals, ts.y, wt, it, vt, d, at)
+    assert sg.compacted_grad_plain.calls == before + 1
+    _close(r, jr)
+    _equal(r, sg.ell_residual_plain(ts.cols, ts.vals, ts.y, wt, it, vt))
+    c_sel = np.asarray(js.cols)[idx]
+    v_sel = np.asarray(js.vals)[idx] * valid[:, None]
+    coeff = coeff_of(r.numpy())
+    _equal(g, jgrad.make_sparse_grad_sum(d)(c_sel, v_sel, coeff))
+    _equal(sg.grad_sum(ts.cols, ts.vals, _t(coeff)[0], d, it, vt),
+           jgrad.make_sparse_grad_sum(d)(c_sel, v_sel, coeff))
+    if rate == 0.0 and not with_alpha:
+        assert not r.any() and not g.any()
+
+
+def _chunked_reference(cols, vals, coeff, d, chunk):
+    """Each column's products in flat order, added a chunk of ``chunk`` at
+    a time from 0 (float32), then the chunk sums in chunk order; and the
+    same columns as one serial chain."""
+    prods = (vals * coeff[:, None]).astype(np.float32).ravel()
+    keys = cols.ravel()
+    chunked = np.zeros(d, np.float32)
+    serial = np.zeros(d, np.float32)
+    for c in range(d):
+        mine = prods[(keys == c) & (vals.ravel() != 0)]
+        total = np.float32(0.0)
+        for lo in range(0, len(mine), chunk):
+            part = np.float32(0.0)
+            for x in mine[lo:lo + chunk]:
+                part = np.float32(part + x)
+            total = np.float32(total + part)
+        chunked[c] = total
+        one = np.float32(0.0)
+        for x in mine:
+            one = np.float32(one + x)
+        serial[c] = one
+    return chunked, serial
+
+
+@pytest.mark.parametrize("chunk", [5, 64])
+def test_grad_sum_adds_long_columns_in_chunks(chunk):
+    """A column longer than L (passed through the plan) is added in chunks
+    of L, each from 0 in flat order, then the chunk sums in chunk order;
+    it differs from one serial chain only within 1e-5 * max|g|, and a
+    column of at most L entries is one chain exactly."""
+    rs = np.random.default_rng(8)
+    m, K, d = 300, 8, 6
+    cols = rs.integers(1, d, size=(m, K)).astype(np.int32)
+    cols[:, :3] = 0  # column 0: 900 entries; the others about 300
+    vals = (rs.normal(size=(m, K)) * 2.0 ** rs.integers(-10, 10, (m, K)))
+    vals = vals.astype(np.float32)
+    vals[::7, 5] = 0.0  # dead entries
+    coeff = rs.normal(size=m).astype(np.float32)
+    chunked, serial = _chunked_reference(cols, vals, coeff, d, chunk)
+    with sg.pinned_plan(chunk=chunk):
+        assert sg.launch_plan(m, K, d).chunk == chunk
+        g = sg.grad_sum(*_t(cols, vals, coeff), d)
+    _equal(g, chunked)
+    scale = float(np.abs(serial).max())
+    assert float(np.abs(g.numpy() - serial).max()) <= 1e-5 * scale
+    _equal(sg.grad_sum(*_t(cols, vals, coeff), d), serial)  # L = 4,096
+    assert not np.array_equal(chunked, serial)  # the order shows here
+
+
+@pytest.mark.parametrize("d,passes", [(0, 1), (1, 1), (255, 1), (256, 2),
+                                      (47_236, 2), (65_535, 2), (65_536, 3),
+                                      (2 ** 20, 3)])
+def test_launch_plan_takes_the_digits_the_keys_need(d, passes):
+    """8-bit digits of the keys [0, d]: ceil(log2(d + 1) / 8), at least 1."""
+    plan = sg.launch_plan(4_752, 80, d)
+    assert plan.passes == passes
+    assert plan.passes * 8 >= max(d.bit_length(), 1)
+    assert plan.chunk == sg.CHUNK == 4_096
+
+
+@pytest.mark.parametrize("m,K,wide", [(4_752, 80, False),
+                                      (26_843_545, 80, False),
+                                      (26_843_546, 80, True),
+                                      (2 ** 31, 1, True)])
+def test_launch_plan_widens_positions_past_2_31(m, K, wide):
+    """64-bit entry positions only where m * K >= 2^31."""
+    plan = sg.launch_plan(m, K, 47_236)
+    assert plan.wide is wide
+    assert plan.max_items >= min(47_236, m * K // (sg.SHORT_MAX + 1))
+
+
+def test_launch_plan_vectors_pins_and_limits():
+    assert sg.launch_plan(10, 80, 100).vec
+    assert not sg.launch_plan(10, 78, 100).vec
+    assert not sg.launch_plan(10, 80, 100, aligned=False).vec
+    assert sg.launch_plan(10, 80, 100).route == "auto"
+    with sg.pinned_plan(chunk=7, wide=True, route="global"):
+        plan = sg.launch_plan(10, 80, 100)
+        assert (plan.chunk, plan.wide, plan.route) == (7, True, "global")
+    with pytest.raises(ValueError, match="route"):
+        with sg.pinned_plan(route="local"):
+            sg.launch_plan(10, 80, 100)
+    assert sg.launch_plan(10, 80, 100) == sg.launch_plan(10, 80, 100)
+    assert sg.launch_plan(10, 80, 100).chunk == sg.CHUNK
+    with pytest.raises(ValueError, match="unknown"):
+        with sg.pinned_plan(passes=1):
+            pass
+    with pytest.raises(ValueError, match="columns"):
+        sg.launch_plan(10, 80, sg.COL_TILE * sg.MAX_COL_TILES + 1)
+
+
 def test_s1_rejects_bad_inputs():
     cols, vals, y, w = _t(np.zeros((4, 8), np.int32), np.ones((4, 8), np.float32),
                           np.zeros(4, np.float32), np.zeros(3, np.float32))
@@ -357,6 +481,14 @@ def test_s1_rejects_bad_inputs():
         sg.segment_sum(keys, perm.int(), vals, y, 3)
     with pytest.raises(ValueError, match="d must be"):
         sg.segment_sum(keys, perm, vals, y, -1)
+    with pytest.raises(ValueError, match="d must be"):
+        sg.grad_sum(cols, vals, y, -1)
+    with pytest.raises(TypeError):
+        sg.compacted_grad(cols.long(), vals, y, w)
+    with pytest.raises(ValueError):
+        sg.compacted_grad(cols, vals, y, w, alpha=y[:3])
+    with pytest.raises(ValueError, match="d = 5"):
+        sg.compacted_grad(cols, vals, y, w, d=5)
 
 
 # ------------------------------------------------------------------ steps
