@@ -32,6 +32,9 @@ iteration counter ``k`` and the sync drain's accumulator.
   :func:`make_sparse_trajectory_loss_eval`: the padded-ELL (rcv1) path
   (``steps.py:504-670``), always compacted, through kernel S1
   (:mod:`~asyncframework_tpu_torch.ops.sparse_grad`).
+- :func:`make_fused_asgd_rounds`, :func:`make_fused_saga_rounds`: one
+  full-wave round of the device-resident accept loop (``steps.py:673-855``)
+  through the same worker halves, dense and sparse.
 """
 
 from __future__ import annotations
@@ -291,11 +294,17 @@ def make_sparse_saga_worker_step(batch_rate: float, d: int):
     rows ``c_sel``/``v_sel`` (validity-zeroed) ride along for the
     updater's table delta.  Halves as for the ASGD step:
     ``step.sample(gen, n) -> (valid, idx)`` and
-    ``step.grad(cols, vals, y, w, alpha, valid, idx) -> (g, ...)``."""
+    ``step.grad(cols, vals, y, w, alpha, valid, idx) -> (g, ...)``;
+    ``step.task(cols, vals, y, w, alpha, valid, idx) -> (g, diff_sel)`` is
+    the kernel launch alone, without the gathered rows (the fused rounds
+    take no table delta)."""
     sample = _sparse_sample(batch_rate)
 
+    def task(cols, vals, y, w, alpha, valid, idx):
+        return compacted_grad(cols, vals, y, w, idx, valid, d, alpha)
+
     def grad(cols, vals, y, w, alpha, valid, idx):
-        g, diff = compacted_grad(cols, vals, y, w, idx, valid, d, alpha)
+        g, diff = task(cols, vals, y, w, alpha, valid, idx)
         return g, diff, idx, valid, cols[idx], vals[idx] * valid[:, None]
 
     def step(cols, vals, y, w, alpha, gen):
@@ -303,6 +312,7 @@ def make_sparse_saga_worker_step(batch_rate: float, d: int):
 
     step.sample = sample
     step.grad = grad
+    step.task = task
     return step
 
 
@@ -350,3 +360,96 @@ def make_sparse_trajectory_loss_eval():
         return torch.stack(sums)
 
     return eval_shard
+
+
+# ------------------------------------------------------------------- fused
+# The device-resident accept loop (steps.py:673-855 of the JAX package): at
+# taw = inf with a full-wave cohort the engine's accept path is "the whole
+# wave reads one model version, its gradients are applied in order", a
+# function of the state and the workers' draws alone.  Each factory returns
+# ONE round as a plain function on tensors; solvers/base.py runs chunks of
+# rounds, captured as a CUDA graph on the card.  A round never writes its
+# inputs and never copies to the host (one sync would break the capture).
+
+def make_fused_asgd_rounds(gamma: float, batch_rate: float, n: int, shards,
+                           generators, loss: str = "least_squares",
+                           sparse_d: "int | None" = None):
+    """``round_fn(w, k) -> (w', k')``: one full-wave ASGD round.
+
+    ``shards``: one ``(X, y)`` per worker, or with ``sparse_d`` one
+    padded-ELL ``(cols, vals, y)`` (least squares only), all on one device;
+    ``generators``: each worker's mask generator.  Worker ``i`` draws its
+    sample from ``generators[i]`` and takes its gradient through the halves
+    of the engine's worker step (``sample`` then ``grad``), so the fused
+    path and ``run()`` share one worker computation.  Then, with ``kk = k +
+    (0..nw-1)``: ``w' = w - (gamma / sqrt(kk/nw + 1) / parRecs) @ G`` and
+    ``k' = k + nw``, both new tensors (``k`` an f32 0-d tensor).
+    """
+    if loss not in ("least_squares", "logistic"):
+        raise ValueError(f"unknown loss {loss!r}")
+    if sparse_d is not None:
+        if loss != "least_squares":
+            raise ValueError(
+                "sparse fused rounds support least_squares only (the "
+                "compacted residual is least-squares); got " + loss
+            )
+        step = make_sparse_asgd_worker_step(batch_rate, sparse_d)
+    else:
+        step = make_asgd_worker_step(batch_rate, loss)
+    nw = len(shards)
+    par_recs = batch_rate * n / nw
+    offsets = torch.arange(nw, dtype=torch.float32, device=shards[0][0].device)
+
+    def round_fn(w, k):
+        G = torch.stack([
+            step.grad(*shard, w, *step.sample(gen, shard[-1].shape[0]))
+            for shard, gen in zip(shards, generators)
+        ])
+        lr = gamma / torch.sqrt((k + offsets) / nw + 1.0)
+        return w - (lr / par_recs) @ G, k + float(nw)
+
+    return round_fn
+
+
+def make_fused_saga_rounds(gamma: float, batch_rate: float, n: int, shards,
+                           generators, sparse_d: "int | None" = None):
+    """``round_fn(w, alpha_bar, *alphas) -> (w', alpha_bar', *alphas')``:
+    one full-wave ASAGA round (``alphas``: each worker's history slice).
+
+    Every worker computes its history-corrected gradient against the
+    round-start ``w`` and its own slice, then commits its candidate scalars
+    into a new slice: dense through the kernel's ``saga_grad`` form and
+    ``where(mask > 0, diff, alpha)``; sparse through S1's
+    ``compacted_grad`` with ``alpha`` and the compacted commit.  The
+    results then fold in worker order, ``w <- w - (gamma/parRecs) g_j -
+    gamma ab; ab <- ab + g_j/N``.  The table delta of each result is its
+    ``g`` exactly (one result a worker a wave, worker-disjoint slices), so
+    none is taken.
+    """
+    if sparse_d is not None:
+        step = make_sparse_saga_worker_step(batch_rate, sparse_d)
+        commit = make_sparse_saga_commit()
+
+        def one(shard, w, alpha, gen):
+            valid, idx = step.sample(gen, shard[-1].shape[0])
+            g, diff = step.task(*shard, w, alpha, valid, idx)
+            return g, commit(alpha, diff, idx, valid)
+    else:
+        step = make_saga_worker_step(batch_rate)
+
+        def one(shard, w, alpha, gen):
+            mask = step.sample(gen, shard[-1].shape[0])
+            g, diff = step.grad(*shard, w, alpha, mask)
+            return g, saga_commit_history(alpha, diff, mask)
+
+    par_recs = batch_rate * n / len(shards)
+
+    def round_fn(w, alpha_bar, *alphas):
+        results = [one(shard, w, alpha, gen)
+                   for shard, alpha, gen in zip(shards, alphas, generators)]
+        for g, _ in results:  # the accepts fold in order
+            w = w - (gamma / par_recs) * g - gamma * alpha_bar
+            alpha_bar = alpha_bar + g / n
+        return (w, alpha_bar, *(a for _, a in results))
+
+    return round_fn

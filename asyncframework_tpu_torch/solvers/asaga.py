@@ -33,9 +33,12 @@ an old slice).  Written in place, where the JAX package donates: the
 committed slice goes into the worker's ``diff`` buffer, and ``alpha_bar``
 is advanced in place.
 
+Fused mode (:meth:`ASAGA.run_fused`): full waves against the round-start
+``w``, each worker's slice committed in the round and the results folded in
+worker order, a chunk of rounds one CUDA-graph replay on the card.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``run_fused`` (A2/A4), checkpointing, speculation and dynamic
-allocation (A2).
+item): checkpointing, speculation and dynamic allocation.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from asyncframework_tpu_torch.ops import steps
 from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.base import (
     DelayCalibrator,
+    FusedRounds,
     ShardedSolverMixin,
     SolverConfig,
     TrainResult,
@@ -334,14 +338,48 @@ class ASAGA(ShardedSolverMixin):
             },
         )
 
-    def run_fused(self) -> TrainResult:
-        """The device-resident ASAGA loop of the JAX package (one
-        ``lax.scan`` over rounds); not ported yet."""
-        raise NotImplementedError(
-            "run_fused is not ported yet (ROADMAP.md queue A: run_fused as "
-            "a CUDA-graph capture of the round loop, with "
-            "make_fused_saga_rounds)"
+    # ----------------------------------------------------------------- fused
+    def fused_rounds(self) -> FusedRounds:
+        """The fused loop's round (``steps.make_fused_saga_rounds``) over
+        every shard on the driver device, its state ``(w, alpha_bar,
+        *alphas)`` at zero (the whole history table on that device) and
+        the workers' generators."""
+        shards, gens = self._fused_inputs()
+        round_fn = steps.make_fused_saga_rounds(
+            self.cfg.gamma, self.cfg.batch_rate, self.ds.n, shards, gens,
+            sparse_d=self.ds.d if self._sparse else None,
         )
+        alphas = tuple(self._zeros(s[-1].shape[0]) for s in shards)
+        return FusedRounds(round_fn, (self._zeros(self.ds.d),
+                                      self._zeros(self.ds.d), *alphas), gens)
+
+    def run_fused(self) -> TrainResult:
+        """The device-resident ASAGA loop (``solvers/asaga.py:418-...`` of
+        the JAX package; semantics in ``steps.make_fused_saga_rounds``):
+        chunks of full-wave rounds, one CUDA-graph replay a chunk on the
+        card, eager on the CPU, with the history slices in the state, so
+        the whole table stays on the device.  Dense and padded-ELL sparse
+        shards.  Scope as :meth:`ASGD.run_fused`, plus ASAGA's ``taw``
+        quirk below; ``extras`` carries the final ``alpha_bar`` and every
+        worker's slice, as :meth:`run` does."""
+        if self.cfg.taw < self.cfg.num_iterations:
+            # ASAGA's acceptance quirk binds on the iteration count (accept
+            # iff k - staleness <= taw), so only taw >= num_iterations
+            # guarantees the engine's filter never fires
+            raise ValueError(
+                "fused ASAGA requires taw >= num_iterations (the ASAGA "
+                "filter quirk `k - staleness <= taw` binds on iteration "
+                "count); a tighter taw needs the engine's filter -- use "
+                "run()"
+            )
+
+        def history(carry):
+            _, alpha_bar, *alphas = carry
+            return {"alpha_bar": alpha_bar.cpu().numpy(),
+                    "alpha": {wid: a.cpu().numpy()
+                              for wid, a in enumerate(alphas)}}
+
+        return self._run_fused(history)
 
     # ------------------------------------------------------------------- sync
     def run_sync(self) -> TrainResult:

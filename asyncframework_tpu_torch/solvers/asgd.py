@@ -10,6 +10,9 @@ Counterpart of ``asyncframework_tpu/solvers/asgd.py``:
 - sync mode ~ ``SparkASGDSync.scala`` -- the same non-blocking submission
   machinery, but each round drains exactly ``num_workers`` results and applies
   one accumulated update (the "barrier in the driver").
+- fused mode (:meth:`ASGD.run_fused`) -- the device-resident accept loop:
+  full waves applied in order with no host work between updates, a chunk
+  of rounds one CUDA-graph replay (``solvers/base.py::run_fused_plan``).
 
 Device hot path: every tensor the algorithm touches stays in device memory.
 A worker task is the mask draw plus one launch of the hand-written
@@ -48,6 +51,7 @@ from asyncframework_tpu_torch.ops import steps
 from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.base import (
     DelayCalibrator,
+    FusedRounds,
     ShardedSolverMixin,
     SolverConfig,
     TrainResult,
@@ -328,13 +332,43 @@ class ASGD(ShardedSolverMixin):
             extras=extras,
         )
 
-    def run_fused(self) -> TrainResult:
-        """The device-resident accept loop of the JAX package (one
-        ``lax.scan`` over rounds); not ported yet."""
-        raise NotImplementedError(
-            "run_fused is not ported yet (ROADMAP.md queue A: run_fused as "
-            "a CUDA-graph capture of the round loop)"
+    # ----------------------------------------------------------------- fused
+    def fused_rounds(self) -> FusedRounds:
+        """The fused loop's round (``steps.make_fused_asgd_rounds``) over
+        every shard on the driver device, its state ``(w, k)`` at zero and
+        the workers' generators."""
+        shards, gens = self._fused_inputs()
+        sparse = getattr(self.ds, "is_sparse", False)
+        round_fn = steps.make_fused_asgd_rounds(
+            self.cfg.gamma, self.cfg.batch_rate, self.ds.n, shards, gens,
+            loss=self.cfg.loss, sparse_d=self.ds.d if sparse else None,
         )
+        return FusedRounds(round_fn, (self._zeros(self.ds.d), self._zeros()),
+                           gens)
+
+    def run_fused(self) -> TrainResult:
+        """The device-resident accept loop (``solvers/asgd.py:454-550`` of
+        the JAX package): the ``taw``-unbounded full-wave recipe as chunks
+        of rounds with no host work between updates -- on a CUDA device one
+        CUDA-graph replay a chunk of up to 16 rounds, on the CPU the same
+        rounds run eagerly.  Dense and padded-ELL sparse shards.
+
+        Scope: the recipe of the reference's headline runs (``taw >=
+        num_workers - 1``, no straggler injection); anything needing the
+        runtime (a tighter staleness bound, stragglers, fault tolerance)
+        runs :meth:`run`.
+        """
+        nw = self.cfg.num_workers
+        if self.cfg.taw < nw - 1:
+            # one wave in flight, applied in order: the fused staleness is
+            # at most nw-1 by construction, so any taw >= nw-1 is a valid
+            # bounded-staleness execution (ASGD's filter would never fire)
+            raise ValueError(
+                f"run_fused admits taw >= num_workers-1 = {nw - 1} (its "
+                "wave staleness never exceeds that); a tighter taw needs "
+                "the engine's tau filter -- use run()"
+            )
+        return self._run_fused()
 
     # ------------------------------------------------------------------ sync
     def run_sync(self) -> TrainResult:

@@ -2,7 +2,9 @@
 
 Counterpart of the part of ``asyncframework_tpu/solvers/base.py`` that
 ``solvers/asgd.py`` and ``solvers/asaga.py`` use, plus the helpers the two
-share around their loops (:class:`ShardedSolverMixin`).  ``SolverConfig``
+share around their loops (:class:`ShardedSolverMixin`) and the fused
+loop's chunks of rounds (:class:`RoundChunk`, :func:`run_fused_plan`: a
+CUDA graph a chunk on the card, eager rounds on the CPU).  ``SolverConfig``
 carries the reference drivers' algorithmic knobs
 (``SparkASGDThread.scala:28-48``) under their long names, plus the
 engine's own settings.  The switches of subsystems not ported yet
@@ -17,7 +19,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from asyncframework_tpu_torch.data.sharded import ShardedDataset
 from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.instrumentation import FaultTolerantRun
+from asyncframework_tpu_torch.utils.devices import device_scope, fence
 from asyncframework_tpu_torch.utils.hbm import plan_for_run, shard_tensors
 
 
@@ -145,6 +148,139 @@ def resolve_dataset(X, y, num_workers: int, devices):
     return ShardedDataset(X, y, num_workers, devices)
 
 
+#: rounds a chunk of the fused loop holds (one CUDA graph on the card)
+CHUNK_ROUNDS = 16
+
+
+class FusedRounds(NamedTuple):
+    """One round of a fused solver and the state it runs on."""
+
+    #: ``round_fn(*carry) -> carry'``: new tensors; never writes its input
+    round_fn: Callable
+    #: the state buffers, model first: ``(w, k)`` or ``(w, alpha_bar,
+    #: *alphas)``; a chunk reads them at its start and writes them at its end
+    carry: Tuple[torch.Tensor, ...]
+    #: each worker's mask generator, in worker order
+    generators: Tuple[torch.Generator, ...]
+
+
+class RoundChunk:
+    """``rounds`` rounds of ``fused.round_fn`` from the state buffers back
+    into them, each round's model copied into a row of ``snap``.  Run
+    eagerly, or, once :meth:`capture` has run, as one replay of a CUDA graph
+    (the graph's buffers are its static inputs and outputs: a replay
+    overwrites ``snap``, so a caller keeps copies of the rows it needs
+    before the next one)."""
+
+    def __init__(self, fused: FusedRounds, rounds: int):
+        self.fused = fused
+        self.rounds = rounds
+        w = fused.carry[0]
+        self.snap = torch.empty((rounds, w.shape[0]), dtype=w.dtype,
+                                device=w.device)
+        self.graph = None
+
+    def run_eager(self) -> None:
+        carry = self.fused.carry
+        for j in range(self.rounds):
+            carry = self.fused.round_fn(*carry)
+            self.snap[j].copy_(carry[0])
+        for buf, new in zip(self.fused.carry, carry):
+            buf.copy_(new)
+
+    def capture(self, stream) -> None:
+        """Capture :meth:`run_eager` as a CUDA graph on ``stream``, with
+        every worker generator registered, so each replay draws the next
+        numbers of each stream.  Raises where the capture fails."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.fused.generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, stream=stream):
+            self.run_eager()
+        self.graph = graph
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.run_eager()
+        else:
+            self.graph.replay()
+
+
+def capture_chunks(fused: FusedRounds, chunks) -> None:
+    """Capture each of ``chunks`` as a CUDA graph on one dedicated stream.
+
+    Each first runs once eagerly on that stream: that builds the kernels,
+    makes the wrappers' per-stream scratch (B1's chunk counter, S1's zeroed
+    workspace, which the graphs then keep) and fills the allocator.  The
+    state buffers and the generators are then put back as they were before,
+    so the first replay starts where an eager run from the same state
+    would.  Replays of these graphs share that scratch: they must run one
+    at a time, on one stream.  Fenced before it returns; a capture that
+    fails raises (no eager fallback)."""
+    dev = fused.carry[0].device
+    saved = [t.clone() for t in fused.carry]
+    states = [gen.get_state() for gen in fused.generators]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        for chunk in chunks:
+            chunk.run_eager()
+        for buf, old in zip(fused.carry, saved):
+            buf.copy_(old)
+    for chunk in chunks:
+        chunk.capture(stream)
+    for gen, state in zip(fused.generators, states):
+        gen.set_state(state)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize(dev)
+
+
+def fused_chunks(fused: FusedRounds, total_rounds: int) -> List[RoundChunk]:
+    """The chunks that run ``total_rounds`` rounds, in order: chunks of
+    ``min(CHUNK_ROUNDS, total_rounds)`` rounds and a remainder.  On a CUDA
+    device the full chunk and the remainder are each captured once
+    (:func:`capture_chunks`) and every entry is a replay; on the CPU they
+    run eagerly."""
+    chunk = min(CHUNK_ROUNDS, total_rounds)
+    full, rem = divmod(total_rounds, chunk)
+    runner = RoundChunk(fused, chunk)
+    tail = RoundChunk(fused, rem) if rem else None
+    if fused.carry[0].device.type == "cuda":
+        with device_scope(fused.carry[0].device):
+            capture_chunks(fused, [runner] + ([tail] if tail else []))
+    return [runner] * full + ([tail] if tail else [])
+
+
+def run_fused_plan(fused: FusedRounds, total_rounds: int, nw: int,
+                   printer_freq: int):
+    """The chunk, warm-up, snapshot and timing machinery of ASGD.run_fused
+    and ASAGA.run_fused (``solvers/base.py:141-179`` of the JAX package):
+    :func:`fused_chunks` (both chunks captured, warmed and fenced before
+    the clock starts), then :func:`replay_chunks`."""
+    return replay_chunks(fused_chunks(fused, total_rounds), nw, printer_freq)
+
+
+def replay_chunks(plan: List[RoundChunk], nw: int, printer_freq: int):
+    """Run ``plan`` on the clock: one snapshot every ``max(1, printer_freq
+    // nw)`` rounds of a chunk, copied out of its ``snap`` on the device (no
+    sync) before the next replay.  Timestamps are taken at dispatch; the
+    caller fences before it takes elapsed.  Returns ``(snapshots,
+    start_wall, done_rounds, replays)``, ``replays`` 0 where the rounds ran
+    eagerly (CPU)."""
+    w = plan[0].fused.carry[0]
+    snap_every = max(1, printer_freq // nw)
+    with device_scope(w.device):
+        start_wall = time.monotonic()
+        snapshots: List[Tuple[float, torch.Tensor]] = [(0.0, w.clone())]
+        for chunk in plan:
+            chunk()
+            t_ms = (time.monotonic() - start_wall) * 1e3
+            for j in range(0, chunk.rounds, snap_every):
+                snapshots.append((t_ms, chunk.snap[j].clone()))
+    replays = len(plan) if plan[0].graph is not None else 0
+    return snapshots, start_wall, sum(c.rounds for c in plan), replays
+
+
 class FlopsAccountingMixin:
     """Counted-flops accounting for the solvers (``utils/flops.py`` model).
 
@@ -176,9 +312,11 @@ class FlopsAccountingMixin:
 
 class ShardedSolverMixin(FlopsAccountingMixin):
     """What ASGD and ASAGA share around their loops: worker placement, mask
-    generators, fault tolerance, the fail-fast drain and the trajectory
-    evaluation.  Hosts provide ``cfg``, ``ds``, ``devices``, ``_recovery``
-    (shard view) and ``_eval`` (per-shard loss of stacked snapshots)."""
+    generators, fault tolerance, the fail-fast drain, the fused loop's
+    inputs and result, and the trajectory evaluation.  Hosts provide
+    ``cfg``, ``ds``, ``devices``, ``driver_device``, ``_recovery`` (shard
+    view), ``_eval`` (per-shard loss of stacked snapshots) and
+    ``fused_rounds()``."""
 
     def _shard_device(self, wid: int):
         return self.devices[wid % len(self.devices)]
@@ -221,6 +359,64 @@ class ShardedSolverMixin(FlopsAccountingMixin):
         return collect_checked(
             ctx, waiter, timeout_s, pool=pool, cohort=cohort,
             dead_grace_s=grace, collected=collected,
+        )
+
+    def _fused_inputs(self):
+        """``(shards, generators)`` of the fused loop: every shard's
+        tensors on the driver device, and each worker's mask generator
+        from the run's seed there."""
+        drv = self.driver_device
+        nw = self.cfg.num_workers
+        shards = [
+            tuple(t.to(drv) for t in shard_tensors(self._recovery.shard(wid)))
+            for wid in range(nw)
+        ]
+        gens = tuple(worker_generator(self.cfg.seed, wid, drv)
+                     for wid in range(nw))
+        return shards, gens
+
+    def _run_fused(self, extras=None) -> "TrainResult":
+        """Run the solver's ``fused_rounds()`` for the iteration budget (full
+        waves: ``ceil(num_iterations / nw)`` rounds) and report it as the
+        JAX package's ``run_fused`` does (``solvers/asgd.py:528-548``).
+        ``extras(carry)`` adds to the result's extras from the final state.
+        Raises where ``coeff`` asks for stragglers: no host runs between
+        updates."""
+        cfg = self.cfg
+        nw = cfg.num_workers
+        if cfg.coeff != 0.0:
+            raise ValueError(
+                "run_fused cannot inject stragglers (no host between "
+                "updates); use run()"
+            )
+        fused = self.fused_rounds()
+        total_rounds = max(1, -(-cfg.num_iterations // nw))
+        snapshots, start_wall, done_rounds, replays = run_fused_plan(
+            fused, total_rounds, nw, cfg.printer_freq)
+        w = fused.carry[0]
+        fence(w.device)  # before elapsed: device work, not the enqueue
+        elapsed = time.monotonic() - start_wall
+        final_w = w.cpu().numpy()
+        snapshots.append((elapsed * 1e3, w.clone()))
+        traj = self._evaluate_trajectory(snapshots)
+        accepted = done_rounds * nw
+        return TrainResult(
+            final_w=final_w,
+            trajectory=traj,
+            elapsed_s=elapsed,
+            accepted=accepted,
+            dropped=0,
+            rounds=done_rounds,
+            max_staleness=nw - 1,  # by construction of the full wave
+            avg_delay_ms=0.0,
+            updates_per_sec=accepted / elapsed if elapsed > 0 else 0.0,
+            total_flops=sum(self._task_flops(wid) for wid in range(nw))
+            * done_rounds,
+            waiting_time_ms={},
+            extras={"fused": True,
+                    "rounds_per_call": min(CHUNK_ROUNDS, total_rounds),
+                    "graph_replays": replays,
+                    **(extras(fused.carry) if extras else {})},
         )
 
     def _evaluate_trajectory(self, snapshots) -> List[Tuple[float, float]]:

@@ -1,9 +1,9 @@
 """How often the solvers pass ``chip_smoke.py``'s convergence gates.
 
     python3 -m asyncframework_tpu_torch.tools.asgd_gate \
-        [--runs N] [--routes staged,tiled]
+        [--runs N] [--routes staged,tiled] [--entry run|run_fused]
     python3 -m asyncframework_tpu_torch.tools.asgd_gate --config rcv1 \
-        [--runs N] [--saga-gamma G] [--drain-batch M]
+        [--runs N] [--saga-gamma G] [--drain-batch M] [--entry run|run_fused]
 
 ``--config epsilon`` (the default) generates ``chip_smoke.py``'s phase-3
 deployment once on the card (epsilon, 400,000 x 2,000 f32, 8 workers,
@@ -28,6 +28,12 @@ and ``run_sync()`` at ``--saga-gamma`` (default ``tools.rcv1.SAGA_GAMMA``).  One
 solver run (its gates, trajectory, updates/s, tasks per accepted update,
 kernel S1's launches, the staleness at apply) and one summary line: each
 gate's pass count over the runs.
+
+``--entry run_fused`` runs the fused loop in place of the engine: on
+epsilon ``ASGD.run_fused()`` (the same 1,000-update budget and gate), on
+rcv1 ``tools/rcv1.py::fused_phase`` (ASGD and ASAGA ``run_fused()``).  Its
+staleness is at most ``num_workers - 1`` by construction, so no staleness
+at apply is recorded.
 
 Every line carries the card's name and power limit.  Needs a CUDA device.
 """
@@ -102,17 +108,21 @@ def quantiles(xs):
 
 
 def rcv1_gates(runs: int, saga_gamma: float, drain_batch: int, card: str,
-               dev) -> None:
-    """``--config rcv1``: the sparse phase ``runs`` times on one dataset."""
+               dev, entry: str = "run") -> None:
+    """``--config rcv1``: the sparse phase (``entry`` ``run``) or its
+    fused runs (``run_fused``) ``runs`` times on one dataset."""
     ds = rcv1.dataset(dev)
     print(json.dumps({"phase": "dataset", "card": card, **rcv1.describe(ds)}),
           flush=True)
     passes = defaultdict(int)
     for k in range(runs):
         with apply_staleness():
-            records = rcv1.phase(ds, dev, saga_gamma, drain_batch)
-        for rec, hooks in zip(records, ApplyStaleness.made):
-            at_apply = hooks.at_apply
+            records = (rcv1.fused_phase(ds, dev, saga_gamma)
+                       if entry == "run_fused"
+                       else rcv1.phase(ds, dev, saga_gamma, drain_batch))
+        hooks = ApplyStaleness.made if entry == "run" else [None] * len(records)
+        for rec, hook in zip(records, hooks):
+            at_apply = hook.at_apply if hook is not None else []
             rec.update({
                 "phase": "run", "card": card, "run": k,
                 "staleness_at_apply": quantiles(at_apply),
@@ -123,8 +133,8 @@ def rcv1_gates(runs: int, saga_gamma: float, drain_batch: int, card: str,
             for gate, ok in rec["gates"].items():
                 passes[f"{rec['solver']}.{rec['mode']}.{gate}"] += int(ok)
     print(json.dumps({"phase": "summary", "card": card, "runs": runs,
-                      "saga_gamma": saga_gamma, "drain_batch": drain_batch,
-                      "passes": dict(passes)}),
+                      "entry": entry, "saga_gamma": saga_gamma,
+                      "drain_batch": drain_batch, "passes": dict(passes)}),
           flush=True)
 
 
@@ -135,6 +145,7 @@ def main() -> None:
     ap.add_argument("--routes", default="staged,tiled")
     ap.add_argument("--saga-gamma", type=float, default=rcv1.SAGA_GAMMA)
     ap.add_argument("--drain-batch", type=int, default=rcv1.DRAIN_BATCH)
+    ap.add_argument("--entry", choices=("run", "run_fused"), default="run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("asgd_gate: no CUDA device")
@@ -145,7 +156,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if args.config == "rcv1":
-        rcv1_gates(args.runs, args.saga_gamma, args.drain_batch, card, dev)
+        rcv1_gates(args.runs, args.saga_gamma, args.drain_batch, card, dev,
+                   args.entry)
         return
     routes = args.routes.split(",")
     ds = ShardedDataset.generate_on_device(400_000, 2_000, 8, [dev], seed=7,
@@ -160,15 +172,18 @@ def main() -> None:
             before = mg.masked_grad.launches_staged, mg.masked_grad.launches_tiled
             solver = ASGD(ds, None, cfg, devices=[dev])
             with mg.pinned_route(route), apply_staleness():
-                r = solver.run()
-            at_apply = ApplyStaleness.made[-1].at_apply
-            tasks = sum(m.succeeded for m in solver.scheduler.pool.all_metrics())
+                r = getattr(solver, args.entry)()
+            fused = args.entry == "run_fused"
+            at_apply = [] if fused else ApplyStaleness.made[-1].at_apply
+            tasks = (r.accepted if fused else sum(
+                m.succeeded for m in solver.scheduler.pool.all_metrics()))
             objs = [obj for _, obj in r.trajectory]
             gate = objs[0] / 10
             low = min(range(len(objs)), key=objs.__getitem__)
             finals[route].append(r.final_objective)
             print(json.dumps({
                 "phase": "run", "card": card, "route": route, "run": k,
+                "entry": args.entry,
                 "final": r.final_objective, "objective_at_w0": objs[0],
                 "min": objs[low], "min_at_point": low,
                 "points": len(objs), "over_gate": r.final_objective >= gate,

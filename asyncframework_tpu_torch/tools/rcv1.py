@@ -21,22 +21,22 @@ package's own (``tests/test_sparse.py``): ASGD ``run()`` reaches a best
 objective below 0.1x and ends below 0.3x the objective at w = 0
 (``:214-219``); ``run_sync()`` and ASAGA end below it (``:143-157``); ASAGA
 keeps ``alpha_bar`` the history table's mean (``tests/test_fused.py:166``).
+:func:`fused_phase` does the same for ``run_fused()`` of both solvers.
 Each run counts kernel S1's launches (set to 0 just before it, read just
-after) and the calls of S1's plain versions.  ``chip_smoke.py``'s sparse
-phase and ``tools/asgd_gate.py --config rcv1`` run it.
+after; ``tools/runs.py``) and the calls of S1's plain versions.
+``chip_smoke.py``'s sparse phase and ``tools/asgd_gate.py --config rcv1``
+run them.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 
 from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
-from asyncframework_tpu_torch.ops import masked_grad as mg
 from asyncframework_tpu_torch.ops import sparse_grad as sg
 from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+from asyncframework_tpu_torch.tools.runs import run_one
 
 N, D, NNZ, WORKERS = 697_641, 47_236, 75, 8
 SEED, NOISE = 7, 0.01
@@ -49,6 +49,8 @@ SAGA_GAMMA, SAGA_UPDATES, SAGA_ROUNDS = 50.0, 1_200, 300
 # alpha_bar advances in f32 by one delta / N an accepted update; the
 # table's mean is summed once (the dense phase's band, chip_smoke.py)
 INVARIANT_TOL = "1e-3 * |mean| + 1e-3 * max|mean|"
+# run_fused: the JAX package's own band for its fused sparse ASAGA
+FUSED_INVARIANT = (5e-3, 5e-5, "5e-3 * |mean| + 5e-5")
 
 
 def dataset(device, n: int = N, d: int = D) -> SparseShardedDataset:
@@ -95,70 +97,21 @@ def table_mean(ds: SparseShardedDataset, alpha) -> np.ndarray:
     return g.cpu().numpy().astype(np.float64) / ds.n
 
 
-def _counts():
-    return {"compacted_grad": sg.compacted_grad.launches,
-            "grad_sum": sg.grad_sum.launches,
-            "ell_residual": sg.ell_residual.launches,
-            "segment_sum": sg.segment_sum.launches,
-            "compacted_grad_plain": sg.compacted_grad_plain.calls,
-            "grad_sum_plain": sg.grad_sum_plain.calls,
-            "ell_residual_plain": sg.ell_residual_plain.calls,
-            "segment_sum_plain": sg.segment_sum_plain.calls,
-            "masked_grad": mg.masked_grad.launches}
-
-
-def _zero_counts():
-    for fn in (sg.compacted_grad, sg.grad_sum, sg.ell_residual,
-               sg.segment_sum):
-        fn.launches = 0
-    for fn in (sg.compacted_grad_plain, sg.grad_sum_plain,
-               sg.ell_residual_plain, sg.segment_sum_plain):
-        fn.calls = 0
-    mg.masked_grad.launches = 0
-
-
-def run_one(solver_cls, mode: str, ds, cfg: SolverConfig, device):
-    """One solver run with kernel S1's counts set to 0 just before it and
-    read just after; returns ``(result, record)``."""
-    solver = solver_cls(ds, None, cfg, devices=[device])
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    _zero_counts()
-    res = getattr(solver, mode)()
-    counts = _counts()
-    tasks = sum(m.succeeded for m in solver.scheduler.pool.all_metrics())
-    objs = [obj for _, obj in res.trajectory]
-    rec = {
-        "solver": solver_cls.__name__, "mode": mode, "gamma": cfg.gamma,
-        "drain_batch": cfg.drain_batch if solver_cls is ASGD else 1,
-        "accepted": res.accepted, "dropped": res.dropped,
-        "rounds": res.rounds, "budget": cfg.num_iterations,
-        "updates_per_sec": res.updates_per_sec,
-        "elapsed_s": res.elapsed_s, "tasks_run": tasks,
-        "tasks_per_accepted_update": tasks / max(res.accepted, 1),
-        "max_staleness": res.max_staleness,
-        "objective_at_w0": objs[0], "best_objective": min(objs),
-        "final_objective": objs[-1],
-        "finite": bool(np.isfinite(res.final_w).all()),
-        "launches": counts,
-        "trajectory": [float(f"{o:.6g}") for o in objs],
-    }
-    return res, rec
-
-
 def _gates(rec, res, ds, solver_cls) -> dict:
     first, final = rec["objective_at_w0"], rec["final_objective"]
-    budget_met = (res.rounds if rec["mode"] == "run_sync"
+    mode = rec["mode"]
+    budget_met = (res.rounds if mode == "run_sync"
                   else res.accepted) == rec["budget"]
-    launches = rec["launches"]
-    # a task is one fused S1 launch; ASAGA's accepted async results add
-    # one launch of its coefficient form each (the table delta); the
-    # evaluation runs the residual alone; no launch of the earlier chain's
-    # segment sum, no plain version
-    commits = res.accepted if solver_cls is ASAGA and rec["mode"] == "run" else 0
+    launches, on_path = rec["launches"], rec["launches_on_path"]
+    # a task is one fused S1 launch (on the fused path, captured once a
+    # round and replayed); ASAGA's accepted async results add one launch
+    # of its coefficient form each (the table delta); the evaluation runs
+    # the residual alone; no launch of the earlier chain's segment sum, no
+    # plain version
+    commits = res.accepted if solver_cls is ASAGA and mode == "run" else 0
     gates = {
         "budget": budget_met, "finite": rec["finite"],
-        "through_s1": launches["compacted_grad"] >= rec["tasks_run"] > 0
+        "through_s1": on_path["compacted_grad"] >= rec["tasks_run"] > 0
         and launches["grad_sum"] >= commits
         and launches["ell_residual"] > 0
         and launches["segment_sum"] == 0
@@ -168,7 +121,7 @@ def _gates(rec, res, ds, solver_cls) -> dict:
         and launches["segment_sum_plain"] == 0
         and launches["masked_grad"] == 0,
     }
-    if solver_cls is ASGD and rec["mode"] == "run":
+    if solver_cls is ASGD and mode in ("run", "run_fused"):
         gates["best_below_0.1x"] = rec["best_objective"] < 0.1 * first
         gates["final_below_0.3x"] = final < 0.3 * first
     else:
@@ -177,12 +130,25 @@ def _gates(rec, res, ds, solver_cls) -> dict:
         expected = table_mean(ds, res.extras["alpha"])
         ab = res.extras["alpha_bar"].astype(np.float64)
         err = np.abs(ab - expected)
-        bound = 1e-3 * np.abs(expected) + 1e-3 * np.abs(expected).max()
+        rtol, atol, tol = FUSED_INVARIANT if mode == "run_fused" else (
+            1e-3, 1e-3 * np.abs(expected).max(), INVARIANT_TOL)
         rec["alpha_bar_max_abs_err"] = float(err.max())
         rec["alpha_bar_max"] = float(np.abs(expected).max())
-        rec["invariant_tol"] = INVARIANT_TOL
-        gates["alpha_bar_is_table_mean"] = bool(np.all(err <= bound))
+        rec["invariant_tol"] = tol
+        gates["alpha_bar_is_table_mean"] = bool(
+            np.all(err <= rtol * np.abs(expected) + atol))
     return gates
+
+
+def _gated(runs, ds, device, drain_batch: int = DRAIN_BATCH):
+    records = []
+    for solver_cls, mode, iters, gamma in runs:
+        res, rec = run_one(solver_cls, mode, ds,
+                           config(iters, gamma, drain_batch), device)
+        rec["gates"] = _gates(rec, res, ds, solver_cls)
+        rec["ok"] = all(rec["gates"].values())
+        records.append(rec)
+    return records
 
 
 def phase(ds, device, saga_gamma: float = SAGA_GAMMA,
@@ -190,18 +156,21 @@ def phase(ds, device, saga_gamma: float = SAGA_GAMMA,
     """ASGD and ASAGA, ``run()`` and ``run_sync()``, on ``ds`` with the
     rcv1 recipes; one record a run, each with its ``gates`` (name ->
     passed) and ``ok``."""
-    records = []
-    for solver_cls, mode, iters, gamma in (
+    return _gated([
         (ASGD, "run", ASGD_UPDATES, ASGD_GAMMA),
         (ASGD, "run_sync", ASGD_ROUNDS, ASGD_GAMMA),
         (ASAGA, "run", SAGA_UPDATES, saga_gamma),
         (ASAGA, "run_sync", SAGA_ROUNDS, saga_gamma),
-    ):
-        t0 = time.monotonic()
-        res, rec = run_one(solver_cls, mode, ds,
-                           config(iters, gamma, drain_batch), device)
-        rec["gates"] = _gates(rec, res, ds, solver_cls)
-        rec["ok"] = all(rec["gates"].values())
-        rec["wall_s"] = time.monotonic() - t0
-        records.append(rec)
-    return records
+    ], ds, device, drain_batch)
+
+
+def fused_phase(ds, device, saga_gamma: float = SAGA_GAMMA):
+    """ASGD and ASAGA ``run_fused()`` on ``ds`` with the same recipes (the
+    JAX package's ``fused`` arm runs ASGD's), gated as above: ASGD's best
+    below 0.1x and final below 0.3x, ASAGA's final below the objective at
+    w = 0 and ``alpha_bar`` the table's mean within the JAX package's
+    fused tolerance (``tests/test_fused.py:180``)."""
+    return _gated([
+        (ASGD, "run_fused", ASGD_UPDATES, ASGD_GAMMA),
+        (ASAGA, "run_fused", SAGA_UPDATES, saga_gamma),
+    ], ds, device)

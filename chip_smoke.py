@@ -53,16 +53,36 @@ exits non-zero without a result line):
    deployment through the masked_grad kernel's history forms: the
    objective halves, ``alpha_bar`` is the history table's mean, and the
    launch counts (every task and commit on masked_grad's staged route);
-6. sparse -- the rcv1 deployment (``tools/rcv1.py``: 697,641 x 47,236
+6. fused, epsilon -- ``run_fused()`` (chunks of 16 rounds, each one
+   CUDA-graph replay): ``fused_graph`` lines (a chunk captured and
+   replayed, bit-equal to the same chunk run eagerly from the same state
+   and generator states; ASGD and ASAGA), then ASGD (5,000 updates, gamma
+   100) and ASAGA (2,000, gamma 0.5) at bench.py's recipe, each gated as
+   phases 3 and 5 (and ``alpha_bar`` within the JAX package's fused band),
+   each task one staged B1 launch; phase 2's ``b1_graph`` line records B1's
+   cooperative launch under capture beside S1's ``s1_graph``;
+7. sparse -- the rcv1 deployment (``tools/rcv1.py``: 697,641 x 47,236
    padded ELL, K = 80, generated on the card, 8 workers): its bytes, pad
    width and skew, then ASGD ``run()`` (bench.py's recipe, 1,200 updates)
-   and ``run_sync()``, ASAGA ``run()`` and ``run_sync()``, each held to
-   the JAX package's gate and run through kernel S1 (its launches set to 0
-   just before each run and read just after: one fused launch a task, one
+   and ``run_sync()``, ASAGA ``run()`` and ``run_sync()``, then
+   ``fused_graph`` and ``run_fused()`` of both, each held to the JAX
+   package's gate and run through kernel S1 (its launches set to 0 just
+   before each run and read just after: one fused launch a task, one
    coefficient-form launch an ASAGA table delta, no launch of the earlier
    chain's segment sum, 0 calls of its plain versions);
-7. the ``{"kernels": [...]}`` line, the card line again, and last the
+8. mnist8m -- 8,100,000 x 784 bf16 (12.7 GB) generated on the card, 8
+   workers, b = 0.1, gamma 39.2: ``fused_graph``, ASGD ``run_fused()``
+   (5,000 updates) and ``run()`` (1,000), each below 1/10 of the objective
+   at w = 0, every task one staged B1 launch;
+9. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
+
+Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
+elapsed (fenced), accepted, rounds, staleness, the objective at w = 0 and
+at the end, the update count and time at bench.py's target (0.001 of the
+objective at w = 0), graph replays and kernel launches per accepted update
+(on the fused path: launches captured a round x rounds), the peak device
+memory and the card.
 
 It needs the package beside it and one CUDA device, and builds the kernels
 from ``asyncframework_tpu_torch/csrc`` at first use (nvcc).
@@ -275,6 +295,8 @@ def kernel_case(name, n, d, dtype, torch, mg, flush, gen, b,
     if route != B1_ROUTES[name]:
         raise RuntimeError(f"{name} took the {route} route, not "
                            f"{B1_ROUTES[name]}")
+    if name == "b_epsilon_idx":  # the fused loop captures this launch
+        rec["graph"] = graph_case("b1_graph", kernel, g1, torch)
     return rec
 
 
@@ -829,7 +851,7 @@ def s1_case(name, rows, K, nnz, d, rate, cap, law, torch, sg, flush, gen):
     if name == "s_rcv1_task":  # ASAGA's table delta: the coefficient form
         out["grad_sum"] = s1_grad_sum_case(name, cols[idx], rows_sel, r, d,
                                            torch, sg, flush)
-        out["graph"] = s1_graph_case(fused, g, torch)
+        out["graph"] = graph_case("s1_graph", lambda: fused()[0], g, torch)
     return out
 
 
@@ -901,23 +923,23 @@ def s1_grad_sum_case(name, c_sel, v_sel, coeff, d, torch, sg, flush):
     return rec
 
 
-def s1_graph_case(fused, g_ref, torch):
-    """Whether the fused launch (a cooperative launch) is captured by a CUDA
-    graph, and whether the replay gives the same bits: a record only."""
-    rec = {"phase": "s1_graph"}
+def graph_case(phase, fn, ref, torch):
+    """Whether ``fn()`` (one kernel launch, a cooperative launch on B1's
+    staged route and on S1) is captured by a CUDA graph, and whether the
+    replay gives ``ref``'s bits: a record only."""
+    rec = {"phase": phase}
     try:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fused()  # the capture stream's scratch, made outside the capture
+            fn()  # the capture stream's scratch, made outside the capture
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            g_out, _ = fused()
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
         graph.replay()
         torch.cuda.synchronize()
-        rec.update(captures=True, replay_bit_equal=bool(torch.equal(g_out,
-                                                                    g_ref)))
+        rec.update(captures=True, replay_bit_equal=bool(torch.equal(out, ref)))
     except Exception as e:  # a record of what CUDA refuses to capture
         torch.cuda.synchronize()
         rec.update(captures=False, error=f"{type(e).__name__}: {e}"[:300])
@@ -927,6 +949,7 @@ def s1_graph_case(fused, g_ref, torch):
 
 def sparse_phase(torch, card):
     """The rcv1 deployment through kernel S1 (``tools/rcv1.py``)."""
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD
     from asyncframework_tpu_torch.tools import rcv1
 
     dev = torch.device("cuda", 0)
@@ -942,9 +965,25 @@ def sparse_phase(torch, card):
         emit({"phase": "sparse", "card": card, **rec})
         for key in launches:
             launches[key] += rec["launches"][key]
+    # the fused loop on the same deployment: a chunk's replay against its
+    # eager rounds, then ASGD and ASAGA run_fused() at the same recipes
+    for solver_cls, iters, gamma in ((ASGD, rcv1.ASGD_UPDATES, rcv1.ASGD_GAMMA),
+                                     (ASAGA, rcv1.SAGA_UPDATES,
+                                      rcv1.SAGA_GAMMA)):
+        fused_graph("rcv1", solver_cls(ds, None, rcv1.config(iters, gamma),
+                                       devices=[dev]), card)
+    fused = rcv1.fused_phase(ds, dev)
+    for rec in fused:
+        emit({"phase": "fused", "config": "rcv1", "card": card,
+              **{k: v for k, v in rec.items() if k != "trajectory"}})
+        # the task launches on the path: captured a round x rounds
+        launches["compacted_grad"] += rec["launches_on_path"]["compacted_grad"]
+        for key in ("grad_sum", "ell_residual", "segment_sum"):
+            launches[key] += rec["launches"][key]
     del ds
     torch.cuda.empty_cache()
-    failed = [f"{r['solver']}.{r['mode']}" for r in records if not r["ok"]]
+    failed = [f"{r['solver']}.{r['mode']}" for r in records + fused
+              if not r["ok"]]
     if failed:
         raise RuntimeError(f"sparse phase gates failed: {failed}")
     return launches
@@ -1029,6 +1068,161 @@ def asaga_phase(ds, torch, np, mg, card):
         raise RuntimeError(f"ASAGA did not run every task and commit through "
                            f"the masked_grad kernel: {launches} < {need}")
     return launches
+
+
+# the fused loop at bench.py's recipes (bench.py:94-113, 419-431): 8
+# workers, taw 2^31-1, bucket ratio 0.7, a snapshot every 25 updates, seed
+# 42; ASAGA (not in bench.py) at phase 5's step size.  A chunk graph holds
+# 16 rounds (solvers/base.py::run_fused_plan).
+EPS_FUSED_UPDATES, EPS_SAGA_FUSED_UPDATES = 5_000, 2_000
+MNIST8M_N, MNIST8M_D, MNIST8M_GAMMA = 8_100_000, 784, 39.2
+MNIST8M_FUSED_UPDATES, MNIST8M_RUN_UPDATES = 5_000, 1_000
+# alpha_bar against the history table's mean: the JAX package's fused band
+# (tests/test_fused.py:139)
+FUSED_SAGA_RTOL, FUSED_SAGA_ATOL = 2e-3, 2e-5
+
+
+def bench_config(SolverConfig, iters, gamma, batch_rate=0.1):
+    return SolverConfig(num_workers=8, num_iterations=iters, gamma=gamma,
+                        taw=2**31 - 1, batch_rate=batch_rate, bucket_ratio=0.7,
+                        printer_freq=25, coeff=0.0, seed=42,
+                        calibration_iters=100)
+
+
+def fused_graph(config, solver, card):
+    """One 16-round chunk of ``solver``'s fused loop captured as a CUDA
+    graph and replayed, bit-equal to the same chunk run eagerly from the
+    same state and generator states (``tools/runs.py::graph_check``); the
+    launches the warm-up and the capture counted, by route."""
+    from asyncframework_tpu_torch.tools import runs
+
+    rec = {"phase": "fused_graph", "config": config,
+           "solver": type(solver).__name__, "card": card,
+           **runs.graph_check(solver)}
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"{config} fused chunk: the replay is not the "
+                           f"eager rounds: {rec}")
+    return rec
+
+
+def through(rec, *forms) -> bool:
+    """Every accepted update of the run was one launch of each of
+    ``forms`` (on the fused path: captured once a round, replayed)."""
+    return all(rec["launches_on_path"][f] == rec["accepted"] > 0
+               for f in forms)
+
+
+def gated_run(config, solver_cls, mode, ds, cfg, torch, card, gates):
+    """One run through ``tools/runs.py::run_one`` (every count set to 0
+    just before it, read just after), its line, and its gates (``gates(rec,
+    res)``: name -> passed); a gate that fails raises."""
+    from asyncframework_tpu_torch.tools import runs
+
+    res, rec = runs.run_one(solver_cls, mode, ds, cfg,
+                            torch.device("cuda", 0))
+    rec["gates"] = gates(rec, res)
+    rec["ok"] = all(rec["gates"].values())
+    line = {k: v for k, v in rec.items() if k != "trajectory"}
+    emit({"phase": "fused" if mode == "run_fused" else f"engine_{mode}",
+          "config": config, "card": card, **line})
+    if not rec["ok"]:
+        raise RuntimeError(f"{config} {solver_cls.__name__}.{mode} failed "
+                           f"its gates: {rec['gates']}")
+    return res, rec
+
+
+def fused_epsilon_phase(ds, torch, np, mg, card):
+    """``run_fused`` on the epsilon deployment: a chunk's replay against
+    its eager rounds (ASGD and ASAGA), then ASGD (5,000 updates) and ASAGA
+    (2,000), each gated: below 1/10 (ASGD) or 1/2 (ASAGA) of the objective
+    at w = 0, every task one staged B1 launch, ASAGA's ``alpha_bar`` the
+    history table's mean."""
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+
+    dev = torch.device("cuda", 0)
+    asgd_cfg = bench_config(SolverConfig, EPS_FUSED_UPDATES, 100.0)
+    saga_cfg = bench_config(SolverConfig, EPS_SAGA_FUSED_UPDATES, SAGA_GAMMA)
+    fused_graph("epsilon", ASGD(ds, None, asgd_cfg, devices=[dev]), card)
+    fused_graph("epsilon", ASAGA(ds, None, saga_cfg, devices=[dev]), card)
+
+    def asgd_gates(rec, res):
+        return {"finite": rec["finite"],
+                "below_0.1x": rec["final_objective"]
+                < rec["objective_at_w0"] / 10,
+                "through_b1_staged": through(rec, "masked_grad",
+                                             "masked_grad_staged")}
+
+    def saga_gates(rec, res):
+        # (1/N) sum_s X_s^T alpha_s (after the counts were read)
+        expected = torch.zeros(ds.d, device=dev)
+        for wid, a in res.extras["alpha"].items():
+            expected += mg.xt_coeff(ds.shard(wid).X,
+                                    torch.tensor(a, device=dev))
+        expected = (expected / ds.n).cpu().numpy()
+        err = np.abs(res.extras["alpha_bar"] - expected)
+        rec.update(alpha_bar_max_abs_err=float(err.max()),
+                   alpha_bar_max=float(np.abs(expected).max()),
+                   invariant_tol=f"{FUSED_SAGA_RTOL} * |mean| + "
+                                 f"{FUSED_SAGA_ATOL}")
+        return {"finite": rec["finite"],
+                "below_0.5x": rec["final_objective"]
+                < rec["objective_at_w0"] / 2,
+                "alpha_bar_is_table_mean": bool(np.all(
+                    err <= FUSED_SAGA_RTOL * np.abs(expected)
+                    + FUSED_SAGA_ATOL)),
+                "through_b1_staged": through(rec, "saga_grad",
+                                             "masked_grad_staged")}
+
+    _, asgd = gated_run("epsilon", ASGD, "run_fused", ds, asgd_cfg, torch,
+                        card, asgd_gates)
+    _, saga = gated_run("epsilon", ASAGA, "run_fused", ds, saga_cfg, torch,
+                        card, saga_gates)
+    return asgd, saga
+
+
+def mnist8m_phase(torch, card):
+    """The mnist8m deployment end to end (``bench.py:99-103``: 8,100,000 x
+    784 bf16 generated on the card, seed 7, noise 0.01, 8 workers, gamma
+    39.2, b = 0.1): a chunk's replay against its eager rounds, then ASGD
+    ``run_fused()`` (5,000 updates) and ``run()`` (1,000), each below 1/10
+    of the objective at w = 0 and every task one staged B1 launch."""
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
+    from asyncframework_tpu_torch.utils.hbm import dataset_residency_bytes
+
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    ds = ShardedDataset.generate_on_device(
+        MNIST8M_N, MNIST8M_D, 8, [dev], seed=7, noise=0.01,
+        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    emit({"phase": "mnist8m_data", "card": card, "n": ds.n, "d": ds.d,
+          "dtype": "bfloat16", "workers": 8,
+          "bytes": sum(dataset_residency_bytes(ds).values()),
+          "generate_s": time.monotonic() - t0})
+    fused_cfg = bench_config(SolverConfig, MNIST8M_FUSED_UPDATES,
+                             MNIST8M_GAMMA)
+    run_cfg = bench_config(SolverConfig, MNIST8M_RUN_UPDATES, MNIST8M_GAMMA)
+    fused_graph("mnist8m", ASGD(ds, None, fused_cfg, devices=[dev]), card)
+
+    def gates(rec, res):
+        return {"finite": rec["finite"],
+                "below_0.1x": rec["final_objective"]
+                < rec["objective_at_w0"] / 10,
+                "budget": res.accepted == rec["budget"],
+                "through_b1_staged": rec["launches_on_path"]["masked_grad"]
+                >= rec["tasks_run"] > 0
+                and rec["launches_on_path"]["masked_grad_staged"]
+                == rec["launches_on_path"]["masked_grad"]}
+
+    _, fused = gated_run("mnist8m", ASGD, "run_fused", ds, fused_cfg, torch,
+                         card, gates)
+    _, engine = gated_run("mnist8m", ASGD, "run", ds, run_cfg, torch, card,
+                          gates)
+    del ds
+    torch.cuda.empty_cache()
+    return fused, engine
 
 
 def main() -> int:
@@ -1189,13 +1383,19 @@ def main() -> int:
 
     # ------------------------------------------------------------ 5. asaga
     saga_launches = asaga_phase(ds, torch, np, mg, card)
+
+    # ---------------------------------------------------- 6. fused, epsilon
+    eps_fused, saga_fused = fused_epsilon_phase(ds, torch, np, mg, card)
     del ds
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 6. sparse
+    # ----------------------------------------------------------- 7. sparse
     s1_launches = sparse_phase(torch, card)
 
-    # ------------------------------------------------------- 7. results
+    # ---------------------------------------------------------- 8. mnist8m
+    mnist_fused, mnist_run = mnist8m_phase(torch, card)
+
+    # ------------------------------------------------------- 9. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -1215,14 +1415,20 @@ def main() -> int:
     s_task = recs["s_rcv1_task"]
     s_eval = recs["s_rcv1_shard"]["residual"]
     xla = "(XLA, no pallas_call)"
+    # launches: each path's count, set to 0 just before it and read just
+    # after; on the fused paths the launches captured a round times the
+    # rounds replayed (tools/runs.py)
     emit({"kernels": [
         # the main paths' shapes: ASGD's compacted epsilon shard (b = 0.1),
         # ASAGA's full epsilon shard, the ring block of the long-context path
-        entry("masked_grad", "masked_grad.cu", b1, launches,
+        entry("masked_grad", "masked_grad.cu", b1, launches + sum(
+            r["launches_on_path"]["masked_grad"]
+            for r in (eps_fused, mnist_fused, mnist_run)),
               recs["b_epsilon_idx"], recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
-              saga_launches["saga_grad"], recs["saga_epsilon"],
-              recs["saga_epsilon"]["bound_us"] / 1e3),
+              saga_launches["saga_grad"]
+              + saga_fused["launches_on_path"]["saga_grad"],
+              recs["saga_epsilon"], recs["saga_epsilon"]["bound_us"] / 1e3),
         entry("masked_grad.xt_coeff", "masked_grad.cu", b1,
               saga_launches["xt_coeff"], recs["xt_epsilon"],
               recs["xt_epsilon"]["bound_us"] / 1e3),

@@ -354,15 +354,19 @@ def test_unported_features_raise(option, regression):
 
 
 def test_run_fused_and_sparse_data_are_not_ported_yet(regression):
-    """``run_fused`` is not ported; a scipy sparse matrix is not taken as
-    it is (sparse data goes in as a ``SparseShardedDataset`` built from its
-    CSR arrays, ``tests/test_torch_sparse.py``), and the refusal names
-    ROADMAP A4."""
+    """``run_fused`` was a stub that raised; it is ported now and runs in
+    full waves on the CPU (``tests/test_torch_fused.py`` holds it against
+    the JAX package).  A scipy sparse matrix is still not taken as it is
+    (sparse data goes in as a ``SparseShardedDataset`` built from its CSR
+    arrays, ``tests/test_torch_sparse.py``), and the refusal names ROADMAP
+    A4."""
     import scipy.sparse as sp
 
     X, y = regression
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ASAGA(X, y, SolverConfig(**_cfg()), devices=[CPU]).run_fused()
+    res = ASAGA(X, y, SolverConfig(**_cfg()), devices=[CPU]).run_fused()
+    assert res.extras["fused"] is True and res.dropped == 0
+    assert res.accepted == _cfg()["num_iterations"]
+    assert res.final_objective < res.trajectory[0][1]
     with pytest.raises(NotImplementedError, match="A4"):
         ASAGA(sp.csr_matrix(X), y, SolverConfig(**_cfg()), devices=[CPU])
 

@@ -163,6 +163,11 @@ def test_unported_features_raise(option, regression):
 
 
 def test_run_fused_is_not_ported_yet(regression):
+    """``run_fused`` was a stub that raised; it is ported now and runs the
+    whole budget in full waves on the CPU (``tests/test_torch_fused.py``
+    holds it against the JAX package)."""
     X, y = regression
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ASGD(X, y, SolverConfig(**_cfg()), devices=CPU).run_fused()
+    res = ASGD(X, y, SolverConfig(**_cfg()), devices=CPU).run_fused()
+    assert res.extras["fused"] is True
+    assert res.accepted == 300 and res.rounds == 75 and res.dropped == 0
+    assert res.final_objective < res.trajectory[0][1] / 10

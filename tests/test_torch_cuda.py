@@ -686,3 +686,94 @@ def test_compacted_grad_edges(dev):
     assert torch.equal(r, -(y[idx] * valid)) and not g.any()
     c1 = torch.zeros_like(cols)
     _fused_equal(c1, vals, y, w[:1].contiguous(), idx, valid, 1)
+
+
+# ------------------------------------------------------------- run_fused
+def _fused_solver(kind, dev, batch_rate=0.3):
+    """A solver on the card whose worker tasks take B1's staged route
+    (dense: ~1,500 compacted slots of 5,000 x 512 f32 a shard) or S1
+    (sparse: 5,000 x 20 padded ELL a shard, d = 4,096)."""
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+
+    solver, layout = kind.split("_")
+    if layout == "sparse":
+        ds = SparseShardedDataset.generate_on_device(
+            40_000, 4_096, 20, 8, devices=[dev], seed=3, noise=0.01)
+    else:
+        ds = ShardedDataset.generate_on_device(40_000, 512, 8, [dev], seed=3,
+                                               noise=0.01)
+    cfg = SolverConfig(num_workers=8, num_iterations=200, batch_rate=batch_rate,
+                       gamma=0.3 if solver == "asaga" else 0.05 * ds.d,
+                       printer_freq=8, seed=5)
+    return (ASAGA if solver == "asaga" else ASGD)(ds, None, cfg, devices=[dev])
+
+
+@pytest.mark.parametrize("kind", ["asgd_dense", "asgd_sparse", "asaga_dense",
+                                  "asaga_sparse"])
+def test_fused_graph_replay_matches_eager_rounds(dev, kind):
+    """A chunk captured as a CUDA graph and replayed is the same chunk run
+    eagerly from the same state and generator states, bit for bit (model,
+    counter or alpha_bar, history slices, every snapshot row)."""
+    from asyncframework_tpu_torch.tools import runs
+
+    rec = runs.graph_check(_fused_solver(kind, dev), rounds=5)
+    assert rec["replay_bit_equal"] and rec["snapshots_bit_equal"], rec
+    assert rec["rounds_moved_model"] and rec["ok"], rec
+    form = "compacted_grad" if kind.endswith("sparse") else (
+        "saga_grad" if kind.startswith("asaga") else "masked_grad_staged")
+    # one launch a task in the warm-up and one in the capture
+    assert rec["launches_warm_and_capture"][form] == 2 * 5 * 8
+
+
+def test_fused_capture_restores_state_and_generators(dev):
+    from asyncframework_tpu_torch.solvers.base import RoundChunk, capture_chunks
+
+    fused = _fused_solver("asgd_dense", dev).fused_rounds()
+    states = [g.get_state() for g in fused.generators]
+    chunks = [RoundChunk(fused, 4), RoundChunk(fused, 3)]
+    capture_chunks(fused, chunks)  # warms both eagerly, then captures
+    assert all(torch.equal(g.get_state(), s)
+               for g, s in zip(fused.generators, states))
+    assert not fused.carry[0].any() and float(fused.carry[1]) == 0.0
+    chunks[0]()
+    torch.cuda.synchronize()
+    assert float(fused.carry[1]) == 4 * 8 and fused.carry[0].any()
+
+
+def test_fused_capture_failure_raises(dev):
+    """A round that copies to the host cannot be captured: the run raises
+    and does not fall back to eager rounds."""
+    from asyncframework_tpu_torch.solvers.base import FusedRounds, run_fused_plan
+
+    def host_sync(w, k):
+        return w - float(w.sum()), k + 1.0
+
+    fused = FusedRounds(host_sync, (torch.ones(8, device=dev),
+                                    torch.zeros((), device=dev)), ())
+    with pytest.raises(RuntimeError):
+        run_fused_plan(fused, 4, nw=1, printer_freq=1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("solver", ["asgd", "asaga"])
+def test_run_fused_on_the_card_matches_the_cpu(dev, solver):
+    """``batch_rate=1.0``: every sample is the whole shard on both devices,
+    so the graph replays on the card and the eager rounds on the CPU run
+    the same arithmetic (f32 sums in other orders)."""
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+
+    rs = np.random.default_rng(4)
+    X = (rs.normal(size=(4_096, 64)) / 8).astype(np.float32)
+    y = (X @ rs.normal(size=64)).astype(np.float32)
+    cls = ASGD if solver == "asgd" else ASAGA
+    cfg = SolverConfig(num_workers=4, num_iterations=100, gamma=0.5,
+                       batch_rate=1.0, printer_freq=20)
+    gpu = cls(X, y, cfg, devices=[dev]).run_fused()
+    cpu = cls(X, y, cfg, devices=[torch.device("cpu")]).run_fused()
+    assert gpu.extras["graph_replays"] == 2 and cpu.extras["graph_replays"] == 0
+    np.testing.assert_allclose(gpu.final_w, cpu.final_w, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(cpu.final_w).max()))
+    np.testing.assert_allclose([o for _, o in gpu.trajectory],
+                               [o for _, o in cpu.trajectory], rtol=1e-4)
