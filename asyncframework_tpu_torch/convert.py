@@ -73,3 +73,31 @@ def saga_state_from_reference(
     w_t = torch.tensor(np.asarray(w, np.float32), device=devs[0])
     ab_t = torch.tensor(np.asarray(alpha_bar, np.float32), device=devs[0])
     return w_t, alpha, ab_t, int(k)
+
+
+#: the model state of a solver checkpoint, the same names and layout in both
+#: packages (``solvers/base.py::SolverCheckpointer``); the worker streams are
+#: each package's own (``worker_keys``: threefry keys; ``worker_gens``:
+#: ``torch.Generator`` states)
+MODEL_STATE = ("w", "k", "clock", "alpha", "alpha_bar", "meta")
+
+
+def model_state(checkpoint: Mapping) -> dict:
+    """A checkpoint of either package without its worker streams: the
+    entries of :data:`MODEL_STATE` it holds."""
+    return {key: checkpoint[key] for key in MODEL_STATE if key in checkpoint}
+
+
+def with_worker_generators(state: Mapping, seed: int, num_workers: int,
+                           device) -> dict:
+    """``state`` (a JAX package checkpoint's :func:`model_state`) with the
+    port's ``worker_gens``: each worker's generator as a fresh run from
+    ``seed`` on ``device`` starts it, so the port resumes the JAX run's model
+    with its own streams.  A CUDA generator's state differs from a CPU
+    one's: give the device the resumed run draws on."""
+    from asyncframework_tpu_torch.ops.sampling import worker_generator
+
+    dev = torch.device(device)
+    return {**model_state(state), "worker_gens": {
+        wid: worker_generator(seed, wid, dev).get_state().numpy()
+        for wid in range(num_workers)}}

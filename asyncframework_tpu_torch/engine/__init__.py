@@ -1,4 +1,5 @@
-"""The in-process engine: jobs, executors, scheduling, liveness, recovery."""
+"""The in-process engine: jobs, executors, scheduling, liveness, recovery,
+speculation, dynamic allocation and accumulators."""
 
 from asyncframework_tpu_torch.engine.job import Job, JobWaiter, TaskSpec
 from asyncframework_tpu_torch.engine.executor import (
@@ -13,14 +14,31 @@ from asyncframework_tpu_torch.engine.straggler import (
     build_cloud_stragglers,
 )
 from asyncframework_tpu_torch.engine.blacklist import BlacklistTracker
+from asyncframework_tpu_torch.engine.allocation import ExecutorAllocationManager
+from asyncframework_tpu_torch.engine.speculation import (
+    SpeculationMonitor,
+    find_speculatable,
+)
 from asyncframework_tpu_torch.engine.recovery import (
     ReassignmentPlan,
     ShardRecovery,
     plan_reassignment,
 )
 from asyncframework_tpu_torch.engine.heartbeat import HeartbeatMonitor
+from asyncframework_tpu_torch.engine.accumulator import (
+    Accumulator,
+    CollectionAccumulator,
+    DoubleAccumulator,
+    LongAccumulator,
+    MaxAccumulator,
+)
 
 __all__ = [
+    "Accumulator",
+    "LongAccumulator",
+    "DoubleAccumulator",
+    "CollectionAccumulator",
+    "MaxAccumulator",
     "Job",
     "JobWaiter",
     "TaskSpec",
@@ -32,6 +50,9 @@ __all__ = [
     "DelayModel",
     "build_cloud_stragglers",
     "BlacklistTracker",
+    "SpeculationMonitor",
+    "ExecutorAllocationManager",
+    "find_speculatable",
     "ReassignmentPlan",
     "ShardRecovery",
     "plan_reassignment",

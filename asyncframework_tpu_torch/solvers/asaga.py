@@ -37,8 +37,12 @@ Fused mode (:meth:`ASAGA.run_fused`): full waves against the round-start
 ``w``, each worker's slice committed in the round and the results folded in
 worker order, a chunk of rounds one CUDA-graph replay on the card.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): checkpointing, speculation and dynamic allocation.
+``run()`` checkpoints and resumes (``should_save`` cadence; the model,
+``alpha_bar``, every history slice on its shard's device, the clock and the
+worker generators), and ``run()``/``run_sync()`` take speculation and
+dynamic allocation, as the JAX package's do.  A task draws its sample once:
+every body of it (a retry, a speculative copy, a sibling) reuses the draw,
+so the mask the commit reads is the mask the gradient used.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import time
 from collections import deque
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from asyncframework_tpu_torch.broadcast import VersionedModelStore
@@ -62,13 +67,17 @@ from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.base import (
     DelayCalibrator,
     FusedRounds,
+    RunSidecars,
     ShardedSolverMixin,
+    SolverCheckpointer,
     SolverConfig,
     TrainResult,
     WaitingTimeTable,
     check_hbm_plan,
     check_ported,
+    generator_states,
     resolve_dataset,
+    restore_generators,
 )
 from asyncframework_tpu_torch.solvers.instrumentation import RunInstruments
 from asyncframework_tpu_torch.utils.devices import (
@@ -178,7 +187,30 @@ class ASAGA(ShardedSolverMixin):
         cfg = self.cfg
         nw = cfg.num_workers
         drv = self.driver_device
+        d = self.ds.d
         ctx: AsyncContext = AsyncContext()
+        gens, gen_locks = self._generators()
+        ckpt = SolverCheckpointer(cfg, "asaga", d, self.ds.n)
+        ck = ckpt.restore()  # before any thread starts: a refusal leaks none
+        if ck is not None:
+            # resume: the model, the running history mean, the whole table
+            # (each slice on its shard's device), the accepted counter, the
+            # logical clock and every worker's generator
+            k0 = int(ck["k"])
+            ctx.set_current_time(int(ck["clock"]))
+            w0 = torch.tensor(np.asarray(ck["w"], np.float32), device=drv)
+            ab0 = torch.tensor(np.asarray(ck["alpha_bar"], np.float32),
+                               device=drv)
+            alpha = {
+                wid: torch.tensor(np.asarray(a, np.float32),
+                                  device=self._shard_device(wid))
+                for wid, a in ck["alpha"].items()
+            }
+            restore_generators(gens, ck["worker_gens"])
+        else:
+            k0 = 0
+            w0, ab0 = self._zeros(d), self._zeros(d)
+            alpha = self._initial_table()
         sched = JobScheduler(num_workers=nw, devices=self.devices)
         sched.set_mode(ASYNC)
         self.scheduler = sched  # exposed for fault-injection tests/tools
@@ -187,10 +219,9 @@ class ASAGA(ShardedSolverMixin):
         waiting = WaitingTimeTable()
         inst = RunInstruments(cfg, nw)
         inst.register_queue_depth(ctx.size)
-        d = self.ds.d
-        alpha = self._initial_table()
         hot_lock = threading.Lock()  # guards the alpha slots
         ft = self._fault_tolerance_with_table(sched, inst, alpha, hot_lock)
+        side = RunSidecars(cfg, sched, inst)
         # stale-read experiment (SparkASAGAThread.scala:268): workers read
         # model version (latest - offset)
         store = (
@@ -198,8 +229,7 @@ class ASAGA(ShardedSolverMixin):
             if cfg.stale_read_offset is not None
             else None
         )
-        gens, gen_locks = self._generators()
-        state = {"w": self._zeros(d), "ab": self._zeros(d), "k": 0,
+        state = {"w": w0, "ab": ab0, "k": k0,
                  "accepted": 0, "dropped": 0, "rounds": 0, "flops": 0.0}
         state_lock = threading.Lock()
         stop = threading.Event()
@@ -209,6 +239,25 @@ class ASAGA(ShardedSolverMixin):
 
         def now_ms():
             return (time.monotonic() - start_wall) * 1e3
+
+        save_ms: List[float] = []
+
+        def save_checkpoint(save_k: int, save_w, save_ab) -> None:
+            # on the updater thread, before its next apply advances
+            # ``alpha_bar`` in place; ``.cpu()`` fences as the JAX package's
+            # ``np.asarray`` does
+            t0 = time.perf_counter()
+            with hot_lock:
+                alpha_h = {wid: a.cpu().numpy() for wid, a in alpha.items()}
+            ckpt.save(
+                save_k,
+                w=save_w.cpu().numpy(),
+                alpha_bar=save_ab.cpu().numpy(),
+                alpha=alpha_h,
+                clock=ctx.get_current_time(),
+                worker_gens=generator_states(gens, gen_locks),
+            )
+            save_ms.append((time.perf_counter() - t0) * 1e3)
 
         def updater():
             while not stop.is_set():
@@ -220,7 +269,15 @@ class ASAGA(ShardedSolverMixin):
                 except queue.Empty:
                     continue
                 task_ms = waiting.on_finish(res.worker_id, now_ms())
+                do_save = False
+                # trace timings (metrics/trace.py): collect -> lock
+                # (merge.queue) -> the history-corrected apply's launches
+                # (merge.apply, host time: no fence)
+                t_drained = now_ms() if inst.tracer is not None else 0.0
+                t_apply0 = t_apply1 = t_drained
                 with state_lock:
+                    if inst.tracer is not None:
+                        t_apply0 = now_ms()
                     state["flops"] += self._task_flops(res.worker_id)
                     k = state["k"]
                     # ASAGA acceptance quirk: k - staleness <= taw
@@ -240,12 +297,22 @@ class ASAGA(ShardedSolverMixin):
                         calibrator.record(k, task_ms)
                         if k % cfg.printer_freq == 0:
                             snapshots.append((now_ms(), state["w"]))
+                        do_save = ckpt.should_save(state["k"])
+                        save_k, save_w, save_ab = (
+                            state["k"], state["w"], state["ab"]
+                        )
                     else:
                         state["dropped"] += 1
+                    if inst.tracer is not None:
+                        t_apply1 = now_ms()
                 inst.on_gradient_merged(
                     res.worker_id, res.staleness, accepted, k,
                     batch_size=res.batch_size, task_ms=task_ms,
+                    queue_ms=max(0.0, t_apply0 - t_drained),
+                    apply_ms=max(0.0, t_apply1 - t_apply0),
                 )
+                if do_save:
+                    save_checkpoint(save_k, save_w, save_ab)
                 if calibrator.maybe_finalize(state["k"]):
                     delay_model.calibrate(calibrator.avg_delay_ms)
             stop.set()
@@ -305,19 +372,23 @@ class ASAGA(ShardedSolverMixin):
             upd.join(timeout=10)
             if ft is not None:
                 ft.stop()
+            side.stop()
             sched.shutdown()
             if not run_ok:
                 inst.close()  # crash path
 
         with state_lock:
-            final_w_dev, final_ab = state["w"], state["ab"]
+            final_k, final_w_dev, final_ab = state["k"], state["w"], state["ab"]
         # fence before taking elapsed: updates/s covers device work done
         fence(drv)
         final_w = final_w_dev.cpu().numpy()
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, final_w_dev))
+        if ckpt.enabled:
+            save_checkpoint(final_k, final_w_dev, final_ab)
         traj = self._evaluate_trajectory(snapshots)
-        extras = inst.extras()
+        extras = {**inst.extras(), **side.extras(),
+                  **self._checkpoint_extras(ckpt, k0, save_ms)}
         inst.close(traj, cfg.printer_freq)
         return TrainResult(
             final_w=final_w,
@@ -409,6 +480,7 @@ class ASAGA(ShardedSolverMixin):
         alpha = self._initial_table()
         hot_lock = threading.Lock()
         ft = self._fault_tolerance_with_table(sched, inst, alpha, hot_lock)
+        side = RunSidecars(cfg, sched, inst)
         gens, gen_locks = self._generators()
         self._warm_hot_path(apply=sync_apply, sync=True)
         start_wall = time.monotonic()
@@ -466,6 +538,7 @@ class ASAGA(ShardedSolverMixin):
         finally:
             if ft is not None:
                 ft.stop()
+            side.stop()
             sched.shutdown()
             if not run_ok:
                 inst.close()  # crash path
@@ -475,7 +548,7 @@ class ASAGA(ShardedSolverMixin):
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, w))
         traj = self._evaluate_trajectory(snapshots)
-        extras = inst.extras()
+        extras = {**inst.extras(), **side.extras()}
         inst.close(traj, cfg.printer_freq)
         return TrainResult(
             final_w=final_w,
@@ -548,16 +621,16 @@ class ASAGA(ShardedSolverMixin):
         dev = shard.device
         step = self._step
         # the injected delay models a slow machine: it fires once, and a
-        # replacement executor bypasses it
+        # speculative copy or a replacement executor bypasses it
         delay_fired = threading.Event()
+        draw = self._one_draw(step, gen, gen_lock, shard.size)
 
         def fn():
             if delay_ms > 0 and not delay_fired.is_set():
                 delay_fired.set()
                 time.sleep(delay_ms / 1e3)
             with device_scope(dev):
-                with gen_lock:
-                    sample = step.sample(gen, shard.size)
+                sample = draw()
                 # (valid, idx) sparse; the full-shard mask dense
                 drawn = sample if self._sparse else (sample,)
                 out = step.grad(*shard_tensors(shard), _to(w_pub, dev),

@@ -28,7 +28,18 @@ default stream -- no thread sets another), so a gradient is complete, in
 stream order, before any later launch that reads it.  A task still fences
 its gradient with a CUDA event synchronised on the worker thread (the
 ``block_until_ready`` of the JAX package), so task times and the
-calibrated delays measure device work, not the enqueue.
+calibrated delays measure device work, not the enqueue.  A speculative
+copy's spare executor and an allocation sibling issue on that same stream,
+so their launches queue behind the primary's and share its per-stream
+scratch (B1's chunk counter, S1's zeroed workspace) in turn.
+
+The ``run()`` switches are the JAX package's: checkpoint and resume
+(``should_save_range`` on batched drains, a final save; ``w``, ``k``, the
+logical clock and every worker's generator state restored), speculation
+and dynamic allocation (in ``run_sync()`` too), and the sinks of
+:class:`~asyncframework_tpu_torch.solvers.instrumentation.RunInstruments`.
+A task draws its sample once: a retry, a speculative copy or a sibling
+reuses the draw, so every body gives the same gradient.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import time
 from collections import deque
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from asyncframework_tpu_torch.broadcast import VersionedModelStore
@@ -52,13 +64,17 @@ from asyncframework_tpu_torch.ops.sampling import worker_generator
 from asyncframework_tpu_torch.solvers.base import (
     DelayCalibrator,
     FusedRounds,
+    RunSidecars,
     ShardedSolverMixin,
+    SolverCheckpointer,
     SolverConfig,
     TrainResult,
     WaitingTimeTable,
     check_hbm_plan,
     check_ported,
+    generator_states,
     resolve_dataset,
+    restore_generators,
 )
 from asyncframework_tpu_torch.solvers.instrumentation import RunInstruments
 from asyncframework_tpu_torch.utils.devices import (
@@ -119,7 +135,21 @@ class ASGD(ShardedSolverMixin):
         cfg = self.cfg
         nw = cfg.num_workers
         drv = self.driver_device
+        d = self.ds.d
         ctx: AsyncContext = AsyncContext()
+        gens, gen_locks = self._generators()
+        ckpt = SolverCheckpointer(cfg, "asgd", d, self.ds.n)
+        ck = ckpt.restore()  # before any thread starts: a refusal leaks none
+        if ck is not None:
+            # resume: the model, the accepted-update counter, the logical
+            # clock and every worker's generator come back where they stopped
+            k0 = int(ck["k"])
+            ctx.set_current_time(int(ck["clock"]))
+            w0 = torch.tensor(np.asarray(ck["w"], np.float32), device=drv)
+            restore_generators(gens, ck["worker_gens"])
+        else:
+            k0 = 0
+            w0 = self._zeros(d)
         sched = JobScheduler(num_workers=nw, devices=self.devices)
         sched.set_mode(ASYNC)
         self.scheduler = sched  # exposed for fault-injection tests/tools
@@ -129,17 +159,18 @@ class ASGD(ShardedSolverMixin):
         inst = RunInstruments(cfg, nw)
         inst.register_queue_depth(ctx.size)
         ft = self._fault_tolerance(sched, inst)
+        side = RunSidecars(cfg, sched, inst)
         # stale-read experiment: workers read version (latest - offset)
         store = (
             VersionedModelStore(cfg.max_live_versions)
             if cfg.stale_read_offset is not None
             else None
         )
-        gens, gen_locks = self._generators()
         state = {
-            "w": self._zeros(self.ds.d),
-            "k_dev": self._zeros(),
-            "k": 0,
+            "w": w0,
+            "k_dev": torch.full((), float(k0), dtype=torch.float32,
+                                device=drv),
+            "k": k0,
             "accepted": 0,
             "dropped": 0,
             "rounds": 0,
@@ -157,6 +188,21 @@ class ASGD(ShardedSolverMixin):
 
         def now_ms() -> float:
             return (time.monotonic() - start_wall) * 1e3
+
+        save_ms: List[float] = []
+
+        def save_checkpoint(save_k: int, save_w: torch.Tensor) -> None:
+            # on the updater thread, as in the JAX package: ``.cpu()`` fences
+            # the device as its ``np.asarray`` does; ``w`` is never written
+            # in place, so the handle still holds version ``save_k``
+            t0 = time.perf_counter()
+            ckpt.save(
+                save_k,
+                w=save_w.cpu().numpy(),
+                clock=ctx.get_current_time(),
+                worker_gens=generator_states(gens, gen_locks),
+            )
+            save_ms.append((time.perf_counter() - t0) * 1e3)
 
         # Short drains pad the gradient list with one zero vector so the
         # stacked G is always (max_drain, d); the slot masks are cached per
@@ -181,6 +227,12 @@ class ASGD(ShardedSolverMixin):
                         results.append(ctx.collect_all(timeout=0))
                     except queue.Empty:
                         break
+                do_save = False
+                # trace timings (metrics/trace.py): drained -> lock+filter
+                # (merge.queue) -> the apply's launches (merge.apply, host
+                # time: no fence); only paid when a tracer samples this run
+                t_drained = now_ms() if inst.tracer is not None else 0.0
+                t_apply0 = t_apply1 = t_drained
                 with state_lock:
                     k = state["k"]
                     # never apply past the iteration budget: trim the batch
@@ -207,6 +259,8 @@ class ASGD(ShardedSolverMixin):
                                 (res, True, task_ms, k + len(accepted_g) - 1)
                             )
                         # else: beyond the iteration budget -- ignored
+                    if inst.tracer is not None:
+                        t_apply0 = now_ms()
                     if len(accepted_g) >= BATCH_DRAIN_MIN:
                         mcount = len(accepted_g)
                         G = torch.stack(
@@ -225,8 +279,11 @@ class ASGD(ShardedSolverMixin):
                             state["w"], state["k_dev"] = self._apply(
                                 state["w"], g, state["k_dev"]
                             )
+                    if inst.tracer is not None:
+                        t_apply1 = now_ms()
                     if accepted_g:
-                        state["k"] = k + len(accepted_g)
+                        k_new = k + len(accepted_g)
+                        state["k"] = k_new
                         state["accepted"] += len(accepted_g)
                         # snapshot when the batch crossed a printer boundary
                         if any(
@@ -234,11 +291,21 @@ class ASGD(ShardedSolverMixin):
                             for j in range(len(accepted_g))
                         ):
                             snapshots.append((now_ms(), state["w"]))
+                        # a batch jumping over a checkpoint boundary still
+                        # saves
+                        do_save = ckpt.should_save_range(k, k_new)
+                        save_k, save_w = k_new, state["w"]
+                q_ms = max(0.0, t_apply0 - t_drained)
+                a_ms = (max(0.0, t_apply1 - t_apply0)
+                        / max(1, len(accepted_g)))
                 for res, accepted, task_ms, at_k in merged:
                     inst.on_gradient_merged(
                         res.worker_id, res.staleness, accepted, at_k,
                         batch_size=res.batch_size, task_ms=task_ms,
+                        queue_ms=q_ms, apply_ms=a_ms if accepted else 0.0,
                     )
+                if do_save:
+                    save_checkpoint(save_k, save_w)
                 if calibrator.maybe_finalize(state["k"]):
                     delay_model.calibrate(calibrator.avg_delay_ms)
             stop.set()
@@ -302,20 +369,24 @@ class ASGD(ShardedSolverMixin):
             upd.join(timeout=10)
             if ft is not None:
                 ft.stop()
+            side.stop()
             sched.shutdown()
             if not run_ok:
                 inst.close()  # crash path
 
         with state_lock:
-            final_w_dev = state["w"]
+            final_k, final_w_dev = state["k"], state["w"]
         # fence BEFORE taking elapsed, so updates/s covers the work done on
         # the device, not merely enqueued
         fence(drv)
         final_w = final_w_dev.cpu().numpy()
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, final_w_dev))
+        if ckpt.enabled:
+            save_checkpoint(final_k, final_w_dev)
         traj = self._evaluate_trajectory(snapshots)
-        extras = inst.extras()
+        extras = {**inst.extras(), **side.extras(),
+                  **self._checkpoint_extras(ckpt, k0, save_ms)}
         inst.close(traj, cfg.printer_freq)
         return TrainResult(
             final_w=final_w,
@@ -391,6 +462,9 @@ class ASGD(ShardedSolverMixin):
         inst = RunInstruments(cfg, nw)
         inst.register_queue_depth(ctx.size)
         ft = self._fault_tolerance(sched, inst)
+        # the reference speculates on its synchronous stages too: the full
+        # drain is exactly where one straggler stalls the round
+        side = RunSidecars(cfg, sched, inst)
         gens, gen_locks = self._generators()
         w = self._zeros(self.ds.d)
         k_dev = self._zeros()
@@ -447,6 +521,7 @@ class ASGD(ShardedSolverMixin):
         finally:
             if ft is not None:
                 ft.stop()
+            side.stop()
             sched.shutdown()
             if not run_ok:
                 inst.close()  # crash path
@@ -456,7 +531,7 @@ class ASGD(ShardedSolverMixin):
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, w))
         traj = self._evaluate_trajectory(snapshots)
-        extras = inst.extras()
+        extras = {**inst.extras(), **side.extras()}
         inst.close(traj, cfg.printer_freq)
         return TrainResult(
             final_w=final_w,
@@ -518,9 +593,10 @@ class ASGD(ShardedSolverMixin):
         dev = shard.device
         step = self._step
         # The injected delay models a slow *machine*: only the first body to
-        # run it sleeps -- a replacement executor is a different (healthy)
-        # host path and must bypass the straggler.
+        # run it sleeps -- a speculative copy or a replacement executor is a
+        # different (healthy) host path and must bypass the straggler.
         delay_fired = threading.Event()
+        draw = self._one_draw(step, gen, gen_lock, shard.size)
 
         def fn():
             if delay_ms > 0 and not delay_fired.is_set():
@@ -528,10 +604,7 @@ class ASGD(ShardedSolverMixin):
                 time.sleep(delay_ms / 1e3)
             with device_scope(dev):
                 w_local = w_pub if w_pub.device == dev else w_pub.to(dev)
-                # the generator advances at draw time: one draw at a time
-                with gen_lock:
-                    sample = step.sample(gen, shard.size)
-                g = step.grad(*shard_tensors(shard), w_local, *sample)
+                g = step.grad(*shard_tensors(shard), w_local, *draw())
                 if dev.type == "cuda":
                     # completion only; the gradient stays on the device
                     done = torch.cuda.Event()

@@ -7,9 +7,11 @@ loop's chunks of rounds (:class:`RoundChunk`, :func:`run_fused_plan`: a
 CUDA graph a chunk on the card, eager rounds on the CPU).  ``SolverConfig``
 carries the reference drivers' algorithmic knobs
 (``SparkASGDThread.scala:28-48``) under their long names, plus the
-engine's own settings.  The switches of subsystems not ported yet
-(checkpointing, speculation, dynamic allocation, the metrics sinks) keep
-their names and defaults and raise ``NotImplementedError`` when turned on.
+engine's own settings, with the reference's defaults.  The checkpoint
+plumbing (:class:`SolverCheckpointer`, :func:`validate_resume`) and
+:func:`make_allocation_manager` are the reference's.  The one switch of a
+subsystem not ported yet, the live UI (``ui_port``), keeps its name and
+default and raises ``NotImplementedError`` when turned on.
 """
 
 from __future__ import annotations
@@ -24,10 +26,14 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from asyncframework_tpu_torch.checkpoint import CheckpointManager
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
 from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.ops.sampling import worker_generator
-from asyncframework_tpu_torch.solvers.instrumentation import FaultTolerantRun
+from asyncframework_tpu_torch.solvers.instrumentation import (
+    FaultTolerantRun,
+    refuse_live_ui,
+)
 from asyncframework_tpu_torch.utils.devices import device_scope, fence
 from asyncframework_tpu_torch.utils.hbm import plan_for_run, shard_tensors
 
@@ -330,6 +336,35 @@ class ShardedSolverMixin(FlopsAccountingMixin):
         }
         return gens, {wid: threading.Lock() for wid in gens}
 
+    @staticmethod
+    def _one_draw(step, gen, gen_lock, size: int):
+        """A task's sample, drawn once.  The first body to run draws it
+        under the worker's lock and keeps the tensors; any later body (a
+        retry, a speculative copy, an allocation sibling) reuses them, so
+        every body computes the same gradient and the generator advances
+        exactly once a task -- as in the JAX package, whose task takes its
+        key at submit."""
+        kept = []
+        lock = threading.Lock()
+
+        def draw():
+            with lock:
+                if not kept:
+                    with gen_lock:
+                        kept.append(step.sample(gen, size))
+                return kept[0]
+
+        return draw
+
+    @staticmethod
+    def _checkpoint_extras(ckpt, k0: int, save_ms: List[float]):
+        """``resumed_from`` and the saves' count and host time (ms), where
+        checkpointing is on."""
+        if not ckpt.enabled:
+            return {}
+        return {"resumed_from": k0, "checkpoint_saves": len(save_ms),
+                "checkpoint_save_ms": float(sum(save_ms))}
+
     def _fault_tolerance(self, sched, inst, on_moved=None):
         """Heartbeat + executor replacement + shard re-homing for one run
         (None with ``heartbeat`` off); ``on_moved(shard_id, shard)`` lets
@@ -451,16 +486,33 @@ class SolverConfig:
     # updater drain batching: with drain_batch >= BATCH_DRAIN_MIN a drained
     # batch folds into one masked weighted sum (exact up to addition order)
     drain_batch: int = 1
-    # features not ported yet: each raises NotImplementedError when set
-    # (ROADMAP queue A); their tuning knobs come with them
-    checkpoint_dir: Optional[str] = None
+    # checkpoint/resume (solvers/base.py of the JAX package; the same npz
+    # layout, plus each worker's generator state under ``worker_gens``)
+    checkpoint_dir: Optional[str] = None  # None = checkpointing off
+    checkpoint_freq: int = 0              # accepted updates between saves; 0 = off
+    checkpoint_keep: int = 3
+    # observability (metrics/*; None = off).  The live dashboard is not
+    # ported yet: ui_port >= 0 raises NotImplementedError
     ui_port: Optional[int] = None
-    event_log: Optional[str] = None
-    metrics_csv: Optional[str] = None
-    metrics_jsonl: Optional[str] = None
+    event_log: Optional[str] = None       # JSONL (.gz ok) event log path
+    metrics_csv: Optional[str] = None     # CsvSink path
+    metrics_jsonl: Optional[str] = None   # JsonlSink path
+    metrics_period_s: float = 1.0
+    # lifecycle tracing (metrics/trace.py): per-update sampling rate of the
+    # compute / merge.queue / merge.apply spans; None or 0 = off (explicit
+    # opt-in: the updater thread is the measured hot path)
     trace_sample: Optional[float] = None
+    # speculative execution (TaskSetManager.checkSpeculatableTasks parity)
     speculation: bool = False
+    speculation_quantile: float = 0.75
+    speculation_multiplier: float = 1.5
+    speculation_min_ms: float = 100.0
+    # dynamic executor allocation (ExecutorAllocationManager.scala:82
+    # parity): sibling host threads added to backlogged slots, retired idle
     dynamic_allocation: bool = False
+    allocation_max_extra: int = 1
+    allocation_backlog_threshold: int = 2
+    allocation_idle_timeout_s: float = 1.0
     # failure detection / elastic recovery (HeartbeatReceiver parity)
     heartbeat: bool = True
     heartbeat_timeout_ms: float = 2000.0
@@ -579,17 +631,171 @@ class DelayCalibrator:
 
 def check_ported(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for a switched-on feature whose
-    subsystem the port does not have yet, naming the ROADMAP item."""
-    waiting = {
-        "checkpoint_dir": ("checkpointing", cfg.checkpoint_dir is not None),
-        "speculation": ("speculation and allocation", cfg.speculation),
-        "dynamic_allocation": (
-            "speculation and allocation", cfg.dynamic_allocation
-        ),
-    }
-    for name, (item, on) in waiting.items():
-        if on:
-            raise NotImplementedError(
-                f"SolverConfig.{name} is not ported yet (ROADMAP.md queue A: "
-                f"{item})"
+    subsystem the port does not have yet, naming the ROADMAP item: the
+    live UI (``ui_port >= 0``) is the one left."""
+    refuse_live_ui(cfg)
+
+
+class SolverCheckpointer:
+    """Checkpoint plumbing of the async solvers (``solvers/base.py:216-282``
+    of the JAX package): the manager, the compatibility metadata, the save
+    cadence and the validated restore, so ASGD and ASAGA differ only in
+    which state they save (ASAGA adds the history table).
+
+    The state keeps the reference's names and layout (``w``, ``k``,
+    ``clock``, ``alpha``, ``alpha_bar``, ``meta``), so the model state
+    crosses between the packages.  The port's worker streams are
+    ``torch.Generator`` states under ``worker_gens`` (the JAX package's
+    threefry keys are ``worker_keys``): :meth:`restore` refuses a
+    checkpoint without them rather than reseed."""
+
+    def __init__(self, cfg: "SolverConfig", solver: str, d: int, n: int):
+        self.cfg = cfg
+        self.meta = {
+            "solver": solver, "num_workers": cfg.num_workers, "d": d, "n": n
+        }
+        self.mgr = (
+            CheckpointManager(cfg.checkpoint_dir, cfg.checkpoint_keep)
+            if cfg.checkpoint_dir
+            else None
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return self.mgr is not None
+
+    def restore(self) -> Optional[Dict]:
+        """Latest checkpoint, validated against this run; None = cold start."""
+        if self.mgr is None:
+            return None
+        ck = self.mgr.restore_latest_or_none()
+        if ck is not None:
+            validate_resume(ck.get("meta", {}), **self.meta)
+            if "worker_gens" not in ck:
+                raise ValueError(
+                    "checkpoint has no 'worker_gens' (each worker's "
+                    "torch.Generator state): it cannot resume the workers' "
+                    "streams here; a JAX package checkpoint carries "
+                    "'worker_keys' instead"
+                )
+        return ck
+
+    def should_save(self, k: int) -> bool:
+        return (
+            self.mgr is not None
+            and self.cfg.checkpoint_freq > 0
+            and k % self.cfg.checkpoint_freq == 0
+        )
+
+    def should_save_range(self, k_old: int, k_new: int) -> bool:
+        """True when any k in (k_old, k_new] hits the cadence -- a batched
+        drain may jump over a checkpoint boundary and must still save."""
+        freq = self.cfg.checkpoint_freq
+        return (
+            self.mgr is not None
+            and freq > 0
+            and k_new // freq > k_old // freq
+        )
+
+    def save(self, k: int, **state) -> None:
+        self.mgr.save(k, {**state, "k": k, "meta": self.meta})
+
+
+def validate_resume(meta: Dict, **expect) -> None:
+    """Fail fast when a checkpoint does not match the resuming run (worker
+    count, dataset shape, solver)."""
+    for key, want in expect.items():
+        got = meta.get(key)
+        if got != want:
+            raise ValueError(
+                f"checkpoint incompatible with this run: {key}={got!r} "
+                f"in checkpoint but {want!r} configured"
             )
+
+
+def generator_states(gens: Dict[int, torch.Generator],
+                     gen_locks: Dict[int, threading.Lock]) -> Dict[int, np.ndarray]:
+    """Each worker's generator state as host bytes (a CUDA generator's is
+    a CPU ``ByteTensor`` of seed and offset), read under its draw lock."""
+    out = {}
+    for wid, gen in gens.items():
+        with gen_locks[wid]:
+            out[wid] = gen.get_state().numpy().copy()
+    return out
+
+
+def restore_generators(gens: Dict[int, torch.Generator],
+                       saved: Dict[int, np.ndarray]) -> None:
+    """Put each worker's saved generator state back (:func:`generator_states`)."""
+    if set(saved) != set(gens):
+        raise ValueError(
+            f"checkpoint 'worker_gens' has workers {sorted(saved)}, the run "
+            f"{sorted(gens)}"
+        )
+    for wid, gen in gens.items():
+        gen.set_state(torch.from_numpy(np.asarray(saved[wid], np.uint8).copy()))
+
+
+def make_allocation_manager(cfg: "SolverConfig", scheduler):
+    """Start a dynamic-allocation manager when the config asks for one
+    (``ExecutorAllocationManager`` parity); returns None otherwise.  Shared
+    by every solver run path."""
+    if not cfg.dynamic_allocation:
+        return None
+    from asyncframework_tpu_torch.engine.allocation import (
+        ExecutorAllocationManager,
+    )
+
+    mgr = ExecutorAllocationManager(
+        scheduler,
+        max_extra_per_slot=cfg.allocation_max_extra,
+        backlog_threshold=cfg.allocation_backlog_threshold,
+        idle_timeout_s=cfg.allocation_idle_timeout_s,
+    )
+    mgr.start()
+    return mgr
+
+
+class RunSidecars:
+    """Speculation and dynamic allocation of one run (the reference starts
+    both in every ``run()`` and ``run_sync()``): a
+    :class:`~asyncframework_tpu_torch.engine.speculation.SpeculationMonitor`
+    whose launches are posted to the run's instruments, and the allocation
+    manager; either is None when its switch is off.  Spares and siblings
+    issue on their device's current stream, as every executor does."""
+
+    def __init__(self, cfg: "SolverConfig", scheduler, inst):
+        self.sched = scheduler
+        self.spec = None
+        if cfg.speculation:
+            from asyncframework_tpu_torch.engine.speculation import (
+                SpeculationMonitor,
+            )
+
+            self.spec = SpeculationMonitor(
+                scheduler, quantile=cfg.speculation_quantile,
+                multiplier=cfg.speculation_multiplier,
+                min_time_ms=cfg.speculation_min_ms,
+                on_launch=inst.on_speculative_launch,
+            )
+            self.spec.start()
+        self.alloc = make_allocation_manager(cfg, scheduler)
+
+    def stop(self) -> None:
+        if self.spec is not None:
+            self.spec.stop()
+        if self.alloc is not None:
+            self.alloc.stop()
+
+    def extras(self) -> Dict[str, object]:
+        """``speculated``/``speculation_wins`` and ``executors_added``/
+        ``executors_removed``, as the reference reports them."""
+        out: Dict[str, object] = {}
+        if self.spec is not None:
+            out["speculated"] = self.spec.speculated_count()
+            out["speculation_wins"] = self.sched.speculative_wins()
+        if self.alloc is not None:
+            out["executors_added"], out["executors_removed"] = (
+                self.alloc.counts()
+            )
+        return out

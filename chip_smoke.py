@@ -74,7 +74,23 @@ exits non-zero without a result line):
    workers, b = 0.1, gamma 39.2: ``fused_graph``, ASGD ``run_fused()``
    (5,000 updates) and ``run()`` (1,000), each below 1/10 of the objective
    at w = 0, every task one staged B1 launch;
-9. the ``{"kernels": [...]}`` line, the card line again, and last the
+9. features -- every ``run()`` switch (``tools/features.py``): on the
+   epsilon deployment generated anew (same seed), ASGD ``run()`` (1,000
+   updates, phase 3's settings, worker 0 a straggler at 3x the calibrated
+   task time) with every switch off, then the same run with every switch
+   on (checkpoints every 250 updates, the event log, CSV and JSONL
+   metrics, tracing at 1/16, speculation with copies past 5 ms, dynamic
+   allocation), then a ``run()`` to 2,000 that resumes from the
+   checkpoint at k = 1,000 and passes phase 3's gate; each sink file's
+   bytes, parsed, the event log rendered, the spans per stage, the
+   checkpoint's bytes and save time, and updates/s with the switches off
+   and on side by side (``features_cost``; nothing is claimed).  Then rcv1
+   ASAGA ``run()`` at gamma 50 (600 updates) with checkpoints, a restore
+   whose history table and ``alpha_bar`` read back bit-equal to the
+   checkpoint's, and a run resumed to 1,200 below the objective at w = 0.
+   Every run's launches counted from 0 and read after, every ASGD task
+   through B1's staged route;
+10. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
@@ -1225,6 +1241,65 @@ def mnist8m_phase(torch, card):
     return fused, engine
 
 
+# the features phase (tools/features.py): epsilon ASGD at phase 3's
+# settings with stragglers (worker 0 sleeps FEAT_COEFF x the calibrated
+# task time after 100 updates) so the speculation monitor, launching a copy
+# of a task past FEAT_SPEC_MIN_MS, has work; rcv1 ASAGA at its step size
+FEAT_UPDATES, FEAT_COEFF, FEAT_SPEC_MIN_MS = 1_000, 3.0, 5.0
+FEAT_SAGA_UPDATES = 600
+
+
+def features_phase(torch, card):
+    """Every ``run()`` switch on the card: epsilon ASGD off, on, resumed;
+    rcv1 ASAGA checkpointed, restored, resumed (``tools/features.py``).
+    Returns the kernel launches of all its runs, each counted from 0."""
+    import tempfile
+
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.tools import features, rcv1
+
+    dev = torch.device("cuda", 0)
+    launches = {}
+    ds = ShardedDataset.generate_on_device(400_000, 2_000, 8, [dev], seed=7,
+                                           noise=0.01)
+    base = dict(num_workers=8, gamma=100.0, taw=2**31 - 1, batch_rate=0.1,
+                bucket_ratio=0.7, printer_freq=25, seed=42,
+                calibration_iters=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = features.asgd_features(ds, dev, base, FEAT_UPDATES, tmp,
+                                      FEAT_COEFF, FEAT_SPEC_MIN_MS)
+    for rec in recs:
+        emit({"phase": "features", "config": "epsilon", "card": card, **rec})
+        features.add_launches(launches, rec)
+    by = {rec["switches"]: rec for rec in recs}
+    emit({"phase": "features_cost", "config": "epsilon", "card": card,
+          "updates_per_sec_off": by["off"]["updates_per_sec"],
+          "updates_per_sec_on": by["on"]["updates_per_sec"],
+          "updates_per_sec_resumed": by["resumed"]["updates_per_sec"],
+          "checkpoint_saves": by["on"]["extras"]["checkpoint_saves"],
+          "checkpoint_save_ms": by["on"]["extras"]["checkpoint_save_ms"],
+          "checkpoint_bytes": by["on"]["checkpoint_bytes"]})
+    del ds
+    torch.cuda.empty_cache()
+    sds = rcv1.dataset(dev)
+    sbase = dict(num_workers=rcv1.WORKERS, gamma=rcv1.SAGA_GAMMA,
+                 taw=2**31 - 1, batch_rate=rcv1.BATCH_RATE, bucket_ratio=0.7,
+                 printer_freq=rcv1.PRINTER_FREQ, seed=42,
+                 calibration_iters=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        srecs = features.asaga_resume(sds, dev, sbase, FEAT_SAGA_UPDATES, tmp)
+    for rec in srecs:
+        emit({"phase": "features", "config": "rcv1", "card": card, **rec})
+        features.add_launches(launches, rec)
+    del sds
+    torch.cuda.empty_cache()
+    failed = [(r.get("switches") or r.get("step"), r["gates"])
+              for r in recs + srecs if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"features phase gates failed: {failed}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -1395,7 +1470,10 @@ def main() -> int:
     # ---------------------------------------------------------- 8. mnist8m
     mnist_fused, mnist_run = mnist8m_phase(torch, card)
 
-    # ------------------------------------------------------- 9. results
+    # --------------------------------------------------------- 9. features
+    feat = features_phase(torch, card)
+
+    # ------------------------------------------------------ 10. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -1423,7 +1501,8 @@ def main() -> int:
         # ASAGA's full epsilon shard, the ring block of the long-context path
         entry("masked_grad", "masked_grad.cu", b1, launches + sum(
             r["launches_on_path"]["masked_grad"]
-            for r in (eps_fused, mnist_fused, mnist_run)),
+            for r in (eps_fused, mnist_fused, mnist_run))
+              + feat["masked_grad"],
               recs["b_epsilon_idx"], recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
               saga_launches["saga_grad"]
@@ -1441,15 +1520,17 @@ def main() -> int:
         # the evaluation's full shard
         entry("sparse_grad.compacted_grad", "sparse_grad.cu",
               f"asyncframework_tpu/ops/steps.py:519 {xla}",
-              s1_launches["compacted_grad"], s_task["task"],
+              s1_launches["compacted_grad"] + feat["compacted_grad"],
+              s_task["task"],
               s_task["task"]["bound_ms"]),
         entry("sparse_grad.grad_sum", "sparse_grad.cu",
               f"asyncframework_tpu/ops/gradients.py:138 {xla}",
-              s1_launches["grad_sum"], s_task["grad_sum"],
+              s1_launches["grad_sum"] + feat["grad_sum"], s_task["grad_sum"],
               s_task["grad_sum"]["bound_ms"]),
         entry("sparse_grad.ell_residual", "sparse_grad.cu",
               f"asyncframework_tpu/ops/gradients.py:131 {xla}",
-              s1_launches["ell_residual"], s_eval, s_eval["bound_ms"]),
+              s1_launches["ell_residual"] + feat["ell_residual"], s_eval,
+              s_eval["bound_ms"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -777,3 +777,119 @@ def test_run_fused_on_the_card_matches_the_cpu(dev, solver):
                                atol=1e-4 * float(np.abs(cpu.final_w).max()))
     np.testing.assert_allclose([o for _, o in gpu.trajectory],
                                [o for _, o in cpu.trajectory], rtol=1e-4)
+
+
+# ------------------------------------------- the run() switches on the card
+def _copy_task(dev, sparse, solver_name):
+    """A worker task of an epsilon-shaped (B1, staged) or rcv1-shaped (S1)
+    shard, its generator and a fresh generator from the same seed."""
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
+    from asyncframework_tpu_torch.engine.straggler import DelayModel
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+
+    if sparse:  # rcv1's shard (87,205 x 80) and b = 0.05
+        ds = SparseShardedDataset.generate_on_device(
+            174_410, 47_236, 75, 2, devices=[dev], seed=7, noise=0.01)
+        rate = 0.05
+    else:  # epsilon's shard (50,000 x 2,000) and b = 0.1
+        ds = ShardedDataset.generate_on_device(100_000, 2_000, 2, [dev],
+                                               seed=7, noise=0.01)
+        rate = 0.1
+    cls = ASGD if solver_name == "asgd" else ASAGA
+    s = cls(ds, None, SolverConfig(num_workers=2, batch_rate=rate, seed=42),
+            devices=[dev])
+    gens, locks = s._generators()
+    w = torch.linspace(-0.01, 0.01, ds.d, device=dev)
+    extra = ((s._zeros(ds.shard(1).size, dev),) if solver_name == "asaga"
+             else ())
+    fn = s._make_task(1, w, *extra, gens[1], locks[1], DelayModel(0.0, 2))
+    return s, fn, gens[1]
+
+
+@pytest.mark.parametrize("solver_name", ["asgd", "asaga"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["epsilon_b1", "rcv1_s1"])
+def test_speculative_copy_is_bit_equal_to_its_primary(dev, sparse,
+                                                      solver_name):
+    """A task's primary and its speculative copy, run at once on two
+    threads as the executor and its spare do: both queue their cooperative
+    launch on the device's stream, neither deadlocks, and the two results
+    are bit-equal; the worker's generator advanced by one draw."""
+    import threading
+
+    from asyncframework_tpu_torch.ops.sampling import worker_generator
+    from asyncframework_tpu_torch.tools import runs
+
+    s, fn, gen = _copy_task(dev, sparse, solver_name)
+    fn()  # builds the kernels; the draw it makes is the task's one draw
+    state = gen.get_state()
+    runs.zero_counts()
+    out = [None, None]
+
+    def body(i):
+        out[i] = fn()
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a launch deadlocked"
+    torch.cuda.synchronize()
+    first = out[0] if isinstance(out[0], tuple) else (out[0],)
+    second = out[1] if isinstance(out[1], tuple) else (out[1],)
+    for a, b in zip(first, second):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    counts = runs.counts()
+    form = ("compacted_grad" if sparse
+            else "saga_grad" if solver_name == "asaga" else "masked_grad_staged")
+    assert counts[form] == 2
+    assert torch.equal(gen.get_state(), state)  # no second draw
+    once = worker_generator(42, 1, dev)
+    s._step.sample(once, s.ds.shard(1).size)
+    assert torch.equal(gen.get_state(), once.get_state())
+
+
+@pytest.mark.parametrize("solver_name", ["asgd", "asaga"])
+def test_checkpoint_of_a_card_run_restores_on_the_card(dev, tmp_path,
+                                                       solver_name):
+    """A run on the card saves mid-run (its ``w`` a CUDA tensor, its
+    generators CUDA generators); a run to the same budget restores the
+    model (and ASAGA's table) bit-equal, and a longer run resumes through
+    the kernels on the card."""
+    from asyncframework_tpu_torch.checkpoint import CheckpointManager
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+    from asyncframework_tpu_torch.tools import runs
+
+    ds = ShardedDataset.generate_on_device(40_000, 256, 4, [dev], seed=3,
+                                           noise=0.01)
+    cls = ASGD if solver_name == "asgd" else ASAGA
+    gamma = 1.0 if solver_name == "asgd" else 0.05
+
+    def cfg(iters):
+        return SolverConfig(num_workers=4, num_iterations=iters, gamma=gamma,
+                            batch_rate=0.1, printer_freq=20, seed=42,
+                            checkpoint_dir=str(tmp_path / "ck"),
+                            checkpoint_freq=25)
+
+    first = cls(ds, None, cfg(100), devices=[dev]).run()
+    ck = CheckpointManager(tmp_path / "ck").restore()
+    assert ck["k"] == 100 and set(ck["worker_gens"]) == set(range(4))
+    assert all(g.dtype == np.uint8 for g in ck["worker_gens"].values())
+    np.testing.assert_array_equal(ck["w"], first.final_w)
+    same = cls(ds, None, cfg(100), devices=[dev]).run()
+    assert same.accepted == 0
+    np.testing.assert_array_equal(same.final_w, ck["w"])
+    if solver_name == "asaga":
+        np.testing.assert_array_equal(same.extras["alpha_bar"],
+                                      ck["alpha_bar"])
+        for wid, a in ck["alpha"].items():
+            np.testing.assert_array_equal(same.extras["alpha"][wid], a)
+    runs.zero_counts()
+    more = cls(ds, None, cfg(200), devices=[dev]).run()
+    counts = runs.counts()
+    assert more.accepted == 100 and more.extras["resumed_from"] == 100
+    form = "masked_grad" if solver_name == "asgd" else "saga_grad"
+    assert counts[form] >= 100
+    assert np.isfinite(more.final_w).all()
