@@ -1,0 +1,419 @@
+"""Typed configuration system.
+
+Parity: the reference has two layers -- a string k/v ``SparkConf`` and a typed
+``ConfigEntry``/``ConfigBuilder`` registry (``core/.../internal/config/
+package.scala:26``) with precedence CLI > conf file > defaults.  This module
+provides both: :class:`ConfigEntry` (typed, documented, defaulted, registered)
+and :class:`AsyncConf` (k/v store with env-var and dict overlays).
+
+A copy of the JAX package's ``conf.py`` holding the entries of the DCN
+plane that this package reads; the solvers take their knobs from
+``SolverConfig``.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Generic, Optional, TypeVar
+
+T = TypeVar("T")
+
+_REGISTRY: Dict[str, "ConfigEntry"] = {}
+
+
+@dataclass(frozen=True)
+class ConfigEntry(Generic[T]):
+    """A typed, registered configuration key.
+
+    ``tunable=True`` marks a knob the adaptive controller
+    (``parallel/controller.py``) is allowed to actuate at runtime; a
+    tunable MUST declare ``floor`` and ``ceiling`` -- the hard bounds
+    every controller decision is clamped to (async-lint's
+    ``conf-tunable`` rule enforces both directions: a tunable without
+    bounds, or a controller actuation of a non-tunable key, fails the
+    lint).  For ``async.step.size`` the bounds apply to the step-DAMP
+    multiplier (the controller scales the effective step, never the
+    configured gamma itself)."""
+
+    key: str
+    default: T
+    value_type: Callable[[str], T]
+    doc: str = ""
+    tunable: bool = False
+    floor: Optional[float] = None
+    ceiling: Optional[float] = None
+
+    def __post_init__(self):
+        _REGISTRY[self.key] = self
+
+    def from_string(self, s: str) -> T:
+        if self.value_type is bool:
+            return s.strip().lower() in ("1", "true", "yes", "on")  # type: ignore
+        return self.value_type(s)
+
+
+def registry() -> Dict[str, ConfigEntry]:
+    return dict(_REGISTRY)
+
+
+_GLOBAL_CONF: Optional["AsyncConf"] = None
+
+
+def set_global_conf(conf: Optional["AsyncConf"]) -> None:
+    """Install the process's effective configuration (the CLI does this
+    with its --conf overlays) so components constructed without an explicit
+    conf -- e.g. receivers resolving backpressure defaults -- see the same
+    values the run was submitted with."""
+    global _GLOBAL_CONF
+    _GLOBAL_CONF = conf
+
+
+def global_conf() -> "AsyncConf":
+    """The installed process conf; created AND INSTALLED on first use.
+
+    The lazily-created default is installed (not discarded): before this,
+    ``global_conf().set(...)`` on a process that never called
+    :func:`set_global_conf` silently mutated a throwaway instance and the
+    next ``global_conf()`` call returned a fresh one -- the classic
+    lost-write footgun.  Now the first call pins the instance, so sets
+    stick regardless of whether the CLI installed overlays first."""
+    global _GLOBAL_CONF
+    if _GLOBAL_CONF is None:
+        _GLOBAL_CONF = AsyncConf()
+    return _GLOBAL_CONF
+
+
+class AsyncConf:
+    """String/typed k/v configuration with precedence: explicit set > env
+    (``ASYNCTPU_<KEY_UPPER_WITH_UNDERSCORES>``) > registered default."""
+
+    ENV_PREFIX = "ASYNCTPU_"
+
+    def __init__(self, initial: Optional[Dict[str, Any]] = None):
+        self._store: Dict[str, Any] = {}
+        if initial:
+            self._store.update(initial)
+
+    def set(self, key: str, value: Any) -> "AsyncConf":
+        self._store[key] = value
+        return self
+
+    def set_all(self, kv: Dict[str, Any]) -> "AsyncConf":
+        self._store.update(kv)
+        return self
+
+    def contains(self, key: str) -> bool:
+        return key in self._store or self._env_name(key) in os.environ
+
+    def _env_name(self, key: str) -> str:
+        return self.ENV_PREFIX + key.upper().replace(".", "_")
+
+    def get(self, entry_or_key, default: Any = None) -> Any:
+        if isinstance(entry_or_key, ConfigEntry):
+            entry = entry_or_key
+            if entry.key in self._store:
+                v = self._store[entry.key]
+                return entry.from_string(v) if isinstance(v, str) else v
+            env = os.environ.get(self._env_name(entry.key))
+            if env is not None:
+                return entry.from_string(env)
+            return entry.default
+        key = entry_or_key
+        entry = _REGISTRY.get(key)
+        if key in self._store:
+            v = self._store[key]
+            if entry is not None and isinstance(v, str):
+                return entry.from_string(v)
+            return v
+        env = os.environ.get(self._env_name(key))
+        if env is not None:
+            return entry.from_string(env) if entry is not None else env
+        if entry is not None:
+            return entry.default
+        return default
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {k: e.default for k, e in _REGISTRY.items()}
+        d.update(self._store)
+        return d
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"AsyncConf({self._store!r})"
+
+
+# --------------------------------------------------------------------------
+# Registered entries: the knobs of the DCN plane that this package reads,
+# each a copy of the JAX package's entry.  The switches of the cluster path
+# it does not run yet (async.ps.shards, async.ps.standby, async.mesh.devices,
+# async.fence.enabled, async.convergence.sample, async.control.enabled) are
+# registered so that the PS and its workers can refuse them when set.
+# --------------------------------------------------------------------------
+# ------------------------------------------------------------- net plane
+# The shared robustness layer (net/retry.py, net/session.py, net/faults.py):
+# every DCN client (PS workers, remote topics, deploy daemons) resolves its
+# retry policy from these, and every server sizes its dedup window from
+# them -- one set of knobs for the whole control + data plane.
+NET_RETRY_MAX_ATTEMPTS = ConfigEntry(
+    "async.net.retry.max.attempts", 5, int,
+    "Attempts per logical op before the retry layer gives up.")
+NET_RETRY_BASE_MS = ConfigEntry(
+    "async.net.retry.base.ms", 50.0, float,
+    "Backoff floor (decorrelated jitter draws start here).")
+NET_RETRY_MAX_MS = ConfigEntry(
+    "async.net.retry.max.ms", 2000.0, float,
+    "Backoff cap per sleep.")
+NET_RETRY_ATTEMPT_TIMEOUT_S = ConfigEntry(
+    "async.net.retry.attempt.timeout.s", 120.0, float,
+    "Per-attempt socket timeout clients apply to their connections.")
+NET_RETRY_DEADLINE_S = ConfigEntry(
+    "async.net.retry.deadline.s", 0.0, float,
+    "Overall deadline across attempts (0 = attempts bound alone).")
+NET_BREAKER_THRESHOLD = ConfigEntry(
+    "async.net.breaker.threshold", 5, int,
+    "Consecutive failures that open an endpoint's circuit breaker.")
+NET_BREAKER_COOLDOWN_S = ConfigEntry(
+    "async.net.breaker.cooldown.s", 1.0, float,
+    "Open-state fail-fast window before the half-open probe.")
+NET_DEDUP_WINDOW = ConfigEntry(
+    "async.net.dedup.window", 128, int,
+    "Applied (sid, seq) ops each server remembers per client session "
+    "(exactly-once-applied retry dedup).")
+NET_FAULT_SCHEDULE = ConfigEntry(
+    "async.net.fault.schedule", "", str,
+    "Deterministic fault schedule as inline JSON or @/path/to/file "
+    "(net/faults.py); empty = injection off.")
+NET_FAULT_SEED = ConfigEntry(
+    "async.net.fault.seed", 0, int,
+    "Seed chaos runs hand to retry policies so backoff walks replay.")
+# ------------------------------------------------------------- data plane
+# The DCN throughput knobs (net/wiredelta.py + parallel/ps_dcn.py): PULL
+# reply negotiation and the PS-side fused gradient apply.
+PULL_MODE = ConfigEntry(
+    "async.pull.mode", "full", str,
+    "PULL reply negotiation: 'full' ships the whole model every pull "
+    "(byte-identical legacy wire, the safe default); 'delta' sends "
+    "have=<ts> so the PS can answer NOT_MODIFIED (zero payload), a "
+    "byte-exact XOR sparse delta, or the full model -- whichever is "
+    "smallest.  Decode mismatch or cache miss falls back to a full pull.")
+PULL_DELTA_VERSIONS = ConfigEntry(
+    "async.pull.delta.versions", 4, int,
+    "Recent model versions the PS keeps host-side for delta encoding "
+    "(un-overridden, the PS auto-scales this to 4*num_workers+2 -- a "
+    "worker's basis is ~P versions old by its next pull); oldest "
+    "versions evict first, and the cache is only maintained once a "
+    "delta client shows up.  0 disables the cache: delta-mode pulls are "
+    "answered NOT_MODIFIED on an exact-version match (needs no cache) "
+    "or full otherwise.")
+PS_SHARDS = ConfigEntry(
+    "async.ps.shards", 1, int,
+    "Parameter-server shard processes the launcher provisions "
+    "(parallel/shardgroup.py): the model is range-partitioned across "
+    "this many ParameterServer processes behind a shard map workers "
+    "resolve at HELLO.  A PULL becomes per-shard parallel sub-pulls "
+    "(each reusing the have= NM/XDELTA/FULL negotiation and CRC "
+    "gating), a PUSH fans out per-shard rows under per-shard (sid, "
+    "seq) exactly-once sessions, and the staleness contract becomes a "
+    "per-shard version vector.  Shard 0 (the primary) keeps the wave "
+    "gate, the elastic supervisor, and the eval plane; secondaries "
+    "serve their ranges ungated.  1 (the default) is the classic "
+    "single-PS path, byte- and step-identical.")
+PS_STANDBY = ConfigEntry(
+    "async.ps.standby", 0, int,
+    "Warm standby processes per PS shard (parallel/replication.py): 1 "
+    "provisions one standby child behind every shard primary; the "
+    "primary streams accepted merge batches to it (REPL_SYNC bootstrap "
+    "+ REPL_APPEND per drained batch -- post-dedup, with each item's "
+    "(sid, seq) stamp and verdict, stamped with the primary's merge "
+    "clock and fencing epoch), and on lease expiry the ShardGroup "
+    "controller PROMOTEs the standby under the next fencing epoch "
+    "instead of relaunching from checkpoint -- failover is bounded by "
+    "suspicion time, not checkpoint replay, and the deposed primary's "
+    "writes are REJECT_FENCED.  Standbys double as read replicas "
+    "(SUBSCRIBE / relaycast roots) with staleness priced by their "
+    "replication lag (ps.standby_lag series, standby_lag SLO rule).  "
+    "0 (the default) keeps the classic restart-from-checkpoint "
+    "recovery.  Promotion additionally requires async.fence.enabled "
+    "and shards >= 2 (a map to re-announce the moved endpoint "
+    "through); otherwise a standby is a warm read replica only.")
+PUSH_MERGE = ConfigEntry(
+    "async.push.merge", 8, int,
+    "Upper bound on PUSHes the PS coalesces into one fused device apply "
+    "when the model lock is contended (bit-identical to the serial apply "
+    "order; 1 = classic one-dispatch-per-push path).",
+    # tunable: the controller resizes the EFFECTIVE budget within
+    # [floor, min(ceiling, configured value)] -- the fused kernel
+    # compiles once at the configured bound, so the ceiling can never
+    # grow a compiled shape
+    tunable=True, floor=1, ceiling=64)
+PIPELINE_DEPTH = ConfigEntry(
+    "async.pipeline.depth", 0, int,
+    "DCN worker update-loop pipelining: 0 = the classic serial "
+    "pull -> compute -> push loop (byte- and step-identical legacy "
+    "behavior); >= 1 = a prefetch thread on a second PS connection pulls "
+    "model v(k+1) while step k computes, and pushes are handed to a "
+    "bounded in-flight sender (at most this many unacknowledged pushes) "
+    "so the next compute starts before the push ACK returns.  Gradient "
+    "staleness stays bounded: the PS's taw admission prices the extra "
+    "in-flight steps, and a taw rejection makes the worker discard its "
+    "prefetched model and re-pull fresh.  ASAGA ignores this (its "
+    "PS-side sampling requires strict pull->push alternation per "
+    "worker).",
+    # tunable: with pipelining ON the controller auto-sizes the live
+    # in-flight window within [floor, min(ceiling, configured depth)]
+    # from measured pull RTT vs compute time; it never flips 0 <-> >=1
+    # (the loop SHAPE is chosen at worker start)
+    tunable=True, floor=1, ceiling=8)
+MESH_DEVICES = ConfigEntry(
+    "async.mesh.devices", 0, int,
+    "Devices in each DCN worker's LOCAL compute mesh (parallel/mesh.py): "
+    "0 = the classic single-device gradient step (byte- and step-"
+    "identical legacy behavior); >= 2 = the worker computes each "
+    "mini-batch gradient batch-parallel over a dp mesh of this many "
+    "chips -- its shard rows are padded+sharded into HBM once at loop "
+    "start (ops/steps.make_mesh_asgd_worker_step / "
+    "make_mesh_saga_dcn_worker_step), per-device partial gradients "
+    "lax.psum-reduce locally, and the worker still emits ONE fused "
+    "gradient per step (wire protocol unchanged).  A value beyond the "
+    "rig's device count clamps (logged); a clamped value below 2, or a "
+    "sparse (padded-ELL) shard, degrades to the serial single-device "
+    "path instead of crashing the worker daemon.")
+DEBUG_LOCKWATCH = ConfigEntry(
+    "async.debug.lockwatch", False, bool,
+    "Debug lock watchdog (net/lockwatch.py): the PS model lock becomes a "
+    "watched lock -- any socket send/recv attempted while it is held "
+    "raises AssertionError, and hold counts / max hold time are reported "
+    "in the live UI.  Enabled for the chaos suite and bin/chaos_sweep.py "
+    "so the lock-free PULL-serving claim is continuously checked; off by "
+    "default (zero hot-path cost).")
+# ------------------------------------------------------------- codec plane
+# Wire-compression codecs (net/wirecodec.py): quantized gradient pushes
+# with per-worker error feedback, and lossless compression of snapshot
+# deltas on the relaycast distribution plane.
+CODEC_PUSH = ConfigEntry(
+    "async.codec.push", "off", str,
+    "Gradient PUSH quantization (net/wirecodec.py): 'off' (the default) "
+    "ships raw f32 -- byte-identical legacy wire; 'fp16' halves and "
+    "'int8' (per-push max-abs scale) quarters the dense gradient bytes, "
+    "with the quantization residual kept in a per-worker error-feedback "
+    "accumulator and folded into the next push, so the model's deviation "
+    "from the uncompressed trajectory stays bounded by ONE step's "
+    "quantization error.  Non-finite gradients, fp16-overflowing "
+    "magnitudes, sparse-encoded pushes, and ASAGA (exact history "
+    "scalars) always fall back to the raw wire.")
+# ------------------------------------------------------------ native plane
+# Native hot-path data plane (native/wiredelta.cc, native/wirecodec.cc,
+# native/shmring.cc behind native_build.py): GIL-free C++ twins of the
+# pure-Python wire codecs, plus a shared-memory ring transport for
+# colocated roles.  Both default OFF = byte-identical legacy wire; the
+# async-cluster launcher flips them on.
+NATIVE_ENABLED = ConfigEntry(
+    "async.native.enabled", False, bool,
+    "Route the wire hot paths (XOR delta encode/decode + CRC32 in "
+    "net/wiredelta.py, int8/fp16 quantize + byte-shuffle + delta-index "
+    "transform in net/wirecodec.py, the frame pump's gather copy in "
+    "net/frame.py) through the ctypes-loaded C++ extensions, releasing "
+    "the GIL for the whole pass.  Every native entry point has a "
+    "registered pure-Python bit-identity oracle (the pre-native "
+    "implementation) and silently degrades to it when no toolchain is "
+    "present -- the wire is byte-identical either way, only the "
+    "interpreter time changes (metrics family 'native' says which path "
+    "actually ran).  Off by default.")
+SHM_ENABLED = ConfigEntry(
+    "async.shm.enabled", False, bool,
+    "Shared-memory ring transport for COLOCATED roles (net/shmring.py): "
+    "after the normal TCP dial, a loopback connection is upgraded via "
+    "an SHM_OPEN handshake to a pair of lock-free SPSC rings in "
+    "/dev/shm, and REPL_APPEND / SUBSCRIBE frames move through them "
+    "instead of the loopback socket.  The framed BYTES are identical "
+    "and still pass the net/frame.py choke point (CRC, fencing, dedup, "
+    "byte counters, fault injection all unchanged); only the kernel "
+    "socket hop is bypassed.  Any ring failure (peer death, handshake "
+    "refusal) degrades to the plain socket path.  Off by default = "
+    "byte-identical legacy transport.")
+SHM_RING_KB = ConfigEntry(
+    "async.shm.ring.kb", 4096, int,
+    "Per-direction shared-memory ring capacity in KiB (net/shmring.py). "
+    "A frame larger than the ring falls back to chunked writes; sizing "
+    "the ring to a few model payloads keeps the writer from ever "
+    "spinning on a healthy reader.",
+    tunable=True, floor=64, ceiling=262144)
+# ---------------------------------------------------------- elastic plane
+ELASTIC_DEAD_AFTER_S = ConfigEntry(
+    "async.elastic.dead.after.s", 5.0, float,
+    "Silence past this declares a worker dead (local process exit is "
+    "detected immediately via its registered pid).")
+ELASTIC_CHECK_INTERVAL_S = ConfigEntry(
+    "async.elastic.check.interval.s", 0.5, float,
+    "Supervisor monitor scan period.")
+ELASTIC_BOOT_GRACE_S = ConfigEntry(
+    "async.elastic.boot.grace.s", 10.0, float,
+    "Never-contacted shards are not handed out for adoption before this "
+    "much run time has passed (covers slow worker bring-up/compile).")
+# ---------------------------------------------------------- fencing plane
+# Partition-tolerant membership (parallel/supervisor.py, parallel/ps_dcn.py,
+# parallel/shardgroup.py): time-bounded leases granted at HELLO and renewed
+# on any op, a SUSPECT state between live and dead, and monotonic fencing
+# epochs minted per member so a partitioned-but-alive zombie can never
+# mutate or serve a range it no longer owns (servers answer REJECT_FENCED
+# to stale-epoch ops).
+FENCE_ENABLED = ConfigEntry(
+    "async.fence.enabled", False, bool,
+    "Epoch fencing for the PS plane: servers mint a monotonic fencing "
+    "epoch (persisted in their checkpoints, bumped every incarnation and "
+    "every lease-expiry failover), clients stamp it on every "
+    "PULL/PUSH/SUBSCRIBE (ep header), and a server rejects ops whose "
+    "epoch is not current (REJECT_FENCED) -- so a zombie shard behind a "
+    "healed partition, or a deposed worker replaying its buffered "
+    "pushes, can never double-apply against the replacement's state.  "
+    "Off (the default) the wire is byte-identical legacy (no ep keys, "
+    "epoch 0 everywhere); async-cluster flips it on.")
+LEASE_S = ConfigEntry(
+    "async.lease.s", 0.0, float,
+    "Membership lease duration: granted at HELLO, renewed by any op; a "
+    "member whose lease expires is declared dead and (with fencing on) "
+    "its replacement is launched under a bumped fencing epoch.  0 (the "
+    "default) aliases async.elastic.dead.after.s -- the lease IS the "
+    "silence bound, named for what it grants.")
+SUSPECT_AFTER_S = ConfigEntry(
+    "async.suspect.after.s", 0.0, float,
+    "Silence past this marks a member SUSPECT (surfaced in membership, "
+    "metrics, and routing demotion) without declaring death -- the "
+    "partition-tolerant middle state between live and dead.  0 (the "
+    "default) = half the lease.")
+GRAY_RTT_FACTOR = ConfigEntry(
+    "async.gray.rtt.factor", 3.0, float,
+    "Gray-failure detection (net/health.py): an endpoint whose op-RTT "
+    "EWMA exceeds this multiple of the cohort median (and the floor "
+    "below) is latency-SUSPECT -- slow-but-alive members are demoted in "
+    "routing and surfaced in membership without being declared dead.")
+GRAY_RTT_MIN_MS = ConfigEntry(
+    "async.gray.rtt.min.ms", 50.0, float,
+    "Gray-failure RTT floor: an endpoint is never latency-suspected "
+    "while its EWMA is under this many ms (micro-jitter on a fast local "
+    "cohort is not a gray failure).")
+CONV_SAMPLE = ConfigEntry(
+    "async.convergence.sample", 0, int,
+    "Worker-side convergence sampling: every Nth update per logical "
+    "worker computes its shard's mean loss (one extra jitted eval) and "
+    "the gradient norm, and piggybacks (version, loss, grad_norm) on "
+    "the next PUSH header (cv entry) for the PS to fold into the "
+    "loss-vs-wallclock / loss-vs-version curves.  0 = off (the default: "
+    "the piggyback adds header bytes, and byte-identity suites compare "
+    "exact wires); async-cluster flips it to 16.")
+# -------------------------------------------------------- adaptive control
+# The closed loop from cluster telemetry to the async knobs
+# (parallel/controller.py): an AsyncController on the primary PS
+# periodically reads the observed signals (PS-local per-worker
+# staleness/RTT/compute EWMAs; observer.* straggler scores and fleet
+# freshness when a collector is attached) and actuates the declared
+# tunables -- per-push delay-adaptive step damping, partial-barrier
+# cohort size, pipeline depth, push-merge budget.  Decisions propagate
+# through the existing SETMAP/WELCOME control path as a CTRL payload
+# next to the shard map and epoch vector.
+CONTROL_ENABLED = ConfigEntry(
+    "async.control.enabled", False, bool,
+    "Run the adaptive asynchrony controller on the primary PS.  Off "
+    "(the default) the wire is byte-identical legacy -- no CTRL "
+    "payloads anywhere; async-cluster flips it on (straggler-heavy "
+    "runs stop needing hand-tuned b/depth/merge/step conf).")

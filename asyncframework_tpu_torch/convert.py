@@ -2,7 +2,9 @@
 
 The two packages share no code, so tests and tools that run both on the
 same state pass it as numpy: the JAX package's model and per-worker shards,
-taken out with ``np.asarray``, become the port's tensors here.
+taken out with ``np.asarray``, become the port's tensors here.  Solver and
+DCN parameter-server checkpoints share one layout across the packages
+(:data:`MODEL_STATE`, :data:`PS_STATE`).
 """
 
 from __future__ import annotations
@@ -101,3 +103,24 @@ def with_worker_generators(state: Mapping, seed: int, num_workers: int,
     return {**model_state(state), "worker_gens": {
         wid: worker_generator(seed, wid, dev).get_state().numpy()
         for wid in range(num_workers)}}
+
+
+#: the entries of a DCN parameter server's checkpoint
+#: (``parallel/ps_dcn.py::ParameterServer.save_checkpoint``), one npz layout
+#: in both packages: ``__meta__`` (JSON: the clock, ``k``, the ledgers, the
+#: dedup window and, for ASAGA, the numpy sampling streams ``rng_states``),
+#: ``w``, ``snap_stack`` and, for ASAGA, ``ab`` and one ``table_<wid>`` a
+#: worker.  A checkpoint written by either package resumes in the other's
+#: ``ParameterServer(..., checkpoint_path=...)``.
+PS_STATE = ("__meta__", "w", "snap_stack", "ab", "table_<wid>")
+
+
+def ps_checkpoint(path) -> Tuple[dict, Dict[str, np.ndarray]]:
+    """A PS checkpoint of either package as ``(meta, arrays)``: the parsed
+    ``__meta__`` and every array, read into memory."""
+    import json
+
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["__meta__"]))
+        arrays = {k: z[k].copy() for k in z.files if k != "__meta__"}
+    return meta, arrays

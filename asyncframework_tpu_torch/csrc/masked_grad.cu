@@ -11,6 +11,12 @@
 //             g = X^T (mask * (diff - alpha))
 //   xt_coeff: g = X^T c  (the history table delta, c given)
 //
+// and one the DCN ASAGA worker takes (ops/steps.py:857-880 of the JAX
+// package), over a gathered slot list, everything indexed by slot i:
+//
+//   saga_slots: diff_i = (x_{idx_i} w - y_{idx_i}) * mask_i (written out at
+//               slot i), g = sum_i mask_i (diff_i - alpha_i) x_{idx_i}
+//
 // Replaces the Pallas TPU kernel
 // asyncframework_tpu/ops/pallas_kernels.py::_fused_masked_grad_padded
 // (pallas_call at :58, body _grad_kernel :41-52), and is the ASGD worker
@@ -96,6 +102,7 @@ enum Mode : int {
   kLogistic = 1,      // c_i = mask_i * (sigmoid(x_i w) - y_i)
   kSaga = 2,          // diff_i = x_i w - y_i;  c_i = mask_i * (diff_i - alpha_i)
   kXtCoeff = 3,       // c_i = mask_i, with no product and no rounding
+  kSagaSlots = 4,     // slot i: diff_i = mask_i (x w - y);  c_i = mask_i (diff_i - alpha_i)
 };
 
 // V consecutive elements of a row, widened to f32.  V > 1 needs the address
@@ -241,6 +248,7 @@ __global__ void __launch_bounds__(kThreads)
       if (r >= 0 && r < n) row = r;
     }
     float coef = 0.f;
+    if (row < 0 && i < m && mode == kSagaSlots && lane == 0) diff_out[i] = 0.f;
     if (row >= 0 && mode == kXtCoeff) {
       coef = mask[i];
     } else if (row >= 0) {
@@ -262,6 +270,10 @@ __global__ void __launch_bounds__(kThreads)
         const float diff = dot - y[row];
         if (lane == 0) diff_out[row] = diff;
         coef = round_like<T>(wt * (diff - alpha[row]));
+      } else if (mode == kSagaSlots) {
+        const float diff = (dot - y[row]) * wt;
+        if (lane == 0) diff_out[i] = diff;
+        coef = round_like<T>(wt * (diff - alpha[i]));
       } else {
         const float f = mode == kLogistic ? 1.f / (1.f + expf(-dot)) : dot;
         coef = round_like<T>(wt * (f - y[row]));
@@ -322,6 +334,15 @@ __global__ void __launch_bounds__(kReduceCols* kReduceRows)
     for (int r = 0; r < kReduceRows; ++r) total += s[r][threadIdx.x];
     g[j] = total;
   }
+}
+
+// The forms' argument rules (the C interface's comment below).
+bool mode_ok(int mode, const long long* idx, long long m, long long n) {
+  if (mode < kLeastSquares || mode > kSagaSlots) return false;
+  if ((mode == kSaga || mode == kXtCoeff) && (idx != nullptr || m != n)) {
+    return false;
+  }
+  return mode != kSagaSlots || idx != nullptr;
 }
 
 template <typename T, int V>
@@ -621,8 +642,13 @@ __global__ void __launch_bounds__(kStagedThreads, 1)
       const uint32_t bar = smem_u32(&full[s]);
       mbar_wait(smem_u32(&empty[s]), (lap & 1u) ^ 1u);
       if (lane < rows) {
-        s_row[at] = row;
+        // saga_slots: the consumers need the slot, not the row (diff and
+        // alpha are indexed by slot), and a slot past [0, n) gets diff 0
+        s_row[at] = mode == kSagaSlots && row >= 0 ? slot : row;
         if (mask == nullptr) s_wt[at] = 1.f;
+        if (mode == kSagaSlots && row < 0 && !done && slot < hi) {
+          diff_out[slot] = 0.f;
+        }
       }
       if (lane == 0) {
         s_meta[2 * s] = done ? -1 : (int)cur;
@@ -640,6 +666,7 @@ __global__ void __launch_bounds__(kStagedThreads, 1)
         if (mask != nullptr) cp_async4(smem_u32(&s_wt[at]), mask + slot);
         if (mode != kXtCoeff) cp_async4(smem_u32(&s_y[at]), y + row);
         if (mode == kSaga) cp_async4(smem_u32(&s_alpha[at]), alpha + row);
+        if (mode == kSagaSlots) cp_async4(smem_u32(&s_alpha[at]), alpha + slot);
       }
       cp_async_arrive(bar);
       if (done) break;
@@ -771,6 +798,10 @@ __global__ void __launch_bounds__(kStagedThreads, 1)
             float coef;
             if (mode == kSaga) {
               const float diff = dot - s_y[at];
+              diff_out[row] = diff;
+              coef = round_like<T>(s_wt[at] * (diff - s_alpha[at]));
+            } else if (mode == kSagaSlots) {  // `row` holds the slot here
+              const float diff = (dot - s_y[at]) * s_wt[at];
               diff_out[row] = diff;
               coef = round_like<T>(s_wt[at] * (diff - s_alpha[at]));
             } else {
@@ -918,6 +949,9 @@ extern "C" {
 //   mode 2 (saga, idx NULL, m == n): also alpha (n,) f32 and diff (n,) f32,
 //     diff_i = x_i w - y_i, g = X^T (mask * (diff - alpha))
 //   mode 3 (xt_coeff, idx NULL, m == n): g = X^T mask (y, w unused)
+//   mode 4 (saga_slots, idx given): also alpha (m,) f32 and diff (m,) f32,
+//     by slot: diff_i = mask_i (x_{idx_i} w - y_{idx_i}),
+//     g = sum_i mask_i (diff_i - alpha_i) x_{idx_i}
 //   vec: 1 when d and the X / w addresses allow 16-byte loads, else 0
 //   partial: (nblocks, d) f32 scratch   g: (d,) f32 output
 // Returns the cudaError_t of the launches (0 on success).
@@ -927,8 +961,7 @@ int masked_grad_launch(const void* X, int x_is_bf16, long long n, long long d,
                        const float* alpha, float* diff, int vec,
                        float* partial, int nblocks, float* g, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode < kLeastSquares || mode > kXtCoeff) return cudaErrorInvalidValue;
-  if (mode >= kSaga && (idx != nullptr || m != n)) return cudaErrorInvalidValue;
+  if (!mode_ok(mode, idx, m, n)) return cudaErrorInvalidValue;
   if (d == 0) return cudaSuccess;
   if (m == 0) nblocks = 0;
   if (nblocks > 0) {
@@ -986,8 +1019,7 @@ int masked_grad_staged_launch(const void* X, int x_is_bf16, long long n,
                               long long smem, int blocks, float* partial,
                               float* g, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode < kLeastSquares || mode > kXtCoeff) return cudaErrorInvalidValue;
-  if (mode >= kSaga && (idx != nullptr || m != n)) return cudaErrorInvalidValue;
+  if (!mode_ok(mode, idx, m, n)) return cudaErrorInvalidValue;
   if (d == 0) return cudaSuccess;
   const int es = x_is_bf16 ? 2 : 4;
   const long long pad = (d / (16 / es) + 31) / 32 * 32;  // a group's threads

@@ -12,7 +12,8 @@
 // sparse_task (the fused design; one cooperative launch a task, one block
 // of 512 threads an SM, phases split by grid barriers):
 //   r_j   = sum_k (vals[row_j, k] * valid_j) * w[cols[row_j, k]] - y[row_j] * valid_j
-//   c_j   = r_j, or r_j - alpha[row_j] (ASAGA), or a given coeff_j (no r)
+//   c_j   = r_j, or r_j - alpha[row_j] (ASAGA), or r_j - alpha[j] (the DCN
+//           ASAGA worker's per-slot scalars), or a given coeff_j (no r)
 //   g[c]  = sum over the entries keyed c, in flat order, of c_j * (vals * valid_j)
 //   with row_j = idx[j] (or j), valid_j = valid[j] (or 1, and no product).
 //   (a) A warp stages up to eight whole rows of its slots at once in shared
@@ -251,7 +252,8 @@ struct Task {
   const long long* idx;
   const float* valid;
   const float* coeff;  // the coefficient form's c_j
-  const float* alpha;  // NULL, or the residual form's c_j = r_j - alpha[row_j]
+  const float* alpha;  // NULL, or the residual form's c_j = r_j - alpha[.]
+  int alpha_slots;     // 1: alpha is indexed by slot j, 0: by row_j
   long long m;
   int K, d, passes, chunk, vec;
   int residual;        // 1: the residual form, 0: the coefficient form
@@ -599,7 +601,9 @@ __device__ void residual_phase(const Task<Pos>& t, long long j0, long long j1,
       if (t.valid != nullptr) vl = __ldg(t.valid + jl);
       if (t.residual) {
         yl = __ldg(t.y + rowl);
-        if (t.alpha != nullptr) al = __ldg(t.alpha + rowl);
+        if (t.alpha != nullptr) {
+          al = __ldg(t.alpha + (t.alpha_slots ? jl : rowl));
+        }
       } else {
         al = __ldg(t.coeff + jl);
       }
@@ -1466,7 +1470,8 @@ int sparse_task_workspace(long long m, int K, int d, int blocks, int wide,
 //   residual: 1 with y: (n,) f32 and w: (d,) f32 (the residual form), or
 //   0 with coeff: (m,) f32 (the coefficient form)
 //   idx: (m,) int64 in [0, n) or NULL (m == n)   valid: (m,) f32 or NULL
-//   alpha: (n,) f32 or NULL (residual form: c_j = r_j - alpha[row_j])
+//   alpha: (n,) f32 or NULL (residual form: c_j = r_j - alpha[row_j]), or
+//     with alpha_slots 1 (m,) f32 (c_j = r_j - alpha[j])
 //   passes: 8-bit digits of the keys [0, d]   chunk: L   vec: 16-byte rows
 //   wide: 64-bit positions   max_items: bound on the long columns' chunks
 //   blocks: one an SM   r: (m,) f32 out (residual form)   g: (d,) f32 out
@@ -1476,8 +1481,8 @@ int sparse_task_workspace(long long m, int K, int d, int blocks, int wide,
 int sparse_task_launch(const int* cols, const float* vals, const float* y,
                        const float* w, const long long* idx,
                        const float* valid, const float* coeff,
-                       const float* alpha, long long m, int K, int d,
-                       int passes, int chunk, int vec, int wide,
+                       const float* alpha, int alpha_slots, long long m,
+                       int K, int d, int passes, int chunk, int vec, int wide,
                        int residual, int global_only, long long max_items,
                        int blocks,
                        float* r, float* g, void* ws, void* zws,
@@ -1497,7 +1502,8 @@ int sparse_task_launch(const int* cols, const float* vals, const float* y,
   if (wide) {
     task::Task<unsigned long long> t{};
     t.cols = cols; t.vals = vals; t.y = y; t.w = w; t.idx = idx;
-    t.valid = valid; t.coeff = coeff; t.alpha = alpha; t.m = m; t.K = K;
+    t.valid = valid; t.coeff = coeff; t.alpha = alpha;
+    t.alpha_slots = alpha_slots; t.m = m; t.K = K;
     t.d = d; t.passes = passes; t.chunk = chunk; t.vec = vec;
     t.residual = residual; t.global_only = global_only; t.r = r; t.g = g;
     t.stamps = stamps;
@@ -1505,7 +1511,8 @@ int sparse_task_launch(const int* cols, const float* vals, const float* y,
   }
   task::Task<unsigned> t{};
   t.cols = cols; t.vals = vals; t.y = y; t.w = w; t.idx = idx;
-  t.valid = valid; t.coeff = coeff; t.alpha = alpha; t.m = m; t.K = K;
+  t.valid = valid; t.coeff = coeff; t.alpha = alpha;
+  t.alpha_slots = alpha_slots; t.m = m; t.K = K;
   t.d = d; t.passes = passes; t.chunk = chunk; t.vec = vec;
   t.residual = residual; t.global_only = global_only; t.r = r; t.g = g;
   t.stamps = stamps;

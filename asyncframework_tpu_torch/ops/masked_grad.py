@@ -31,6 +31,14 @@ version here, each counted in ``masked_grad.launches`` and in its own
   The JAX package writes it as a plain ``X.T @ c``, where a bf16 ``X`` is
   promoted to f32, so ``c`` is *not* rounded to bf16 here either.
 
+and one the DCN ASAGA worker takes (``steps.py:857-880``), over gathered
+slots, counted in ``masked_grad.launches`` and ``saga_slots_grad.launches``:
+
+- :func:`saga_slots_grad` -- ``(g, diff)`` with, slot by slot,
+  ``diff_i = (x_{idx_i}.w - y_{idx_i}) * valid_i`` and
+  ``g = sum_i (diff_i - alpha_i) * valid_i * x_{idx_i}``: ``alpha`` and
+  ``diff`` are indexed by slot, not by row; bf16 rounding as above.
+
 The kernel has two routes, chosen by shape and dtype alone in
 :func:`launch_plan` (never by a failed launch):
 
@@ -64,7 +72,7 @@ from asyncframework_tpu_torch.ops import _build
 from asyncframework_tpu_torch.ops._checks import check_tensor, on_cuda
 
 LOSSES = {"least_squares": 0, "logistic": 1}
-_SAGA, _XT_COEFF = 2, 3  # the kernel's other modes
+_SAGA, _XT_COEFF, _SAGA_SLOTS = 2, 3, 4  # the kernel's other modes
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_BYTES = 16
 
@@ -118,6 +126,28 @@ def saga_grad_reference(X, y, w, alpha, mask=None):
     c = diff - alpha
     if mask is not None:
         c = mask * c
+    return Xf.T @ c.to(X.dtype).float(), diff
+
+
+def _slot_rows(y, idx, valid):
+    """The row each slot reads, its ``y`` and its weight: a slot whose
+    index lies outside ``[0, n)`` reads row 0 (no row when ``n = 0``) with
+    weight 0, as the kernel skips it."""
+    n = y.shape[0]
+    inside = (idx >= 0) & (idx < n)
+    rows = torch.where(inside, idx, 0)
+    ys = y[rows] if n else torch.zeros_like(valid)
+    return rows, ys, valid * inside
+
+
+def saga_slots_grad_reference(X, y, w, idx, alpha, valid):
+    """Plain PyTorch version of :func:`saga_slots_grad`, with the same
+    casts (the JAX package's ``make_saga_dcn_worker_step``)."""
+    rows, ys, keep = _slot_rows(y, idx, valid)
+    Xf = (X[rows] if X.shape[0] else X.new_zeros(idx.shape[0], X.shape[1]))
+    Xf = Xf.float()
+    diff = (Xf @ w.to(X.dtype).float() - ys) * keep
+    c = (diff - alpha) * keep
     return Xf.T @ c.to(X.dtype).float(), diff
 
 
@@ -438,6 +468,37 @@ def saga_grad(X, y, w, alpha, mask=None):
     return g, diff
 
 
+def saga_slots_grad(X, y, w, idx, alpha, valid):
+    """The DCN ASAGA worker's contraction over ``m`` gathered slots:
+    ``(g, diff)``, both f32, with ``diff_i = (x_{idx_i}.w - y_{idx_i}) *
+    valid_i`` (the candidate history scalars, by slot) and ``g = sum_i
+    (diff_i - alpha_i) * valid_i * x_{idx_i}``.
+
+    ``X``: ``(n, d)`` contiguous f32 or bf16; ``y``: ``(n,)`` f32; ``w``:
+    ``(d,)`` f32; ``idx``: ``(m,)`` int64; ``alpha`` (the sampled rows'
+    history scalars), ``valid``: ``(m,)`` f32.  A slot whose index lies
+    outside ``[0, n)`` contributes nothing and gets ``diff`` 0.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel (counted
+    in ``masked_grad.launches`` and ``saga_slots_grad.launches``) or
+    raise."""
+    device, n, d = _check_X(X)
+    m = idx.shape[0] if isinstance(idx, torch.Tensor) else -1
+    check_tensor("y", y, torch.float32, (n,), device)
+    check_tensor("w", w, torch.float32, (d,), device)
+    check_tensor("idx", idx, torch.int64, (m,), device)
+    check_tensor("alpha", alpha, torch.float32, (m,), device)
+    check_tensor("valid", valid, torch.float32, (m,), device)
+    if not on_cuda(device, "masked_grad"):
+        return saga_slots_grad_reference(X, y, w, idx, alpha, valid)
+    if d == 0:
+        _rows, ys, keep = _slot_rows(y, idx, valid)
+        return torch.zeros(0, dtype=torch.float32, device=device), -ys * keep
+    diff = torch.empty(m, dtype=torch.float32, device=device)
+    g = _launch(X, y, w, valid, idx, m, _SAGA_SLOTS, alpha, diff,
+                form=saga_slots_grad)
+    return g, diff
+
+
 def xt_coeff(X, c):
     """``X^T c`` as an f32 ``(d,)`` tensor, ``c`` an f32 ``(n,)`` tensor
     (not rounded to bf16 for a bf16 ``X``).  CPU tensors run the plain
@@ -456,4 +517,5 @@ masked_grad.launches = 0
 masked_grad.launches_staged = 0
 masked_grad.launches_tiled = 0
 saga_grad.launches = 0
+saga_slots_grad.launches = 0
 xt_coeff.launches = 0

@@ -15,7 +15,9 @@ kernel or raises.
   valid_j) * w[cols[row_j, k]] - y[row_j] * valid_j`` (``row_j = idx[j]``
   or ``j``) and ``g[c] = sum of coeff_j * (vals[row_j, k] * valid_j)`` over
   the entries of column ``c`` in flat order, ``coeff_j = r_j`` or ``r_j -
-  alpha[row_j]``; :func:`grad_sum` is the same sum for a given ``coeff``.
+  alpha[row_j]``; :func:`grad_sum` is the same sum for a given ``coeff``;
+  :func:`saga_slots_grad` the DCN ASAGA worker's task, ``coeff_j = r_j -
+  alpha[j]`` with ``alpha`` indexed by slot.
   One cooperative launch (``sparse_task_kernel``): the residual, a stable
   radix sort by column, and the segment sums, with no sort or memset
   launch.  The kernel picks one of two routes from the data, the same on
@@ -104,7 +106,7 @@ def _library():
         lib.sparse_task_workspace.argtypes = [ll, i, i, i, i, ll, lp, lp]
         lib.sparse_task_workspace.restype = i
         lib.sparse_task_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, ll,
+            vp, vp, vp, vp, vp, vp, vp, vp, i, ll, i, i, i, i, i, i, i, i, ll,
             i, vp, vp, vp, vp, vp, vp,
         ]
         lib.sparse_task_launch.restype = i
@@ -312,8 +314,9 @@ def _grad_sum(cols, vals, coeff, d, idx, valid, chunk):
 
 
 def compacted_grad_plain(cols, vals, y, w, idx=None, valid=None, d=None,
-                         alpha=None, chunk: int = CHUNK):
-    """Plain PyTorch version of :func:`compacted_grad`: ``(g, r)`` from
+                         alpha=None, chunk: int = CHUNK, alpha_slots=False):
+    """Plain PyTorch version of :func:`compacted_grad` (and, with
+    ``alpha_slots``, of :func:`saga_slots_grad`): ``(g, r)`` from
     :func:`ell_residual_plain` (the kernel's lane order) and
     :func:`grad_sum_plain` (its column order)."""
     with _count_lock:
@@ -322,7 +325,7 @@ def compacted_grad_plain(cols, vals, y, w, idx=None, valid=None, d=None,
     r = _residual(cols, vals, y, w, idx, valid, False)
     coeff = r
     if alpha is not None:
-        coeff = r - (alpha if idx is None else alpha[idx])
+        coeff = r - (alpha if idx is None or alpha_slots else alpha[idx])
     return _grad_sum(cols, vals, coeff, d, idx, valid, chunk), r
 
 
@@ -426,7 +429,8 @@ def _workspace_bytes(lib, m, K, d, blocks, wide, max_items):
     return wb.value, zb.value
 
 
-def _task(cols, vals, y, w, idx, valid, coeff, alpha, d, form):
+def _task(cols, vals, y, w, idx, valid, coeff, alpha, d, form,
+          alpha_slots=False):
     """Enqueue one fused launch on the current stream; returns ``(g, r)``
     (``r`` None in the coefficient form).  Counted in ``form.launches``."""
     device, n, K, m = _check_rows(vals, idx, valid)
@@ -438,7 +442,8 @@ def _task(cols, vals, y, w, idx, valid, coeff, alpha, d, form):
         d = w.shape[0]
         check_tensor("w", w, torch.float32, (d,), device)
         if alpha is not None:
-            check_tensor("alpha", alpha, torch.float32, (n,), device)
+            check_tensor("alpha", alpha, torch.float32,
+                         (m if alpha_slots else n,), device)
     else:
         check_tensor("coeff", coeff, torch.float32, (m,), device)
     d = int(d)
@@ -447,7 +452,7 @@ def _task(cols, vals, y, w, idx, valid, coeff, alpha, d, form):
     if not on_cuda(device, "sparse_grad"):
         if coeff is None:
             return compacted_grad_plain(cols, vals, y, w, idx, valid, d, alpha,
-                                        plan.chunk)
+                                        plan.chunk, alpha_slots)
         return grad_sum_plain(cols, vals, coeff, d, idx, valid,
                               plan.chunk), None
     lib = _library()
@@ -460,7 +465,8 @@ def _task(cols, vals, y, w, idx, valid, coeff, alpha, d, form):
     ws, zws = _workspace(lib, device, stream, plan, m, K, d, blocks)
     rc = lib.sparse_task_launch(
         _ptr(cols), _ptr(vals), _ptr(y), _ptr(w), _ptr(idx), _ptr(valid),
-        _ptr(coeff), _ptr(alpha), m, K, d, plan.passes, plan.chunk,
+        _ptr(coeff), _ptr(alpha), int(alpha_slots), m, K, d, plan.passes,
+        plan.chunk,
         int(plan.vec), int(plan.wide), int(coeff is None),
         int(plan.route == "global"), plan.max_items,
         blocks, _ptr(r), _ptr(g), _ptr(ws), _ptr(zws), _ptr(_timeline),
@@ -493,6 +499,22 @@ def compacted_grad(cols, vals, y, w, idx=None, valid=None, d=None,
     return _task(cols, vals, y, w, idx, valid, None, alpha, d, compacted_grad)
 
 
+def saga_slots_grad(cols, vals, y, w, idx, valid, alpha):
+    """The DCN ASAGA worker's sparse task (``steps.py:883-908`` of the JAX
+    package), in one launch: ``(g (d,), diff (m,))`` f32 with ``diff`` the
+    slots' residuals as :func:`compacted_grad` takes them and ``g = sum_j
+    (diff_j - alpha_j) (x_{idx_j} * valid_j)``, where ``alpha`` (``(m,)``
+    f32, the sampled rows' history scalars shipped by the parameter
+    server) is indexed by slot ``j``, not by row.  A slot with ``valid_j``
+    0 has ``diff_j`` 0 and adds nothing.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (counted in
+    ``saga_slots_grad.launches``) or raise."""
+    if idx is None or valid is None:
+        raise ValueError("saga_slots_grad takes the slots' idx and valid")
+    return _task(cols, vals, y, w, idx, valid, None, alpha, None,
+                 saga_slots_grad, alpha_slots=True)
+
+
 def grad_sum(cols, vals, coeff, d: int, idx=None, valid=None):
     """``g (d,)`` f32, ``g[c]`` the sum of ``coeff_j * (vals[row_j, k] *
     valid_j)`` over the entries of column ``c``, in :func:`compacted_grad`'s
@@ -510,5 +532,6 @@ ell_residual_plain.calls = 0
 segment_sum_plain.calls = 0
 compacted_grad.launches = 0
 grad_sum.launches = 0
+saga_slots_grad.launches = 0
 compacted_grad_plain.calls = 0
 grad_sum_plain.calls = 0

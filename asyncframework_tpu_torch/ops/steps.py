@@ -35,12 +35,20 @@ iteration counter ``k`` and the sync drain's accumulator.
 - :func:`make_fused_asgd_rounds`, :func:`make_fused_saga_rounds`: one
   full-wave round of the device-resident accept loop (``steps.py:673-855``)
   through the same worker halves, dense and sparse.
+- The DCN parameter-server plane's steps (``parallel/ps_dcn.py``):
+  :func:`make_asgd_apply_merge` / :func:`make_saga_apply_merge` (the PS's
+  merge drain, ``steps.py:271-326,353-397``), the DCN ASAGA worker steps
+  :func:`make_saga_dcn_worker_step` / :func:`make_saga_dcn_sparse_worker_step`
+  (``:857-908``, through B1's and S1's per-slot forms) and
+  :func:`make_pipelined_transfer` (``:51-81``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from asyncframework_tpu_torch.ops.gradients import (
@@ -51,6 +59,8 @@ from asyncframework_tpu_torch.ops.gradients import (
     saga_commit_history,  # re-exported: the solvers' committed-history op
     saga_shard_step,
 )
+from asyncframework_tpu_torch.ops import masked_grad as _mg
+from asyncframework_tpu_torch.ops import sparse_grad as _sg
 from asyncframework_tpu_torch.ops.masked_grad import xt_coeff
 from asyncframework_tpu_torch.ops.sampling import bernoulli_mask
 from asyncframework_tpu_torch.ops.sparse_grad import compacted_grad, ell_residual
@@ -453,3 +463,163 @@ def make_fused_saga_rounds(gamma: float, batch_rate: float, n: int, shards,
         return (w, alpha_bar, *(a for _, a in results))
 
     return round_fn
+
+
+# --------------------------------------------------------------------- DCN
+# The parameter server across processes (parallel/ps_dcn.py): the PS folds
+# queued pushes in slot order, the workers compute on what the PS sampled.
+
+def make_asgd_apply_merge(gamma: float, batch_rate: float, n: int,
+                          num_workers: int):
+    """``apply_merge(w, G (m, d), mask (m,), k) -> (w', k')``: m coalesced
+    PUSH gradients folded through the serial apply expression in slot
+    order (``steps.py:271-326``), so the fused drain is bit-equal to m
+    serial applies; the parameter server's serial path is this function
+    at m = 1.  Slot ``j`` applies ``w <- w - (a_j * (lr / parRecs)) * g_j``
+    with ``lr = gamma / sqrt(k / P + 1)`` and advances ``k`` by one where
+    ``a_j = mask[j] > 0``, and leaves both as they are where ``a_j`` is 0
+    (a padding slot).  ``a_j`` is 1.0 for every pushed gradient (no
+    controller damps here; ``1.0 * x`` is exact).  ``w'`` and ``k'`` are
+    new tensors; nothing is written in place."""
+    par_recs = batch_rate * n / num_workers
+
+    def apply_merge(w, G, mask, k):
+        for g, a in zip(G, mask):
+            lr = gamma / torch.sqrt(k / num_workers + 1.0)
+            w2 = w - (a * (lr / par_recs)) * g
+            keep = a > 0
+            w = torch.where(keep, w2, w)
+            k = torch.where(keep, k + 1.0, k)
+        return w, k
+
+    return apply_merge
+
+
+def make_saga_apply_merge(gamma: float, batch_rate: float, n: int,
+                          num_workers: int):
+    """``apply_merge(w, alpha_bar, G (m, d), mask (m,)) -> (w', alpha_bar')``:
+    the ASAGA face of the merge drain (``steps.py:353-397``; ``delta == g``
+    over DCN), the serial :func:`make_saga_apply` expression folded over the
+    slots where ``mask > 0``: ``w <- w - (gamma/parRecs) g - gamma ab``,
+    ``ab <- ab + g / N``.  New tensors; nothing is written in place."""
+    par_recs = batch_rate * n / num_workers
+
+    def apply_merge(w, alpha_bar, G, mask):
+        for g, a in zip(G, mask):
+            w2 = w - (gamma / par_recs) * g - gamma * alpha_bar
+            ab2 = alpha_bar + g / n
+            keep = a > 0
+            w = torch.where(keep, w2, w)
+            alpha_bar = torch.where(keep, ab2, alpha_bar)
+        return w, alpha_bar
+
+    return apply_merge
+
+
+def _slot_valid(cap: int, n_valid: int, device) -> torch.Tensor:
+    """``valid_i = i < n_valid`` as f32 over ``cap`` slots."""
+    return (torch.arange(cap, device=device) < int(n_valid)).float()
+
+
+def make_saga_dcn_worker_step():
+    """``step(X, y, w, idx, alpha_sel, n_valid) -> (g, diff_sel)``: the DCN
+    ASAGA worker (``steps.py:857-880``, ``SparkASAGAThread.scala:280-294``).
+    The PS samples the rows and ships them capacity-padded with their
+    history scalars; the worker reads only those rows and computes the
+    candidate scalars ``diff_i = (x_{idx_i}.w - y_{idx_i}) * valid_i`` and
+    ``g = sum_i (diff_i - alpha_i) * valid_i * x_{idx_i}``, with ``valid_i =
+    i < n_valid``, in one launch of B1's per-slot form
+    (:func:`~asyncframework_tpu_torch.ops.masked_grad.saga_slots_grad`)."""
+
+    def step(X, y, w, idx, alpha_sel, n_valid):
+        valid = _slot_valid(idx.shape[0], n_valid, X.device)
+        return _mg.saga_slots_grad(X, y, w, idx, alpha_sel, valid)
+
+    return step
+
+
+def make_saga_dcn_sparse_worker_step(d: int):
+    """``step(cols, vals, y, w, idx, alpha_sel, n_valid) -> (g, diff_sel)``:
+    the padded-ELL face of :func:`make_saga_dcn_worker_step`
+    (``steps.py:883-908``), one launch of S1's per-slot form
+    (:func:`~asyncframework_tpu_torch.ops.sparse_grad.saga_slots_grad`):
+    padding slots have zero rows and add nothing."""
+
+    def step(cols, vals, y, w, idx, alpha_sel, n_valid):
+        if w.shape[0] != d:
+            raise ValueError(f"w has {w.shape[0]} entries, not d = {d}")
+        valid = _slot_valid(idx.shape[0], n_valid, vals.device)
+        return _sg.saga_slots_grad(cols, vals, y, w, idx, valid, alpha_sel)
+
+    return step
+
+
+def make_pipelined_transfer(device) -> Tuple[Callable, Callable]:
+    """``(stage, readback)``: the two host<->device overlap points of the
+    pipelined DCN worker loop (``steps.py:51-81``).
+
+    On a CUDA device, ``stage(w_host)`` copies the pulled model into one of
+    two pinned host buffers and from there to a new device tensor with a
+    ``non_blocking`` copy on a side stream; the compute stream waits on
+    the copy's event, so the copy of model v(k+1) overlaps step k's
+    compute.  A buffer is refilled only after its previous copy's event
+    fired; the device tensor is allocated on the side stream that writes
+    it and recorded on the compute stream that reads it.  ``readback(g)`` copies a gradient into a pinned buffer on the
+    side stream (after the compute stream's work) and returns an owned
+    numpy array once that copy's event fired.  On the CPU both are plain
+    copies."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        def stage_cpu(w_host: np.ndarray) -> torch.Tensor:
+            return torch.tensor(np.asarray(w_host, np.float32))
+
+        def readback_cpu(g: torch.Tensor) -> np.ndarray:
+            return g.numpy().copy()
+
+        return stage_cpu, readback_cpu
+
+    side = torch.cuda.Stream(device)
+    pinned = {}
+    events = [None, None]
+    turn = [0]
+
+    def host_buffer(key, numel):
+        buf = pinned.get(key)
+        if buf is None or buf.numel() != numel:
+            buf = torch.empty(numel, dtype=torch.float32, pin_memory=True)
+            pinned[key] = buf
+        return buf
+
+    def stage(w_host: np.ndarray) -> torch.Tensor:
+        i = turn[0]
+        turn[0] ^= 1
+        if events[i] is not None:
+            events[i].synchronize()  # the buffer's previous copy is done
+        buf = host_buffer(("w", i), w_host.shape[0])
+        buf.numpy()[:] = w_host
+        compute = torch.cuda.current_stream(device)
+        with torch.cuda.stream(side):
+            # allocated on the side stream, which writes it: a block the
+            # compute stream freed may still be read by its queued kernels
+            w_dev = torch.empty(w_host.shape[0], dtype=torch.float32,
+                                device=device)
+            w_dev.copy_(buf, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        events[i] = ev
+        compute.wait_event(ev)
+        w_dev.record_stream(compute)  # freed only after compute's use
+        return w_dev
+
+    def readback(g: torch.Tensor) -> np.ndarray:
+        buf = host_buffer("g", g.shape[0])
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            buf.copy_(g, non_blocking=True)
+            g.record_stream(side)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        ev.synchronize()
+        return buf.numpy().copy()
+
+    return stage, readback

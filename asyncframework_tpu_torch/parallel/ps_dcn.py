@@ -1,0 +1,2737 @@
+"""Asynchronous parameter server across OS processes (the DCN channel).
+
+Counterpart of ``asyncframework_tpu/parallel/ps_dcn.py``: the same
+parameter-server process, worker processes and wire, in PyTorch.  A frame
+the port sends parses in the JAX package and the other way round, so a
+worker of either package trains against a parameter server of the other.
+What changes is where the arrays live and what computes on them:
+
+- the PS keeps ``w``, the step counter ``k`` and ASAGA's ``alpha_bar`` as
+  f32 tensors on its ``device`` (``cuda`` unless the caller asks for the
+  CPU; there is no fallback) and applies pushes through
+  :func:`~asyncframework_tpu_torch.ops.steps.make_asgd_apply_merge` /
+  :func:`~asyncframework_tpu_torch.ops.steps.make_saga_apply_merge`: a
+  drain folds its queued pushes in slot order through the serial apply
+  expression, and the serial path is the same function at m = 1, so a
+  fused drain is bit-equal to m serial applies;
+- ASAGA's history table and PS-side sampling stay numpy, drawn from
+  ``default_rng([seed, wid])`` as in the JAX package, so both packages
+  sample the same rows;
+- a worker's gradient is one launch of kernel B1 (dense) or S1 (padded
+  ELL): the compacted forms for ASGD, the per-slot forms
+  (``masked_grad.saga_slots_grad``, ``sparse_grad.saga_slots_grad``) for
+  ASAGA; each worker's sampling draws from a ``torch.Generator`` seeded
+  from ``(cfg.seed, wid)`` (ROADMAP C2: not the JAX package's bits);
+- the pipelined loop's host<->device staging is pinned host buffers and
+  ``non_blocking`` copies on a side stream
+  (:func:`~asyncframework_tpu_torch.ops.steps.make_pipelined_transfer`).
+
+Semantics, as in the JAX package (``SparkASGDThread.scala``): the logical
+clock is the number of merged gradients; a model handed to a worker is
+stamped with the clock at send time; accept iff ``staleness <= taw``
+(ASAGA: ``k - staleness <= taw``); partial-barrier cohorts release PULLs
+in waves of ``floor(P * bucket_ratio)``; straggler delays start after
+calibration.  The data plane keeps version-cached replies, delta pulls
+(``async.pull.mode=delta``), vectored framing, the merge queue
+(``async.push.merge``), lock-free pull serving, the pipelined worker loop
+(``async.pipeline.depth``), the native codecs and the shared-memory ring
+(``net/``), exactly-once pushes (``net/session.py``), the elastic
+supervisor, checkpoints and ``collect_eval``.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP item (A6b unless stated): the hot standby, replication and
+promotion; epoch fencing; the adaptive controller and damped apply;
+SUBSCRIBE and relay offers; sharded PS groups (``async.ps.shards > 1``);
+the mesh worker steps (``async.mesh.devices > 1``); convergence telemetry
+and the live UI's sections (A5b).  Convergence samples that a JAX-package
+worker piggybacks (``cv``) are not folded.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import socket
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from asyncframework_tpu_torch.metrics import flightrec as _flight
+from asyncframework_tpu_torch.metrics import profiler as _prof
+from asyncframework_tpu_torch.metrics import trace as _trace
+from asyncframework_tpu_torch.net import ClientSession, DedupWindow, RetryPolicy
+from asyncframework_tpu_torch.net import frame as _frame
+from asyncframework_tpu_torch.net import shmring as _shmring
+from asyncframework_tpu_torch.net import wirecodec, wiredelta
+from asyncframework_tpu_torch.parallel import supervisor as supervisor_mod
+from asyncframework_tpu_torch.parallel.supervisor import ElasticSupervisor
+from asyncframework_tpu_torch.utils.devices import canonical, resolve_devices
+
+# ------------------------------------------------------------------ framing
+# The framing moved to net/frame.py (one choke point for the whole control
+# + data plane, with fault-injection hooks); these aliases keep the
+# historical import site alive for everything that learned it here.
+_send_msg = _frame.send_msg
+_recv_exact = _frame.recv_exact
+_recv_msg = _frame.recv_msg
+
+
+# ------------------------------------------------- pipeline counters
+# Process-global pipelined-loop totals (live UI "pipeline" section).  The
+# worker loops accumulate locally (one _PipelineStats per worker process
+# run) and ship deltas on PUSH/BYE headers; the PS folds them here -- so
+# the counters land in the process that serves the dashboard whether the
+# workers are threads in this process or real OS processes across a DCN.
+_pl_lock = threading.Lock()
+_pl_totals: Dict[str, int] = {}
+
+
+def pipeline_totals() -> Dict[str, int]:
+    """Pipelined update-loop counters: prefetch_hits (model was already
+    waiting when the loop asked), prefetch_waits (the loop blocked on the
+    prefetch), stale_discards (prefetched model thrown away after a taw
+    rejection), pushes_async (pushes sent by the decoupled sender),
+    push_errors (pushes whose whole retry budget was spent),
+    inflight_max (max unacked pushes observed)."""
+    with _pl_lock:
+        return dict(_pl_totals)
+
+
+def reset_pipeline_totals() -> None:
+    """Zero the process-global pipeline counters (per-run isolation; see
+    ``asyncframework_tpu_torch.metrics.reset_totals``)."""
+    with _pl_lock:
+        _pl_totals.clear()
+
+
+def _pl_fold(delta: Dict[str, int]) -> None:
+    """Fold a wire-shipped counter delta; ``inflight_max`` is a high-water
+    mark (max-merged), everything else a monotone count."""
+    if not delta:
+        return
+    with _pl_lock:
+        for k, v in delta.items():
+            try:
+                v = int(v)
+            except (TypeError, ValueError):
+                continue
+            if k == "inflight_max":
+                if v > _pl_totals.get(k, 0):
+                    _pl_totals[k] = v
+            else:
+                _pl_totals[k] = _pl_totals.get(k, 0) + v
+
+
+def _refuse(what: str, item: str = "A6b") -> None:
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
+
+
+def refuse_unported_conf() -> None:
+    """Refuse the conf switches of the JAX package's cluster path that
+    this package does not run, on the PS and the workers alike: setting
+    one must never run a plainer run without a word."""
+    from asyncframework_tpu_torch.conf import (
+        CONTROL_ENABLED,
+        CONV_SAMPLE,
+        MESH_DEVICES,
+        PS_SHARDS,
+        PS_STANDBY,
+        global_conf,
+    )
+
+    conf = global_conf()
+    if int(conf.get(PS_SHARDS)) > 1:
+        _refuse("a sharded PS group (async.ps.shards > 1)")
+    if int(conf.get(PS_STANDBY)) > 0:
+        _refuse("the hot standby (async.ps.standby > 0)")
+    if conf.get(CONTROL_ENABLED):
+        _refuse("the adaptive controller (async.control.enabled)")
+    if int(conf.get(MESH_DEVICES)) > 1:
+        _refuse("the mesh worker steps (async.mesh.devices > 1)")
+    if int(conf.get(CONV_SAMPLE)) > 0:
+        _refuse("convergence telemetry (async.convergence.sample)", "A5b")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """An owned host f32 copy of a model tensor (never a view: the caller
+    keeps it past later applies)."""
+    return np.array(t.detach().cpu().numpy(), np.float32)
+
+
+class _PipelineStats:
+    """Per-worker-process pipeline counters, shipped to the PS as deltas
+    on PUSH headers (``pl``) and on BYE -- the same piggyback discipline
+    as trace spans, so the PS-side live UI sees them even when the worker
+    is a separate OS process.  A delta taken for a push that terminally
+    fails is merged back so the counts ride the next attempt."""
+
+    __slots__ = ("_lock", "_counts", "_shipped_inflight_max")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}
+        self._shipped_inflight_max = 0
+
+    def bump(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[key] = self._counts.get(key, 0) + n
+
+    def high_water(self, key: str, v: int) -> None:
+        with self._lock:
+            if v > self._counts.get(key, 0):
+                self._counts[key] = v
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def take_wire(self) -> Dict[str, int]:
+        """Unshipped counter delta (empty dict = nothing to ship, no
+        header field, no wire bytes)."""
+        with self._lock:
+            out = {k: v for k, v in self._counts.items()
+                   if k != "inflight_max" and v}
+            hw = self._counts.get("inflight_max", 0)
+            if hw > self._shipped_inflight_max:
+                out["inflight_max"] = hw
+                self._shipped_inflight_max = hw
+            for k in out:
+                if k != "inflight_max":
+                    self._counts[k] = 0
+            return out
+
+    def merge_back(self, delta: Dict[str, int]) -> None:
+        with self._lock:
+            for k, v in delta.items():
+                if k == "inflight_max":
+                    continue  # the high-water mark survives locally
+                self._counts[k] = self._counts.get(k, 0) + v
+
+
+class _ModelSnap:
+    """One published model version: the host float32 array, its serialized
+    payload bytes, and the CRC32 integrity stamp -- immutable once built,
+    swapped in by atomic reference assignment so ``_handle_pull`` can
+    serve any reply shape without the model lock."""
+
+    __slots__ = ("ts", "w_host", "wire", "crc", "gen")
+
+    def __init__(self, ts: int, w_host: np.ndarray, wire: bytes, crc: int,
+                 gen: int):
+        self.ts = ts
+        self.w_host = w_host
+        self.wire = wire
+        self.crc = crc
+        #: model GENERATION the build basis carried (bumped on every
+        #: accepted push): the send-time clock re-stamp in _handle_pull
+        #: is allowed only while the generation is unchanged -- dropped
+        #: pushes tick the clock but not the generation, accepted ones
+        #: tick both, so gen equality proves "same bytes, newer clock"
+        self.gen = gen
+
+
+class WaitDone:
+    """Result of :meth:`ParameterServer.wait_done`: truthy iff the run
+    finished; otherwise carries the per-worker progress diagnostic (old
+    callers that only truth-test keep working, new callers can print WHY
+    the run did not finish)."""
+
+    __slots__ = ("done", "diagnostic")
+
+    def __init__(self, done: bool, diagnostic: Optional[str]):
+        self.done = bool(done)
+        self.diagnostic = diagnostic
+
+    def __bool__(self) -> bool:
+        return self.done
+
+    def __repr__(self) -> str:
+        return "WaitDone(done)" if self.done else (
+            f"WaitDone(not done)\n{self.diagnostic}"
+        )
+
+    def __str__(self) -> str:
+        return "done" if self.done else (self.diagnostic or "not done")
+
+
+class _PendingPush:
+    """One decoded PUSH waiting in the PS merge queue.
+
+    The handler thread decodes the payload OUTSIDE the model lock, enqueues
+    this record, and whoever holds the lock next drains every pending push
+    into one fused device apply (``_drain_merge_locked``) -- per-push
+    accept/reject, dedup, calibration, and trace bookkeeping all happen
+    per item in FIFO order, exactly as the serial path did; only the
+    device dispatch is coalesced."""
+
+    __slots__ = ("wid", "ts", "g_host", "diff", "header", "payload_len",
+                 "tc", "t_queue0", "done", "ack", "accepted", "staleness",
+                 "task_ms", "t_apply0", "t_done", "k_at_merge",
+                 "do_snapshot")
+
+    def __init__(self, wid: int, ts: int, g_host, diff, header: dict,
+                 payload_len: int, tc, t_queue0: float):
+        self.wid, self.ts = wid, ts
+        self.g_host, self.diff = g_host, diff
+        self.header, self.payload_len = header, payload_len
+        self.tc, self.t_queue0 = tc, t_queue0
+        self.done = False
+        self.ack: dict = {}
+        self.accepted = False
+        self.staleness = 0
+        self.task_ms = 0.0
+        self.t_apply0 = 0.0
+        self.t_done = 0.0
+        self.k_at_merge = 0
+        self.do_snapshot = False
+
+
+#: ops of the JAX package's wire that belong to refused switches, answered
+#: ERR with the ROADMAP item that ports them
+_REFUSED_OPS = {"SUBSCRIBE": "A6b", "SETMAP": "A6b", "REPL_APPEND": "A6b",
+                "REPL_SYNC": "A6b", "PROMOTE": "A6b"}
+
+
+# ----------------------------------------------------------------- PS side
+class ParameterServer:
+    """Driver-side PS: accept worker connections, run the updater semantics.
+
+    One handler thread per worker connection (the reference's RPC dispatcher
+    threads); the model/clock live behind one lock (single-writer updater
+    discipline -- the TPU build's answer to the reference's benign races,
+    SURVEY.md section 5).
+    """
+
+    def __init__(self, cfg, d: int, n: int, device=None, host: str = "0.0.0.0",
+                 port: int = 0, algo: str = "asgd",
+                 checkpoint_path: Optional[str] = None,
+                 supervisor: Optional[ElasticSupervisor] = None,
+                 bus=None, shard_map=None, shard_index: int = 0,
+                 epoch: Optional[int] = None, shard_epochs=None,
+                 standby: bool = False):
+        from asyncframework_tpu_torch.conf import FENCE_ENABLED
+        from asyncframework_tpu_torch.conf import global_conf as _gc
+        from asyncframework_tpu_torch.ops import steps
+
+        if algo not in ("asgd", "asaga"):
+            raise ValueError(f"unknown PS algo {algo!r}")
+        refuse_unported_conf()
+        if shard_map or shard_index or shard_epochs:
+            _refuse("a sharded PS group (shard_map, async.ps.shards > 1)")
+        if standby:
+            _refuse("the hot standby (replication and promotion)")
+        if epoch or (epoch is None and _gc().get(FENCE_ENABLED)):
+            _refuse("epoch fencing (async.fence.enabled)")
+        self.cfg = cfg
+        self.d, self.n = d, n
+        self.algo = algo
+        # the wire keys of the switches this package refuses stay at their
+        # off values, so replies are the JAX package's legacy wire
+        self.epoch = 0
+        self.fenced_rejects = 0
+        self.shard_map = None
+        self.checkpoint_path = checkpoint_path
+        self.resumed_from_k: Optional[int] = None
+        self.device = (resolve_devices(None)[0] if device is None
+                       else canonical(device))
+        self._w = torch.zeros(d, dtype=torch.float32, device=self.device)
+        self._k_dev = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the merge drain folds m pushes through the serial apply
+        # expression in slot order, and the serial path is the same
+        # function at m = 1 (self._one): a fused drain is bit-equal to m
+        # serial applies by construction
+        self._one = torch.ones(1, dtype=torch.float32, device=self.device)
+        if algo == "asaga":
+            # ScalarMap semantics (SparkASAGAThread.scala:114,280-294): the
+            # PS owns the per-sample history table AND the sampling -- it
+            # draws each worker's Bernoulli(b) rows, ships (idx, alpha[idx])
+            # with the model, and commits returned scalars only on accept.
+            # delta == g is EXACT here: a worker's samples live in its own
+            # shard, and the per-connection pull->push protocol serializes
+            # the worker against its own commits, so the alpha the gradient
+            # was built against IS the alpha at commit.
+            self._apply_merge = steps.make_saga_apply_merge(
+                cfg.gamma, cfg.batch_rate, n, cfg.num_workers)
+            self._ab = torch.zeros(d, dtype=torch.float32, device=self.device)
+            self._table: Dict[int, np.ndarray] = {}   # wid -> shard scalars
+            self._rngs: Dict[int, np.random.Generator] = {}
+            self._pending_idx: Dict[int, np.ndarray] = {}  # outstanding pull
+            # guards table/rng structure + contents against the checkpoint
+            # writer's iteration (lock order: _lock -> _saga_lock); pulls
+            # hold it WITHOUT _lock so sampling never queues the apply path
+            self._saga_lock = threading.Lock()
+        else:
+            self._apply_merge = steps.make_asgd_apply_merge(
+                cfg.gamma, cfg.batch_rate, n, cfg.num_workers)
+
+        # debug lock watchdog (net/lockwatch.py, async.debug.lockwatch):
+        # the model lock becomes a watched lock -- any socket send/recv
+        # under it raises at the frame choke point.
+        from asyncframework_tpu_torch.net import lockwatch as _lockwatch
+
+        self._lock = _lockwatch.named_lock("ps.model")
+        # ---- data plane: version-cached encoded PULL replies + deltas.
+        # One readback AND one encode per model version, published as an
+        # immutable _ModelSnap via atomic reference swap: _handle_pull
+        # serves full/NOT_MODIFIED/delta replies from it without touching
+        # the model lock.  An accepted push clears the reference; the next
+        # pull rebuilds outside the model lock, under _snap_build_lock so a
+        # cohort triggers one build, not P.  _w_versions keeps recent
+        # versions' host arrays so a worker pulling with ``have=<ts>`` can
+        # be served a byte-exact XOR delta (net/wiredelta.py).
+        self._snap: Optional[_ModelSnap] = None
+        # the build BASIS: (clock, model tensor, generation) written at the
+        # end of every applying drain; a rebuild reads it lock-free.  The
+        # model generation is +1 per ACCEPTED push (before its clock
+        # tick); snapshot re-stamping keys off it (see _ModelSnap.gen).
+        # Model tensors are never written in place, so the basis stays
+        # readable while later drains apply.
+        self._model_gen = 0
+        self._snap_basis: Tuple[int, object, int] = (0, self._w, 0)
+        self._snap_build_lock = _lockwatch.named_lock("ps.snap_build")
+        self._versions_lock = _lockwatch.named_lock("ps.versions")
+        # pull-path bookkeeping keeps its own lock (never the model lock)
+        self._stats_lock = _lockwatch.named_lock("ps.stats")
+        from collections import OrderedDict as _OD2
+        from asyncframework_tpu_torch.conf import (
+            PULL_DELTA_VERSIONS,
+            PUSH_MERGE,
+            global_conf as _gconf,
+        )
+
+        self._w_versions: "_OD2[int, np.ndarray]" = _OD2()
+        # an un-overridden cache depth auto-scales with the worker count: a
+        # worker's basis is typically ~P versions old by its next pull
+        if _gconf().contains(PULL_DELTA_VERSIONS.key):
+            self._delta_versions = max(
+                0, int(_gconf().get(PULL_DELTA_VERSIONS))
+            )
+        else:
+            self._delta_versions = max(
+                int(_gconf().get(PULL_DELTA_VERSIONS)),
+                4 * cfg.num_workers + 2,
+            )
+        # the version cache is only maintained once a delta-capable client
+        # shows up (first pull carrying ``have``)
+        self._delta_clients_seen = False
+        # pull-reply shape counters (bench/tests: the "zero payload bytes
+        # per unchanged-version pull" claim is read off these)
+        self.pull_replies: Dict[str, int] = {"full": 0, "nm": 0,
+                                             "xdelta": 0}
+        self.pull_model_bytes = 0  # model-part payload bytes sent via PULL
+        # ---- data plane: batched gradient apply (merge queue).  All
+        # pushes pending at lock acquisition coalesce into ONE drain
+        # (at most _merge_max); per-push semantics stay per item.
+        self._merge_max = max(1, int(_gconf().get(PUSH_MERGE)))
+        from collections import deque as _deque
+
+        self._merge_q: "_deque[_PendingPush]" = _deque()
+        self.merge_batches = 0    # drains that applied >= 1 push
+        self.merge_merged = 0     # pushes applied through those drains
+        self.merge_batch_max = 0  # largest single batch
+        self._clock = 0          # merged gradients (ASYNCcontext.CurrentTime)
+        self._k = 0              # accepted updates
+        self.accepted = 0
+        self.dropped = 0
+        self.push_bytes = 0      # wire payload bytes received via PUSH
+        self.max_staleness = 0
+        self._snapshots: List[Tuple[float, object]] = []
+        self._t0: Optional[float] = None
+        self._done = threading.Event()
+        # calibration (SparkASGDThread.scala:174-183)
+        self._cal_ms = 0.0
+        self._cal_n = 0
+        self.avg_delay_ms = 0.0
+        self._pull_times: Dict[int, float] = {}
+        # cohort wave gate (ASYNCbarrier + bucketRatio)
+        self._wave_cv = threading.Condition()
+        self._waiting: List[int] = []
+        self._wave_id = 0
+
+        # elastic membership (parallel/supervisor.py); None = the classic
+        # fixed-membership PS
+        self.supervisor = supervisor
+        # per-worker ledgers: wait_done's progress diagnostic and the
+        # coverage asserts; they survive a PS restart
+        self._last_contact: Dict[int, float] = {}
+        self.pushes_by_wid: Dict[int, int] = {}
+        self.accepted_by_wid: Dict[int, int] = {}
+        self.membership_rejects = 0  # pushes from deposed shard servers
+        # exactly-once-applied PUSH: a retried (sid, seq) re-sends the
+        # cached ACK instead of merging the gradient twice (net/session.py).
+        # Constructed BEFORE a restore so a checkpointed window lands here.
+        from asyncframework_tpu_torch.conf import NET_DEDUP_WINDOW, global_conf
+
+        self._dedup = DedupWindow(window=global_conf().get(NET_DEDUP_WINDOW))
+
+        # distributed tracing (metrics/trace.py): server-side spans for
+        # traced updates plus spans piggybacked on PUSH/BYE fold into the
+        # process-global aggregator and, with a ListenerBus, post as
+        # TraceSpan events.
+        self.bus = bus
+        self._trace_agg = _trace.aggregator()
+        self.trace_spans = 0  # spans folded (own + piggybacked)
+        self._trace_lock = threading.Lock()
+        from collections import OrderedDict as _OD
+
+        self._seen_span_ids: "_OD[str, None]" = _OD()
+
+        self._elapsed_offset_ms = 0.0  # wall already spent before a resume
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            self._restore(checkpoint_path)
+
+        self._srv = socket.create_server((host, port))
+        self._srv.settimeout(0.2)
+        self.port = self._srv.getsockname()[1]
+        self._threads: List[threading.Thread] = []
+        self._accept_thread: Optional[threading.Thread] = None
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_trigger = threading.Event()
+        # one save at a time: the writer thread and an explicit
+        # save_checkpoint() share the temporary file
+        self._ckpt_io_lock = threading.Lock()
+        self._eval_results: Dict[int, np.ndarray] = {}
+        self._eval_cv = threading.Condition()
+        self._stop = threading.Event()
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self) -> "ParameterServer":
+        self._t0 = time.monotonic() - self._elapsed_offset_ms / 1e3
+        with self._lock:
+            if self.resumed_from_k is None:
+                self._snapshots.append((0.0, _host(self._w)))
+            if self._k >= self.cfg.num_iterations:
+                self._done.set()  # checkpoint was already past the finish
+                if self.supervisor is not None:
+                    self.supervisor.freeze()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="ps-accept", daemon=True
+        )
+        self._accept_thread.start()
+        if self.checkpoint_path:
+            # async checkpoint writer: the push handler only SIGNALS the
+            # cadence; serialization happens under the lock on this thread
+            # and the disk write happens off every worker's request path
+            self._ckpt_thread = threading.Thread(
+                target=self._ckpt_loop, name="ps-checkpoint", daemon=True
+            )
+            self._ckpt_thread.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
+        return self
+
+    # ---------------------------------------------------------- checkpointing
+    def _checkpoint_state(self) -> dict:
+        """Snapshot everything a restarted PS needs, caller holds the lock.
+        ``_pending_idx`` is deliberately NOT saved: in-flight pulls die with
+        the process, and a post-restart push referencing one is dropped
+        (stale by construction)."""
+        meta = {
+            "algo": self.algo,
+            "clock": self._clock,
+            "k": self._k,
+            "accepted": self.accepted,
+            "dropped": self.dropped,
+            "push_bytes": self.push_bytes,
+            "max_staleness": self.max_staleness,
+            "cal_ms": self._cal_ms,
+            "cal_n": self._cal_n,
+            "avg_delay_ms": self.avg_delay_ms,
+            "elapsed_ms": self._now_ms() if self._t0 is not None else 0.0,
+            "snap_times": [t for (t, _w) in self._snapshots],
+            # session dedup windows ride the checkpoint: a PUSH applied in
+            # this life and retried against the NEXT life must be answered
+            # from cache, not merged again.  Captured under the same lock
+            # as the model, so window and weights can never disagree about
+            # which pushes are "in".
+            "dedup": self._dedup.state(),
+            "pushes_by_wid": {
+                str(w): c for w, c in self.pushes_by_wid.items()
+            },
+            "accepted_by_wid": {
+                str(w): c for w, c in self.accepted_by_wid.items()
+            },
+            "membership_rejects": self.membership_rejects,
+            # fencing: the epoch rides the checkpoint so a restart can
+            # never come back BELOW a fence (the restore bumps past it),
+            # and the reject count survives incarnations for the
+            # acceptance assertions / metrics
+            "epoch": self.epoch,
+            "fenced_rejects": self.fenced_rejects,
+        }
+        arrays = {"w": _host(self._w)}
+        if self._snapshots:
+            arrays["snap_stack"] = np.stack(
+                [np.asarray(w) for (_t, w) in self._snapshots]
+            )
+        if self.algo == "asaga":
+            arrays["ab"] = _host(self._ab)
+            with self._saga_lock:  # consistent table + RNG capture
+                for wid, table in self._table.items():
+                    arrays[f"table_{wid}"] = table.copy()
+                meta["rng_states"] = {
+                    str(wid): rng.bit_generator.state
+                    for wid, rng in self._rngs.items()
+                }
+        return {"meta": meta, "arrays": arrays}
+
+    def save_checkpoint(self) -> None:
+        """Atomic on-disk PS checkpoint (Master.scala:41 recovery semantics
+        applied to the run itself, per SURVEY section 7 stage 5: model +
+        history table + RNG + clock).  Serialize under the lock, write
+        outside it."""
+        if not self.checkpoint_path:
+            return
+        from asyncframework_tpu_torch.checkpoint import durable_replace
+
+        with self._ckpt_io_lock:
+            with self._lock:
+                state = self._checkpoint_state()
+            buf = io.BytesIO()
+            np.savez(buf, __meta__=json.dumps(state["meta"]),
+                     **state["arrays"])
+            tmp = self.checkpoint_path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(buf.getvalue())
+            # fsync file + rename + fsync directory: the save survives
+            # host power loss, not just process death
+            # (checkpoint.durable_replace)
+            durable_replace(tmp, self.checkpoint_path)
+
+    def _ckpt_loop(self) -> None:
+        while not self._stop.is_set():
+            if not self._ckpt_trigger.wait(timeout=0.2):
+                continue
+            self._ckpt_trigger.clear()
+            try:
+                self.save_checkpoint()
+            except Exception:  # noqa: BLE001 - the writer must outlive
+                # any one failed save (disk hiccup, transient device
+                # fault): a dead checkpoint thread would silently void
+                # the restart guarantees for the rest of the run
+                pass
+
+    def _restore(self, path: str) -> None:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+            if meta["algo"] != self.algo:
+                raise ValueError(
+                    f"checkpoint algo {meta['algo']!r} != PS algo "
+                    f"{self.algo!r}"
+                )
+            if int(meta.get("epoch", 0)):
+                _refuse("resuming a fenced PS checkpoint (epoch > 0)")
+            self._install_state(z, meta)
+            self.fenced_rejects = int(meta.get("fenced_rejects", 0))
+        self.resumed_from_k = self._k
+        supervisor_mod.bump_total("ps_resumes")
+
+    def _install_state(self, z, meta: dict) -> None:
+        """Install a checkpoint image's model + bookkeeping."""
+        self._model_gen += 1
+        self._w = torch.tensor(z["w"], dtype=torch.float32,
+                               device=self.device)
+        self._w_versions.clear()
+        self._snap_basis = (int(meta["clock"]), self._w,
+                            self._model_gen)
+        self._clock = int(meta["clock"])
+        self._k = int(meta["k"])
+        # the DEVICE step counter must follow k: the ASGD step-size
+        # schedule reads it (gamma/sqrt(k/P+1))
+        self._k_dev = torch.tensor(float(self._k), dtype=torch.float32,
+                                   device=self.device)
+        self.accepted = int(meta["accepted"])
+        self.dropped = int(meta["dropped"])
+        self.push_bytes = int(meta["push_bytes"])
+        self.max_staleness = int(meta["max_staleness"])
+        self._cal_ms = float(meta["cal_ms"])
+        self._cal_n = int(meta["cal_n"])
+        self.avg_delay_ms = float(meta["avg_delay_ms"])
+        self._elapsed_offset_ms = float(meta["elapsed_ms"])
+        if "snap_stack" in z:
+            stack = z["snap_stack"]
+            self._snapshots = [
+                (t, stack[i].copy())
+                for i, t in enumerate(meta["snap_times"])
+            ]
+        else:
+            self._snapshots = []
+        if self.algo == "asaga":
+            self._ab = torch.tensor(z["ab"], dtype=torch.float32,
+                                    device=self.device)
+            self._table = {
+                int(k.split("_", 1)[1]): z[k].copy()
+                for k in z.files if k.startswith("table_")
+            }
+            for wid_s, state in meta.get("rng_states", {}).items():
+                rng = np.random.default_rng()
+                rng.bit_generator.state = state
+                self._rngs[int(wid_s)] = rng
+        self._dedup.load_state(meta.get("dedup"))
+        self.pushes_by_wid = {
+            int(w): int(c)
+            for w, c in meta.get("pushes_by_wid", {}).items()
+        }
+        self.accepted_by_wid = {
+            int(w): int(c)
+            for w, c in meta.get("accepted_by_wid", {}).items()
+        }
+        self.membership_rejects = int(meta.get("membership_rejects", 0))
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _addr = self._srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(
+                target=self._serve_conn, args=(conn,),
+                name=f"ps-conn-{conn.fileno()}", daemon=True
+            )
+            t.start()
+            # reap on append: a long-running elastic PS accepts a fresh
+            # connection per worker reconnect/retry -- without pruning,
+            # finished handler threads accumulate for the life of the
+            # process (one Thread object + name per connection ever made)
+            self._threads = [x for x in self._threads if x.is_alive()]
+            self._threads.append(t)
+
+    def _now_ms(self) -> float:
+        return (time.monotonic() - self._t0) * 1e3
+
+    # -------------------------------------------------------------- tracing
+    def _bus_time_ms(self) -> float:
+        return self._now_ms() if self._t0 is not None else 0.0
+
+    def _fold_span(self, span: "_trace.Span") -> None:
+        """One span into the aggregator + (when attached) the event bus."""
+        with self._trace_lock:
+            self.trace_spans += 1
+        self._trace_agg.add(span)
+        if self.bus is not None:
+            self.bus.post(_trace.span_event(span, self._bus_time_ms()))
+
+    def _fold_wire_spans(self, wire_spans) -> None:
+        """Spans piggybacked on a worker's PUSH/BYE header.
+
+        Deduped by span_id: the (sid, seq) window covers same-stamp
+        retries, but a push that was DELIVERED and then spent its whole
+        retry budget re-queues its piggyback onto the next push under a
+        fresh stamp -- without this, exactly the fault windows tracing
+        exists to explain would double-count their spans."""
+        if not wire_spans:
+            return
+        for d in wire_spans:
+            try:
+                span = _trace.Span.from_wire(d)
+                with self._trace_lock:
+                    if span.span_id in self._seen_span_ids:
+                        continue
+                    self._seen_span_ids[span.span_id] = None
+                    while len(self._seen_span_ids) > 8192:
+                        self._seen_span_ids.popitem(last=False)
+                self._fold_span(span)
+            except Exception:  # noqa: BLE001 - junk from the wire must not
+                pass           # kill the connection handler
+
+    # ------------------------------------------------------------- protocol
+    def _serve_conn(self, conn: socket.socket) -> None:
+        try:
+            while not self._stop.is_set():
+                header, payload = _recv_msg(conn)
+                op = header["op"]
+                # PULL_SAGA/PUSH_SAGA are the same handlers under their own
+                # verbs so fault schedules (net/faults.py) can target the
+                # ASAGA stream without also counting ASGD ops
+                if op in ("PULL", "PULL_SAGA"):
+                    self._handle_pull(conn, header)
+                elif op in ("PUSH", "PUSH_SAGA"):
+                    cached = self._dedup.check(header)
+                    if cached is not None:
+                        # duplicate of an already-applied push (the ACK was
+                        # lost on the wire): re-send it, merge nothing
+                        _send_msg(conn, cached[0])
+                    else:
+                        self._handle_push(conn, header, payload)
+                elif op == "HELLO":
+                    # a worker process introducing itself (elastic plane):
+                    # proc token + logical worker ids + pid/host (+ the
+                    # pid's /proc start time, pid-reuse protection)
+                    if self.supervisor is not None:
+                        self.supervisor.register(
+                            str(header.get("proc")),
+                            [int(w) for w in header.get("wids", [])],
+                            pid=header.get("pid"),
+                            host=header.get("host"),
+                            pid_start=header.get("pstart"),
+                            mport=header.get("mport"),
+                        )
+                    _send_msg(conn, {"op": "WELCOME",
+                                     "elastic": self.supervisor is not None})
+                elif op == "SHARDMAP":
+                    # shard-map query: the single PS answers an empty
+                    # list -- "no group here"
+                    _send_msg(conn, {"op": "SHARDMAP", "shards": []})
+                elif op == "FINISH":
+                    # group-wide DONE broadcast (idempotent)
+                    self._done.set()
+                    if self.supervisor is not None:
+                        self.supervisor.freeze()
+                    with self._wave_cv:
+                        self._wave_cv.notify_all()
+                    _send_msg(conn, {"op": "ACK"})
+                elif op == "SNAPSHOTS":
+                    # only meaningful once the run is done; the stack is
+                    # consistent either way (lock-copied)
+                    times, W = self.snapshot_stack()
+                    _send_msg(
+                        conn,
+                        {"op": "SNAPSHOTS", "times": times,
+                         "shape": list(W.shape)},
+                        np.ascontiguousarray(W, np.float32).tobytes(),
+                    )
+                elif op == "EVAL_RESULT":
+                    arr = np.frombuffer(payload, np.float64).copy()
+                    with self._eval_cv:
+                        self._eval_results[int(header["wid"])] = arr
+                        self._eval_cv.notify_all()
+                    _send_msg(conn, {"op": "ACK"})
+                elif op == "BYE":
+                    # a departing worker's last completed spans and its
+                    # final pipeline-counter deltas
+                    self._fold_wire_spans(header.get("spans"))
+                    _pl_fold(header.get("pl"))
+                    _send_msg(conn, {"op": "ACK"})
+                    return
+                elif op == "SHM_OPEN":
+                    # transport upgrade (net/shmring.py): attach to the
+                    # colocated client's ring segments and keep serving
+                    # the SAME framed protocol over them.  A refused
+                    # attach is answered ERR and this TCP conversation
+                    # continues.
+                    upgraded = _shmring.serve_attach(conn, header)
+                    if upgraded is not None:
+                        conn = upgraded
+                elif op in _REFUSED_OPS:
+                    _send_msg(conn, {"op": "ERR", "msg":
+                                     f"{op} is not ported to the PyTorch "
+                                     f"package yet (ROADMAP "
+                                     f"{_REFUSED_OPS[op]})"})
+                else:
+                    _send_msg(conn, {"op": "ERR", "msg": f"bad op {op}"})
+        except (ConnectionError, OSError):
+            return
+        finally:
+            conn.close()
+
+    def _release_wave_locked(self) -> None:
+        """Fire the partial barrier: everyone currently waiting rides this
+        wave.  Caller holds ``_wave_cv``."""
+        self._wave_id += 1
+        self._waiting.clear()
+        self._wave_cv.notify_all()
+
+    def _cohort_threshold(self) -> int:
+        """Partial-barrier ``b``, clamped to live membership: when the
+        supervisor knows only L workers are alive, a wave of min(b, L)
+        keeps flowing immediately instead of leaning on the starvation
+        fallback every round (ASAP's membership-as-staleness stance)."""
+        threshold = max(self.cfg.bucket_threshold, 1)
+        if self.supervisor is not None:
+            threshold = max(1, min(threshold,
+                                   self.supervisor.live_worker_count()))
+        return threshold
+
+    def _model_snap(self) -> _ModelSnap:
+        """The published snapshot of the current model version, built on
+        demand.  The fast path is one attribute read -- no locks at all.
+        A rebuild (first pull after an accepted push) reads the
+        atomically-published build basis and does the O(d) readback +
+        serialize + CRC without touching the model lock either;
+        ``_snap_build_lock`` makes a cohort trigger one build, not P."""
+        snap = self._snap
+        if snap is not None:
+            return snap
+        with self._snap_build_lock:
+            snap = self._snap
+            if snap is not None:
+                return snap
+            # the basis reference is written atomically by the drain (a
+            # tuple swap under the model lock); reading it here needs NO
+            # lock at all -- the build's only waits are the device
+            # readback and peer builders on _snap_build_lock
+            basis = self._snap_basis
+            ts, w_dev, gen = basis
+            # device readback without any lock: model tensors are never
+            # written in place, so the basis stays valid while later
+            # drains apply; the host copy is owned (_host), never a view
+            w_host = _host(w_dev)
+            wire = w_host.tobytes()
+            snap = _ModelSnap(int(ts), w_host, wire, wiredelta.crc(wire),
+                              int(gen))
+            # publish only while the model GENERATION is unchanged: a
+            # drain may be mid-apply right now (it bumped _model_gen in
+            # its accept branch, but writes the new basis only at drain
+            # end), and publishing a stale snap then would let the
+            # send-time re-stamp below pair the new clock with old
+            # bytes.  Serving the unpublished snap is still correct --
+            # it is stamped with ITS ts and staleness is priced.
+            if self._model_gen == gen:
+                self._snap = snap
+            return snap
+
+    def _negotiated_model(self, have) -> Tuple[int, int, dict, bytes]:
+        """The LOCK-FREE model-serving core shared by PULL and SUBSCRIBE:
+        everything here reads the published :class:`_ModelSnap` (atomic
+        reference) -- the model lock is never taken (net/lockwatch.py
+        asserts it in debug runs), so serving never queues behind a merge
+        drain and a drain never stalls behind a slow reader's socket.
+
+        Returns ``(ts, clock, model_hdr, model_part)``: the send-time
+        version stamp, the raw clock read, the negotiated reply header
+        fields (empty for a legacy no-``have`` reply, byte-identical to
+        the pre-delta wire), and the model payload bytes.  Encoding
+        happens OUTSIDE any lock (the O(d) xor must not queue the apply
+        path); the version caches pin every array/bytes object needed."""
+        if have is not None:
+            self._delta_clients_seen = True  # one-way flag, GIL-atomic
+        snap = self._model_snap()
+        ts, w_host, w_wire, w_crc = snap.ts, snap.w_host, snap.wire, snap.crc
+        # the clock may have ticked past the snapshot on DROPPED pushes
+        # (they advance the clock but not the model).  An accepted push
+        # bumps the model GENERATION before its clock tick, so if the
+        # generation still matches this snapshot's after an atomic clock
+        # read, every tick in between was a drop -- same bytes, newer
+        # version: stamp the current clock (send-time parity with the
+        # serial path).  A lost race just serves snap.ts, which only
+        # over-prices staleness, never mispairs version and bytes.
+        cur = self._clock
+        if cur != ts and self._model_gen == snap.gen:
+            ts = cur
+        basis = None
+        if have is not None and self._delta_versions > 0:
+            # recent-version cache for delta encoding, maintained only
+            # once a delta client exists; ts is monotone, so insertion
+            # order IS version age and eviction pops the oldest
+            with self._versions_lock:
+                if snap.ts not in self._w_versions:
+                    self._w_versions[snap.ts] = w_host
+                    while len(self._w_versions) > self._delta_versions:
+                        self._w_versions.popitem(last=False)
+                if ts != snap.ts and ts not in self._w_versions:
+                    self._w_versions[ts] = w_host  # same bytes, newer ts
+                    while len(self._w_versions) > self._delta_versions:
+                        self._w_versions.popitem(last=False)
+        if have is not None:
+            if int(have) == ts:
+                # exact-version match needs no cache: the basis IS the
+                # current version, so this encodes to NOT_MODIFIED
+                # (the reply CRC still guards a cross-PS-life clash)
+                basis = w_host
+            elif self._delta_versions > 0:
+                with self._versions_lock:
+                    basis = self._w_versions.get(int(have))
+        model_hdr: dict = {}
+        model_part: bytes = w_wire
+        if have is not None:
+            wenc, enc_payload, nnz = wiredelta.encode(
+                w_host, basis, cur_bytes=w_wire
+            )
+            model_hdr = {"wenc": wenc, "crc": w_crc}
+            if wenc == wiredelta.XDELTA:
+                model_hdr["nnz"] = nnz
+            model_part = enc_payload
+            model_hdr["wlen"] = len(model_part)
+        return ts, cur, model_hdr, model_part
+
+    def _handle_pull(self, conn: socket.socket, header: dict) -> None:
+        wid = int(header["wid"])
+        proc = header.get("proc")
+        if self._t0 is not None:
+            with self._stats_lock:
+                self._last_contact[wid] = self._now_ms()
+        sup = self.supervisor
+        if sup is not None:
+            if not sup.owns(proc, wid):
+                # a deposed surrogate (the real owner rejoined): stand down
+                _send_msg(conn, {"op": "RELEASED"})
+                return
+            sup.touch(wid, proc)
+            sup.ack_adoption(proc, wid)
+        if self._done.is_set():
+            _send_msg(conn, {"op": "DONE"})
+            return
+        # traced update: time spent in the partial-barrier wave gate below
+        # is THE server-side pull latency (pull.wait).  Untraced pulls (no
+        # tc header -- sampling off or unsampled update) do no trace work.
+        tc = _trace.TraceContext.from_wire(header["tc"]) \
+            if "tc" in header else None
+        t_wait0 = _trace.now_ms() if tc is not None else 0.0
+        STARVATION_S = 1.0  # degraded-cohort release when peers are gone
+        with self._wave_cv:
+            self._waiting.append(wid)
+            my_wave = self._wave_id
+            if len(self._waiting) >= self._cohort_threshold():
+                # the partial barrier fires
+                self._release_wave_locked()
+            else:
+                t_enter = time.monotonic()
+                while (
+                    my_wave == self._wave_id
+                    and not self._done.is_set()
+                    and not self._stop.is_set()
+                ):
+                    self._wave_cv.wait(timeout=0.05)
+                    # membership may have shrunk while we waited: the
+                    # clamped threshold can release this wave NOW
+                    if (
+                        my_wave == self._wave_id
+                        and len(self._waiting) >= self._cohort_threshold()
+                    ):
+                        self._release_wave_locked()
+                        break
+                    # starvation fallback: when fewer than threshold workers
+                    # are still alive the wave can never fill -- after a
+                    # full second of waiting, release whoever is here as a
+                    # degraded cohort (the reference's wait loop assumes
+                    # workers come back; dead ones never do)
+                    if (
+                        my_wave == self._wave_id
+                        and time.monotonic() - t_enter > STARVATION_S
+                    ):
+                        self._release_wave_locked()
+                        break
+        t_wait1 = _trace.now_ms() if tc is not None else 0.0
+        if self._done.is_set():
+            _send_msg(conn, {"op": "DONE"})
+            return
+        extra_hdr: dict = {}
+        extra_payload = b""
+        if self.algo == "asaga":
+            # PS-side seeded sampling (the reference driver's sampledMap
+            # draw): per-wid RNG chain, Bernoulli(b) over the worker's
+            # shard rows, padded to the static step capacity.  Deliberately
+            # OUTSIDE the global lock: per-wid state (rng/table/pending) is
+            # only ever touched by this wid's connection thread (pull and
+            # push are serialized per connection, and no push can arrive
+            # before this MODEL is sent), and O(n_p) sampling must not
+            # queue other workers' pulls or the push/apply hot path.
+            from asyncframework_tpu_torch.ops.steps import sparse_step_capacity
+
+            n_p = int(header["n_p"])
+            with self._saga_lock:  # vs the checkpoint writer's snapshot
+                table = self._table.get(wid)
+                if table is None or table.shape[0] != n_p:
+                    table = np.zeros(n_p, np.float32)
+                    self._table[wid] = table
+                rng = self._rngs.get(wid)
+                if rng is None:
+                    rng = np.random.default_rng([self.cfg.seed, wid])
+                    self._rngs[wid] = rng
+                cap = sparse_step_capacity(self.cfg.batch_rate, n_p)
+                idx = np.nonzero(rng.random(n_p) < self.cfg.batch_rate)[0]
+                if idx.size > cap:  # ~1e-9/draw: drop the excess (parity
+                    idx = idx[:cap]  # with the device steps' capacity rule)
+                idx_pad = np.zeros(cap, np.uint32)
+                idx_pad[: idx.size] = idx
+                alpha_sel = table[idx_pad].astype(np.float32)
+                self._pending_idx[wid] = idx.astype(np.int64)
+            extra_hdr = {"cap": cap, "n_valid": int(idx.size)}
+            extra_payload = idx_pad.tobytes() + alpha_sel.tobytes()
+        have = header.get("have")
+        ts, _clock, model_hdr, model_part = self._negotiated_model(have)
+        with self._stats_lock:
+            self._pull_times[wid] = self._now_ms()
+            shape = model_hdr.get("wenc", "full")
+            self.pull_replies[shape] = self.pull_replies.get(shape, 0) + 1
+            self.pull_model_bytes += len(model_part)
+        avg = self.avg_delay_ms
+        if tc is not None:
+            # exactly the wave-gate wait (barrier cost), not the model
+            # readback; folded here because the served version ts is only
+            # known under the lock
+            self._fold_span(_trace.Span(
+                stage=_trace.PULL_WAIT, trace_id=tc.trace_id,
+                span_id=_trace._new_id(8), parent_id=tc.span_id,
+                worker_id=wid, model_version=ts, start_ms=t_wait0,
+                dur_ms=max(0.0, t_wait1 - t_wait0),
+            ))
+        if sup is not None:
+            # adoption orders ride the PULL reply (no extra RTT, no side
+            # channel): re-delivered until the adopter's first pull FOR the
+            # orphan lands, so a lost reply cannot lose a shard
+            orders = sup.orders_for(proc)
+            if orders:
+                extra_hdr["adopt"] = orders
+        # vectored zero-copy framing: the cached model bytes and the ASAGA
+        # extra payload go out as one kernel-gathered iovec -- the payload
+        # is never copied into a fresh frame buffer
+        _frame.send_msg_vectored(
+            conn,
+            {"op": "MODEL", "ts": ts, "avg_delay_ms": avg,
+             "calibrated":
+                 self._cal_n >= self.cfg.effective_calibration_iters(),
+             **model_hdr, **extra_hdr},
+            (model_part, extra_payload) if extra_payload
+            else (model_part,),
+        )
+
+    def _handle_push(self, conn: socket.socket, header: dict,
+                     payload: bytes) -> None:
+        wid = int(header["wid"])
+        ts = int(header["ts"])
+        proc = header.get("proc")
+        # completed client-side spans ride the PUSH header (the piggyback
+        # that makes spans survive worker death); fold them before any
+        # drop path so a membership-stale push still delivers its telemetry
+        self._fold_wire_spans(header.get("spans"))
+        # pipelined-loop counter deltas piggyback the same way (only
+        # present when the worker runs the pipelined loop): dedup'd
+        # retries never reach this handler, so a delta folds exactly once
+        _pl_fold(header.get("pl"))
+        tc = _trace.TraceContext.from_wire(header["tc"]) \
+            if "tc" in header else None
+        t_queue0 = _trace.now_ms() if tc is not None else 0.0
+        sup = self.supervisor
+        if sup is not None and not sup.owns(proc, wid):
+            # membership-stale push: the shard was re-homed (rejoin deposed
+            # this surrogate) -- drop it like any other too-stale gradient,
+            # but do not tick the merge clock (nothing was considered)
+            with self._lock:
+                self.membership_rejects += 1
+                ack = {"op": "ACK", "accepted": False, "released": True,
+                       "done": self._done.is_set()}
+                self._dedup.record(header, ack)
+            _send_msg(conn, ack)
+            return
+        if sup is not None:
+            sup.touch(wid, proc)
+        diff = None
+        if header.get("gq") is not None:
+            # quantized gradient (net/wirecodec.py, async.codec.push):
+            # fp16/int8 payload back to dense f32.  The worker's error-
+            # feedback accumulator already folded this push's
+            # quantization residual into its NEXT gradient, so the
+            # server applies the dequantized value as-is -- stateless
+            # here by design.  ASAGA never quantizes (exact history
+            # scalars), so diff stays None.
+            try:
+                g_host = wirecodec.decode_grad(header, payload, self.d)
+            except ValueError as e:
+                _send_msg(conn, {"op": "ERR",
+                                 "msg": f"bad quantized push: {e}"})
+                return
+        elif header.get("enc") == "sparse":
+            # (idx, val) pair gradient (rcv1-class): scatter into dense on
+            # host -- the PS's apply path is dense either way
+            nnz = int(header["nnz"])
+            idx_g = np.frombuffer(payload[: 4 * nnz], np.uint32)
+            val_g = np.frombuffer(payload[4 * nnz: 8 * nnz], np.float32)
+            g_host = np.zeros(self.d, np.float32)
+            g_host[idx_g] = val_g
+            if self.algo == "asaga":
+                diff = np.frombuffer(payload[8 * nnz:], np.float32)
+        else:
+            raw = np.frombuffer(payload, np.float32)
+            if self.algo == "asaga":
+                g_host, diff = raw[: self.d], raw[self.d:]
+            else:
+                g_host = raw
+        # merge queue: the payload was decoded OUTSIDE the lock; whoever
+        # holds the model lock next coalesces every pending push into one
+        # fused device apply.  Per-push accept/reject, dedup, clock, and
+        # calibration bookkeeping stay per item (FIFO), exactly as the
+        # serial path ordered them -- only the device dispatch is batched.
+        item = _PendingPush(wid, ts, g_host, diff, header, len(payload),
+                            tc, t_queue0)
+        self._merge_q.append(item)
+        with self._lock:
+            while not item.done:
+                self._drain_merge_locked()
+        # pre-warm the pull snapshot for the version this drain produced,
+        # OFF the model lock, on this (push) thread: the next cohort pull
+        # finds it published and pays zero build latency.  A no-op when a
+        # peer already built it; worst case under heavy churn the build
+        # races a newer drain and is skipped at publish (CRC-gated
+        # fallback keeps even the raciest interleaving degrade-to-full,
+        # never wrong).
+        if item.accepted:
+            self._model_snap()
+        if tc is not None:
+            # staleness in TIME (ASAP's quantity): age of the model basis
+            # this gradient was computed on = now - that version's pull.
+            # merge.queue covers decode + wait for the single-writer model
+            # lock; merge.apply covers the drain this push rode (tau
+            # filter + fused apply dispatch) under the lock.
+            self._fold_span(_trace.Span(
+                stage=_trace.MERGE_QUEUE, trace_id=tc.trace_id,
+                span_id=_trace._new_id(8), parent_id=tc.span_id,
+                worker_id=wid, model_version=ts, start_ms=t_queue0,
+                dur_ms=max(0.0, item.t_apply0 - t_queue0),
+            ))
+            self._fold_span(_trace.Span(
+                stage=_trace.MERGE_APPLY, trace_id=tc.trace_id,
+                span_id=_trace._new_id(8), parent_id=tc.span_id,
+                worker_id=wid, model_version=ts, start_ms=item.t_apply0,
+                dur_ms=max(0.0, item.t_done - item.t_apply0),
+                staleness=int(item.staleness),
+                staleness_ms=float(item.task_ms),
+                accepted=bool(item.accepted),
+            ))
+        if self.bus is not None:
+            from asyncframework_tpu_torch.metrics import GradientMerged
+
+            self.bus.post(GradientMerged(
+                self._bus_time_ms(), worker_id=wid,
+                staleness=int(item.staleness),
+                accepted=bool(item.accepted),
+                iteration=item.k_at_merge,
+            ))
+        with self._wave_cv:
+            self._wave_cv.notify_all()  # a wave may now meet its threshold
+        _send_msg(conn, item.ack)
+        if item.do_snapshot:
+            # printer_freq cadence: signal the async checkpoint thread --
+            # nobody's next message waits behind the disk write
+            self._ckpt_trigger.set()
+
+    @_prof.zoned("merge.drain")
+    def _drain_merge_locked(self) -> None:
+        """Caller holds ``_lock``.  Drain up to ``_merge_max`` pending
+        pushes in FIFO order -- per-push accept/reject, dedup, clock, and
+        calibration bookkeeping identical to the serial path -- then run
+        ONE fused device apply for all accepted gradients
+        (``ops/steps.make_*_apply_merge``, bit-identical to the serial
+        apply order).  A push landing on the printer_freq snapshot
+        boundary closes its batch so the host copy below pins exactly
+        that version."""
+        drained: List[_PendingPush] = []
+        batch: List[Tuple[_PendingPush, Optional[np.ndarray]]] = []
+        budget = self._merge_max
+        while self._merge_q and len(drained) < budget:
+            item = self._merge_q.popleft()
+            drained.append(item)
+            item.t_apply0 = _trace.now_ms() if item.tc is not None else 0.0
+            self.push_bytes += item.payload_len
+            if self._t0 is not None:
+                self._last_contact[item.wid] = self._now_ms()
+            self.pushes_by_wid[item.wid] = (
+                self.pushes_by_wid.get(item.wid, 0) + 1
+            )
+            staleness = self._clock - item.ts
+            self.max_staleness = max(self.max_staleness, staleness)
+            task_ms = self._now_ms() - self._pull_times.get(
+                item.wid, self._now_ms()
+            )
+            if self._cal_n < self.cfg.effective_calibration_iters():
+                self._cal_ms += task_ms
+                self._cal_n += 1
+                if self._cal_n >= self.cfg.effective_calibration_iters():
+                    self.avg_delay_ms = self._cal_ms / max(self._cal_n, 1)
+            idx = None
+            if self.algo == "asaga":
+                # ASAGA's filter quirk: accept iff k - staleness <= taw
+                # (SparkASAGAThread.scala:184; the ASGD driver tests
+                # staleness <= taw).  A push whose pull-time sample the PS
+                # no longer holds (restart) cannot commit -- drop it.
+                idx = self._pending_idx.pop(item.wid, None)
+                accepted = (
+                    self._k - staleness <= self.cfg.taw
+                    and self._k < self.cfg.num_iterations
+                    and idx is not None
+                )
+            else:
+                accepted = (
+                    staleness <= self.cfg.taw
+                    and self._k < self.cfg.num_iterations
+                )
+            if accepted:
+                # bump the model generation and unpublish the snapshot
+                # BEFORE the clock tick: a concurrent lock-free pull
+                # that reads this item's new clock must see the new
+                # generation too and keep the snapshot's own (older)
+                # version stamp -- never pair new version, old bytes.
+                # Dropped pushes tick the clock WITHOUT bumping: the
+                # model is unchanged, so the snapshot stays valid.
+                self._model_gen += 1
+                self._snap = None
+                batch.append((item, idx))
+                self._k += 1
+                self.accepted += 1
+                self.accepted_by_wid[item.wid] = (
+                    self.accepted_by_wid.get(item.wid, 0) + 1
+                )
+                if self._k % self.cfg.printer_freq == 0:
+                    item.do_snapshot = True
+                if self._k >= self.cfg.num_iterations:
+                    self._done.set()
+                    if self.supervisor is not None:
+                        # run complete: pin membership -- post-done silence
+                        # (evaluation, teardown) is not death
+                        self.supervisor.freeze()
+            else:
+                self.dropped += 1
+            self._clock += 1
+            item.staleness = staleness
+            item.task_ms = task_ms
+            item.accepted = accepted
+            item.k_at_merge = self._k
+            ack = {"op": "ACK", "accepted": bool(accepted),
+                   "done": self._done.is_set()}
+            # record INSIDE the lock, before any send: (1) a retry after a
+            # lost ACK must find the (sid, seq) applied; (2) the checkpoint
+            # writer serializes state under this same lock, so a saved
+            # model can never be missing the dedup entry of a push it
+            # already contains (that gap would re-apply the push after a
+            # restart)
+            self._dedup.record(item.header, ack)
+            item.ack = ack
+            if item.do_snapshot:
+                # close the batch at the snapshot boundary: the pinned
+                # host copy must be exactly version k, not a later one
+                break
+        if batch:
+            if len(batch) == 1:
+                self._apply_one(batch[0][0], batch[0][1])
+            else:
+                # ONE drain for the whole batch: the merge function folds
+                # the pushes in slot order through the serial expression
+                # (bit-equal to len(batch) serial applies)
+                G = torch.from_numpy(np.stack([it.g_host for it, _ in batch]))
+                # every slot keeps its push (a mask of ones: no
+                # controller damps here, ROADMAP A6b)
+                mask = torch.ones(len(batch), dtype=torch.float32)
+                G_dev = G.to(self.device)
+                m_dev = mask.to(self.device)
+                if self.algo == "asaga":
+                    self._w, self._ab = self._apply_merge(
+                        self._w, self._ab, G_dev, m_dev
+                    )
+                    with self._saga_lock:  # vs checkpoint table copies
+                        for it, idx2 in batch:
+                            self._table[it.wid][idx2] = (
+                                it.diff[: idx2.size]
+                            )
+                else:
+                    self._w, self._k_dev = self._apply_merge(
+                        self._w, G_dev, m_dev, self._k_dev
+                    )
+            # publish the new build basis (O(1) tuple swap under the lock
+            # this drain already holds): the next snapshot rebuild reads
+            # it lock-free instead of queueing on the model lock
+            self._snap_basis = (self._clock, self._w, self._model_gen)
+            self.merge_batches += 1
+            self.merge_merged += len(batch)
+            self.merge_batch_max = max(self.merge_batch_max, len(batch))
+        if drained:
+            # flight-recorder breadcrumb (metrics/flightrec.py): one
+            # event per drain so a SIGKILLed PS's dump ends with its
+            # last applied batch (no-op when no recorder is installed)
+            _flight.note("merge", clock=self._clock, k=self._k,
+                         batch=len(drained),
+                         accepted=self.accepted, dropped=self.dropped)
+        for item in drained:
+            if item.do_snapshot:
+                # host copy NOW: the snapshot must pin this version (the
+                # boundary item closed its batch above, so _w is exactly
+                # the k it rode in on)
+                self._snapshots.append((self._now_ms(), _host(self._w)))
+            if item.tc is not None:
+                item.t_done = _trace.now_ms()
+            item.done = True
+
+    def _apply_one(self, item: _PendingPush,
+                   idx: Optional[np.ndarray]) -> None:
+        """Serial single-push apply (caller holds ``_lock``): the merge
+        function at m = 1, so serial and fused drains cannot differ."""
+        g_dev = torch.tensor(item.g_host, dtype=torch.float32,
+                             device=self.device)
+        if self.algo == "asaga":
+            # three-term update + alpha_bar advance (delta == g is exact
+            # over DCN; see __init__); then the ScalarMap merge -- commit
+            # this push's candidate scalars
+            self._w, self._ab = self._apply_merge(
+                self._w, self._ab, g_dev[None], self._one)
+            with self._saga_lock:  # vs checkpoint table copies
+                self._table[item.wid][idx] = item.diff[: idx.size]
+        else:
+            self._w, self._k_dev = self._apply_merge(
+                self._w, g_dev[None], self._one, self._k_dev)
+
+    # ------------------------------------------------------------ evaluation
+    def wait_done(self, timeout_s: float,
+                  progress_timeout_s: Optional[float] = None) -> "WaitDone":
+        """Progress-aware wait for the run to finish.
+
+        Returns a truthy :class:`WaitDone` on completion.  On timeout --
+        or, with ``progress_timeout_s``, as soon as NO worker has contacted
+        the PS and the merge clock has not moved for that long -- returns a
+        falsy ``WaitDone`` carrying the per-worker last-contact +
+        contribution-bitmap diagnostic instead of a bare ``False``, so a
+        stalled run names its silent workers instead of hanging mute for
+        the full timeout.
+        """
+        deadline = time.monotonic() + timeout_s
+        last_progress = time.monotonic()
+        seen_clock = -1
+        seen_contact = -1.0
+        while True:
+            left = deadline - time.monotonic()
+            if self._done.wait(timeout=max(0.0, min(0.2, left))):
+                return WaitDone(True, None)
+            now = time.monotonic()
+            with self._lock:
+                clock = self._clock
+                contact = max(self._last_contact.values(), default=-1.0)
+            if clock != seen_clock or contact != seen_contact:
+                seen_clock, seen_contact = clock, contact
+                last_progress = now
+            stalled = (
+                progress_timeout_s is not None
+                and now - last_progress > progress_timeout_s
+            )
+            if stalled or now >= deadline:
+                return WaitDone(False, self.progress_diagnostic(
+                    stalled="stalled" if stalled else "timeout"
+                ))
+
+    def progress_diagnostic(self, stalled: str = "timeout") -> str:
+        """Per-worker last-contact ages, push/accept counts, and the
+        contribution bitmap -- everything needed to see WHO went silent."""
+        with self._lock:
+            now = self._now_ms() if self._t0 is not None else 0.0
+            k, clock = self._k, self._clock
+            contact = dict(self._last_contact)
+            pushes = dict(self.pushes_by_wid)
+            accepted = dict(self.accepted_by_wid)
+        member = (self.supervisor.membership()
+                  if self.supervisor is not None else {})
+        nw = self.cfg.num_workers
+        bitmap = "".join(
+            "1" if accepted.get(w, 0) > 0 else "0" for w in range(nw)
+        )
+        lines = [
+            f"PS {stalled}: k={k}/{self.cfg.num_iterations} "
+            f"clock={clock} contributed-bitmap={bitmap}",
+        ]
+        for w in range(nw):
+            age = contact.get(w)
+            age_s = "never" if age is None else f"{now - age:8.0f}ms ago"
+            extra = ""
+            m = member.get(w)
+            if m:
+                extra = f" state={m['state']} owner={m['owner']}"
+            lines.append(
+                f"  wid {w:3d}: last-contact {age_s:>14}  "
+                f"pushes={pushes.get(w, 0):<6d} "
+                f"accepted={accepted.get(w, 0):<6d}{extra}"
+            )
+        return "\n".join(lines)
+
+    def snapshot_stack(self) -> Tuple[List[float], np.ndarray]:
+        with self._lock:
+            final = (self._now_ms(), _host(self._w))
+            snaps = list(self._snapshots) + [final]
+        times = [t for (t, _w) in snaps]
+        W = np.stack([w for (_t, w) in snaps])
+        return times, W
+
+    def collect_eval(self, num_worker_procs: int, timeout_s: float
+                     ) -> Optional[np.ndarray]:
+        """Sum per-process snapshot losses pushed via EVAL_RESULT.
+
+        With the supervisor, the expected count is clamped to processes
+        that were still ALIVE when the run finished: a crashed worker's
+        EVAL never comes, but its adopted shards are scored by their
+        adopter -- the union still covers the full dataset, so waiting
+        for the dead process would only trade the objective for a
+        timeout."""
+        deadline = time.monotonic() + timeout_s
+        with self._eval_cv:
+            while True:
+                expected = num_worker_procs
+                if self.supervisor is not None:
+                    # clamp only when processes actually registered (an
+                    # unelastic client set leaves the roster empty)
+                    live = self.supervisor.live_proc_count()
+                    if live > 0:
+                        expected = min(expected, live)
+                if len(self._eval_results) >= expected:
+                    break
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return None
+                self._eval_cv.wait(timeout=min(left, 0.2))
+            total = None
+            for arr in self._eval_results.values():
+                total = arr if total is None else total + arr
+            return total
+
+    @property
+    def dedup_hits(self) -> int:
+        """Retried PUSHes answered from the dedup window (each one is a
+        gradient that would have merged twice before net/session.py)."""
+        return self._dedup.hits
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._done.set()
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        with self._wave_cv:
+            self._wave_cv.notify_all()
+        try:
+            self._srv.close()
+        except OSError:
+            pass
+        # reap on stop: drop every finished handler thread (live ones are
+        # daemons draining their last reply; they exit with the sockets)
+        self._threads = [x for x in self._threads if x.is_alive()]
+
+    # ------------------------------------------------ switches refused here
+    def set_control(self, wire: Optional[dict]) -> bool:
+        """The adaptive controller's CTRL install: not ported."""
+        _refuse("the adaptive controller (set_control, async.control.enabled)")
+
+    def attach_standby(self, host: str, port: int) -> None:
+        """Hot-standby replication: not ported."""
+        _refuse("hot-standby replication (attach_standby)")
+
+    def set_standby_map(self, wire) -> None:
+        """Hot-standby replication: not ported."""
+        _refuse("hot-standby replication (set_standby_map)")
+
+
+class FencedError(ConnectionError):
+    """A server answered REJECT_FENCED: it runs epoch fencing, which this
+    package's clients do not speak yet (ROADMAP A6b); they never stamp an
+    epoch, so only a fenced server that refuses unstamped ops sends it.
+    Subclasses ConnectionError so worker loops treat it like any other
+    dead endpoint."""
+
+
+# -------------------------------------------------------------- worker side
+class PSClient:
+    """One TCP connection to the PS (workers may hold several, one per
+    logical worker id, or share one -- the protocol is synchronous per
+    connection, like an RpcEndpointRef).
+
+    Transport faults are the retry layer's problem now: every RPC routes
+    through a :class:`~asyncframework_tpu_torch.net.RetryPolicy` (backoff +
+    jitter + per-endpoint circuit breaker), reconnecting between attempts.
+    Mutating ops (PUSH) are stamped with this client's session ``(sid,
+    seq)`` so a retry after a lost ACK is answered from the PS's dedup
+    window instead of merging the gradient twice."""
+
+    def __init__(self, host: str, port: int, timeout_s: float = 120.0,
+                 retry: Optional[RetryPolicy] = None,
+                 session: Optional[ClientSession] = None,
+                 proc: Optional[str] = None,
+                 recorder: Optional["_trace.TraceRecorder"] = None,
+                 pull_mode: Optional[str] = None,
+                 pl_stats: Optional[_PipelineStats] = None,
+                 cv_buf=None, epoch: int = 0,
+                 push_codec: Optional[str] = None, ctrl_sink=None,
+                 shm: Optional[bool] = None):
+        self.host, self.port = host, int(port)
+        if ctrl_sink is not None:
+            _refuse("the adaptive controller's control sink (ctrl_sink)")
+        if epoch:
+            _refuse("epoch fencing (a client epoch)")
+        self.endpoint = f"{host}:{self.port}"
+        self.epoch = 0
+        self.retry = retry if retry is not None else RetryPolicy.from_conf(
+            attempt_timeout_s=timeout_s
+        )
+        self.session = session if session is not None else ClientSession()
+        # version-gated delta pulls (net/wiredelta.py): in 'delta' mode the
+        # client advertises its basis version (``have=<ts>``) on every
+        # PULL and keeps the last successfully decoded model per wid so a
+        # NOT_MODIFIED / XDELTA reply can reconstruct byte-exactly.  Any
+        # decode mismatch or cache miss falls back to a full pull -- the
+        # basis is only ever replaced by a CRC-validated reconstruction or
+        # an authoritative full payload, never left wrong.
+        if pull_mode is None:
+            from asyncframework_tpu_torch.conf import PULL_MODE, global_conf
+
+            pull_mode = str(global_conf().get(PULL_MODE))
+        self.pull_mode = pull_mode
+        # gradient quantization (net/wirecodec.py, async.codec.push):
+        # 'off' (default) ships raw f32 -- byte-identical legacy wire;
+        # fp16/int8 quantize each dense ASGD push and keep the residual
+        # in a per-wid error-feedback accumulator folded into the next
+        # push, so the model's deviation from the uncompressed
+        # trajectory is bounded by ONE step's quantization error.
+        if push_codec is None:
+            from asyncframework_tpu_torch.conf import CODEC_PUSH, global_conf
+
+            push_codec = str(global_conf().get(CODEC_PUSH))
+        self.push_codec = push_codec
+        self._ef: Dict[int, np.ndarray] = {}  # wid -> carried residual
+        # wid -> (ts, float32 basis array, crc of its bytes)
+        self._basis: Dict[int, Tuple[int, np.ndarray, int]] = {}
+        self.pull_wenc: Dict[str, int] = {"full": 0, "nm": 0, "xdelta": 0}
+        self.pull_model_bytes = 0  # model-part payload bytes received
+        self.delta_fallbacks = 0   # decode mismatch/cache miss full re-pulls
+        # distributed tracing: completed spans from this process's recorder
+        # piggyback on PUSH (and BYE) headers -- the PS folds them into its
+        # event stream, so spans survive this worker's death.  None =
+        # tracing off for this client, zero extra wire bytes.
+        self.recorder = recorder
+        # pipelined-loop counters (prefetch hits / stale discards /
+        # in-flight depth): deltas piggyback on PUSH and BYE headers the
+        # same way spans do.  None (every non-pipelined client) = no
+        # header field, byte-identical wire.
+        self.pl_stats = pl_stats
+        # convergence telemetry (the JAX package's ConvergenceBuffer) is
+        # ROADMAP A5b: no ``cv`` header field, the legacy wire
+        if cv_buf is not None:
+            _refuse("convergence telemetry (cv_buf)", "A5b")
+        # elastic membership: the worker PROCESS token stamped on every
+        # PULL/PUSH so the PS supervisor knows who serves which shard;
+        # None = classic fixed-membership client
+        self.proc = proc
+        self.released = False    # the PS deposed this client's wid
+        self._orders: List[int] = []  # adoption orders from PULL replies
+        # windowed push pipe (push_start/push_finish): sent-but-unACKed
+        # entries, oldest first -- replayed wholesale on reconnect.  The
+        # window lock serializes senders against the reaper's
+        # reconnect+replay; receives happen outside it (full duplex).
+        from collections import deque as _dq
+        self._push_window: "_dq[list]" = _dq()
+        self._win_lock = threading.Lock()
+        # the one in-flight prefetched PULL (pull_start/pull_finish)
+        self._pending_pull: Optional[tuple] = None
+        # shared-memory transport (net/shmring.py): when enabled AND the
+        # PS is colocated (loopback peer), each (re)dial opportunistically
+        # upgrades the fresh TCP connection to a ring pair -- same framed
+        # protocol, fewer copies, no GIL on the byte path.  A ring-level
+        # failure latches _shm_failed so the NEXT dial stays on plain
+        # TCP: the degrade is one reconnect away and never loops.
+        if shm is None:
+            from asyncframework_tpu_torch.conf import SHM_ENABLED, global_conf
+
+            shm = bool(global_conf().get(SHM_ENABLED))
+        self.shm = bool(shm)
+        self._shm_failed = False
+        self._sock: Optional[socket.socket] = None
+        self.bytes_pushed = 0  # payload bytes shipped by push/push_saga
+        # eager first dial (historical behavior: constructing a client to a
+        # dead PS raises) -- but through the policy, so a PS mid-restart is
+        # ridden out instead of surfaced
+        self._call_raw(connect_only=True)
+
+    @property
+    def sock(self) -> Optional[socket.socket]:
+        return self._sock
+
+    def _drop_sock(self) -> None:
+        if self._sock is not None:
+            if isinstance(self._sock, _shmring.ShmSocket):
+                # a dropped ring transport is never resurrected blind:
+                # the next dial stays on plain TCP (the upgrade is
+                # opportunistic, the degrade is sticky per client --
+                # reconnect-and-retry loops must converge, not oscillate
+                # between a wedged ring and the socket)
+                self._shm_failed = True
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    def _dial(self):
+        """Fresh connection under this client's transport policy: the
+        TCP dial, then the opportunistic shm-ring upgrade (colocated
+        peer + conf gate + not previously degraded)."""
+        sock = _frame.connect((self.host, self.port),
+                              timeout=self.retry.attempt_timeout_s)
+        if self.shm and not self._shm_failed:
+            sock, _ = _shmring.maybe_upgrade(sock)
+        return sock
+
+    def _call_raw(self, header: Optional[dict] = None, payload: bytes = b"",
+                  connect_only: bool = False) -> Tuple[dict, bytes]:
+        """One stamped-or-not request/reply under the retry policy.  The
+        header is REUSED verbatim across attempts -- a stamped op keeps its
+        (sid, seq) so the server can dedup."""
+
+        def attempt() -> Tuple[dict, bytes]:
+            try:
+                if self._sock is None:
+                    self._sock = self._dial()
+                if connect_only:
+                    return {}, b""
+                _send_msg(self._sock, header, payload)
+                return _recv_msg(self._sock)
+            except OSError:
+                # dead/poisoned connection: never reuse it for the retry
+                # (and _drop_sock pins a failed ring transport to TCP)
+                self._drop_sock()
+                raise
+
+        return self.retry.call(attempt, endpoint=self.endpoint)
+
+    def _proc_hdr(self, hdr: dict) -> dict:
+        if self.proc is not None:
+            hdr["proc"] = self.proc
+        return hdr
+
+    def _note_orders(self, header: dict) -> None:
+        if "adopt" in header:
+            self._orders.extend(int(w) for w in header["adopt"])
+
+    def take_orders(self) -> List[int]:
+        """Adoption orders received so far (drained)."""
+        out, self._orders = self._orders, []
+        return out
+
+    def hello(self, proc: str, wids: List[int],
+              pid: Optional[int] = None) -> dict:
+        """Introduce this worker process to the PS (elastic registration;
+        a fixed-membership PS just says WELCOME and ignores it).  Carries
+        this process's /proc start time next to its pid so the
+        supervisor's liveness probe can tell a recycled pid from the
+        registered member."""
+        import socket as _socket
+
+        hdr = {
+            "op": "HELLO", "proc": proc, "wids": [int(w) for w in wids],
+            "pid": pid, "host": _socket.gethostname(),
+        }
+        if pid is not None:
+            pstart = supervisor_mod.proc_start_time(pid)
+            if pstart is not None:
+                hdr["pstart"] = pstart
+        # no telemetry endpoint to advertise (``mport``): the live UI is
+        # ROADMAP A5b, and the key stays absent as on the legacy wire
+        header, _ = self._call_raw(hdr)
+        return header
+
+    def _traced_call(self, tr, stage: str, header: dict,
+                     payload: bytes = b"") -> Tuple[dict, bytes]:
+        """One RPC under an optional update trace: installs the ambient
+        context (frame.send_msg stamps the ``tc`` header from it) for the
+        call's duration and records the client-observed round-trip span.
+        With ``tr=None`` this is exactly ``_call_raw``."""
+        if tr is None:
+            return self._call_raw(header, payload)
+        token = tr.rpc_begin(stage)
+        try:
+            out = self._call_raw(header, payload)
+        except BaseException:
+            _trace.set_current(None)  # never leak the context on failure
+            raise
+        # wire cost of the RPC that just completed (frame bytes, both
+        # directions) rides the rtt span -- latency AND volume decompose
+        # per stage (net/frame.py counts at the choke point)
+        tr.rpc_end(token, bytes=_frame.last_io_bytes())
+        return out
+
+    def _have_hdr(self, wid: int, hdr: dict) -> dict:
+        """Advertise this wid's basis version on a PULL (delta mode)."""
+        if self.pull_mode == "delta":
+            basis = self._basis.get(wid)
+            if basis is not None:
+                hdr["have"] = basis[0]
+        return hdr
+
+    def _decode_model(self, wid: int, header: dict, payload: bytes,
+                      extra_len: int) -> Optional[np.ndarray]:
+        """The model part of a MODEL reply -> float32 array, maintaining
+        the basis cache.  ``extra_len`` is the trailing non-model payload
+        (ASAGA's idx/alpha block).  Returns None on decode mismatch or
+        basis cache miss -- the caller MUST fall back to a full pull; the
+        basis is only ever replaced by a CRC-validated reconstruction or
+        an authoritative full payload, never left wrong."""
+        ts = int(header["ts"])
+        wenc = header.get("wenc")
+        if wenc is None or wenc == wiredelta.FULL:
+            if wenc is None:  # legacy reply: model part is the payload head
+                end = len(payload) - extra_len
+                model_part = payload[:end] if extra_len else payload
+            else:
+                model_part = payload[: int(header.get("wlen", 0))]
+            w = np.frombuffer(model_part, np.float32)
+            if self.pull_mode == "delta":
+                crc_hdr = header.get("crc")
+                self._basis[wid] = (
+                    ts, w,
+                    int(crc_hdr) if crc_hdr is not None
+                    else wiredelta.crc(model_part),
+                )
+            self.pull_wenc["full"] += 1
+            self.pull_model_bytes += len(model_part)
+            return w
+        model_part = payload[: int(header.get("wlen", 0))]
+        basis = self._basis.get(wid)
+        crc_hdr = header.get("crc")
+        w = wiredelta.decode(
+            wenc, model_part, int(header.get("nnz", 0)),
+            basis[1] if basis is not None else None,
+            int(crc_hdr) if crc_hdr is not None else None,
+            basis[2] if basis is not None else None,
+        )
+        if w is None:
+            return None
+        self._basis[wid] = (ts, w, int(crc_hdr))
+        self.pull_wenc[wenc] = self.pull_wenc.get(wenc, 0) + 1
+        self.pull_model_bytes += len(model_part)
+        return w
+
+    def _process_pull_reply(self, wid: int, header: dict, payload: bytes,
+                            make_hdr, extra_len_of, tr
+                            ) -> Optional[Tuple[dict, bytes, np.ndarray]]:
+        """Shared back half of a model pull: RELEASED/DONE handling,
+        REJECT_FENCED self-healing, adoption orders, and decode with the
+        ONE-full-re-pull fallback (basis cache miss, CRC disagreement --
+        a full reply always decodes; never a wrong model).  Returns
+        (header, payload, w), or None on RELEASED/DONE (``self.released``
+        distinguishes them)."""
+        fallback_left = True
+        while True:
+            op = header["op"]
+            if op == "RELEASED":
+                self.released = True
+                return None
+            if op == "DONE":
+                return None
+            if op == "ERR":
+                # a refusing endpoint (a hot STANDBY answers the
+                # training plane this way): surface as a dead endpoint
+                # so loops pace and sharded facades re-resolve the map
+                raise ConnectionError(
+                    f"{self.endpoint} refused: {header.get('msg')!r}")
+            if op == "REJECT_FENCED":
+                raise FencedError(f"fenced by {self.endpoint}: epoch "
+                                  f"fencing is ROADMAP A6b")
+            self._note_orders(header)
+            w = self._decode_model(wid, header, payload,
+                                   extra_len_of(header))
+            if w is not None:
+                return header, payload, w
+            if not fallback_left:  # pragma: no cover - full always decodes
+                break
+            fallback_left = False
+            self._basis.pop(wid, None)
+            self.delta_fallbacks += 1
+            header, payload = self._traced_call(
+                tr, _trace.PULL_RTT, self._proc_hdr(make_hdr())
+            )
+        raise ConnectionError("PULL: full reply failed to decode")
+
+    def _pull_model_rpc(self, wid: int, make_hdr, extra_len_of, tr
+                        ) -> Optional[Tuple[dict, bytes, np.ndarray]]:
+        """One negotiated model pull (request + reply + fallback)."""
+        header, payload = self._traced_call(
+            tr, _trace.PULL_RTT,
+            self._proc_hdr(self._have_hdr(wid, make_hdr())),
+        )
+        return self._process_pull_reply(wid, header, payload, make_hdr,
+                                        extra_len_of, tr)
+
+    # ---------------------------------------------------- prefetched pull
+    # The pipelined loop's pull prefetch: pull_start SENDS the next
+    # PULL and returns (the request parks in the PS wave gate and the
+    # reply accumulates in this socket's kernel buffer while the caller
+    # computes); pull_finish receives and decodes it.  Single-threaded
+    # by design -- the overlap lives in the socket, not in a thread --
+    # and safe to retry: a PULL is idempotent and unstamped, so a
+    # reconnect simply re-sends it.
+
+    def pull_start(self, wid: int, tr=None) -> None:
+        """Send the next PULL without waiting for the reply."""
+        hdr = self._proc_hdr(self._have_hdr(wid, {"op": "PULL",
+                                                  "wid": wid}))
+        token = tr.rpc_begin(_trace.PULL_RTT) if tr is not None else None
+        if tr is not None:
+            _trace.set_current(None)
+        # trailing slot: sent frame bytes, captured at send (see the
+        # push-window entries)
+        pending = [hdr, tr, token, 0]
+        self._pending_pull = pending
+        try:
+            if self._sock is None:
+                self._sock = self._dial()
+            if tr is not None:
+                _trace.set_current(tr.ctx)
+            try:
+                _send_msg(self._sock, hdr)
+                pending[3] = _frame.last_sent_bytes()
+            finally:
+                if tr is not None:
+                    _trace.set_current(None)
+        except OSError:
+            self._drop_sock()  # deferred: pull_finish re-dials + re-sends
+
+    def pull_ready(self) -> bool:
+        """True when the prefetched reply's first bytes are already in
+        the kernel buffer (the prefetch fully hid the pull)."""
+        if self._sock is None:
+            return False
+        if isinstance(self._sock, _shmring.ShmSocket):
+            # ring bytes never show on the retained TCP fd; ask the
+            # ring's counters instead (same zero-wait semantics)
+            return self._sock.readable()
+        import select
+
+        try:
+            return bool(select.select([self._sock], [], [], 0.0)[0])
+        except (OSError, ValueError):
+            return False
+
+    def pull_finish(self, wid: int
+                    ) -> Optional[Tuple[int, np.ndarray, float, bool]]:
+        """Receive the prefetched PULL's reply; same returns as
+        :meth:`pull`.  A dead connection re-dials and re-sends the
+        pending request under the retry policy."""
+        pending = self._pending_pull
+        if pending is None:
+            raise RuntimeError("pull_finish without pull_start")
+        hdr, tr, token = pending[0], pending[1], pending[2]
+
+        def attempt() -> Tuple[dict, bytes]:
+            try:
+                if self._sock is None:
+                    self._sock = self._dial()
+                    if tr is not None:
+                        _trace.set_current(tr.ctx)
+                    try:
+                        _send_msg(self._sock, hdr)
+                        pending[3] = _frame.last_sent_bytes()
+                    finally:
+                        if tr is not None:
+                            _trace.set_current(None)
+                return _recv_msg(self._sock)
+            except OSError:
+                self._drop_sock()
+                raise
+
+        try:
+            header, payload = self.retry.call(attempt,
+                                              endpoint=self.endpoint)
+        finally:
+            self._pending_pull = None
+        if tr is not None and token is not None:
+            tr.rpc_end(token,
+                       bytes=pending[3] + _frame.last_recv_bytes())
+        got = self._process_pull_reply(
+            wid, header, payload,
+            lambda: {"op": "PULL", "wid": wid}, lambda _h: 0, tr,
+        )
+        if got is None:
+            return None
+        header, _payload, w = got
+        if tr is not None:
+            tr.set_model_version(int(header["ts"]))
+        return (int(header["ts"]), w, float(header["avg_delay_ms"]),
+                bool(header["calibrated"]))
+
+    def pull(self, wid: int, tr=None
+             ) -> Optional[Tuple[int, np.ndarray, float, bool]]:
+        """Returns (ts, w, avg_delay_ms, calibrated); None when DONE or
+        when this client's wid was RELEASED (check ``self.released``).
+        ``tr`` (an UpdateTrace) records this pull's round trip as a
+        pull.rtt span and propagates the trace context on the wire.
+
+        In ``delta`` pull mode the request advertises the cached basis
+        version (``have``) and the reply may be NOT_MODIFIED (zero model
+        payload) or a byte-exact XOR delta; a decode mismatch or basis
+        cache miss re-pulls FULL -- never a wrong model."""
+        got = self._pull_model_rpc(
+            wid, lambda: {"op": "PULL", "wid": wid}, lambda _h: 0, tr
+        )
+        if got is None:
+            return None
+        header, _payload, w = got
+        if tr is not None:
+            tr.set_model_version(int(header["ts"]))
+        return (int(header["ts"]), w, float(header["avg_delay_ms"]),
+                bool(header["calibrated"]))
+
+    def subscribe(self, wid: int = 0, extra: Optional[dict] = None):
+        """The serving tier's snapshot subscription: not ported."""
+        _refuse("SUBSCRIBE (the serving tier's snapshot subscription)")
+
+    @staticmethod
+    def _sparse_grad_enc(g: np.ndarray) -> Optional[Tuple[int, bytes]]:
+        """(idx u32, val f32) pair encoding when it beats the dense d*4
+        bytes (rcv1-class gradients touch only the sampled rows' columns);
+        None when dense is smaller."""
+        (nz,) = np.nonzero(g)
+        if nz.size * 8 >= g.shape[0] * 4:
+            return None
+        return nz.size, (nz.astype(np.uint32).tobytes()
+                         + g[nz].astype(np.float32).tobytes())
+
+    def _encode_push(self, wid: int, ts: int, g: np.ndarray,
+                     sparse: bool, diff: Optional[np.ndarray], tr
+                     ) -> Tuple[dict, bytes, List[dict], dict, List[list]]:
+        """Shared encode/stamp front half of :meth:`push` and
+        :meth:`push_start`: returns ``(header, payload, spans, pl_delta,
+        cv_wire)`` with the piggybacks already attached to the header."""
+        t_enc0 = _trace.now_ms() if tr is not None else 0.0
+        g = np.asarray(g, np.float32)
+        # ASAGA pushes ride their own verb so fault schedules can tell the
+        # two solvers' streams apart (the PS treats both identically)
+        op = "PUSH_SAGA" if diff is not None else "PUSH"
+        enc = self._sparse_grad_enc(g) if sparse else None
+        if enc is not None:
+            nnz, payload = enc
+            hdr = {"op": op, "wid": wid, "ts": ts,
+                   "enc": "sparse", "nnz": nnz}
+        else:
+            hdr, payload = {"op": op, "wid": wid, "ts": ts}, None
+            if diff is None and self.push_codec != wirecodec.OFF:
+                # quantize with error feedback (dense ASGD only: sparse
+                # already beat dense above, and ASAGA's history scalars
+                # must be exact).  encode_grad returns None for any
+                # input it cannot encode safely (non-finite, fp16
+                # overflow) -- that push ships raw and the residual
+                # simply rides to the next quantized one.
+                q = wirecodec.encode_grad(g, self.push_codec,
+                                          self._ef.get(wid))
+                if q is not None:
+                    qhdr, payload, new_err = q
+                    self._ef[wid] = new_err
+                    hdr.update(qhdr)
+            if payload is None:
+                payload = g.tobytes()
+        if diff is not None:
+            payload += np.asarray(diff, np.float32).tobytes()
+        self.bytes_pushed += len(payload)
+        if tr is not None:
+            tr.add(_trace.PUSH_WAIT, t_enc0, _trace.now_ms())
+        spans: List[dict] = []
+        if self.recorder is not None:
+            # the PUSH piggyback: completed spans (a previous traced
+            # update's push.rtt, this one's pull.rtt/compute/push.wait)
+            # ship in the header -- one drain per logical push; retries
+            # re-send the same header, and the PS dedup window keeps a
+            # re-applied push from double-folding them
+            spans = self.recorder.drain_wire()
+            if spans:
+                hdr["spans"] = spans
+        pl_delta: dict = {}
+        if self.pl_stats is not None:
+            # pipeline-counter piggyback, same discipline as spans: ship
+            # the unshipped delta; the PS folds it once (dedup'd retries
+            # never reach the handler)
+            pl_delta = self.pl_stats.take_wire()
+            if pl_delta:
+                hdr["pl"] = pl_delta
+        return hdr, payload, spans, pl_delta, []
+
+    def _requeue_piggybacks(self, spans: List[dict], pl_delta: dict,
+                            cv_wire: Optional[List[list]] = None) -> None:
+        """A push whose whole retry budget was spent must not silently eat
+        its piggybacked telemetry: spans and counter deltas go back to
+        ride the next push/BYE."""
+        if spans and self.recorder is not None:
+            self.recorder.requeue(spans)
+        if pl_delta and self.pl_stats is not None:
+            self.pl_stats.merge_back(pl_delta)
+
+    def push(self, wid: int, ts: int, g: np.ndarray,
+             sparse: bool = False, diff: Optional[np.ndarray] = None,
+             tr=None) -> Tuple[bool, bool]:
+        """Returns (accepted, run_done).  ``diff`` (ASAGA candidate history
+        scalars) rides after the gradient when given.  ``tr`` records this
+        push's encode time (push.wait) and round trip (push.rtt); any
+        completed spans in the client's recorder piggyback on the header
+        either way."""
+        hdr, payload, spans, pl_delta, cv_wire = self._encode_push(
+            wid, ts, g, sparse, diff, tr
+        )
+        # stamp ONCE: retries re-send the same (sid, seq), so a push whose
+        # ACK was lost is answered from the PS dedup window, not re-applied
+        try:
+            header, _ = self._traced_call(
+                tr, _trace.PUSH_RTT,
+                self.session.stamp(self._proc_hdr(hdr)), payload,
+            )
+        except BaseException:
+            self._requeue_piggybacks(spans, pl_delta, cv_wire)
+            raise
+        if header.get("op") == "REJECT_FENCED":
+            raise FencedError(f"push fenced by {self.endpoint}: epoch "
+                              f"fencing is ROADMAP A6b")
+        if header.get("op") == "ERR":
+            # a refusing endpoint (standby / malformed push): dead-
+            # endpoint semantics, same as the pull path
+            raise ConnectionError(
+                f"push refused by {self.endpoint}: "
+                f"{header.get('msg')!r}")
+        if header.get("released"):
+            self.released = True
+        return bool(header.get("accepted")), bool(header.get("done"))
+
+    # ------------------------------------------------- windowed push pipe
+    # The pipelined sender's wire window: push k+1 goes OUT before push
+    # k's ACK returns, so per-update push cost drops from a full RTT to
+    # the send itself.  The server already supports this shape -- its
+    # per-connection loop handles frames in order and replies in order --
+    # so ACKs pair with pushes FIFO.  Exactly-once survives every fault:
+    # each entry is stamped once, and on any connection error the whole
+    # unacked window is REPLAYED on the fresh socket (the PS dedup window
+    # re-ACKs already-applied entries instead of re-merging them).  These
+    # concurrency contract: any number of calls from ONE sending thread
+    # (push_start) plus ONE reaping thread (push_finish/push_abandon);
+    # the window lock serializes sends and reconnect/replay, receives
+    # run outside it (TCP full duplex).
+
+    def push_start(self, wid: int, ts: int, g: np.ndarray,
+                   sparse: bool = False,
+                   diff: Optional[np.ndarray] = None, tr=None) -> None:
+        """Encode, stamp, window, and SEND one push without waiting for
+        its ACK.  A send error (or an already-dead socket) is deferred:
+        the entry stays in the window and :meth:`push_finish`'s
+        reconnect replays it."""
+        hdr, payload, spans, pl_delta, cv_wire = self._encode_push(
+            wid, ts, g, sparse, diff, tr
+        )
+        token = tr.rpc_begin(_trace.PUSH_RTT) if tr is not None else None
+        if tr is not None:
+            _trace.set_current(None)  # _send_entry scopes the context
+        # trailing slot: this entry's sent frame bytes (captured at send,
+        # so the rtt span's `bytes` pairs OUR send with OUR reply even
+        # though the single-threaded loop interleaves other frames)
+        entry = [self.session.stamp(self._proc_hdr(hdr)), payload, tr,
+                 token, spans, pl_delta, cv_wire, 0]
+        with self._win_lock:
+            self._push_window.append(entry)
+            if self._sock is not None:
+                try:
+                    self._send_entry(entry)
+                except OSError:
+                    self._drop_sock()  # reaper reconnects and replays
+
+    def _send_entry(self, entry) -> None:
+        hdr, payload, tr = entry[0], entry[1], entry[2]
+        if tr is not None:
+            _trace.set_current(tr.ctx)  # the tc header for THIS push
+        try:
+            _send_msg(self._sock, hdr, payload)
+            entry[7] = _frame.last_sent_bytes()
+        finally:
+            if tr is not None:
+                _trace.set_current(None)
+
+    def _replay_window(self) -> None:
+        """Re-send every unacked push on the (fresh) socket, oldest
+        first, same stamps: applied-but-unACKed entries are answered from
+        the PS dedup window, lost ones are applied now -- FIFO ACK
+        pairing is preserved either way."""
+        for entry in self._push_window:
+            self._send_entry(entry)
+
+    def inflight_pushes(self) -> int:
+        return len(self._push_window)
+
+    def push_finish(self) -> Tuple[bool, bool]:
+        """Receive the OLDEST in-flight push's ACK (FIFO), under the
+        retry policy: a dead connection is re-dialed and the unacked
+        window replayed before the next receive attempt.  Returns
+        (accepted, run_done)."""
+
+        def attempt() -> Tuple[dict, bytes]:
+            try:
+                with self._win_lock:
+                    sock = self._sock
+                    if sock is None:
+                        sock = self._sock = self._dial()
+                        self._replay_window()
+                # recv OUTSIDE the window lock: the sender keeps sending
+                # while this blocks (full duplex)
+                return _recv_msg(sock)
+            except OSError:
+                self._drop_sock()
+                raise
+
+        header, _ = self.retry.call(attempt, endpoint=self.endpoint)
+        entry = self._push_window.popleft()
+        _hdr, _payload, tr, token, _spans, _pl, _cv, sent_bytes = entry
+        if tr is not None and token is not None:
+            tr.rpc_end(token,
+                       bytes=sent_bytes + _frame.last_recv_bytes())
+        if header.get("op") == "REJECT_FENCED":
+            raise FencedError(f"windowed push fenced by {self.endpoint}: "
+                              f"epoch fencing is ROADMAP A6b")
+        if header.get("op") == "ERR":
+            raise ConnectionError(
+                f"windowed push refused by {self.endpoint}: "
+                f"{header.get('msg')!r}")
+        if header.get("released"):
+            self.released = True
+        return bool(header.get("accepted")), bool(header.get("done"))
+
+    def push_abandon(self) -> int:
+        """Drop every in-flight push (the window's whole retry budget is
+        spent -- the serial loop's error path loses its round the same
+        way), requeueing piggybacked telemetry.  Returns the number of
+        pushes abandoned."""
+        with self._win_lock:
+            n = len(self._push_window)
+            while self._push_window:
+                entry = self._push_window.popleft()
+                self._requeue_piggybacks(entry[4], entry[5], entry[6])
+            self._drop_sock()
+        return n
+
+    def pull_saga(self, wid: int, n_p: int, tr=None) -> Optional[
+        Tuple[int, np.ndarray, np.ndarray, np.ndarray, int, float, bool]
+    ]:
+        """ASAGA pull: the PS samples this worker's rows and ships their
+        current history scalars with the model (the reference's sampledMap).
+        Returns (ts, w, idx, alpha_sel, n_valid, avg_delay_ms, calibrated)
+        or None when DONE."""
+        got = self._pull_model_rpc(
+            wid, lambda: {"op": "PULL_SAGA", "wid": wid, "n_p": n_p},
+            lambda h: 8 * int(h["cap"]), tr,
+        )
+        if got is None:
+            return None
+        header, payload, w = got
+        if tr is not None:
+            tr.set_model_version(int(header["ts"]))
+        # the ASAGA extra block (idx, alpha) always rides AFTER the model
+        # part, whatever its encoding; its offset is the payload tail
+        cap = int(header["cap"])
+        tail = len(payload) - 8 * cap
+        idx = np.frombuffer(payload[tail: tail + 4 * cap], np.uint32)
+        alpha_sel = np.frombuffer(payload[tail + 4 * cap:], np.float32)
+        return (int(header["ts"]), w, idx, alpha_sel, int(header["n_valid"]),
+                float(header["avg_delay_ms"]), bool(header["calibrated"]))
+
+    def push_saga(self, wid: int, ts: int, g: np.ndarray, diff: np.ndarray,
+                  sparse: bool = False, tr=None) -> Tuple[bool, bool]:
+        """ASAGA push: gradient + candidate history scalars for the sampled
+        rows (committed by the PS only on accept).  Returns (accepted, done).
+        """
+        return self.push(wid, ts, g, sparse=sparse, diff=diff, tr=tr)
+
+    def snapshots(self) -> Tuple[List[float], np.ndarray]:
+        header, payload = self._call_raw({"op": "SNAPSHOTS"})
+        W = np.frombuffer(payload, np.float32).reshape(header["shape"])
+        return list(header["times"]), W
+
+    def send_eval(self, wid: int, losses: np.ndarray) -> None:
+        self._call_raw(self.session.stamp({"op": "EVAL_RESULT", "wid": wid}),
+                       np.asarray(losses, np.float64).tobytes())
+
+    def bye(self) -> None:
+        try:
+            if self._pending_pull is not None:
+                # a prefetched PULL is still parked in the PS wave gate:
+                # its MODEL reply would arrive (possibly after a ~1 s
+                # starvation-fallback wait) ahead of any BYE ACK.  Just
+                # drop the connection -- the PS treats EOF as goodbye,
+                # and this client's telemetry rides its sibling push
+                # connection's BYE.
+                self._drop_sock()
+                return
+            if self._sock is not None:
+                hdr: dict = {"op": "BYE"}
+                if self.recorder is not None:
+                    # last drain: the final traced update's push.rtt has no
+                    # later PUSH to ride, so it leaves with the goodbye
+                    spans = self.recorder.drain_wire()
+                    if spans:
+                        hdr["spans"] = spans
+                if self.pl_stats is not None:
+                    pl_delta = self.pl_stats.take_wire()
+                    if pl_delta:
+                        hdr["pl"] = pl_delta
+                _send_msg(self._sock, hdr)
+                _recv_msg(self._sock)
+        except (ConnectionError, OSError):
+            pass
+        self._drop_sock()
+
+
+def run_worker_process(
+    host: str,
+    port: int,
+    wids: List[int],
+    shards: Dict[int, object],
+    cfg,
+    d: int,
+    n: int,
+    eval_wid: Optional[int] = None,
+    deadline_s: float = 600.0,
+    algo: str = "asgd",
+    shard_factory=None,
+    proc_token: Optional[str] = None,
+) -> Dict[int, int]:
+    """Worker-process main loop: one thread per owned logical worker, each
+    pulling models and pushing gradients until the PS says DONE.
+
+    ``shards``: wid -> ``Shard`` / ``SparseShard`` (on this process's
+    device: ``cuda`` or, asked for, the CPU).  Returns per-wid gradient
+    counts.  When ``eval_wid`` is set, after DONE this process scores the
+    PS's snapshot stack over ALL its shards and pushes one EVAL_RESULT (the
+    distributed optVars evaluation).
+
+    ``algo="asaga"``: the PS samples and ships (idx, alpha) with each model
+    (it owns the history table); the worker runs the history-corrected
+    gradient step (one launch of B1's or S1's per-slot form) and pushes
+    candidate scalars back with the gradient.  ASGD draws each worker's
+    sample from a ``torch.Generator`` seeded from ``(cfg.seed, wid)`` and
+    takes one launch of B1's or S1's compacted form.
+
+    Elastic plane (``parallel/supervisor.py``): this process HELLOs the PS
+    with ``proc_token`` + its wids + pid, and every PULL/PUSH carries the
+    token.  When the PS's supervisor re-homes a dead peer's shard here, the
+    adoption order arrives on a PULL reply; ``shard_factory(wid)`` builds
+    the orphan shard locally and a fresh loop thread starts serving it.  A
+    thread whose wid is reclaimed by a rejoining process is told RELEASED
+    and stands down.  With ``shard_factory=None`` adoption orders are
+    ignored.
+
+    Pipelining (``async.pipeline.depth``): depth 0
+    runs the classic serial loop; depth >= 1 runs the pipelined loop --
+    prefetched pulls on a second connection, a bounded in-flight push
+    sender, and the host<->device transfers staged on a side stream.
+    ASAGA always runs serial (PS-side sampling requires pull->push
+    alternation).
+    """
+    from asyncframework_tpu_torch.engine.straggler import DelayModel
+    from asyncframework_tpu_torch.ops import steps
+    from asyncframework_tpu_torch.ops.sampling import worker_generator
+
+    from asyncframework_tpu_torch.conf import PIPELINE_DEPTH, global_conf
+
+    refuse_unported_conf()
+    proc_token = proc_token or f"{socket.gethostname()}-{os.getpid()}"
+    # distributed tracing (metrics/trace.py): one sampling recorder + span
+    # ring per worker process, shared by its loop threads.  With
+    # async.trace.sample = 0 the recorder is None and the hot path does no
+    # tracing work at all (and frames stay byte-identical).
+    _rec = _trace.TraceRecorder()
+    recorder = _rec if _rec.enabled else None
+    sparse = any(hasattr(s, "cols") for s in shards.values())
+    if algo == "asaga":
+        step = (steps.make_saga_dcn_sparse_worker_step(d) if sparse
+                else steps.make_saga_dcn_worker_step())
+    else:
+        step = (steps.make_sparse_asgd_worker_step(cfg.batch_rate, d)
+                if sparse
+                else steps.make_asgd_worker_step(cfg.batch_rate, cfg.loss))
+    delay_model = DelayModel(cfg.coeff, cfg.num_workers, cfg.seed)
+    counts = {wid: 0 for wid in wids}
+    stop = threading.Event()
+    calibrated_once = threading.Event()
+    # pipelined update loop (async.pipeline.depth): 0 = the classic
+    # serial pull -> compute -> push loop; >= 1 = prefetched pulls on a
+    # second connection + a bounded in-flight push sender (at most
+    # `depth` unacked pushes)
+    pipe_depth = max(0, int(global_conf().get(PIPELINE_DEPTH)))
+    if algo == "asaga":
+        # the PS samples per pull and holds ONE pending (idx, alpha) slot
+        # per wid: a prefetched pull would clobber the slot the in-flight
+        # push must commit against
+        pipe_depth = 0
+    pl_stats = _PipelineStats() if pipe_depth > 0 else None
+
+    def make_client(recorder=None, pl_stats=None):
+        return PSClient(host, port, proc=proc_token, recorder=recorder,
+                        pl_stats=pl_stats)
+
+    # elastic adoption bookkeeping: which wids this process serves (own +
+    # adopted), and every loop thread ever started (joined at the end)
+    group_lock = threading.Lock()
+    active_wids = set(wids)
+    threads: List[threading.Thread] = []
+
+    def shard_dev(shard):
+        return (shard.cols if sparse else shard.X).device
+
+    def shard_args(shard):
+        return ((shard.cols, shard.vals, shard.y) if sparse
+                else (shard.X, shard.y))
+
+    def put_model(w_host, dev):
+        return torch.tensor(np.asarray(w_host, np.float32), device=dev)
+
+    def saga_step(shard, w_dev, idx, alpha_sel, n_valid):
+        dev = shard_dev(shard)
+        return step(*shard_args(shard), w_dev,
+                    torch.from_numpy(idx.astype(np.int64)).to(dev),
+                    torch.from_numpy(np.array(alpha_sel, np.float32)).to(dev),
+                    int(n_valid))
+
+    # warm every owned shard's step BEFORE the first pull (first-iteration-
+    # blocking parity): on a card the first launch builds the kernel, and
+    # build skew across worker threads would let fast workers drive the run
+    # to done while slow ones are still compiling.  The warm-up draws from
+    # a generator of its own, never a worker's.
+    warmed = set()
+    for wid in wids:
+        shard = shards[wid]
+        dev = shard_dev(shard)
+        n_p = int(shard.y.shape[0])
+        wkey = (tuple((shard.cols if sparse else shard.X).shape), dev)
+        if wkey in warmed:
+            continue
+        warmed.add(wkey)
+        w0 = torch.zeros(d, dtype=torch.float32, device=dev)
+        if algo == "asaga":
+            cap = steps.sparse_step_capacity(cfg.batch_rate, n_p)
+            saga_step(shard, w0, np.zeros(cap, np.int64),
+                      np.zeros(cap, np.float32), 0)
+        else:
+            step(*shard_args(shard), w0, worker_generator(0, wid, dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def adopt(orphan: int) -> None:
+        """Adoption order from the PS: materialize the dead peer's shard
+        locally and start serving it (idempotent -- orders are re-delivered
+        until the first pull for the orphan lands)."""
+        with group_lock:
+            if orphan in active_wids:
+                return
+            active_wids.add(orphan)
+        try:
+            built = shard_factory(orphan)  # device placement: off the lock
+        except Exception:
+            with group_lock:
+                active_wids.discard(orphan)
+            return
+        with group_lock:
+            # shared-dict writes under the lock: the end-of-run eval reads
+            # `shards` under it too
+            shards[orphan] = built
+            counts.setdefault(orphan, 0)
+        spawn(orphan)
+
+    def worker_loop(wid: int) -> None:
+        shard = shards[wid]
+        dev = shard_dev(shard)
+        gen = (worker_generator(cfg.seed, wid, dev) if algo != "asaga"
+               else None)  # ASAGA samples PS-side
+        deadline = time.monotonic() + deadline_s
+        cl: Optional[PSClient] = None
+        try:
+            while not stop.is_set() and time.monotonic() < deadline:
+                try:
+                    if cl is None:
+                        cl = make_client(recorder=recorder)
+                    tr = (recorder.start_update(wid)
+                          if recorder is not None else None)
+                    # per-RPC transport faults are the client's RetryPolicy's
+                    # problem; PUSH retries are exactly-once-applied via the
+                    # PS dedup window
+                    if algo == "asaga":
+                        got = cl.pull_saga(wid, int(shard.y.shape[0]),
+                                           tr=tr)
+                    else:
+                        got = cl.pull(wid, tr=tr)
+                    if got is None:
+                        break  # DONE, or this wid was RELEASED to a rejoiner
+                    if shard_factory is not None:
+                        for orphan in cl.take_orders():
+                            adopt(orphan)
+                    if algo == "asaga":
+                        (ts, w_host, idx, alpha_sel, n_valid, avg_ms,
+                         calibrated) = got
+                    else:
+                        ts, w_host, avg_ms, calibrated = got
+                    if calibrated and not calibrated_once.is_set():
+                        delay_model.calibrate(avg_ms)
+                        calibrated_once.set()
+                    # compute span: straggler delay + host->device put +
+                    # gradient step + device->host readback
+                    t_c0 = _trace.now_ms() if tr is not None else 0.0
+                    dly = delay_model.delay_ms(wid) if calibrated else 0.0
+                    if dly > 0:
+                        time.sleep(dly / 1e3)
+                    w_dev = put_model(w_host, dev)
+                    counts[wid] += 1
+                    if algo == "asaga":
+                        g, diff = saga_step(shard, w_dev, idx, alpha_sel,
+                                            n_valid)
+                        g_host = g.cpu().numpy()
+                        diff_host = diff.cpu().numpy()
+                        if tr is not None:
+                            tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
+                        _accepted, done = cl.push_saga(
+                            wid, ts, g_host, diff_host, sparse=sparse,
+                            tr=tr,
+                        )
+                    else:
+                        g = step(*shard_args(shard), w_dev, gen)
+                        g_host = g.cpu().numpy()  # the push IS the readback
+                        if tr is not None:
+                            tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
+                        _accepted, done = cl.push(wid, ts, g_host,
+                                                  sparse=sparse, tr=tr)
+                    # flight-recorder breadcrumb: the last acked push
+                    # rides the dump
+                    _flight.note("push", wid=wid, ts=ts,
+                                 acc=bool(_accepted), n=counts[wid])
+                    if done:
+                        break
+                except (ConnectionError, OSError):
+                    # the RPC's whole retry budget is spent or the
+                    # endpoint's breaker is open: the PS is restarting from
+                    # checkpoint or the DCN is down.  Pace and re-enter.
+                    time.sleep(0.2)
+        finally:
+            if cl is not None:
+                if cl.released:
+                    # the wid was reclaimed by a rejoiner: forget it so a
+                    # LATER re-adoption can restart a loop here
+                    with group_lock:
+                        active_wids.discard(wid)
+                cl.bye()
+
+    def pipelined_worker_loop(wid: int) -> None:
+        """Pipelined update loop (``async.pipeline.depth`` >= 1), one
+        thread per worker, the overlap in the socket buffers:
+
+        - **prefetched pulls** on a second PSClient connection:
+          ``pull_start`` SENDS the pull for model v(k+1) before step k
+          computes; ``pull_finish`` decodes it, usually without blocking
+          (``prefetch_hits``);
+        - **decoupled pushes** on a bounded wire window: ``push_start``
+          sends step k's gradient and the loop moves on; only when
+          ``depth`` pushes are unacknowledged does it block on one;
+        - staleness stays bounded: the PS's taw admission prices the
+          in-flight window, and a taw REJECTION discards the prefetched
+          model and pulls fresh (``stale_discards``).
+
+        Window entries are stamped once and REPLAYED on reconnect, so a
+        delivered-but-unACKed push is re-answered from the PS dedup
+        window, never re-applied."""
+        shard = shards[wid]
+        dev = shard_dev(shard)
+        stage, readback = steps.make_pipelined_transfer(dev)
+        gen = worker_generator(cfg.seed, wid, dev)
+        deadline = time.monotonic() + deadline_s
+        pull_cl: Optional[PSClient] = None
+        push_cl: Optional[PSClient] = None
+        done = False
+        stale_feedback = False
+
+        def reap_one() -> None:
+            """Collect the oldest in-flight push's ACK (FIFO)."""
+            nonlocal done, stale_feedback
+            try:
+                accepted, acked_done = push_cl.push_finish()
+                pl_stats.bump("pushes_async")
+                _flight.note("push", wid=wid, acc=bool(accepted),
+                             n=counts[wid])
+                if acked_done:
+                    done = True
+                elif not accepted:
+                    stale_feedback = True
+            except (ConnectionError, OSError):
+                # whole retry budget spent: the unacked window is lost,
+                # as the serial loop's error path loses its round
+                lost = push_cl.push_abandon()
+                pl_stats.bump("push_errors", max(lost, 1))
+                time.sleep(0.2)
+
+        try:
+            while not stop.is_set() and time.monotonic() < deadline:
+                try:
+                    pull_cl = make_client(recorder=recorder)
+                    push_cl = make_client(recorder=recorder,
+                                          pl_stats=pl_stats)
+                    break
+                except (ConnectionError, OSError):
+                    time.sleep(0.2)  # PS mid-restart: pace and re-dial
+            if push_cl is None:
+                return
+            tr = recorder.start_update(wid) if recorder is not None else None
+            pull_cl.pull_start(wid, tr=tr)
+            while (not stop.is_set() and not done
+                   and time.monotonic() < deadline):
+                was_ready = pull_cl.pull_ready()
+                t_w0 = _trace.now_ms()
+                try:
+                    got = pull_cl.pull_finish(wid)
+                except (ConnectionError, OSError):
+                    time.sleep(0.2)
+                    tr = (recorder.start_update(wid)
+                          if recorder is not None else None)
+                    pull_cl.pull_start(wid, tr=tr)
+                    continue
+                if got is None:
+                    break  # DONE, or this wid was RELEASED to a rejoiner
+                if was_ready:
+                    pl_stats.bump("prefetch_hits")   # reply was buffered
+                else:
+                    pl_stats.bump("prefetch_waits")  # loop blocked on it
+                if tr is not None:
+                    tr.add(_trace.PIPELINE, t_w0, _trace.now_ms())
+                # adoption orders ride PULL replies, i.e. arrive on the
+                # prefetch connection
+                if shard_factory is not None:
+                    for orphan in pull_cl.take_orders():
+                        adopt(orphan)
+                if stale_feedback:
+                    stale_feedback = False
+                    pl_stats.bump("stale_discards")
+                    tr = (recorder.start_update(wid)
+                          if recorder is not None else None)
+                    pull_cl.pull_start(wid, tr=tr)
+                    continue
+                ts, w_host, avg_ms, calibrated = got
+                cur_tr = tr
+                # prefetch the NEXT model before computing: its wave-gate
+                # wait and RTT ride this step's compute
+                tr = (recorder.start_update(wid)
+                      if recorder is not None else None)
+                pull_cl.pull_start(wid, tr=tr)
+                if calibrated and not calibrated_once.is_set():
+                    delay_model.calibrate(avg_ms)
+                    calibrated_once.set()
+                t_c0 = _trace.now_ms() if cur_tr is not None else 0.0
+                dly = delay_model.delay_ms(wid) if calibrated else 0.0
+                if dly > 0:
+                    time.sleep(dly / 1e3)
+                w_dev = stage(w_host)
+                counts[wid] += 1
+                g = step(*shard_args(shard), w_dev, gen)
+                g_host = readback(g)
+                if cur_tr is not None:
+                    cur_tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
+                # depth cap: at most pipe_depth unACKed pushes in flight
+                # -- THE staleness bound the taw admission prices
+                t_q0 = _trace.now_ms() if cur_tr is not None else 0.0
+                blocked = False
+                while (push_cl.inflight_pushes() >= pipe_depth
+                       and not done):
+                    blocked = True
+                    reap_one()
+                if done:
+                    break
+                push_cl.push_start(wid, ts, g_host, sparse=sparse,
+                                   tr=cur_tr)
+                pl_stats.high_water("inflight_max",
+                                    push_cl.inflight_pushes())
+                if blocked and cur_tr is not None:
+                    cur_tr.add(_trace.PIPELINE, t_q0, _trace.now_ms())
+        finally:
+            if push_cl is not None:
+                # drain the window: every sent push gets its verdict
+                while push_cl.inflight_pushes():
+                    reap_one()
+            released = ((pull_cl is not None and pull_cl.released)
+                        or (push_cl is not None and push_cl.released))
+            if released:
+                with group_lock:
+                    active_wids.discard(wid)
+            if push_cl is not None:
+                push_cl.bye()
+            if pull_cl is not None:
+                pull_cl.bye()
+
+    def spawn(w: int) -> None:
+        target = pipelined_worker_loop if pipe_depth > 0 else worker_loop
+        t = threading.Thread(target=target, args=(w,),
+                             name=f"dcn-worker-{w}", daemon=True)
+        with group_lock:
+            threads.append(t)
+        t.start()
+
+    # introduce this process to the PS before serving: the supervisor
+    # learns the proc token, wids, and pid; a rejoining process's HELLO is
+    # also what deposes its surrogate.  The WELCOME reply says whether the
+    # PS is a shard group, fenced or controlled -- switches this package
+    # refuses -- so HELLO is retried for the WHOLE worker deadline, never
+    # skipped.  A PS dark past the deadline aborts the process cleanly.
+    hello_deadline = time.monotonic() + deadline_s
+    hello_ok = False
+    while True:
+        try:
+            hello_cl = PSClient(host, port, proc=proc_token)
+            welcome = hello_cl.hello(proc_token, wids, pid=os.getpid())
+            hello_cl.bye()
+            hello_ok = True
+            break
+        except (ConnectionError, OSError):
+            if time.monotonic() >= hello_deadline:
+                break
+            # gentle pacing: each PSClient ctor already spent a full retry
+            # budget (backoff + breaker)
+            time.sleep(0.5)
+    if not hello_ok:
+        # the PS never answered within the worker budget: give up loudly
+        # with empty counts
+        return dict(counts)
+    if len(welcome.get("shards") or []) > 1:
+        _refuse("a sharded PS group (async.ps.shards > 1)")
+    if welcome.get("epoch"):
+        _refuse("epoch fencing (a fenced PS)")
+    if welcome.get("ctrl"):
+        _refuse("the adaptive controller (a controlled PS)")
+
+    for w in wids:
+        spawn(w)
+    join_deadline = time.monotonic() + deadline_s
+    while time.monotonic() < join_deadline:
+        with group_lock:
+            snapshot = list(threads)
+        if all(not t.is_alive() for t in snapshot):
+            break
+        time.sleep(0.05)
+    if eval_wid is not None:
+        # distributed optVars evaluation: score the PS's snapshot stack over
+        # this process's shards, push one summed loss vector.  Only shards
+        # this process still SERVES count.  Retried under pacing: a PS
+        # mid-restart costs the eval plane a pause, not the trajectory.
+        eval_deadline = time.monotonic() + min(60.0, deadline_s)
+        while True:
+            cl = None
+            try:
+                cl = make_client()
+                times, W = cl.snapshots()
+                with group_lock:
+                    served = {w: s for w, s in shards.items()
+                              if w in active_wids}
+                losses = evaluate_snapshots_on_shards(served, times, W,
+                                                      cfg.loss)
+                cl.send_eval(eval_wid, losses)
+                break
+            except (ConnectionError, OSError):
+                if time.monotonic() >= eval_deadline:
+                    break  # trajectory forfeited, counts still returned
+                time.sleep(0.5)
+            finally:
+                if cl is not None:
+                    try:
+                        cl.bye()
+                    except (ConnectionError, OSError):
+                        pass
+    return counts
+
+
+def evaluate_snapshots_on_shards(shards: Dict[int, object], times: List[float],
+                                 W: np.ndarray, loss: str = "least_squares"
+                                 ) -> np.ndarray:
+    """Per-snapshot loss SUMS over this process's shards (caller divides by
+    global N after summing across processes)."""
+    from asyncframework_tpu_torch.ops import steps
+
+    ev_dense = steps.make_trajectory_loss_eval(loss)
+    ev_sparse = steps.make_sparse_trajectory_loss_eval()
+    total = np.zeros(W.shape[0], np.float64)
+    for shard in shards.values():
+        if hasattr(shard, "cols"):
+            Wd = torch.from_numpy(np.array(W, np.float32)).to(shard.cols.device)
+            part = ev_sparse(shard.cols, shard.vals, shard.y, Wd)
+        else:
+            Wd = torch.from_numpy(np.array(W, np.float32)).to(shard.X.device)
+            part = ev_dense(shard.X, shard.y, Wd)
+        total += part.double().cpu().numpy()
+    return total

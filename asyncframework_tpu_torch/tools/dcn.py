@@ -1,0 +1,293 @@
+"""The DCN parameter-server plane on one card: runs, records and gates.
+
+    python3 -m asyncframework_tpu_torch.tools.dcn [--runs epsilon:asgd,...]
+
+Each multi-process run is one PS process and two worker processes
+(``tools/ps_child.py``: 4 logical workers each), all on ``cuda:0``, over
+loopback TCP upgraded to the shared-memory ring, with the cluster path's
+defaults (delta pulls, pipeline depth 2 -- ASAGA runs its serial loop --,
+the native codecs).  Its record holds the PS's updates/s over the window in
+which every logical worker was running, accepted and dropped, the largest
+staleness, tasks (gradients computed) per accepted update, wire bytes per
+accepted update, the pull replies by shape, the merge drain's batches, each
+worker process's kernel launches per accepted update, ``python_fallbacks``
+and the peak device memory of each process.  Its gates: the run stopped at
+its budget; every push the workers sent was counted once (accepted or
+dropped) with no dedup hit; each worker gradient was one launch of its
+kernel form (B1's compacted form for dense ASGD, on the staged route; B1's
+per-slot form for dense ASAGA; S1's ``compacted_grad`` for sparse ASGD; S1's
+per-slot form for sparse ASAGA) with no plain-version call; no codec fell
+back to Python and the ring carried the frames; and the objective, by the
+JAX package's own bands: epsilon ASGD below 1/10 of its value at w = 0
+(``chip_smoke.py`` phase 3), epsilon ASAGA below 1/2 (phase 5), rcv1 ASGD a
+best below 0.1x and a final below 0.3x (``tests/test_sparse.py:214-219``),
+rcv1 ASAGA a final below 1x (``:143-157``).
+
+:func:`in_process` runs the same recipe with the PS and the 8 logical
+workers as threads of this process, for comparison.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from asyncframework_tpu_torch import native_build
+from asyncframework_tpu_torch.tools import ps_child, runs
+
+#: the chip runs: (deployment, algorithm, updates); epsilon ASAGA at
+#: phase 5's budget, rcv1 ASGD at bench.py's
+RUNS = (("epsilon", "asgd", 1_000), ("epsilon", "asaga", 2_000),
+        ("rcv1", "asgd", 1_200), ("rcv1", "asaga", 600))
+#: the kernel form one worker gradient launches, by (dense?, algorithm)
+TASK_FORM = {("epsilon", "asgd"): "masked_grad",
+             ("epsilon", "asaga"): "saga_slots_grad",
+             ("rcv1", "asgd"): "compacted_grad",
+             ("rcv1", "asaga"): "sparse_saga_slots_grad",
+             ("small", "asgd"): "masked_grad",
+             ("small", "asaga"): "saga_slots_grad"}
+PLAIN_CALLS = ("compacted_grad_plain", "grad_sum_plain",
+               "ell_residual_plain", "segment_sum_plain")
+CHILD = [sys.executable, "-m", "asyncframework_tpu_torch.tools.ps_child"]
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def build_natives() -> Dict[str, str]:
+    """Build the wire codecs before any process needs them (the children
+    load the same files); raises where one does not build."""
+    out = {}
+    for name in native_build.SOURCES:
+        path = native_build.ensure_built(name, quiet=False)
+        if path is None:
+            raise RuntimeError(f"native {name} did not build (g++)")
+        out[name] = path
+    return out
+
+
+def launch(config: str, algo: str, iters: int, device: str = "cuda",
+           nprocs: int = 2, timeout_s: float = 600.0
+           ) -> Tuple[dict, List[dict]]:
+    """One PS process and ``nprocs`` worker processes; returns the PS's
+    record and the workers'.  Every process is waited for or killed."""
+    env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
+               PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
+               PS_NUM_ITER=str(iters))
+    procs = []
+    try:
+        ps = subprocess.Popen(CHILD, env=dict(env, PS_ROLE="ps"),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=ROOT)
+        procs.append(ps)
+        line = ps.stdout.readline()
+        if not line:
+            raise RuntimeError(f"the PS process died: "
+                               f"{ps.communicate()[1][-3000:]}")
+        port = json.loads(line)["port"]
+        for i in range(nprocs):
+            procs.append(subprocess.Popen(
+                CHILD, env=dict(env, PS_ROLE="worker", PS_PORT=str(port),
+                                PS_WORKER_ID=str(i)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=ROOT))
+        recs = []
+        for p in procs[1:] + procs[:1]:
+            out, err = p.communicate(timeout=timeout_s)
+            if p.returncode != 0:
+                raise RuntimeError(f"a {config} {algo} process failed "
+                                   f"({p.returncode}): {err[-3000:]}")
+            recs.append(json.loads(out.strip().splitlines()[-1]))
+        return recs[-1], recs[:-1]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def objective_gates(config: str, algo: str, traj) -> Dict[str, bool]:
+    """The JAX package's bands for each deployment."""
+    objs = [v for _t, v in traj] if traj else [float("nan")]
+    obj0, best, final = objs[0], min(objs), objs[-1]
+    finite = bool(np.isfinite(objs).all())
+    if config == "rcv1" and algo == "asgd":
+        return {"finite": finite, "best_below_0.1x": best < 0.1 * obj0,
+                "final_below_0.3x": final < 0.3 * obj0}
+    if config == "rcv1":
+        return {"finite": finite, "final_below_w0": final < obj0}
+    frac = 0.1 if algo == "asgd" else 0.5
+    return {"finite": finite, f"final_below_{frac}x": final < frac * obj0}
+
+
+def summarize(config: str, algo: str, iters: int, ps: dict,
+              workers: List[dict]) -> dict:
+    """The run's record and its gates (``ok``)."""
+    form = TASK_FORM[(config, algo)]
+    accepted = max(ps["accepted"], 1)
+    gradients = sum(w["gradients"] for w in workers)
+    serial = algo == "asaga"  # ASAGA runs the serial loop
+    traj = ps["trajectory"]
+    objs = [v for _t, v in traj] if traj else []
+    d = ps_child.CONFIGS[config]["shape"][1]
+    rec = {
+        "config": config, "algo": algo, "processes": 1 + len(workers),
+        "updates_per_sec": ps["updates_per_sec"],
+        "elapsed_s": ps["elapsed_s"], "accepted": ps["accepted"],
+        "dropped": ps["dropped"], "max_staleness": ps["max_staleness"],
+        "gradients": gradients,
+        "tasks_per_accepted_update": gradients / accepted,
+        "pushes": ps["pushes"], "dedup_hits": ps["dedup_hits"],
+        "wire_bytes_per_update": (ps["wire_bytes_sent"]
+                                  + ps["wire_bytes_recv"]) / accepted,
+        "push_bytes_per_push": ps["push_bytes"] / max(ps["pushes"], 1),
+        "dense_grad_bytes": d * 4,
+        "pull_replies": ps["pull_replies"],
+        "merge_batches": ps["merge_batches"],
+        "merge_batch_mean": ps["merge_merged"] / max(ps["merge_batches"], 1),
+        "merge_batch_max": ps["merge_batch_max"],
+        "pipeline": ps["pipeline"],
+        "task_form": form,
+        "launches_per_accepted_update": [
+            (w["launches"][form] - w["warmups"]) / accepted for w in workers],
+        "worker_launches": [{k: v for k, v in w["launches"].items() if v}
+                            for w in workers],
+        "python_fallbacks": [r["native"].get("python_fallbacks", 0)
+                             for r in [ps, *workers]],
+        "shm_upgrades": [r["native"].get("shm_upgrades", 0)
+                         for r in [ps, *workers]],
+        "native_crc_calls": ps["native"].get("native_calls.crc", 0),
+        "peak_device_bytes": {"ps": ps["peak_device_bytes"],
+                              "workers": [w["peak_device_bytes"]
+                                          for w in workers]},
+        "objective_at_w0": objs[0] if objs else None,
+        "best_objective": min(objs) if objs else None,
+        "final_objective": objs[-1] if objs else None,
+    }
+    sent = ps["pipeline"].get("pushes_async", 0) if not serial else gradients
+    gates = {
+        "done_at_budget": ps["done"] and ps["accepted"] == iters,
+        "exactly_once": (ps["pushes"] == ps["accepted"] + ps["dropped"]
+                         and ps["pushes"] == sent and ps["dedup_hits"] == 0),
+        "one_launch_a_gradient": all(
+            w["launches"][form] == w["gradients"] + w["warmups"]
+            and not any(w["launches"][k] for k in PLAIN_CALLS)
+            for w in workers),
+        "no_python_fallback": not any(rec["python_fallbacks"]),
+        "shm_ring": all(n > 0 for n in rec["shm_upgrades"][1:]),
+        "native_codecs": rec["native_crc_calls"] > 0,
+        **objective_gates(config, algo, traj),
+    }
+    if form == "masked_grad":  # epsilon's compacted task: the staged route
+        gates["staged_route"] = all(
+            w["launches"]["masked_grad_staged"] == w["launches"][form]
+            for w in workers)
+    rec["gates"] = gates
+    rec["ok"] = all(gates.values())
+    return rec
+
+
+def in_process(config: str, algo: str, iters: int, device) -> dict:
+    """The same recipe with the PS and its 8 logical workers as threads of
+    this process (the cluster path's defaults set for the call)."""
+    from asyncframework_tpu_torch.conf import AsyncConf, global_conf
+    from asyncframework_tpu_torch.conf import set_global_conf
+    from asyncframework_tpu_torch.parallel import ps_dcn
+
+    n, d, nw = ps_child.CONFIGS[config]["shape"]
+    before = global_conf()
+    set_global_conf(AsyncConf())
+    try:
+        ps_child.apply_cluster_defaults()
+        cfg = ps_child.config(config, algo, iters)
+        ds = ps_child.dataset(config, device)
+        shards = {w: ds.shard(w) for w in range(nw)}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        native_build.reset_native_totals()
+        ps_dcn.reset_pipeline_totals()
+        ps = ps_dcn.ParameterServer(cfg, d, n, device=device, port=0,
+                                    algo=algo).start()
+        marks = ps_child.watch_start(ps, nw)
+        runs.zero_counts()
+        counts = ps_dcn.run_worker_process(
+            "127.0.0.1", ps.port, list(range(nw)), shards, cfg, d, n,
+            deadline_s=cfg.run_timeout_s, algo=algo)
+        done = ps.wait_done(timeout_s=60.0)
+        t_done = time.monotonic()
+        marks["thread"].join(timeout=1.0)
+        launches = runs.counts()
+        # the trajectory scored here, after the run (all shards are local)
+        times, W = ps.snapshot_stack()
+        total = ps_dcn.evaluate_snapshots_on_shards(shards, times, W,
+                                                    cfg.loss)
+        summary = ps_child.ps_summary(ps, marks, t_done, n, None)
+        summary["trajectory"] = [[t, float(v) / n]
+                                 for t, v in zip(times, total)]
+        ps.stop()
+        # one process: the workers' record shares the PS's counters; the 8
+        # shards share one shape, so one warm-up launch
+        worker = {"gradients": int(sum(counts.values())), "warmups": 1,
+                  "launches": launches, "native": summary["native"],
+                  "peak_device_bytes": summary["peak_device_bytes"]}
+        rec = summarize(config, algo, iters,
+                        {**summary, "done": bool(done)}, [worker])
+        rec.update(processes=1, mode="threads")
+        return rec
+    finally:
+        set_global_conf(before)
+
+
+def phase(device, runs_=RUNS) -> List[dict]:
+    """Every multi-process run of ``runs_``, then the in-process epsilon
+    ASGD run; each record carries its gates."""
+    out = []
+    for config, algo, iters in runs_:
+        ps, workers = launch(config, algo, iters)
+        rec = summarize(config, algo, iters, ps, workers)
+        rec["mode"] = "processes"
+        out.append(rec)
+    out.append(in_process("epsilon", "asgd", 1_000, device))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--runs", default=",".join(
+        f"{c}:{a}:{i}" for c, a, i in RUNS),
+        help="config:algo:updates, comma separated")
+    ap.add_argument("--in-process", action="store_true",
+                    help="also run epsilon ASGD with threads")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("dcn: no CUDA device", file=sys.stderr)
+        return 2
+    from asyncframework_tpu_torch.ops import _build
+
+    _build.build_all()  # once, before the processes that load them start
+    build_natives()
+    dev = torch.device("cuda", 0)
+    ok = True
+    for spec in args.runs.split(","):
+        config, algo, iters = spec.split(":")
+        ps, workers = launch(config, algo, int(iters))
+        rec = summarize(config, algo, int(iters), ps, workers)
+        ok = ok and rec["ok"]
+        print(json.dumps(rec), flush=True)
+    if args.in_process:
+        rec = in_process("epsilon", "asgd", 1_000, dev)
+        ok = ok and rec["ok"]
+        print(json.dumps(rec), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,273 @@
+"""One role of the DCN parameter-server plane as its own process.
+
+    PS_ROLE=ps PS_CONFIG=epsilon PS_ALGO=asgd PS_NUM_WORKER_PROCS=2 \\
+        python -m asyncframework_tpu_torch.tools.ps_child
+    PS_ROLE=worker PS_PORT=<port> PS_WORKER_ID=0 PS_NUM_WORKER_PROCS=2 \\
+        PS_CONFIG=epsilon PS_ALGO=asgd \\
+        python -m asyncframework_tpu_torch.tools.ps_child
+
+The port's form of the JAX package's role split (``cli.py``'s
+``run_async_cluster``, with process 0 as the PS) and the twin of
+``tests/ps_dcn_child.py``.  Role ``ps`` binds the server, prints
+``{"port": ...}`` on its first stdout line, waits for the run to finish,
+collects the workers' evaluations and prints one result line.  Role
+``worker`` builds the deployment's data on its device, keeps its logical
+workers' shards (``wid % PS_NUM_WORKER_PROCS == PS_WORKER_ID``, or
+``PS_WIDS=4,5``), runs them (``parallel/ps_dcn.py::run_worker_process``),
+scores the PS's snapshots over its shards and prints one result line with
+its kernel launches (counted from 0 before the run), its gradients and its
+peak device memory.
+
+Before either role runs, the cluster path's data-plane defaults are set
+where the environment sets nothing (as ``cli.py`` sets them): delta pulls,
+pipeline depth 2, the native codecs and the shared-memory ring.  Any of
+them can be overridden with the conf's environment names, e.g.
+``ASYNCTPU_ASYNC_PIPELINE_DEPTH=0``.
+
+Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
+``epsilon``: 400,000 x 2,000 f32; ``rcv1``: rcv1's padded-ELL shape),
+``PS_ALGO`` (``asgd``/``asaga``), ``PS_DEVICE`` (``cuda``, the default, or
+``cpu``), ``PS_NUM_ITER``, ``PS_GAMMA``, ``PS_EVAL=0`` (no evaluation),
+``PS_ELASTIC=1`` (an elastic supervisor on the PS, ``PS_DEAD_AFTER_S``),
+``PS_CHECKPOINT`` (the PS's checkpoint path), ``PS_BIND_PORT``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from asyncframework_tpu_torch import native_build
+from asyncframework_tpu_torch.parallel import ps_dcn
+from asyncframework_tpu_torch.solvers import SolverConfig
+from asyncframework_tpu_torch.tools import runs
+
+#: the cluster path's data-plane defaults (``cli.py`` of the JAX package)
+CLUSTER_DEFAULTS = {"async.pull.mode": "delta", "async.pipeline.depth": 2,
+                    "async.native.enabled": True, "async.shm.enabled": True}
+
+#: each deployment: (n, d, workers), its solver settings, and the gamma of
+#: each algorithm (epsilon: chip_smoke.py phases 3 and 5; rcv1:
+#: tools/rcv1.py: bench.py's ASGD recipe, ASAGA's step size chosen on the
+#: card; small: tests/test_ps_dcn.py)
+CONFIGS = {
+    "small": dict(shape=(4_096, 24, 8), gamma={"asgd": 1.2, "asaga": 0.3},
+                  iters=400, batch_rate=0.3, bucket_ratio=0.5,
+                  printer_freq=50, calibration_iters=20),
+    "epsilon": dict(shape=(400_000, 2_000, 8),
+                    gamma={"asgd": 100.0, "asaga": 0.5}, iters=1_000,
+                    batch_rate=0.1, bucket_ratio=0.7, printer_freq=25,
+                    calibration_iters=None),
+    "rcv1": dict(shape=(697_641, 47_236, 8),
+                 gamma={"asgd": 2361.8, "asaga": 50.0}, iters=1_200,
+                 batch_rate=0.05, bucket_ratio=0.7, printer_freq=50,
+                 calibration_iters=100),
+}
+
+
+def apply_cluster_defaults() -> None:
+    """Set :data:`CLUSTER_DEFAULTS` on the process conf where neither the
+    conf nor the environment holds a value."""
+    from asyncframework_tpu_torch.conf import global_conf
+
+    conf = global_conf()
+    for key, value in CLUSTER_DEFAULTS.items():
+        if not conf.contains(key):
+            conf.set(key, value)
+
+
+def config(name: str, algo: str, iters: int = 0,
+           gamma: float = 0.0) -> SolverConfig:
+    """The deployment's solver settings (``iters``/``gamma`` override)."""
+    c = CONFIGS[name]
+    if algo not in c["gamma"]:
+        raise ValueError(f"{name} has no {algo} recipe")
+    return SolverConfig(
+        num_workers=c["shape"][2], num_iterations=iters or c["iters"],
+        gamma=gamma or c["gamma"][algo], taw=2**31 - 1,
+        batch_rate=c["batch_rate"], bucket_ratio=c["bucket_ratio"],
+        printer_freq=c["printer_freq"], seed=42,
+        calibration_iters=c["calibration_iters"], run_timeout_s=600.0)
+
+
+def dataset(name: str, device):
+    """The deployment's data, generated on ``device`` from its seed."""
+    n, d, nw = CONFIGS[name]["shape"]
+    if name == "rcv1":
+        from asyncframework_tpu_torch.tools import rcv1
+
+        return rcv1.dataset(device)
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+
+    seed = 11 if name == "small" else 7
+    return ShardedDataset.generate_on_device(n, d, nw, devices=[device],
+                                             seed=seed, noise=0.01)
+
+
+def _peak_bytes(device) -> int:
+    return (int(torch.cuda.max_memory_allocated(device))
+            if device.type == "cuda" else 0)
+
+
+def watch_start(ps, nw: int) -> dict:
+    """Times of the run's first pull and of the moment every logical
+    worker has pulled (with the accepted count then), taken by a thread
+    polling the PS every millisecond until then."""
+    marks: dict = {}
+
+    def poll():
+        while not ps._done.is_set():
+            if "first" not in marks and ps._last_contact:
+                marks["first"] = time.monotonic()
+            if len(ps._last_contact) >= nw:
+                marks["all"] = time.monotonic()
+                marks["accepted_at_all"] = ps.accepted
+                return
+            time.sleep(0.001)
+
+    t = threading.Thread(target=poll, name="ps-start-watch", daemon=True)
+    t.start()
+    marks["thread"] = t
+    return marks
+
+
+def ps_summary(ps, marks: dict, t_done: float, n: int,
+               total: "np.ndarray | None") -> dict:
+    """The PS's record of a finished run: updates/s over the window in
+    which every logical worker was running, accepted and dropped, the
+    staleness, the wire, the merge drain, the trajectory."""
+    from asyncframework_tpu_torch.net import frame
+
+    t_all = marks.get("all", marks.get("first", t_done))
+    window = max(t_done - t_all, 1e-9)
+    wire = frame.bytes_totals()
+    rec = {
+        "accepted": ps.accepted, "dropped": ps.dropped,
+        "max_staleness": ps.max_staleness,
+        "elapsed_s": t_done - marks.get("first", t_done),
+        "updates_per_sec": (ps.accepted - marks.get("accepted_at_all", 0))
+        / window,
+        "pushes": int(sum(ps.pushes_by_wid.values())),
+        "dedup_hits": ps.dedup_hits,
+        "accepted_by_wid": {str(w): c for w, c in ps.accepted_by_wid.items()},
+        "push_bytes": ps.push_bytes, "pull_model_bytes": ps.pull_model_bytes,
+        "wire_bytes_sent": int(wire.get("sent", 0)),
+        "wire_bytes_recv": int(wire.get("recv", 0)),
+        "pull_replies": dict(ps.pull_replies),
+        "merge_batches": ps.merge_batches, "merge_merged": ps.merge_merged,
+        "merge_batch_max": ps.merge_batch_max,
+        "resumed_from": ps.resumed_from_k,
+        "native": native_build.native_totals(),
+        "pipeline": ps_dcn.pipeline_totals(),
+        "peak_device_bytes": _peak_bytes(ps.device),
+        "trajectory": None,
+    }
+    if total is not None:
+        times, _W = ps.snapshot_stack()
+        rec["trajectory"] = [[t, float(v) / n] for t, v in zip(times, total)]
+    return rec
+
+
+def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
+           gamma: float = 0.0) -> dict:
+    """Role ``ps``: serve one run to its end and return its record."""
+    n, d, nw = CONFIGS[name]["shape"]
+    cfg = config(name, algo, iters, gamma)
+    sup = None
+    if os.environ.get("PS_ELASTIC") == "1":
+        from asyncframework_tpu_torch.parallel.supervisor import (
+            ElasticSupervisor,
+        )
+
+        sup = ElasticSupervisor(
+            nw, dead_after_s=float(os.environ.get("PS_DEAD_AFTER_S", "2.0")),
+            check_interval_s=0.2)
+    ps = ps_dcn.ParameterServer(
+        cfg, d, n, device=device,
+        port=int(os.environ.get("PS_BIND_PORT", "0")), algo=algo,
+        checkpoint_path=os.environ.get("PS_CHECKPOINT") or None,
+        supervisor=sup).start()
+    marks = watch_start(ps, nw)
+    print(json.dumps({"port": ps.port}), flush=True)
+    done = ps.wait_done(timeout_s=cfg.run_timeout_s)
+    t_done = time.monotonic()
+    marks["thread"].join(timeout=1.0)
+    total = None
+    if os.environ.get("PS_EVAL") != "0":
+        total = ps.collect_eval(num_worker_procs=nprocs, timeout_s=120.0)
+    rec = {"role": "ps", "config": name, "algo": algo, "done": bool(done),
+           "diagnostic": None if done else str(done),
+           "recovery": sup.counters() if sup is not None else None,
+           **ps_summary(ps, marks, t_done, n, total)}
+    ps.stop()
+    return rec
+
+
+def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
+               iters: int = 0, gamma: float = 0.0, host: str = "127.0.0.1",
+               evaluate: bool = True) -> dict:
+    """Role ``worker``: run ``wids`` against the PS at ``host:port`` and
+    return this process's record."""
+    n, d, _nw = CONFIGS[name]["shape"]
+    cfg = config(name, algo, iters, gamma)
+    ds = dataset(name, device)
+    shards = {w: ds.shard(w) for w in wids}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    runs.zero_counts()
+    t0 = time.monotonic()
+    counts = ps_dcn.run_worker_process(
+        host, port, list(wids), shards, cfg, d, n,
+        eval_wid=wids[0] if evaluate else None, deadline_s=cfg.run_timeout_s,
+        algo=algo, shard_factory=ds.shard,
+        proc_token=f"ps-child-{os.getpid()}")
+    rec = {"role": "worker", "config": name, "algo": algo,
+           "wids": list(wids), "gradients": int(sum(counts.values())),
+           "seconds": time.monotonic() - t0,
+           # one warm-up launch a distinct shard shape before the first pull
+           "warmups": len({tuple((s.cols if hasattr(s, "cols") else s.X).shape)
+                           for s in shards.values()}),
+           "launches": runs.counts(), "native": native_build.native_totals(),
+           "pipeline": ps_dcn.pipeline_totals(),
+           "peak_device_bytes": _peak_bytes(device)}
+    return rec
+
+
+def main() -> None:
+    apply_cluster_defaults()
+    # before either role builds its data: a switch of the cluster path
+    # that this package does not run is refused, never ignored
+    ps_dcn.refuse_unported_conf()
+    role = os.environ["PS_ROLE"]
+    name = os.environ.get("PS_CONFIG", "small")
+    algo = os.environ.get("PS_ALGO", "asgd")
+    device = torch.device(os.environ.get("PS_DEVICE", "cuda"))
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    nprocs = int(os.environ["PS_NUM_WORKER_PROCS"])
+    iters = int(os.environ.get("PS_NUM_ITER", "0"))
+    gamma = float(os.environ.get("PS_GAMMA", "0"))
+    if role == "ps":
+        rec = run_ps(name, algo, device, nprocs, iters, gamma)
+    else:
+        pid = int(os.environ["PS_WORKER_ID"])
+        nw = CONFIGS[name]["shape"][2]
+        if os.environ.get("PS_WIDS"):
+            wids = [int(w) for w in os.environ["PS_WIDS"].split(",")]
+        else:
+            wids = [w for w in range(nw) if w % nprocs == pid]
+        rec = run_worker(name, algo, device, int(os.environ["PS_PORT"]),
+                         wids, nprocs, iters, gamma,
+                         evaluate=os.environ.get("PS_EVAL") != "0")
+        rec["pid"] = pid
+    print(json.dumps(rec), flush=True)
+
+
+if __name__ == "__main__":
+    main()

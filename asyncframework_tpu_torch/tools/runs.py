@@ -47,8 +47,10 @@ def counts() -> dict:
             "masked_grad_staged": mg.masked_grad.launches_staged,
             "masked_grad_tiled": mg.masked_grad.launches_tiled,
             "saga_grad": mg.saga_grad.launches,
+            "saga_slots_grad": mg.saga_slots_grad.launches,
             "xt_coeff": mg.xt_coeff.launches,
             "compacted_grad": sg.compacted_grad.launches,
+            "sparse_saga_slots_grad": sg.saga_slots_grad.launches,
             "grad_sum": sg.grad_sum.launches,
             "ell_residual": sg.ell_residual.launches,
             "segment_sum": sg.segment_sum.launches,
@@ -59,7 +61,8 @@ def counts() -> dict:
 
 
 def zero_counts() -> None:
-    for fn in (mg.masked_grad, mg.saga_grad, mg.xt_coeff, sg.compacted_grad,
+    for fn in (mg.masked_grad, mg.saga_grad, mg.saga_slots_grad,
+               mg.xt_coeff, sg.compacted_grad, sg.saga_slots_grad,
                sg.grad_sum, sg.ell_residual, sg.segment_sum):
         fn.launches = 0
     mg.masked_grad.launches_staged = 0

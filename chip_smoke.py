@@ -36,7 +36,10 @@ exits non-zero without a result line):
    library chain (a gather-and-sum residual, then index_add_); the
    coefficient form (``grad_sum``, ASAGA's table delta) and the residual
    alone (the evaluation, full shard) beside it, and whether the fused
-   launch is captured by a CUDA graph;
+   launch is captured by a CUDA graph; and the DCN ASAGA worker's per-slot
+   forms, B1's ``saga_slots_grad`` at 5,408 slots of an epsilon shard
+   (``sparse_step_capacity(0.1, 50,000)``) and S1's ``saga_slots_grad`` at
+   rcv1's 4,752-slot task, each against its plain version;
 3. main path -- ASGD ``run()`` and ``run_sync()`` on the full-size epsilon
    deployment (400,000 x 2,000 f32, 8 workers, b = 0.1) generated on the
    card, with every kernel's launch count set to 0 just before and read
@@ -90,7 +93,23 @@ exits non-zero without a result line):
    checkpoint's, and a run resumed to 1,200 below the objective at w = 0.
    Every run's launches counted from 0 and read after, every ASGD task
    through B1's staged route;
-10. the ``{"kernels": [...]}`` line, the card line again, and last the
+10. dcn -- the DCN parameter-server plane (``tools/dcn.py``): the wire
+   codecs built with g++ (``dcn_natives``), the merge drain bit-equal to
+   serial applies on the card (``dcn_merge``), then one PS process and two
+   worker processes (``tools/ps_child.py``, 4 logical workers each) on this
+   card over loopback and the shm ring, with delta pulls, pipeline depth 2
+   (ASAGA: the serial loop) and the native codecs: epsilon ASGD (1,000
+   updates) and ASAGA (2,000, phase 5's budget), rcv1 ASGD (1,200,
+   bench.py's recipe) and ASAGA (600); then epsilon ASGD with the PS and
+   its workers as threads of this process.  Each ``dcn`` line carries updates/s, accepted and
+   dropped, max staleness, tasks per accepted update, wire bytes per
+   update, pull replies by shape, merge batches, each worker process's
+   launches per accepted update, ``python_fallbacks`` and each process's
+   peak device memory, and its gates: the budget reached, every push
+   counted once, one B1 or S1 launch a worker gradient (with no plain
+   call), no Python fallback, the ring used, and the JAX package's
+   objective bands (``tools/dcn.py``);
+11. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
@@ -939,6 +958,158 @@ def s1_grad_sum_case(name, c_sel, v_sel, coeff, d, torch, sg, flush):
     return rec
 
 
+def b1_saga_slots_case(name, n, d, cap, b, torch, mg, flush, gen):
+    """B1's per-slot ASAGA form (the DCN ASAGA worker's gradient) against
+    its plain version at the worker's shape: the PS's Bernoulli(b) draw of
+    a shard's rows, compacted to ``cap`` slots (row 0 in the padding), the
+    sampled rows' history scalars by slot."""
+    from asyncframework_tpu_torch.ops.steps import compact_mask
+
+    dev = torch.device("cuda", 0)
+    X = torch.randn(n, d, device=dev, generator=gen) / math.sqrt(d)
+    y = torch.randn(n, device=dev, generator=gen)
+    w = torch.randn(d, device=dev, generator=gen)
+    valid, idx = compact_mask(torch.rand(n, device=dev, generator=gen) < b,
+                              cap)
+    alpha = torch.randn(cap, device=dev, generator=gen) * valid
+    rows = int(torch.unique(idx).numel())
+
+    def kernel():
+        return mg.saga_slots_grad(X, y, w, idx, alpha, valid)
+
+    def plain():
+        return mg.saga_slots_grad_reference(X, y, w, idx, alpha, valid)
+
+    def library():
+        Xs = X[idx]
+        diff = (Xs @ w - y[idx]) * valid
+        return Xs.T @ ((diff - alpha) * valid), diff
+
+    before = mg.saga_slots_grad.launches
+    (got, route), again, ref = routed(mg, kernel), kernel(), plain()
+    launches = mg.saga_slots_grad.launches - before
+    torch.cuda.synchronize()
+    errs = [float((a - r).abs().max()) for a, r in zip(got, ref)]
+    scales = [float(r.abs().max()) for r in ref]
+    tol_rel = TOL_REL["float32"]
+    ok = (all(bool(torch.isfinite(a).all()) for a in got)
+          and all(e <= tol_rel * sc for e, sc in zip(errs, scales))
+          and not got[1][int(valid.sum()):].any())
+    bit_equal = all(bool(torch.equal(a, b2)) for a, b2 in zip(got, again))
+    # the distinct rows read once; per slot its index, y, alpha and weight
+    # in and diff out; w in, g out
+    bytes_moved = rows * d * 4 + cap * (8 + 4 + 4 + 4 + 4) + d * 8
+    flop_s = 4.0 * cap * d / F32_FLOPS
+    byte_s = bytes_moved / HBM_BYTES_PER_S
+    rec = {
+        "phase": "kernel", "kernel": "masked_grad", "form": "saga_slots_grad",
+        "case": name, "n": n, "d": d, "dtype": "float32", "slots": cap,
+        "n_valid": int(valid.sum()), "rows_read": rows, "route": route,
+        "launches_per_call": launches / 2,
+        "max_abs_err": errs[0], "max_rel_err": errs[0] / scales[0],
+        "diff_max_abs_err": errs[1],
+        "tol": f"{tol_rel} * max|plain| per output; diff 0 on padding",
+        "within_tol": ok, "bit_equal": bit_equal,
+        "library": "X[idx], then (Xs @ w - y[idx]) * valid and "
+                   "Xs.T @ ((diff - alpha) * valid)",
+    }
+    time_routes(rec, kernel, route, True, torch, mg, flush)
+    rec.update({
+        "plain_ms": median_ms(plain, torch, flush),
+        "library_ms": median_ms(library, torch, flush),
+        "bound_us": max(byte_s, flop_s) * 1e6,
+        "bound_by": "bytes" if byte_s >= flop_s else "operations",
+    })
+    emit(rec)
+    if not ok or not bit_equal or launches != 2:
+        raise RuntimeError(f"saga_slots_grad disagrees with its plain "
+                           f"version: {rec}")
+    if route != "staged":
+        raise RuntimeError(f"{name} took the {route} route, not staged")
+    return rec
+
+
+def s1_saga_slots_case(name, rows, K, nnz, d, rate, cap, torch, sg, flush,
+                       gen):
+    """S1's per-slot ASAGA form (the DCN sparse ASAGA worker's gradient)
+    at rcv1's task shape: bit-equal to its plain version on CPU copies,
+    across launches, and to ``compacted_grad`` with the scalars placed at
+    their rows; timed with its plain version and the library chain."""
+    from asyncframework_tpu_torch.ops.steps import compact_mask
+
+    dev = torch.device("cuda", 0)
+    cols = s1_columns(rows, K, d, "uniform", torch, gen)
+    vals = torch.randn(rows, K, device=dev, generator=gen) / math.sqrt(nnz)
+    cols[:, nnz:] = 0
+    vals[:, nnz:] = 0.0
+    y = torch.randn(rows, device=dev, generator=gen)
+    w = torch.randn(d, device=dev, generator=gen)
+    valid, idx = compact_mask(torch.rand(rows, device=dev, generator=gen)
+                              < rate, cap)
+    alpha = torch.randn(cap, device=dev, generator=gen) * valid
+    rows_read = int(torch.unique(idx).numel())
+    flat_cols = cols.long()[idx].reshape(-1)
+    rows_sel = vals[idx] * valid[:, None]
+    y_sel = y[idx] * valid
+
+    def fused():
+        return sg.saga_slots_grad(cols, vals, y, w, idx, valid, alpha)
+
+    def library():
+        r = (rows_sel * w[flat_cols].reshape(cap, K)).sum(1) - y_sel
+        contrib = (rows_sel * (r - alpha)[:, None]).reshape(-1)
+        return torch.zeros(d, device=dev).index_add_(0, flat_cols, contrib), r
+
+    def plain():
+        return sg.compacted_grad_plain(cols, vals, y, w, idx, valid, d, alpha,
+                                       alpha_slots=True)
+
+    before = sg.saga_slots_grad.launches
+    (g, r), (g2, r2) = fused(), fused()
+    launches = sg.saga_slots_grad.launches - before
+    cpu = [t.cpu() for t in (cols, vals, y, w, idx, valid)]
+    g_cpu, r_cpu = sg.compacted_grad_plain(*cpu, d, alpha.cpu(),
+                                           alpha_slots=True)
+    full = torch.zeros(rows, device=dev)
+    full[idx] = alpha
+    g_rows, r_rows = sg.compacted_grad(cols, vals, y, w, idx, valid, d, full)
+    g_lib, _ = library()
+    torch.cuda.synchronize()
+    scale = float(g_cpu.abs().max())
+    times = turns_ms([fused, library], torch, flush)
+    live = int((rows_sel != 0).sum())
+    rec = {
+        "phase": "kernel", "kernel": "sparse_grad.saga_slots_grad",
+        "case": name, "rows": rows, "K": K, "d": d, "slots": cap,
+        "rows_read": rows_read, "live_entries": live,
+        "route": s1_route(fused, torch, sg),
+        "launches_per_call": launches / 2,
+        "bit_equal_plain_cpu": bool(torch.equal(g.cpu(), g_cpu)
+                                    and torch.equal(r.cpu(), r_cpu)),
+        "bit_equal": bool(torch.equal(g, g2) and torch.equal(r, r2)),
+        "bit_equal_row_alpha": bool(torch.equal(g, g_rows)
+                                    and torch.equal(r, r_rows)),
+        "max_abs_err": float((g.cpu() - g_cpu).abs().max()),
+        "library_max_rel_err": float((g - g_lib).abs().max()) / scale,
+        "tol": "bit-equal to the plain version on the CPU",
+        "ms": times[0], "library_ms": times[1],
+        "library": "(vals[idx] * w[cols[idx]]).sum(1) - y[idx], then "
+                   "index_add_ of the products with r - alpha (atomics)",
+        "plain_ms": median_ms(plain, torch, flush),
+    }
+    # the rows read once, per slot its index, valid, alpha in and r out;
+    # w in, g out
+    rec["bound_ms"], rec["bound_by"] = s1_bound(
+        rows_read * (K * 8 + 4) + cap * 16 + d * 8, 2.0 * cap * K + 2.0 * live)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    emit(rec)
+    if not (rec["bit_equal_plain_cpu"] and rec["bit_equal"]
+            and rec["bit_equal_row_alpha"] and launches == 2):
+        raise RuntimeError(f"sparse saga_slots_grad disagrees with its plain "
+                           f"version: {rec}")
+    return rec
+
+
 def graph_case(phase, fn, ref, torch):
     """Whether ``fn()`` (one kernel launch, a cooperative launch on B1's
     staged route and on S1) is captured by a CUDA graph, and whether the
@@ -1300,6 +1471,62 @@ def features_phase(torch, card):
     return launches
 
 
+def dcn_phase(torch, card):
+    """The DCN parameter-server plane (``tools/dcn.py``): the wire codecs
+    built with g++, the merge drain against serial applies on the card,
+    then each multi-process run (one PS process, two worker processes) at
+    full size and the in-process epsilon ASGD run, each held to its gates;
+    returns the worker processes' kernel launches by form."""
+    from asyncframework_tpu_torch.ops import steps
+    from asyncframework_tpu_torch.tools import dcn
+
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    libs = dcn.build_natives()
+    emit({"phase": "dcn_natives", "card": card, "libraries": libs,
+          "build_s": time.monotonic() - t0})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    G = torch.randn(8, 2_000, device=dev, generator=gen)
+    w0 = torch.randn(2_000, device=dev, generator=gen)
+    mask = torch.ones(8, device=dev)
+    one = torch.ones(1, device=dev)
+    merge_equal = {}
+    for algo, merge, s0 in (
+            ("asgd", steps.make_asgd_apply_merge(100.0, 0.1, 400_000, 8),
+             torch.tensor(7.0, device=dev)),
+            ("asaga", steps.make_saga_apply_merge(0.5, 0.1, 400_000, 8),
+             torch.randn(2_000, device=dev, generator=gen) * 1e-3)):
+        args = (lambda w, s, g, m: (w, g, m, s)) if algo == "asgd" else (
+            lambda w, s, g, m: (w, s, g, m))
+        w_m, s_m = merge(*args(w0, s0, G, mask))
+        w_s, s_s = w0, s0
+        for j in range(8):
+            w_s, s_s = merge(*args(w_s, s_s, G[j:j + 1], one))
+        merge_equal[algo] = bool(torch.equal(w_m, w_s)
+                                 and torch.equal(s_m, s_s))
+    emit({"phase": "dcn_merge", "card": card, "slots": 8, "d": 2_000,
+          "bit_equal_to_serial": merge_equal})
+    if not all(merge_equal.values()):
+        raise RuntimeError(f"the merge drain is not m serial applies: "
+                           f"{merge_equal}")
+    launches = {"masked_grad": 0, "saga_slots_grad": 0, "compacted_grad": 0,
+                "sparse_saga_slots_grad": 0, "ell_residual": 0}
+    records = dcn.phase(dev)
+    for rec in records:
+        emit({"phase": "dcn", "card": card, **rec})
+        for w in rec["worker_launches"]:
+            launches[rec["task_form"]] += w.get(rec["task_form"], 0)
+            launches["ell_residual"] += w.get("ell_residual", 0)
+    failed = [f"{r['config']}.{r['algo']}.{r['mode']}: "
+              f"{[k for k, v in r['gates'].items() if not v]}"
+              for r in records if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"dcn phase gates failed: {failed}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -1388,6 +1615,15 @@ def main() -> int:
     for name, *shape in S1_CASES:
         recs[name] = s1_case(name, *shape, torch, sg, flush, gen)
         torch.cuda.empty_cache()
+    # the DCN plane's ASAGA worker forms: epsilon's shard at b = 0.1
+    # (sparse_step_capacity(0.1, 50,000) = 5,408 slots), rcv1's task
+    recs["saga_slots_epsilon"] = b1_saga_slots_case(
+        "saga_slots_epsilon", 50_000, 2_000, 5_408, 0.1, torch, mg, flush,
+        gen)
+    recs["s_saga_slots_rcv1"] = s1_saga_slots_case(
+        "s_saga_slots_rcv1", 87_205, 80, 75, 47_236, 0.05, 4_752, torch, sg,
+        flush, gen)
+    torch.cuda.empty_cache()
     del flush
 
     # ------------------------------------------------------- 3. main path
@@ -1473,7 +1709,10 @@ def main() -> int:
     # --------------------------------------------------------- 9. features
     feat = features_phase(torch, card)
 
-    # ------------------------------------------------------ 10. results
+    # -------------------------------------------------------------- 10. dcn
+    dcn_launches = dcn_phase(torch, card)
+
+    # ------------------------------------------------------ 11. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -1502,7 +1741,7 @@ def main() -> int:
         entry("masked_grad", "masked_grad.cu", b1, launches + sum(
             r["launches_on_path"]["masked_grad"]
             for r in (eps_fused, mnist_fused, mnist_run))
-              + feat["masked_grad"],
+              + feat["masked_grad"] + dcn_launches["masked_grad"],
               recs["b_epsilon_idx"], recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
               saga_launches["saga_grad"]
@@ -1511,6 +1750,10 @@ def main() -> int:
         entry("masked_grad.xt_coeff", "masked_grad.cu", b1,
               saga_launches["xt_coeff"], recs["xt_epsilon"],
               recs["xt_epsilon"]["bound_us"] / 1e3),
+        # the DCN ASAGA worker's per-slot form (the worker processes')
+        entry("masked_grad.saga_slots_grad", "masked_grad.cu", b1,
+              dcn_launches["saga_slots_grad"], recs["saga_slots_epsilon"],
+              recs["saga_slots_epsilon"]["bound_us"] / 1e3),
         entry("chunk_attention", "chunk_attention.cu",
               "asyncframework_tpu/ops/pallas_kernels.py:155", att_launches,
               f_rec, f_rec["bound_ms"]),
@@ -1520,17 +1763,22 @@ def main() -> int:
         # the evaluation's full shard
         entry("sparse_grad.compacted_grad", "sparse_grad.cu",
               f"asyncframework_tpu/ops/steps.py:519 {xla}",
-              s1_launches["compacted_grad"] + feat["compacted_grad"],
-              s_task["task"],
+              s1_launches["compacted_grad"] + feat["compacted_grad"]
+              + dcn_launches["compacted_grad"], s_task["task"],
               s_task["task"]["bound_ms"]),
+        entry("sparse_grad.saga_slots_grad", "sparse_grad.cu",
+              f"asyncframework_tpu/ops/steps.py:904 {xla}",
+              dcn_launches["sparse_saga_slots_grad"],
+              recs["s_saga_slots_rcv1"],
+              recs["s_saga_slots_rcv1"]["bound_ms"]),
         entry("sparse_grad.grad_sum", "sparse_grad.cu",
               f"asyncframework_tpu/ops/gradients.py:138 {xla}",
               s1_launches["grad_sum"] + feat["grad_sum"], s_task["grad_sum"],
               s_task["grad_sum"]["bound_ms"]),
         entry("sparse_grad.ell_residual", "sparse_grad.cu",
               f"asyncframework_tpu/ops/gradients.py:131 {xla}",
-              s1_launches["ell_residual"] + feat["ell_residual"], s_eval,
-              s_eval["bound_ms"]),
+              s1_launches["ell_residual"] + feat["ell_residual"]
+              + dcn_launches["ell_residual"], s_eval, s_eval["bound_ms"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -893,3 +893,182 @@ def test_checkpoint_of_a_card_run_restores_on_the_card(dev, tmp_path,
     form = "masked_grad" if solver_name == "asgd" else "saga_grad"
     assert counts[form] >= 100
     assert np.isfinite(more.final_w).all()
+
+
+# ------------------------------------------------ the DCN plane's forms
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["auto", "tiled"])
+@pytest.mark.parametrize("n_valid", [0, 1_500, 5_408])
+def test_saga_slots_form_matches_plain_version(dev, dtype, route, n_valid):
+    """B1's per-slot ASAGA form at the DCN epsilon worker's shape (5,408
+    slots of a 50,000 x 2,000 shard; the staged route, and the tiled one
+    pinned) against its plain version; bit-equal from launch to launch,
+    ``diff`` 0 on padding slots, one launch a call."""
+    import contextlib
+
+    n, d, cap = 50_000, 2_000, 5_408
+    X, y, w, _ = _problem(n, d, dev, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    idx = torch.sort(torch.randperm(n, generator=gen, device=dev)[:cap]).values
+    idx[n_valid:] = 0
+    alpha = torch.randn(cap, generator=gen, device=dev)
+    valid = (torch.arange(cap, device=dev) < n_valid).float()
+    pin = (mg.pinned_route("tiled") if route == "tiled"
+           else contextlib.nullcontext())
+    before = mg.saga_slots_grad.launches
+    with pin:
+        g, diff = mg.saga_slots_grad(X, y, w, idx, alpha, valid)
+        g2, diff2 = mg.saga_slots_grad(X, y, w, idx, alpha, valid)
+    assert mg.saga_slots_grad.launches == before + 2
+    want_g, want_diff = mg.saga_slots_grad_reference(X, y, w, idx, alpha,
+                                                     valid)
+    _close(g, want_g, REL[dtype])
+    _close(diff, want_diff, 1e-5)
+    assert not diff[n_valid:].any()
+    assert torch.equal(g, g2) and torch.equal(diff, diff2)
+
+
+@pytest.mark.parametrize("n_valid", [0, 2_000, 4_752])
+def test_sparse_saga_slots_form_matches_plain_version(dev, n_valid):
+    """S1's per-slot ASAGA form at the DCN rcv1 worker's shape (4,752
+    slots of an 87,205 x 80 shard, d = 47,236) bit-equal to its plain
+    version on CPU copies and to ``compacted_grad`` with the scalars
+    placed at their rows."""
+    from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
+
+    ds = SparseShardedDataset.generate_on_device(
+        87_205 * 2, 47_236, 75, 2, devices=[dev], seed=7, noise=0.01)
+    sh = ds.shard(0)
+    n, cap = sh.y.shape[0], 4_752
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    idx = torch.sort(torch.randperm(n, generator=gen, device=dev)[:cap]).values
+    alpha = torch.randn(cap, generator=gen, device=dev)
+    valid = (torch.arange(cap, device=dev) < n_valid).float()
+    w = torch.randn(47_236, generator=gen, device=dev) * 0.01
+    before = sg.saga_slots_grad.launches
+    g, diff = sg.saga_slots_grad(sh.cols, sh.vals, sh.y, w, idx, valid, alpha)
+    assert sg.saga_slots_grad.launches == before + 1
+    want_g, want_diff = sg.compacted_grad_plain(
+        *(t.cpu() for t in (sh.cols, sh.vals, sh.y, w, idx, valid)), None,
+        alpha.cpu(), alpha_slots=True)
+    assert torch.equal(g.cpu(), want_g) and torch.equal(diff.cpu(), want_diff)
+    full = torch.zeros(n, device=dev)
+    full[idx] = alpha
+    g_rows, _ = sg.compacted_grad(sh.cols, sh.vals, sh.y, w, idx, valid,
+                                  None, full)
+    assert torch.equal(g, g_rows)
+
+
+@pytest.mark.parametrize("algo", ["asgd", "asaga"])
+def test_merge_drain_is_bit_equal_to_serial_applies_on_the_card(dev, algo):
+    from asyncframework_tpu_torch.ops import steps
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    G = torch.randn(8, 2_000, generator=gen, device=dev)
+    mask = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], dtype=torch.float32,
+                        device=dev)
+    w0 = torch.randn(2_000, generator=gen, device=dev)
+    one = torch.ones(1, device=dev)
+    if algo == "asgd":
+        merge = steps.make_asgd_apply_merge(100.0, 0.1, 400_000, 8)
+        s0 = torch.tensor(3.0, device=dev)
+    else:
+        merge = steps.make_saga_apply_merge(0.5, 0.1, 400_000, 8)
+        s0 = torch.randn(2_000, generator=gen, device=dev) * 1e-3
+    if algo == "asgd":
+        w, s = merge(w0, G, mask, s0)
+    else:
+        w, s = merge(w0, s0, G, mask)
+    ws, ss = w0, s0
+    for j in range(8):
+        if mask[j] > 0:
+            if algo == "asgd":
+                ws, ss = merge(ws, G[j:j + 1], one, ss)
+            else:
+                ws, ss = merge(ws, ss, G[j:j + 1], one)
+    assert torch.equal(w, ws) and torch.equal(s, ss)
+
+
+def test_pipelined_transfer_on_the_card(dev):
+    from asyncframework_tpu_torch.ops import steps
+
+    stage, readback = steps.make_pipelined_transfer(dev)
+    rs = np.random.default_rng(0)
+    hosts = [rs.normal(size=2_000).astype(np.float32) for _ in range(5)]
+    staged = [stage(h) for h in hosts]  # two pinned buffers, reused
+    for h, t in zip(hosts, staged):
+        assert np.array_equal(readback(t * 1.0), h)
+
+
+def test_pipelined_staging_beside_other_threads_launches(dev):
+    """Four worker threads share the compute stream, as a worker process's
+    logical workers do, each staging its models on its own side stream
+    while the others' B1 launches run: every gradient is bit-equal to the
+    same step computed alone (a staged model must never land in a block
+    another thread's queued kernels still use)."""
+    import threading
+
+    from asyncframework_tpu_torch.ops import steps
+
+    n, d, cap = 50_000, 2_000, 5_408
+    X, y, _w, sel = _problem(n, d, dev, torch.float32)
+    valid, idx = compact_mask(sel, cap)
+    rs = np.random.default_rng(4)
+    models = [[rs.normal(size=d).astype(np.float32) for _ in range(20)]
+              for _ in range(4)]
+    want = [[mg.masked_grad(X, y, torch.tensor(m, device=dev), valid,
+                            idx).cpu().numpy() for m in ms] for ms in models]
+    got = [[None] * 20 for _ in range(4)]
+    errors = []
+
+    def worker(t):
+        try:
+            stage, readback = steps.make_pipelined_transfer(dev)
+            for j, m in enumerate(models[t]):
+                got[t][j] = readback(mg.masked_grad(X, y, stage(m), valid,
+                                                    idx))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    assert not errors, errors
+    for t in range(4):
+        for j in range(20):
+            assert np.array_equal(got[t][j], want[t][j]), (t, j)
+
+
+def test_saga_slots_form_edges(dev):
+    """A zero-width X launches nothing and gives the plain version's
+    ``diff``; an index outside the shard adds nothing and gets ``diff``
+    0, on the card as in the plain version."""
+    y = torch.arange(5, dtype=torch.float32, device=dev)
+    idx = torch.tensor([1, 3, 7], device=dev)
+    valid = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    alpha = torch.zeros(3, device=dev)
+    before = mg.saga_slots_grad.launches
+    g, diff = mg.saga_slots_grad(torch.zeros(5, 0, device=dev), y,
+                                 torch.zeros(0, device=dev), idx, alpha, valid)
+    assert mg.saga_slots_grad.launches == before and g.shape == (0,)
+    want = mg.saga_slots_grad_reference(torch.zeros(5, 0, device=dev), y,
+                                        torch.zeros(0, device=dev), idx,
+                                        alpha, valid)[1]
+    assert torch.equal(diff, want)
+    assert diff.tolist() == [-1.0, 0.0, 0.0]
+    X, y, w, _ = _problem(40, 8, dev, torch.float32)
+    idx = torch.tensor([0, 39, 40, -1], device=dev)
+    valid = torch.ones(4, device=dev)
+    g, diff = mg.saga_slots_grad(X, y, w, idx, torch.zeros(4, device=dev),
+                                 valid)
+    want_g, want_diff = mg.saga_slots_grad_reference(
+        X, y, w, idx, torch.zeros(4, device=dev), valid)
+    _close(g, want_g, REL[torch.float32])
+    assert torch.equal(diff[2:], torch.zeros(2, device=dev))
+    _close(diff, want_diff, 1e-5)

@@ -150,7 +150,9 @@ def test_long_context_and_asaga_entry_points_refuse_the_cpu():
 
 @pytest.mark.parametrize("kernel", ["chunk_attention", "saga_grad", "xt_coeff",
                                     "ell_residual", "segment_sum",
-                                    "compacted_grad", "grad_sum"])
+                                    "compacted_grad", "grad_sum",
+                                    "saga_slots_grad",
+                                    "sparse_saga_slots_grad"])
 def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
         kernel, monkeypatch):
     if torch.cuda.is_available():
@@ -165,6 +167,7 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
     for mod, name in ((ca, "chunk_attention_reference"),
                       (mg, "saga_grad_reference"),
                       (mg, "xt_coeff_reference"),
+                      (mg, "saga_slots_grad_reference"),
                       (sg, "ell_residual_plain"),
                       (sg, "segment_sum_plain"),
                       (sg, "compacted_grad_plain"),
@@ -176,8 +179,10 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
 
     def counts():
         return (ca.chunk_attention.launches, mg.masked_grad.launches,
+                mg.saga_slots_grad.launches,
                 sg.ell_residual.launches, sg.segment_sum.launches,
-                sg.compacted_grad.launches, sg.grad_sum.launches)
+                sg.compacted_grad.launches, sg.grad_sum.launches,
+                sg.saga_slots_grad.launches)
 
     before = counts()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -189,6 +194,10 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
             mg.saga_grad(X, v6, v3, v6, v6)
         elif kernel == "xt_coeff":
             mg.xt_coeff(fake(torch.ones(6, 3)), fake(torch.ones(6)))
+        elif kernel == "saga_slots_grad":
+            X, v6, v3 = fake(torch.ones(6, 3)), fake(torch.ones(6)), fake(torch.ones(3))
+            idx, v4 = fake(torch.arange(4)), fake(torch.ones(4))
+            mg.saga_slots_grad(X, v6, v3, idx, v4, v4)
         elif kernel == "ell_residual":
             cols = fake(torch.zeros(6, 8, dtype=torch.int32))
             vals, y = fake(torch.ones(6, 8)), fake(torch.ones(6))
@@ -204,6 +213,10 @@ def test_new_wrappers_never_hand_a_cuda_tensor_to_the_plain_version(
             if kernel == "compacted_grad":
                 sg.compacted_grad(cols, vals, y, fake(torch.ones(3)),
                                   alpha=y)
+            elif kernel == "sparse_saga_slots_grad":
+                idx, v4 = fake(torch.arange(4)), fake(torch.ones(4))
+                sg.saga_slots_grad(cols, vals, y, fake(torch.ones(3)), idx,
+                                   v4, v4)
             else:
                 sg.grad_sum(cols, vals, y, 3)
     assert counts() == before
@@ -233,3 +246,18 @@ def test_sparse_entry_points_refuse_the_cpu():
     assert np.isfinite(ASGD(ds, None, SolverConfig(
         num_workers=2, num_iterations=2, printer_freq=1),
         devices=[torch.device("cpu")]).run_sync().final_w).all()
+
+
+def test_the_dcn_plane_is_scanned():
+    """The DCN plane's modules (the parameter server, the wire copies,
+    their native gateway, the conf and the supervisor) are among the
+    sources both guards above read."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("parallel/ps_dcn.py", "parallel/supervisor.py",
+                "native_build.py", "conf.py", "tools/ps_child.py",
+                "metrics/flightrec.py", "metrics/profiler.py",
+                "utils/threads.py", "net/__init__.py", "net/frame.py",
+                "net/wirecodec.py", "net/wiredelta.py", "net/shmring.py",
+                "net/retry.py", "net/session.py", "net/faults.py",
+                "net/lockwatch.py", "net/health.py", "net/protocol.py"):
+        assert rel in scanned, rel

@@ -327,3 +327,75 @@ def test_chunk_sums_in_chunk_order_match_jax(m, dtype):
                            torch.from_numpy(idx[lo:hi]))
     want = jgrad.least_squares_grad_sum(Xj[idx], y[idx], w, weights)
     _close(got, want, rel)
+
+
+# ------------------------------------------- the DCN ASAGA worker's form
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_valid", [0, 29, 64])
+def test_saga_slots_form_matches_the_jax_dcn_step(dtype, n_valid):
+    """B1's per-slot ASAGA form (``masked_grad.saga_slots_grad``: ``alpha``
+    and ``diff`` indexed by slot) and ``steps.make_saga_dcn_worker_step``
+    against the JAX package's ``make_saga_dcn_worker_step`` fed the same
+    numpy ``idx``/``alpha_sel``/``n_valid`` (none, some and every slot of
+    the capacity valid).  Tolerances as the module's: f32 1e-5, bf16 1e-2
+    (of max|.|); padding slots give ``diff`` 0."""
+    from asyncframework_tpu.ops import steps as jsteps
+    from asyncframework_tpu_torch.ops import steps as tsteps
+
+    n, d, cap = 300, 100, 64
+    X, y, w, _ = _problem(n, d, seed=3)
+    rs = np.random.default_rng(8)
+    idx = np.zeros(cap, np.int64)
+    idx[:n_valid] = np.sort(rs.choice(n, size=n_valid, replace=False))
+    alpha = rs.normal(size=cap).astype(np.float32)
+    if dtype == "bfloat16":
+        Xn, Xt = _bf16_rows(X)
+        Xj, rel = jnp.asarray(X, jnp.bfloat16), 1e-2
+    else:
+        Xn, Xt, Xj, rel = X, torch.from_numpy(X), X, 1e-5
+    jg, jdiff = jsteps.make_saga_dcn_worker_step()(
+        Xj, y, w, idx.astype(np.int32), alpha, np.int32(n_valid))
+    before = mg.saga_slots_grad.launches
+    g, diff = tsteps.make_saga_dcn_worker_step()(
+        Xt, torch.from_numpy(y), torch.from_numpy(w), torch.from_numpy(idx),
+        torch.from_numpy(alpha), n_valid)
+    assert mg.saga_slots_grad.launches == before  # the plain version ran
+    assert not diff[n_valid:].any()
+    _close(diff, np.asarray(jdiff, np.float32), rel)
+    _close(g, np.asarray(jg, np.float32), rel)
+    valid = (np.arange(cap) < n_valid).astype(np.float32)
+    want = mg.saga_slots_grad_reference(
+        Xt, torch.from_numpy(y), torch.from_numpy(w), torch.from_numpy(idx),
+        torch.from_numpy(alpha), torch.from_numpy(valid))
+    assert torch.equal(g, want[0]) and torch.equal(diff, want[1])
+    if n_valid == 0:
+        assert not g.any()
+
+
+@pytest.mark.parametrize("n,d", [(40, 8), (40, 0), (0, 8)])
+def test_saga_slots_form_skips_slots_outside_the_shard(n, d):
+    """A slot whose index lies outside ``[0, n)`` adds nothing and gets
+    ``diff`` 0 on the CPU, as the kernel skips it: the result is that of
+    the in-range slots alone, zero-width and empty shards included."""
+    X, y, w, _ = (torch.from_numpy(a) for a in _problem(max(n, 1), d))
+    X, y = X[:n].contiguous(), y[:n].contiguous()
+    idx = torch.tensor([0, n - 1, n, -1, n + 7])
+    alpha = torch.tensor([0.5, -0.25, 2.0, 3.0, 4.0])
+    valid = torch.ones(5)
+    g, diff = mg.saga_slots_grad(X, y, w, idx, alpha, valid)
+    assert g.shape == (d,) and diff.shape == (5,)
+    assert not diff[2:].any()
+    inside = 2 if n else 0
+    want_g, want_diff = mg.saga_slots_grad_reference(
+        X, y, w, idx[:inside], alpha[:inside], valid[:inside])
+    torch.testing.assert_close(g, want_g, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(diff[:inside], want_diff)
+
+
+def test_saga_slots_form_rejects_row_indexed_alpha():
+    X, y, w, _ = (torch.from_numpy(a) for a in _problem(40, 8))
+    idx = torch.arange(8)
+    with pytest.raises(ValueError, match="alpha"):
+        mg.saga_slots_grad(X, y, w, idx, torch.zeros(40), torch.ones(8))
+    with pytest.raises(TypeError, match="idx"):
+        mg.saga_slots_grad(X, y, w, None, torch.zeros(8), torch.ones(8))

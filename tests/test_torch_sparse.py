@@ -772,3 +772,68 @@ def test_move_shard_and_memory_plan_on_a_sparse_shard():
     with pytest.raises(MemoryError):
         check_hbm_plan(ds, cfg, [CPU], history_table=True)
     check_hbm_plan(ds, SolverConfig(num_workers=2), [CPU])
+
+
+# ------------------------------------------- the DCN ASAGA worker's form
+@pytest.mark.parametrize("n_valid", [0, 17, 48])
+def test_saga_slots_form_matches_the_jax_dcn_sparse_step(n_valid):
+    """S1's per-slot form (``sparse_grad.saga_slots_grad``, ``alpha``
+    indexed by slot) and ``steps.make_saga_dcn_sparse_worker_step``
+    against the JAX package's ``make_saga_dcn_sparse_worker_step`` fed the
+    same numpy ``idx``/``alpha_sel``/``n_valid`` (no valid slot, some, and
+    every slot of the capacity): ``diff`` within the residual's tolerance
+    on the valid slots and 0 on the rest, ``g`` bit-equal to the JAX
+    package's sorted scatter fed the port's coefficients and within
+    ``rtol=1e-5, atol=1e-5 * max|g|`` of the JAX step's."""
+    d, cap = 64, 48
+    js, ts = _small(128, d, 0.1, 3)
+    rs = np.random.default_rng(4)
+    idx = np.zeros(cap, np.int64)
+    idx[:n_valid] = np.sort(rs.choice(128, size=n_valid, replace=False))
+    alpha_sel = rs.normal(size=cap).astype(np.float32)
+    alpha_sel[n_valid:] = 0.0  # the PS ships table[0] in padding slots
+    w = rs.normal(size=d).astype(np.float32)
+    jg, jdiff = jsteps.make_saga_dcn_sparse_worker_step(d)(
+        js.cols, js.vals, js.y, w, idx.astype(np.int32), alpha_sel,
+        np.int32(n_valid))
+    before = sg.compacted_grad_plain.calls
+    g, diff = tsteps.make_saga_dcn_sparse_worker_step(d)(
+        ts.cols, ts.vals, ts.y, *_t(w, idx, alpha_sel), n_valid)
+    assert sg.compacted_grad_plain.calls == before + 1
+    assert not diff[n_valid:].any()
+    _close(diff[:n_valid], np.asarray(jdiff)[:n_valid])
+    _close(g, jg)
+    valid = (np.arange(cap) < n_valid).astype(np.float32)
+    c_sel = np.asarray(js.cols)[idx]
+    v_sel = np.asarray(js.vals)[idx] * valid[:, None]
+    _equal(g, jgrad.make_sparse_grad_sum(d)(c_sel, v_sel,
+                                            diff.numpy() - alpha_sel))
+    # the same task as compacted_grad with alpha placed at the rows
+    full = np.zeros(128, np.float32)
+    full[idx[:n_valid]] = alpha_sel[:n_valid]
+    g2, diff2 = sg.compacted_grad(ts.cols, ts.vals, ts.y,
+                                  *_t(w, idx, valid), d, _t(full)[0])
+    _equal(g, g2.numpy())
+    _equal(diff, diff2.numpy())
+    if n_valid == 0:
+        assert not g.any()
+
+
+def test_saga_slots_form_takes_alpha_by_slot_and_checks_its_inputs():
+    d = 32
+    _js, ts = _small(64, d, 0.2, 5)
+    w, idx, valid = _t(np.ones(d, np.float32), np.arange(8, dtype=np.int64),
+                       np.ones(8, np.float32))
+    with pytest.raises(ValueError, match="shape"):
+        sg.saga_slots_grad(ts.cols, ts.vals, ts.y, w, idx, valid,
+                           torch.zeros(64))  # a row-indexed alpha
+    with pytest.raises(ValueError, match="idx and valid"):
+        sg.saga_slots_grad(ts.cols, ts.vals, ts.y, w, None, valid,
+                           torch.zeros(8))
+    g, diff = sg.saga_slots_grad(ts.cols, ts.vals, ts.y, w, idx, valid,
+                                 torch.arange(8, dtype=torch.float32))
+    want_g, want_diff = sg.compacted_grad_plain(
+        ts.cols, ts.vals, ts.y, w, idx, valid, d,
+        torch.arange(8, dtype=torch.float32), alpha_slots=True)
+    _equal(g, want_g.numpy())
+    _equal(diff, want_diff.numpy())
