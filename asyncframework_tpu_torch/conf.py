@@ -143,10 +143,10 @@ class AsyncConf:
 
 
 # --------------------------------------------------------------------------
-# Registered entries: the knobs of the DCN plane that this package reads,
-# each a copy of the JAX package's entry.  The switches of the cluster path
+# Registered entries: the knobs of the DCN plane and of the telemetry
+# plane that this package reads, each a copy of the JAX package's entry.  The switches of the cluster path
 # it does not run yet (async.ps.shards, async.ps.standby, async.mesh.devices,
-# async.fence.enabled, async.convergence.sample, async.control.enabled) are
+# async.fence.enabled, async.control.enabled) are
 # registered so that the PS and its workers can refuse them when set.
 # --------------------------------------------------------------------------
 # ------------------------------------------------------------- net plane
@@ -401,6 +401,158 @@ CONV_SAMPLE = ConfigEntry(
     "loss-vs-wallclock / loss-vs-version curves.  0 = off (the default: "
     "the piggyback adds header bytes, and byte-identity suites compare "
     "exact wires); async-cluster flips it to 16.")
+# ------------------------------------------------------------- live UI
+UI_PORT = ConfigEntry("async.ui.port", -1, int,
+                      "Live dashboard HTTP port (0 = ephemeral, -1 = off) "
+                      "-- spark.ui.port analog.")
+# --------------------------------------------------------- telemetry plane
+# Continuous telemetry (metrics/timeseries.py, metrics/prom.py,
+# metrics/slo.py): every process samples its counter families into a
+# bounded time-series store, exposes Prometheus text exposition on
+# /metrics, folds convergence samples into loss-vs-wallclock /
+# loss-vs-version curves, and evaluates declarative SLO rules over
+# time-series windows.
+METRICS_PORT = ConfigEntry(
+    "async.metrics.port", -1, int,
+    "Per-process telemetry HTTP port serving /metrics (Prometheus text "
+    "exposition) and /api/status (-1 = off, 0 = ephemeral).  Processes "
+    "that already serve a live UI (async.ui.port) expose /metrics there "
+    "too; this knob adds the endpoint to processes with no dashboard -- "
+    "workers, serving replicas, frontends, the master.  k8s manifests "
+    "set it to 9095 via env and annotate pods for scraping.")
+METRICS_INTERVAL_S = ConfigEntry(
+    "async.metrics.interval.s", 1.0, float,
+    "Telemetry sampler period: every tick records each counter family "
+    "and derived source into the bounded time-series store and runs one "
+    "SLO evaluation pass.  <= 0 disables sampling (the /metrics "
+    "exposition still serves instantaneous values).")
+METRICS_RETENTION = ConfigEntry(
+    "async.metrics.retention", 512, int,
+    "Samples retained per time series (bounded ring; oldest evict "
+    "first, counted).  At the default 1 s interval this is ~8.5 min of "
+    "history per series; RAM is O(series x retention) small floats.")
+SLO_RULES = ConfigEntry(
+    "async.slo.rules",
+    "serve_freshness: p95(serving.freshness_lag_ms) < 2000 over 15s "
+    "for 2s; "
+    "predict_p99: max(serving.predict_ms_p99) < 500 over 30s for 5s; "
+    "staleness_ms: max(trace.staleness_ms_p95) < 60000 over 30s for 5s; "
+    "updates_floor: rate(ps.accepted) > 0.5 over 30s for 10s "
+    "unless ps.done; "
+    "shard_availability: max(ps_shards.dark_ranges) < 1 over 15s "
+    "for 3s unless ps_shards.done; "
+    "standby_lag: max(ps.standby_lag) < 512 over 15s for 5s "
+    "unless ps.done; "
+    "fenced_writes: rate(recovery.fenced_rejects) < 1 over 30s for 10s; "
+    "controller_converged: rate(control.changes) < 0.5 over 20s for 5s "
+    "unless observer.fleet_done; "
+    "fleet_stragglers: max(observer.straggler_score) < 2.5 over 30s "
+    "for 10s unless observer.fleet_done; "
+    "fleet_freshness: max(observer.freshness_lag_ms) < 5000 over 30s "
+    "for 5s unless observer.fleet_done; "
+    "fleet_roles: max(observer.roles_down) < 1 over 30s for 10s "
+    "unless observer.fleet_done",
+    str,
+    "Declarative SLO rule set (metrics/slo.py grammar: '<name>: "
+    "<agg>(<series>) <op> <threshold> [over Ns] [for Ns] "
+    "[unless <series>]', clauses ';'-separated; 'unless' gates a rule "
+    "to no_data while its series' last sample is truthy -- the "
+    "updates/s floor stands down once the run is DONE instead of "
+    "firing forever on a finished-but-still-serving PS).  Evaluated "
+    "over time-series windows each sampler "
+    "tick; rule states (ok/pending/firing/no_data, with burn "
+    "durations) surface as the /api/status 'health' section and the "
+    "async_slo_state gauges on /metrics.  Rules whose series never "
+    "produce samples report no_data and never fire.")
+# -------------------------------------------------------- cluster observer
+# Central collector (metrics/observer.py + bin/async-mon): discovers every
+# role, scrapes /api/status + /metrics over the net/ retry plane, persists
+# a durable per-run per-role history store, derives cross-role signals
+# (straggler scores, merge-queue pressure, fleet freshness) as the
+# ``observer.*`` series the fleet SLO rules watch, and harvests crash
+# flight-recorder dumps.
+OBSERVER_INTERVAL_S = ConfigEntry(
+    "async.observer.interval.s", 1.0, float,
+    "Collector scrape period: every tick fetches each discovered role's "
+    "/api/status, folds the numbers into the per-run history store, and "
+    "recomputes the derived observer.* signals.  <= 0 disables the "
+    "scrape loop (scrape_once() still works on demand).")
+OBSERVER_ENDPOINTS = ConfigEntry(
+    "async.observer.endpoints", "", str,
+    "Static scrape targets beside discovery, ';'-separated "
+    "'name=role@host:port' entries (role and name optional: "
+    "'host:port' scrapes as role 'process').  The k8s observer "
+    "Deployment passes the per-role Services here.")
+OBSERVER_HISTORY_DIR = ConfigEntry(
+    "async.observer.history.dir", "", str,
+    "Root directory of the durable run-history store (one run-<id>/ "
+    "subdir per observed run: meta.json + per-role compacted series + "
+    "harvested flight-recorder dumps; bin/async-history renders an "
+    "index over it).  Empty = in-memory only, nothing persisted.")
+OBSERVER_HISTORY_POINTS = ConfigEntry(
+    "async.observer.history.points", 512, int,
+    "Per-series capacity of the run-history store.  At capacity every "
+    "other point is dropped and the acceptance stride doubles "
+    "(ConvergenceHistory's compaction), so a persisted series spans "
+    "the WHOLE run at bounded disk/RAM instead of forgetting its "
+    "start.")
+OBSERVER_PERSIST_S = ConfigEntry(
+    "async.observer.persist.s", 5.0, float,
+    "How often the collector persists the run-history store to disk "
+    "(atomic per-role files via checkpoint.durable_replace; also "
+    "persisted once at stop).  <= 0 persists only at stop.")
+OBSERVER_STRAGGLER_FACTOR = ConfigEntry(
+    "async.observer.straggler.factor", 2.5, float,
+    "A worker whose straggler score (max over the compute / push-RTT / "
+    "push-interval / staleness dimensions of worker_value over "
+    "cohort_median) reaches this factor is flagged in the fleet view "
+    "and counted in observer.stragglers_flagged -- the input surface "
+    "for delay-adaptive control (ROADMAP item 2).")
+# --------------------------------------------------------- flight recorder
+FLIGHT_DIR = ConfigEntry(
+    "async.flight.dir", "", str,
+    "Crash flight recorder dump directory (metrics/flightrec.py): when "
+    "set, this process keeps a bounded in-memory ring of recent "
+    "events/spans/counter deltas and writes it to "
+    "flight-<role>-<pid>.json here -- atomically on a cadence, plus a "
+    "final dump on SIGTERM/SIGINT/atexit -- so even a SIGKILL leaves a "
+    "post-mortem at most one flush behind.  The cluster observer "
+    "harvests these into the run-history store.  Empty = off (the "
+    "default: zero hot-path work).")
+FLIGHT_EVENTS = ConfigEntry(
+    "async.flight.events", 256, int,
+    "Flight-recorder ring capacity in events (oldest evict first, "
+    "counted).  Bounds both RAM and the dump file size.")
+FLIGHT_FLUSH_S = ConfigEntry(
+    "async.flight.flush.s", 0.5, float,
+    "Flight-recorder flush cadence: how stale an uncatchable-kill "
+    "(SIGKILL) post-mortem can be.  Each flush also records one "
+    "counter-delta event (non-zero registry family deltas since the "
+    "previous flush).  <= 0 disables the flush thread (dumps only on "
+    "fatal signal / exit).")
+# --------------------------------------------------- continuous profiling
+PROF_ENABLED = ConfigEntry(
+    "async.prof.enabled", 0, int,
+    "Continuous profiling plane (metrics/profiler.py): 1 starts the "
+    "stack sampler and arms the exact zone accumulators at the wire/"
+    "merge/dispatch choke points; snapshots ride /api/status, the "
+    "observer run history, and every flight-recorder dump.  0 (the "
+    "default) is asserted byte-identical on the wire and zero-overhead "
+    "on the hot path: zone() returns the shared no-op context manager "
+    "and wrap_dispatch() returns the step callable unchanged.")
+PROF_HZ = ConfigEntry(
+    "async.prof.hz", 97.0, float,
+    "Sampling-profiler frequency in Hz (prime, to avoid lockstep with "
+    "periodic work).  Sampling error for a zone with true share p "
+    "after N samples is ~sqrt(p(1-p)/N): 97 Hz resolves a 10% zone to "
+    "+-0.4% over a 60 s window.  <= 0 keeps the exact zone "
+    "accumulators but starts no sampler thread.")
+PROF_STACKS = ConfigEntry(
+    "async.prof.stacks", 256, int,
+    "Bound on DISTINCT collapsed stacks the sampler keeps (bounds RAM "
+    "and snapshot size).  Beyond it, new stacks are dropped and "
+    "counted in profile.stack_overflow -- never evicted, which would "
+    "bias long-running hot stacks out of the flamegraph.")
 # -------------------------------------------------------- adaptive control
 # The closed loop from cluster telemetry to the async knobs
 # (parallel/controller.py): an AsyncController on the primary PS

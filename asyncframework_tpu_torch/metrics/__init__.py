@@ -1,14 +1,20 @@
 """Observability: event bus, event logging/replay, metrics registry+sinks.
 
-Counterpart of ``asyncframework_tpu/metrics/``, in the part the solvers'
-run sinks need: the listener bus (``bus.py``), the JSONL event log and its
+Counterpart of ``asyncframework_tpu/metrics/``, each module a copy of the
+JAX package's: the listener bus (``bus.py``), the JSONL event log and its
 reader (``eventlog.py``), the polled metrics system with CSV/JSONL sinks
-(``system.py``), lifecycle tracing (``trace.py``) and the HTML report
-(``report.py``), each a copy of the JAX package's module, and the hooks of the
-flight recorder and profiler that the DCN plane calls (``flightrec.py``,
-``profiler.py``; the recorders themselves come with ROADMAP A5b).  An event log written by either package is read by the
-other's reader.  The rest of the telemetry plane (live UI, registry, SLOs,
-time series, Prometheus, observer) is not ported yet (ROADMAP.md A5b).
+(``system.py``), lifecycle tracing (``trace.py``), the HTML report
+(``report.py``), and the telemetry plane: the counter-family registry
+(``registry.py``), the time-series store and convergence history
+(``timeseries.py``), SLO rules (``slo.py``), the Prometheus exposition
+(``prom.py``), the live UI and per-process endpoints (``live.py``), the
+crash flight recorder (``flightrec.py``), the continuous profiler
+(``profiler.py``), the cluster observer (``observer.py``), ``async-top``
+(``top.py``) and the run-history index (``history.py``).  An event log,
+a ``/metrics`` body, a flight dump or a ``cv`` sample written by either
+package is read by the other.  The parts of subsystems this package does
+not have yet (serving, shuffle, the sharded PS group, replication and the
+controller) are left out, each naming its ROADMAP item.
 """
 
 from asyncframework_tpu_torch.metrics.bus import (
@@ -34,6 +40,10 @@ from asyncframework_tpu_torch.metrics.system import (
     JsonlSink,
     MetricsSystem,
 )
+from asyncframework_tpu_torch.metrics.timeseries import (
+    ConvergenceHistory,
+    TimeSeriesStore,
+)
 from asyncframework_tpu_torch.metrics.trace import (
     Span,
     TraceAggregator,
@@ -43,23 +53,23 @@ from asyncframework_tpu_torch.metrics.trace import (
 
 
 def reset_totals() -> None:
-    """Zero the process-global observability state this package has, so
-    back-to-back runs in one process start clean: the trace aggregator and
-    the counter families of the DCN plane (net, native, codec, recovery,
-    pipeline).  The JAX package walks its counter-family registry and
-    resets the SLO engine here; those modules come with the telemetry
-    plane (ROADMAP A5b)."""
-    from asyncframework_tpu_torch import native_build
-    from asyncframework_tpu_torch.metrics import trace as _trace
-    from asyncframework_tpu_torch.net import reset_net_totals, wirecodec
-    from asyncframework_tpu_torch.parallel import ps_dcn, supervisor
+    """Zero EVERY process-global observability counter so back-to-back
+    runs in one process -- tests, notebooks, long-lived daemons -- start
+    from a clean slate instead of inheriting the previous run's counts.
 
+    The counter families are enumerated by the one registry
+    (``metrics/registry.py``) -- adding a family there wires it into this
+    reset, the live UI's per-run delta baselines, the telemetry sampler,
+    and the Prometheus exposition at once.  The trace aggregator and SLO
+    rule states are not flat counter dicts, so they reset beside the
+    registry walk."""
+    from asyncframework_tpu_torch.metrics import registry as _registry
+    from asyncframework_tpu_torch.metrics import slo as _slo
+    from asyncframework_tpu_torch.metrics import trace as _trace
+
+    _registry.reset_all()
     _trace.reset_aggregator()
-    reset_net_totals()
-    native_build.reset_native_totals()
-    wirecodec.reset_codec_totals()
-    supervisor.reset_recovery_totals()
-    ps_dcn.reset_pipeline_totals()
+    _slo.reset_engine()
 
 
 __all__ = [
@@ -87,5 +97,7 @@ __all__ = [
     "TraceAggregator",
     "TraceContext",
     "TraceRecorder",
+    "TimeSeriesStore",
+    "ConvergenceHistory",
     "reset_totals",
 ]

@@ -38,13 +38,17 @@ calibration.  The data plane keeps version-cached replies, delta pulls
 (``net/``), exactly-once pushes (``net/session.py``), the elastic
 supervisor, checkpoints and ``collect_eval``.
 
+The telemetry plane rides along as there: the PS registers its ``ps``
+time-series source and ``ps_workers`` status section, folds the
+convergence samples that workers of either package piggyback on PUSH and
+BYE (``cv``, ``async.convergence.sample``), and workers advertise their
+telemetry port on HELLO (``mport``).
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item (A6b unless stated): the hot standby, replication and
-promotion; epoch fencing; the adaptive controller and damped apply;
-SUBSCRIBE and relay offers; sharded PS groups (``async.ps.shards > 1``);
-the mesh worker steps (``async.mesh.devices > 1``); convergence telemetry
-and the live UI's sections (A5b).  Convergence samples that a JAX-package
-worker piggybacks (``cv``) are not folded.
+ROADMAP item (A6b): the hot standby, replication and promotion; epoch
+fencing; the adaptive controller and damped apply; SUBSCRIBE and relay
+offers; sharded PS groups (``async.ps.shards > 1``); the mesh worker
+steps (``async.mesh.devices > 1``).
 """
 
 from __future__ import annotations
@@ -126,6 +130,27 @@ def _pl_fold(delta: Dict[str, int]) -> None:
                 _pl_totals[k] = _pl_totals.get(k, 0) + v
 
 
+# ------------------------------------------ convergence samples taken
+# Worker-side count of the convergence samples this process's update
+# loops took (one evaluation of the shard each, buffered for a PUSH
+# header): the number the PS's ``offered`` count is held against.
+_cv_lock = threading.Lock()
+_cv_taken = 0
+
+
+def conv_samples_taken() -> int:
+    """Convergence samples taken by this process's workers since the last
+    :func:`reset_conv_samples_taken`."""
+    with _cv_lock:
+        return _cv_taken
+
+
+def reset_conv_samples_taken() -> None:
+    global _cv_taken
+    with _cv_lock:
+        _cv_taken = 0
+
+
 def _refuse(what: str, item: str = "A6b") -> None:
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
@@ -137,14 +162,19 @@ def refuse_unported_conf() -> None:
     one must never run a plainer run without a word."""
     from asyncframework_tpu_torch.conf import (
         CONTROL_ENABLED,
-        CONV_SAMPLE,
         MESH_DEVICES,
         PS_SHARDS,
         PS_STANDBY,
+        UI_PORT,
         global_conf,
     )
 
     conf = global_conf()
+    if int(conf.get(UI_PORT)) >= 0:
+        # the JAX package's cluster CLI serves its run dashboard on
+        # it; a port run takes SolverConfig.ui_port, a port process
+        # async.metrics.port
+        _refuse("the cluster CLI's live dashboard (async.ui.port)", "A8")
     if int(conf.get(PS_SHARDS)) > 1:
         _refuse("a sharded PS group (async.ps.shards > 1)")
     if int(conf.get(PS_STANDBY)) > 0:
@@ -153,8 +183,32 @@ def refuse_unported_conf() -> None:
         _refuse("the adaptive controller (async.control.enabled)")
     if int(conf.get(MESH_DEVICES)) > 1:
         _refuse("the mesh worker steps (async.mesh.devices > 1)")
-    if int(conf.get(CONV_SAMPLE)) > 0:
-        _refuse("convergence telemetry (async.convergence.sample)", "A5b")
+
+
+def _cv_fold(wire, clock: int = 0,
+             wall_ms: Optional[float] = None) -> None:
+    """Fold piggybacked convergence samples (the ``cv`` PUSH/BYE header
+    entry: ``[[version, loss, grad_norm], ...]``) into the process-global
+    :class:`~asyncframework_tpu_torch.metrics.timeseries.ConvergenceHistory`,
+    stamped with the PS run clock's wallclock and the staleness the PS
+    observes (merge clock minus the sample's model version).  Dedup'd
+    PUSH retries never reach the handlers, so a sample folds exactly
+    once -- the span/pipeline-counter discipline."""
+    if not wire:
+        return
+    from asyncframework_tpu_torch.metrics import timeseries as _ts
+
+    conv = _ts.convergence()
+    now_ms = wall_ms if wall_ms is not None else time.time() * 1e3
+    for item in wire:
+        try:
+            version = int(item[0])
+            loss = item[1]
+            gnorm = item[2] if len(item) > 2 else None
+        except (TypeError, ValueError, IndexError):
+            continue  # junk from the wire must not kill the handler
+        conv.add(now_ms, version, loss=loss, grad_norm=gnorm,
+                 staleness=max(0, clock - version) if clock else None)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -461,6 +515,13 @@ class ParameterServer:
         self._last_contact: Dict[int, float] = {}
         self.pushes_by_wid: Dict[int, int] = {}
         self.accepted_by_wid: Dict[int, int] = {}
+        # per-worker straggler stats (cluster observer input surface):
+        # merge-time facts (staleness, push inter-arrival EWMA) land at
+        # drain, latency facts (compute / push.rtt EWMAs) land when this
+        # worker's piggybacked spans fold.  Own lock: span folds run on
+        # connection handler threads, outside the model lock by design.
+        self._wstats_lock = threading.Lock()
+        self._wstats: Dict[int, Dict[str, float]] = {}
         self.membership_rejects = 0  # pushes from deposed shard servers
         # exactly-once-applied PUSH: a retried (sid, seq) re-sends the
         # cached ACK instead of merging the gradient twice (net/session.py).
@@ -523,7 +584,101 @@ class ParameterServer:
             self._ckpt_thread.start()
         if self.supervisor is not None:
             self.supervisor.start()
+        # continuous telemetry (metrics/timeseries.py): this PS's core
+        # scalars become the ``ps.*`` time series every sampler tick --
+        # the updates/s-floor SLO (rate(ps.accepted)).  Last registration
+        # wins, matching "the live PS owns the dashboard"; stop() unhooks
+        # only itself.
+        from asyncframework_tpu_torch.metrics import timeseries as _ts
+
+        self._ts_source = self._telemetry_source
+        _ts.register_source("ps", self._ts_source)
+        # per-worker stats on /api/status (``ps_workers`` section): the
+        # cluster observer's straggler scoring reads it -- same
+        # last-registration-wins + identity-gated-unregister discipline
+        # as the ``ps`` series source
+        from asyncframework_tpu_torch.metrics import live as _live
+
+        self._workers_section = self.worker_stats
+        _live.register_status_section("ps_workers", self._workers_section)
+        _ts.ensure_started()
         return self
+
+    def worker_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-worker straggler inputs (JSON-able; the ``ps_workers``
+        /api/status section): accepted/dropped counts, last observed
+        staleness, push inter-arrival EWMA, and -- when this worker's
+        spans fold here -- compute and push-RTT EWMAs."""
+        with self._wstats_lock:
+            return {str(w): dict(st) for w, st in self._wstats.items()}
+
+    _EWMA_A = 0.3  # per-worker EWMA weight (a few pushes to converge)
+
+    def _wstat_merge(self, wid: int, staleness: int,
+                     accepted: bool) -> None:
+        """Merge-time per-worker facts; called at drain (model lock
+        held) -- a dict update, same cost class as accepted_by_wid."""
+        now_ms = time.monotonic() * 1e3
+        with self._wstats_lock:
+            st = self._wstats.setdefault(int(wid), {})
+            st["accepted"] = st.get("accepted", 0) + int(accepted)
+            st["dropped"] = st.get("dropped", 0) + int(not accepted)
+            st["staleness"] = int(staleness)
+            last = st.get("last_seen_ms")
+            if last is not None and now_ms > last:
+                iv = now_ms - last
+                prev = st.get("interval_ms")
+                st["interval_ms"] = round(
+                    iv if prev is None
+                    else self._EWMA_A * iv + (1 - self._EWMA_A) * prev, 3)
+            st["last_seen_ms"] = now_ms
+
+    def _wstat_span(self, span: "_trace.Span") -> None:
+        """Latency facts from a folded span (compute / push.rtt).
+
+        Only updates entries :meth:`_wstat_merge` already created: spans
+        fold at PUSH receive (handler threads), merges at drain -- a
+        span-only entry would carry a one-sample EWMA with no
+        ``accepted`` count, bypassing the observer's warm-up guard and
+        flagging a booting worker on its very first sample."""
+        if span.worker_id is None or span.dur_ms is None:
+            return
+        if span.stage == _trace.COMPUTE:
+            key = "compute_ms"
+        elif span.stage == _trace.PUSH_RTT:
+            key = "rtt_ms"
+        else:
+            return
+        with self._wstats_lock:
+            st = self._wstats.get(int(span.worker_id))
+            if st is None:
+                return
+            prev = st.get(key)
+            st[key] = round(
+                span.dur_ms if prev is None
+                else self._EWMA_A * span.dur_ms
+                + (1 - self._EWMA_A) * prev, 3)
+
+    def _telemetry_source(self) -> Dict[str, float]:
+        """Flat scalars the time-series sampler records as ``ps.<key>``
+        (lock-free reads of ints: a tick may see a torn multi-field view,
+        but each individual series stays monotone/correct)."""
+        out = {
+            "clock": self._clock,
+            "k": self._k,
+            "accepted": self.accepted,
+            "dropped": self.dropped,
+            "push_bytes": self.push_bytes,
+            "max_staleness": self.max_staleness,
+            # merge-queue backlog at this instant: the observer prices
+            # it against the push rate (queue growing faster than the
+            # drain = the apply plane is the bottleneck)
+            "queue_depth": len(self._merge_q),
+            "done": int(self._done.is_set()),
+        }
+        # (the JAX package's standby_lag / standby scalars come with the
+        # hot standby, ROADMAP A6b)
+        return out
 
     # ---------------------------------------------------------- checkpointing
     def _checkpoint_state(self) -> dict:
@@ -715,6 +870,7 @@ class ParameterServer:
         with self._trace_lock:
             self.trace_spans += 1
         self._trace_agg.add(span)
+        self._wstat_span(span)
         if self.bus is not None:
             self.bus.post(_trace.span_event(span, self._bus_time_ms()))
 
@@ -805,9 +961,11 @@ class ParameterServer:
                     _send_msg(conn, {"op": "ACK"})
                 elif op == "BYE":
                     # a departing worker's last completed spans and its
-                    # final pipeline-counter deltas
+                    # final pipeline-counter / convergence deltas
                     self._fold_wire_spans(header.get("spans"))
                     _pl_fold(header.get("pl"))
+                    _cv_fold(header.get("cv"), clock=self._clock,
+                             wall_ms=self._bus_time_ms())
                     _send_msg(conn, {"op": "ACK"})
                     return
                 elif op == "SHM_OPEN":
@@ -1096,6 +1254,12 @@ class ParameterServer:
         # present when the worker runs the pipelined loop): dedup'd
         # retries never reach this handler, so a delta folds exactly once
         _pl_fold(header.get("pl"))
+        # convergence samples (conf-gated, async.convergence.sample):
+        # (version, loss, grad_norm) tuples fold into the loss-vs-wallclock
+        # / loss-vs-version curves, stamped with THIS PS's run clock and
+        # the staleness it observes right now
+        _cv_fold(header.get("cv"), clock=self._clock,
+                 wall_ms=self._bus_time_ms())
         tc = _trace.TraceContext.from_wire(header["tc"]) \
             if "tc" in header else None
         t_queue0 = _trace.now_ms() if tc is not None else 0.0
@@ -1283,6 +1447,7 @@ class ParameterServer:
             item.task_ms = task_ms
             item.accepted = accepted
             item.k_at_merge = self._k
+            self._wstat_merge(item.wid, staleness, accepted)
             ack = {"op": "ACK", "accepted": bool(accepted),
                    "done": self._done.is_set()}
             # record INSIDE the lock, before any send: (1) a retry after a
@@ -1483,6 +1648,16 @@ class ParameterServer:
     def stop(self) -> None:
         self._stop.set()
         self._done.set()
+        if getattr(self, "_ts_source", None) is not None:
+            from asyncframework_tpu_torch.metrics import timeseries as _ts
+
+            # identity-gated: a stopped PS must not unhook its replacement
+            _ts.unregister_source("ps", self._ts_source)
+        if getattr(self, "_workers_section", None) is not None:
+            from asyncframework_tpu_torch.metrics import live as _live
+
+            _live.unregister_status_section("ps_workers",
+                                            self._workers_section)
         if self.supervisor is not None:
             self.supervisor.stop()
         with self._wave_cv:
@@ -1590,10 +1765,12 @@ class PSClient:
         # same way spans do.  None (every non-pipelined client) = no
         # header field, byte-identical wire.
         self.pl_stats = pl_stats
-        # convergence telemetry (the JAX package's ConvergenceBuffer) is
-        # ROADMAP A5b: no ``cv`` header field, the legacy wire
-        if cv_buf is not None:
-            _refuse("convergence telemetry (cv_buf)", "A5b")
+        # convergence telemetry (metrics/timeseries.ConvergenceBuffer):
+        # buffered (version, loss, grad_norm) samples ride PUSH/BYE
+        # headers as the ``cv`` entry, same discipline as spans and
+        # pipeline counters.  None (the default) = no header field,
+        # byte-identical wire.
+        self.cv_buf = cv_buf
         # elastic membership: the worker PROCESS token stamped on every
         # PULL/PUSH so the PS supervisor knows who serves which shard;
         # None = classic fixed-membership client
@@ -1710,8 +1887,16 @@ class PSClient:
             pstart = supervisor_mod.proc_start_time(pid)
             if pstart is not None:
                 hdr["pstart"] = pstart
-        # no telemetry endpoint to advertise (``mport``): the live UI is
-        # ROADMAP A5b, and the key stays absent as on the legacy wire
+        # advertise this process's telemetry endpoint (when one serves):
+        # the supervisor records it per member and the cluster observer
+        # discovers worker scrape targets from the membership instead of
+        # needing static endpoints.  Absent when telemetry is off -- the
+        # byte-identity suites' wire is unchanged.
+        from asyncframework_tpu_torch.metrics import live as _live
+
+        mport = _live.telemetry_port()
+        if mport:
+            hdr["mport"] = int(mport)
         header, _ = self._call_raw(hdr)
         return header
 
@@ -2027,17 +2212,26 @@ class PSClient:
             pl_delta = self.pl_stats.take_wire()
             if pl_delta:
                 hdr["pl"] = pl_delta
-        return hdr, payload, spans, pl_delta, []
+        cv_wire: List[list] = []
+        if self.cv_buf is not None:
+            # convergence-sample piggyback: drain the unshipped tail (a
+            # bounded slice; the rest rides later pushes)
+            cv_wire = self.cv_buf.take_wire()
+            if cv_wire:
+                hdr["cv"] = cv_wire
+        return hdr, payload, spans, pl_delta, cv_wire
 
     def _requeue_piggybacks(self, spans: List[dict], pl_delta: dict,
                             cv_wire: Optional[List[list]] = None) -> None:
         """A push whose whole retry budget was spent must not silently eat
-        its piggybacked telemetry: spans and counter deltas go back to
-        ride the next push/BYE."""
+        its piggybacked telemetry: spans, counter deltas, and convergence
+        samples go back to ride the next push/BYE."""
         if spans and self.recorder is not None:
             self.recorder.requeue(spans)
         if pl_delta and self.pl_stats is not None:
             self.pl_stats.merge_back(pl_delta)
+        if cv_wire and self.cv_buf is not None:
+            self.cv_buf.merge_back(cv_wire)
 
     def push(self, wid: int, ts: int, g: np.ndarray,
              sparse: bool = False, diff: Optional[np.ndarray] = None,
@@ -2249,6 +2443,12 @@ class PSClient:
                     pl_delta = self.pl_stats.take_wire()
                     if pl_delta:
                         hdr["pl"] = pl_delta
+                if self.cv_buf is not None:
+                    # the final unshipped convergence samples leave with
+                    # the goodbye, like the last traced update's spans
+                    cv_wire = self.cv_buf.take_wire()
+                    if cv_wire:
+                        hdr["cv"] = cv_wire
                 _send_msg(self._sock, hdr)
                 _recv_msg(self._sock)
         except (ConnectionError, OSError):
@@ -2306,7 +2506,11 @@ def run_worker_process(
     from asyncframework_tpu_torch.ops import steps
     from asyncframework_tpu_torch.ops.sampling import worker_generator
 
-    from asyncframework_tpu_torch.conf import PIPELINE_DEPTH, global_conf
+    from asyncframework_tpu_torch.conf import (
+        CONV_SAMPLE,
+        PIPELINE_DEPTH,
+        global_conf,
+    )
 
     refuse_unported_conf()
     proc_token = proc_token or f"{socket.gethostname()}-{os.getpid()}"
@@ -2339,10 +2543,43 @@ def run_worker_process(
         # push must commit against
         pipe_depth = 0
     pl_stats = _PipelineStats() if pipe_depth > 0 else None
+    # convergence telemetry (async.convergence.sample): every Nth update
+    # per logical worker
+    # evaluates the shard's mean loss (one extra evaluation against the
+    # model the gradient was computed on: dense, one product; padded ELL,
+    # one launch of S1's residual) plus the gradient norm, and buffers the
+    # (version, loss, grad_norm) sample for the next PUSH header's ``cv``
+    # entry -- the PS folds them into the process-global
+    # loss-vs-wallclock / loss-vs-version curves (metrics/timeseries.py).
+    # 0 = off: no eval, no header field, byte-identical wire.
+    conv_every = max(0, int(global_conf().get(CONV_SAMPLE)))
+    cv_buf = None
+    conv_eval = None
+    if conv_every > 0:
+        from asyncframework_tpu_torch.metrics.timeseries import (
+            ConvergenceBuffer,
+        )
 
-    def make_client(recorder=None, pl_stats=None):
+        cv_buf = ConvergenceBuffer()
+        conv_eval = (steps.make_sparse_trajectory_loss_eval() if sparse
+                     else steps.make_trajectory_loss_eval(
+                         getattr(cfg, "loss", "least_squares")))
+
+    def conv_sample(shard, w_dev, ts, g_host: np.ndarray) -> None:
+        """One convergence sample: shard mean loss at the pulled model +
+        gradient norm, buffered for the PUSH piggyback and counted.  A
+        failed evaluation raises like a failed gradient step: a sample is
+        never dropped without a word."""
+        global _cv_taken
+        sums = conv_eval(*shard_args(shard), w_dev[None, :])
+        loss = float(sums[0]) / max(1, int(shard.y.shape[0]))
+        cv_buf.add(int(ts), loss, float(np.linalg.norm(g_host)))
+        with _cv_lock:
+            _cv_taken += 1
+
+    def make_client(recorder=None, pl_stats=None, cv_buf=None):
         return PSClient(host, port, proc=proc_token, recorder=recorder,
-                        pl_stats=pl_stats)
+                        pl_stats=pl_stats, cv_buf=cv_buf)
 
     # elastic adoption bookkeeping: which wids this process serves (own +
     # adopted), and every loop thread ever started (joined at the end)
@@ -2423,7 +2660,7 @@ def run_worker_process(
             while not stop.is_set() and time.monotonic() < deadline:
                 try:
                     if cl is None:
-                        cl = make_client(recorder=recorder)
+                        cl = make_client(recorder=recorder, cv_buf=cv_buf)
                     tr = (recorder.start_update(wid)
                           if recorder is not None else None)
                     # per-RPC transport faults are the client's RetryPolicy's
@@ -2462,6 +2699,9 @@ def run_worker_process(
                         diff_host = diff.cpu().numpy()
                         if tr is not None:
                             tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
+                        if cv_buf is not None and \
+                                counts[wid] % conv_every == 0:
+                            conv_sample(shard, w_dev, ts, g_host)
                         _accepted, done = cl.push_saga(
                             wid, ts, g_host, diff_host, sparse=sparse,
                             tr=tr,
@@ -2471,6 +2711,9 @@ def run_worker_process(
                         g_host = g.cpu().numpy()  # the push IS the readback
                         if tr is not None:
                             tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
+                        if cv_buf is not None and \
+                                counts[wid] % conv_every == 0:
+                            conv_sample(shard, w_dev, ts, g_host)
                         _accepted, done = cl.push(wid, ts, g_host,
                                                   sparse=sparse, tr=tr)
                     # flight-recorder breadcrumb: the last acked push
@@ -2545,7 +2788,8 @@ def run_worker_process(
                 try:
                     pull_cl = make_client(recorder=recorder)
                     push_cl = make_client(recorder=recorder,
-                                          pl_stats=pl_stats)
+                                          pl_stats=pl_stats,
+                                          cv_buf=cv_buf)
                     break
                 except (ConnectionError, OSError):
                     time.sleep(0.2)  # PS mid-restart: pace and re-dial
@@ -2605,6 +2849,8 @@ def run_worker_process(
                 g_host = readback(g)
                 if cur_tr is not None:
                     cur_tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
+                if cv_buf is not None and counts[wid] % conv_every == 0:
+                    conv_sample(shard, w_dev, ts, g_host)
                 # depth cap: at most pipe_depth unACKed pushes in flight
                 # -- THE staleness bound the taw admission prices
                 t_q0 = _trace.now_ms() if cur_tr is not None else 0.0

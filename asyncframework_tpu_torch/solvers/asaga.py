@@ -74,7 +74,6 @@ from asyncframework_tpu_torch.solvers.base import (
     TrainResult,
     WaitingTimeTable,
     check_hbm_plan,
-    check_ported,
     generator_states,
     resolve_dataset,
     restore_generators,
@@ -102,7 +101,6 @@ class ASAGA(ShardedSolverMixin):
                 "ASAGA's scalar history compression requires least_squares "
                 "(gradient = scalar * x); got " + config.loss
             )
-        check_ported(config)
         self.cfg = config
         self.devices = resolve_devices(devices)
         check_hbm_plan(X, config, self.devices, history_table=True)
@@ -387,9 +385,10 @@ class ASAGA(ShardedSolverMixin):
         if ckpt.enabled:
             save_checkpoint(final_k, final_w_dev, final_ab)
         traj = self._evaluate_trajectory(snapshots)
+        # closed first: the extras carry the live UI's last status
+        inst.close(traj, cfg.printer_freq)
         extras = {**inst.extras(), **side.extras(),
                   **self._checkpoint_extras(ckpt, k0, save_ms)}
-        inst.close(traj, cfg.printer_freq)
         return TrainResult(
             final_w=final_w,
             trajectory=traj,
@@ -548,8 +547,8 @@ class ASAGA(ShardedSolverMixin):
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, w))
         traj = self._evaluate_trajectory(snapshots)
-        extras = {**inst.extras(), **side.extras()}
         inst.close(traj, cfg.printer_freq)
+        extras = {**inst.extras(), **side.extras()}
         return TrainResult(
             final_w=final_w,
             trajectory=traj,

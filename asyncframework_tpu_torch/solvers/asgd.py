@@ -71,7 +71,6 @@ from asyncframework_tpu_torch.solvers.base import (
     TrainResult,
     WaitingTimeTable,
     check_hbm_plan,
-    check_ported,
     generator_states,
     resolve_dataset,
     restore_generators,
@@ -94,7 +93,6 @@ class ASGD(ShardedSolverMixin):
         """``X`` may be a host array (sharded here) or a pre-built
         :class:`ShardedDataset` (e.g. generated on device), with ``y=None``.
         ``devices=None`` means every CUDA device, and raises without one."""
-        check_ported(config)
         self.cfg = config
         self.devices = resolve_devices(devices)
         check_hbm_plan(X, config, self.devices)
@@ -385,9 +383,10 @@ class ASGD(ShardedSolverMixin):
         if ckpt.enabled:
             save_checkpoint(final_k, final_w_dev)
         traj = self._evaluate_trajectory(snapshots)
+        # closed first: the extras carry the live UI's last status
+        inst.close(traj, cfg.printer_freq)
         extras = {**inst.extras(), **side.extras(),
                   **self._checkpoint_extras(ckpt, k0, save_ms)}
-        inst.close(traj, cfg.printer_freq)
         return TrainResult(
             final_w=final_w,
             trajectory=traj,
@@ -531,8 +530,8 @@ class ASGD(ShardedSolverMixin):
         elapsed = time.monotonic() - start_wall
         snapshots.append((elapsed * 1e3, w))
         traj = self._evaluate_trajectory(snapshots)
-        extras = {**inst.extras(), **side.extras()}
         inst.close(traj, cfg.printer_freq)
+        extras = {**inst.extras(), **side.extras()}
         return TrainResult(
             final_w=final_w,
             trajectory=traj,

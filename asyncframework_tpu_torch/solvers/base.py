@@ -9,9 +9,7 @@ carries the reference drivers' algorithmic knobs
 (``SparkASGDThread.scala:28-48``) under their long names, plus the
 engine's own settings, with the reference's defaults.  The checkpoint
 plumbing (:class:`SolverCheckpointer`, :func:`validate_resume`) and
-:func:`make_allocation_manager` are the reference's.  The one switch of a
-subsystem not ported yet, the live UI (``ui_port``), keeps its name and
-default and raises ``NotImplementedError`` when turned on.
+:func:`make_allocation_manager` are the reference's.
 """
 
 from __future__ import annotations
@@ -30,10 +28,7 @@ from asyncframework_tpu_torch.checkpoint import CheckpointManager
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
 from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.ops.sampling import worker_generator
-from asyncframework_tpu_torch.solvers.instrumentation import (
-    FaultTolerantRun,
-    refuse_live_ui,
-)
+from asyncframework_tpu_torch.solvers.instrumentation import FaultTolerantRun
 from asyncframework_tpu_torch.utils.devices import device_scope, fence
 from asyncframework_tpu_torch.utils.hbm import plan_for_run, shard_tensors
 
@@ -465,7 +460,14 @@ class ShardedSolverMixin(FlopsAccountingMixin):
             part = self._eval(*shard_tensors(shard), W.to(shard.device))
             totals += part.cpu().numpy().astype(np.float64)
         totals /= self.ds.n
-        return [(t, float(l)) for (t, _), l in zip(snapshots, totals)]
+        traj = [(t, float(l)) for (t, _), l in zip(snapshots, totals)]
+        # continuous telemetry: the finished run's loss-vs-wallclock curve
+        # lands in the process-global convergence history (the /api/status
+        # `convergence` section the in-process live UI serves)
+        from asyncframework_tpu_torch.metrics import timeseries as _ts
+
+        _ts.fold_trajectory(traj)
+        return traj
 
 
 @dataclass
@@ -491,8 +493,9 @@ class SolverConfig:
     checkpoint_dir: Optional[str] = None  # None = checkpointing off
     checkpoint_freq: int = 0              # accepted updates between saves; 0 = off
     checkpoint_keep: int = 3
-    # observability (metrics/*; None = off).  The live dashboard is not
-    # ported yet: ui_port >= 0 raises NotImplementedError
+    # observability (EventLoggingListener / MetricsSystem parity; None = off)
+    # live dashboard (SparkUI.scala:39 parity): HTTP port serving run state
+    # DURING the run; 0 = ephemeral (metrics/live.py); None = off
     ui_port: Optional[int] = None
     event_log: Optional[str] = None       # JSONL (.gz ok) event log path
     metrics_csv: Optional[str] = None     # CsvSink path
@@ -627,13 +630,6 @@ class DelayCalibrator:
                 self.calibrated = True
                 return True
             return False
-
-
-def check_ported(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for a switched-on feature whose
-    subsystem the port does not have yet, naming the ROADMAP item: the
-    live UI (``ui_port >= 0``) is the one left."""
-    refuse_live_ui(cfg)
 
 
 class SolverCheckpointer:

@@ -18,8 +18,8 @@ configured the instruments are inert no-ops.
 Counterpart of ``asyncframework_tpu/solvers/instrumentation.py``: the same
 bus, event-log writer, metrics system and tracer, so an event log written
 here is read by the JAX package's ``EventLogReader`` and ``render_report``
-and the other way round.  The live UI (``ui_port``) is not ported yet and
-raises.  What the port's spans measure, on a CUDA device:
+and the other way round, and the live UI (``ui_port``, ``metrics/live.py``)
+serves the run as there.  What the port's spans measure, on a CUDA device:
 
 - ``compute``: the worker task's wall time, submit to finish.  The task
   body waits on a CUDA event after its launches, so it covers the device's
@@ -53,19 +53,6 @@ from asyncframework_tpu_torch.metrics.eventlog import EventLogWriter
 from asyncframework_tpu_torch.metrics.system import CsvSink, JsonlSink, MetricsSystem
 
 
-def refuse_live_ui(cfg) -> None:
-    """The live dashboard (``metrics/live.py`` and the telemetry plane it
-    reads) is not ported yet: ``ui_port >= 0`` raises, naming its ROADMAP
-    item (None or negative is off, as in the JAX package)."""
-    ui_port = getattr(cfg, "ui_port", None)
-    if ui_port is not None and ui_port >= 0:
-        raise NotImplementedError(
-            "SolverConfig.ui_port needs the live UI and telemetry plane "
-            "(metrics/live and what it reads), not ported yet (ROADMAP.md "
-            "queue A: A5b, live UI and telemetry plane)"
-        )
-
-
 class _GlobalTraceFold:
     """Bus listener folding TraceSpan events into the process-global
     aggregator (bench.py / tools read it) -- on the dispatch thread, so
@@ -93,7 +80,6 @@ class RunInstruments:
     """
 
     def __init__(self, cfg, num_workers: int):
-        refuse_live_ui(cfg)
         self.cfg = cfg
         self._t0 = time.monotonic()
         self.bus = ListenerBus()
@@ -108,6 +94,23 @@ class RunInstruments:
             self.writer = EventLogWriter(event_log)
             self.bus.add_listener(self.writer)
             self.bus.start()
+
+        self.ui = None
+        self.live_state = None
+        self.final_status: Optional[Dict[str, object]] = None
+        ui_port = getattr(cfg, "ui_port", None)
+        # None or negative = off (the conf registry's -1 sentinel); 0 = bind
+        # an ephemeral port
+        if ui_port is not None and ui_port >= 0:
+            from asyncframework_tpu_torch.metrics.live import (
+                LiveStateListener,
+                LiveUIServer,
+            )
+
+            self.live_state = LiveStateListener(num_workers)
+            self.bus.add_listener(self.live_state)
+            self.bus.start()
+            self.ui = LiveUIServer(self.live_state, port=ui_port).start()
 
         # lifecycle tracing: the single-process solvers' slice of the
         # vocabulary (compute / merge.queue / merge.apply; the pull/push
@@ -132,9 +135,12 @@ class RunInstruments:
                 self.bus.start()
 
         # the hot hooks build and post their events only when a listener
-        # takes them: with no event log and no tracer the instruments stay
-        # inert (even microseconds a merge shift the engine's staleness)
-        self._listened = self.writer is not None or self.tracer is not None
+        # takes them: with no event log, no live UI and no tracer the
+        # instruments stay inert (even microseconds a merge shift the
+        # engine's staleness)
+        self._listened = (self.writer is not None or self.tracer is not None
+                          or self.live_state is not None)
+        self._queue_source = None
 
         metrics_csv = getattr(cfg, "metrics_csv", None)
         metrics_jsonl = getattr(cfg, "metrics_jsonl", None)
@@ -158,9 +164,23 @@ class RunInstruments:
 
     # ------------------------------------------------------------ run hooks
     def register_queue_depth(self, fn: Callable[[], int]) -> None:
-        """Expose the result queue's depth as a polled metrics source."""
+        """Expose the result queue's depth as a polled metrics source, to
+        the live state and, while the live UI serves, as the ``queue``
+        time-series source (``queue.depth``, beside the live state's
+        ``queue.accepted`` count at the same tick)."""
         if self.metrics is not None:
             self.metrics.register_source("queue", lambda: {"depth": fn()})
+        if self.live_state is not None:
+            from asyncframework_tpu_torch.metrics import timeseries
+
+            self.live_state.register_queue_depth(fn)
+            state = self.live_state
+
+            def source() -> Dict[str, object]:
+                return {"depth": fn(), "accepted": state.accepted}
+
+            self._queue_source = source
+            timeseries.register_source("queue", source)
 
     def on_round_submitted(
         self, round_idx: int, cohort, model_version: int
@@ -266,7 +286,17 @@ class RunInstruments:
         if self.metrics is not None:
             self.metrics.report()  # final sample so short runs get >= 1 row
             self.metrics.stop()
+        if self._queue_source is not None:
+            from asyncframework_tpu_torch.metrics import timeseries
+
+            # identity-gated: a later run's source stays registered
+            timeseries.unregister_source("queue", self._queue_source)
         self.bus.stop()
+        if self.live_state is not None:
+            # the run's last /api/status, taken once its bus has drained
+            self.final_status = self.live_state.snapshot()
+        if self.ui is not None:
+            self.ui.stop()
         if self.writer is not None:
             self.writer.close()
 
@@ -281,6 +311,10 @@ class RunInstruments:
                 out["shards_moved"] = self.shards_moved
         if self.bus.dropped_events:
             out["dropped_events"] = self.bus.dropped_events
+        if self.ui is not None:
+            out["ui_port"] = self.ui.port
+        if self.final_status is not None:
+            out["ui_status"] = self.final_status
         return out
 
 

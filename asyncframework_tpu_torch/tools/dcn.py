@@ -74,13 +74,15 @@ def build_natives() -> Dict[str, str]:
 
 
 def launch(config: str, algo: str, iters: int, device: str = "cuda",
-           nprocs: int = 2, timeout_s: float = 600.0
-           ) -> Tuple[dict, List[dict]]:
+           nprocs: int = 2, timeout_s: float = 600.0,
+           env: "Dict[str, str] | None" = None) -> Tuple[dict, List[dict]]:
     """One PS process and ``nprocs`` worker processes; returns the PS's
-    record and the workers'.  Every process is waited for or killed."""
+    record and the workers'.  ``env`` is added to every process's
+    environment (e.g. conf keys by their ``ASYNCTPU_`` names).  Every
+    process is waited for or killed."""
     env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
                PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
-               PS_NUM_ITER=str(iters))
+               PS_NUM_ITER=str(iters), **(env or {}))
     procs = []
     try:
         ps = subprocess.Popen(CHILD, env=dict(env, PS_ROLE="ps"),
@@ -199,13 +201,19 @@ def in_process(config: str, algo: str, iters: int, device) -> dict:
     this process (the cluster path's defaults set for the call)."""
     from asyncframework_tpu_torch.conf import AsyncConf, global_conf
     from asyncframework_tpu_torch.conf import set_global_conf
+    from asyncframework_tpu_torch.metrics.live import (
+        start_telemetry_from_conf,
+    )
     from asyncframework_tpu_torch.parallel import ps_dcn
 
     n, d, nw = ps_child.CONFIGS[config]["shape"]
     before = global_conf()
     set_global_conf(AsyncConf())
+    srv = None
     try:
         ps_child.apply_cluster_defaults()
+        # one process holds both roles: one telemetry endpoint
+        srv = start_telemetry_from_conf("ps")
         cfg = ps_child.config(config, algo, iters)
         ds = ps_child.dataset(config, device)
         shards = {w: ds.shard(w) for w in range(nw)}
@@ -243,6 +251,8 @@ def in_process(config: str, algo: str, iters: int, device) -> dict:
         rec.update(processes=1, mode="threads")
         return rec
     finally:
+        if srv is not None:
+            srv.stop()
         set_global_conf(before)
 
 

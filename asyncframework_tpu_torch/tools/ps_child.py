@@ -22,7 +22,17 @@ Before either role runs, the cluster path's data-plane defaults are set
 where the environment sets nothing (as ``cli.py`` sets them): delta pulls,
 pipeline depth 2, the native codecs and the shared-memory ring.  Any of
 them can be overridden with the conf's environment names, e.g.
-``ASYNCTPU_ASYNC_PIPELINE_DEPTH=0``.
+``ASYNCTPU_ASYNC_PIPELINE_DEPTH=0``.  Each role then starts its telemetry
+from the conf (``metrics/live.py::start_telemetry_from_conf``, as
+``cli.py`` does): with ``ASYNCTPU_ASYNC_METRICS_PORT=0`` it serves
+``/metrics`` and ``/api/status`` on an ephemeral port, and its result line
+carries ``telemetry``: its own endpoints read back at the end (HTTP status,
+the samples the strict Prometheus parser read, the status sections).  With
+``ASYNCTPU_ASYNC_CONVERGENCE_SAMPLE=N`` the workers sample their shard's
+loss every N-th update of each logical worker (``conv_samples`` in their
+line, counted where each is taken; ``counts``: the updates of each logical
+worker) and the PS's line carries its convergence history's summary
+(``convergence``).
 
 Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 ``epsilon``: 400,000 x 2,000 f32; ``rcv1``: rcv1's padded-ELL shape),
@@ -141,6 +151,7 @@ def ps_summary(ps, marks: dict, t_done: float, n: int,
     """The PS's record of a finished run: updates/s over the window in
     which every logical worker was running, accepted and dropped, the
     staleness, the wire, the merge drain, the trajectory."""
+    from asyncframework_tpu_torch.metrics import timeseries
     from asyncframework_tpu_torch.net import frame
 
     t_all = marks.get("all", marks.get("first", t_done))
@@ -165,6 +176,7 @@ def ps_summary(ps, marks: dict, t_done: float, n: int,
         "native": native_build.native_totals(),
         "pipeline": ps_dcn.pipeline_totals(),
         "peak_device_bytes": _peak_bytes(ps.device),
+        "convergence": timeseries.convergence().summary(),
         "trajectory": None,
     }
     if total is not None:
@@ -221,6 +233,7 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     runs.zero_counts()
+    ps_dcn.reset_conv_samples_taken()
     t0 = time.monotonic()
     counts = ps_dcn.run_worker_process(
         host, port, list(wids), shards, cfg, d, n,
@@ -229,6 +242,8 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
         proc_token=f"ps-child-{os.getpid()}")
     rec = {"role": "worker", "config": name, "algo": algo,
            "wids": list(wids), "gradients": int(sum(counts.values())),
+           "counts": {str(w): c for w, c in counts.items()},
+           "conv_samples": ps_dcn.conv_samples_taken(),
            "seconds": time.monotonic() - t0,
            # one warm-up launch a distinct shard shape before the first pull
            "warmups": len({tuple((s.cols if hasattr(s, "cols") else s.X).shape)
@@ -239,7 +254,33 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
     return rec
 
 
+def read_own_telemetry() -> "dict | None":
+    """This process's telemetry endpoint read back over HTTP: the status
+    of ``/metrics`` and ``/api/status``, the samples the strict
+    Prometheus parser read and the status sections (None when no
+    endpoint serves)."""
+    import urllib.request
+
+    from asyncframework_tpu_torch.metrics import live, prom
+
+    port = live.telemetry_port()
+    if port is None:
+        return None
+    base = f"http://127.0.0.1:{port}"
+    with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+        m_status, body = r.status, r.read().decode()
+    with urllib.request.urlopen(f"{base}/api/status", timeout=10) as r:
+        s_status, status = r.status, json.loads(r.read().decode())
+    return {"port": port, "metrics_status": m_status,
+            "metrics_samples": len(prom.parse_exposition(body)),
+            "status_status": s_status, "sections": sorted(status)}
+
+
 def main() -> None:
+    from asyncframework_tpu_torch.metrics.live import (
+        start_telemetry_from_conf,
+    )
+
     apply_cluster_defaults()
     # before either role builds its data: a switch of the cluster path
     # that this package does not run is refused, never ignored
@@ -254,9 +295,12 @@ def main() -> None:
     iters = int(os.environ.get("PS_NUM_ITER", "0"))
     gamma = float(os.environ.get("PS_GAMMA", "0"))
     if role == "ps":
+        srv = start_telemetry_from_conf("ps")
         rec = run_ps(name, algo, device, nprocs, iters, gamma)
     else:
         pid = int(os.environ["PS_WORKER_ID"])
+        srv = start_telemetry_from_conf(f"worker-{pid}",
+                                        labels={"proc": str(pid)})
         nw = CONFIGS[name]["shape"][2]
         if os.environ.get("PS_WIDS"):
             wids = [int(w) for w in os.environ["PS_WIDS"].split(",")]
@@ -266,6 +310,9 @@ def main() -> None:
                          wids, nprocs, iters, gamma,
                          evaluate=os.environ.get("PS_EVAL") != "0")
         rec["pid"] = pid
+    rec["telemetry"] = read_own_telemetry()
+    if srv is not None:
+        srv.stop()
     print(json.dumps(rec), flush=True)
 
 

@@ -109,7 +109,33 @@ exits non-zero without a result line):
    counted once, one B1 or S1 launch a worker gradient (with no plain
    call), no Python fallback, the ring used, and the JAX package's
    objective bands (``tools/dcn.py``);
-11. the ``{"kernels": [...]}`` line, the card line again, and last the
+11. telemetry -- the live UI and the telemetry plane
+   (``tools/telemetry.py``): epsilon ASGD ``run()`` at phase 3's settings
+   (1,000 updates through B1's compacted form) four times, telemetry off,
+   on, on, off; "on" starts the process's telemetry from the conf (the
+   profiler on, a flight-dump directory, the sampler at 0.25 s), serves
+   the live UI on an ephemeral port (``ui_port=0``) and polls
+   ``/api/status``, ``/metrics``, ``/api/timeseries`` and ``/`` every 0.5 s.
+   Gates: every GET 200, every ``/metrics`` body parsed strictly, the last
+   status's ``accepted`` the result's and its staleness histogram summing
+   to the merges, ``asgd_worker_step`` compiled once with compiles plus
+   dispatches equal to the B1 launches, ``device_bytes_in_use`` grown by
+   at least the 3.2 GB of resident shards since before the dataset was
+   made, a flight dump after uninstall, and phase
+   3's objective gate in all four runs.  Each ``telemetry`` line carries
+   updates/s, the ``queue.depth`` series' maximum and its value at every
+   100 accepted updates, and the profiler's zone table
+   (``telemetry_cost``: updates/s on and off).  Then rcv1 ASGD on the DCN
+   plane as in phase 10 (1,200 updates, one PS process, two worker
+   processes) with ``async.convergence.sample=10`` and
+   ``async.metrics.port=0`` in all three: phase 10's gates, one
+   ``ell_residual`` launch a convergence sample in each worker process,
+   the samples counted where taken one every 10th update of each logical
+   worker, every sample in the PS's convergence history, its best sampled loss
+   below 0.1x and its last below 0.3x the objective at w = 0, and each
+   process's ``/metrics`` answered and parsed (``dcn_telemetry``, with
+   updates/s and wire bytes per update beside phase 10's rcv1 ASGD line);
+12. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
@@ -123,6 +149,7 @@ It needs the package beside it and one CUDA device, and builds the kernels
 from ``asyncframework_tpu_torch/csrc`` at first use (nvcc).
 """
 
+import gc
 import json
 import math
 import os
@@ -1524,6 +1551,72 @@ def dcn_phase(torch, card):
     if failed:
         raise RuntimeError(f"dcn phase gates failed: {failed}")
     torch.cuda.empty_cache()
+    return launches, records
+
+
+# the telemetry phase: phase 3's epsilon recipe and budget; rcv1 ASGD on
+# the DCN plane at phase 10's budget, a convergence sample every 10th
+# update of each logical worker
+TELEMETRY_UPDATES = 1_000
+TELEMETRY_DCN_UPDATES = 1_200
+TELEMETRY_CONV_SAMPLE = 10
+
+
+def telemetry_phase(torch, card, dcn_records):
+    """The live UI and the telemetry plane (``tools/telemetry.py``): epsilon
+    ASGD ``run()`` with telemetry off, on, on, off, then rcv1 ASGD on the
+    DCN plane with convergence samples and an endpoint in every process,
+    each held to its gates; returns the kernel launches of its runs."""
+    import tempfile
+
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.tools import telemetry
+
+    dev = torch.device("cuda", 0)
+    launches = {"masked_grad": 0, "compacted_grad": 0, "ell_residual": 0}
+    # the allocator's reading is process-wide: the shards must show as
+    # growth over what the earlier phases left
+    gc.collect()
+    bytes_before = telemetry.device_bytes_in_use()
+    ds = ShardedDataset.generate_on_device(400_000, 2_000, 8, [dev], seed=7,
+                                           noise=0.01)
+    base = dict(num_workers=8, gamma=100.0, taw=2**31 - 1, batch_rate=0.1,
+                bucket_ratio=0.7, printer_freq=25, seed=42)
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = telemetry.asgd_telemetry(ds, dev, base, TELEMETRY_UPDATES, tmp,
+                                        bytes_before)
+    for rec in recs:
+        launches["masked_grad"] += rec["launches"]["masked_grad"]
+        emit({"phase": "telemetry", "config": "epsilon", "card": card,
+              **{k: v for k, v in rec.items() if k != "launches"},
+              "launches": {k: v for k, v in rec["launches"].items() if v}})
+    on = [r["updates_per_sec"] for r in recs if r["telemetry"] == "on"]
+    off = [r["updates_per_sec"] for r in recs if r["telemetry"] == "off"]
+    emit({"phase": "telemetry_cost", "config": "epsilon", "card": card,
+          "updates_per_sec_off": off, "updates_per_sec_on": on,
+          "on_over_off": sum(on) / sum(off)})
+    del ds
+    torch.cuda.empty_cache()
+    rec = telemetry.dcn_telemetry("rcv1", "asgd", TELEMETRY_DCN_UPDATES,
+                                  TELEMETRY_CONV_SAMPLE)
+    plain = next(r for r in dcn_records if r["config"] == "rcv1"
+                 and r["algo"] == "asgd" and r["mode"] == "processes")
+    for w in rec["worker_launches"]:
+        launches["compacted_grad"] += w.get("compacted_grad", 0)
+        launches["ell_residual"] += w.get("ell_residual", 0)
+    emit({"phase": "dcn_telemetry", "card": card, **rec,
+          "updates_per_sec_sampling_off": plain["updates_per_sec"],
+          "wire_bytes_per_update_sampling_off":
+              plain["wire_bytes_per_update"]})
+    failed = [f"epsilon.{r['telemetry']}.{r['order']}: "
+              f"{[k for k, v in r['gates'].items() if not v]}"
+              for r in recs if not r["ok"]]
+    if not rec["ok"]:
+        failed.append(f"rcv1.dcn: "
+                      f"{[k for k, v in rec['gates'].items() if not v]}")
+    if failed:
+        raise RuntimeError(f"telemetry phase gates failed: {failed}")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1710,9 +1803,12 @@ def main() -> int:
     feat = features_phase(torch, card)
 
     # -------------------------------------------------------------- 10. dcn
-    dcn_launches = dcn_phase(torch, card)
+    dcn_launches, dcn_records = dcn_phase(torch, card)
 
-    # ------------------------------------------------------ 11. results
+    # -------------------------------------------------------- 11. telemetry
+    tel = telemetry_phase(torch, card, dcn_records)
+
+    # ------------------------------------------------------ 12. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -1741,8 +1837,9 @@ def main() -> int:
         entry("masked_grad", "masked_grad.cu", b1, launches + sum(
             r["launches_on_path"]["masked_grad"]
             for r in (eps_fused, mnist_fused, mnist_run))
-              + feat["masked_grad"] + dcn_launches["masked_grad"],
-              recs["b_epsilon_idx"], recs["b_epsilon_idx"]["bound_us"] / 1e3),
+              + feat["masked_grad"] + dcn_launches["masked_grad"]
+              + tel["masked_grad"], recs["b_epsilon_idx"],
+              recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
               saga_launches["saga_grad"]
               + saga_fused["launches_on_path"]["saga_grad"],
@@ -1764,7 +1861,8 @@ def main() -> int:
         entry("sparse_grad.compacted_grad", "sparse_grad.cu",
               f"asyncframework_tpu/ops/steps.py:519 {xla}",
               s1_launches["compacted_grad"] + feat["compacted_grad"]
-              + dcn_launches["compacted_grad"], s_task["task"],
+              + dcn_launches["compacted_grad"] + tel["compacted_grad"],
+              s_task["task"],
               s_task["task"]["bound_ms"]),
         entry("sparse_grad.saga_slots_grad", "sparse_grad.cu",
               f"asyncframework_tpu/ops/steps.py:904 {xla}",
@@ -1778,7 +1876,8 @@ def main() -> int:
         entry("sparse_grad.ell_residual", "sparse_grad.cu",
               f"asyncframework_tpu/ops/gradients.py:131 {xla}",
               s1_launches["ell_residual"] + feat["ell_residual"]
-              + dcn_launches["ell_residual"], s_eval, s_eval["bound_ms"]),
+              + dcn_launches["ell_residual"] + tel["ell_residual"], s_eval,
+              s_eval["bound_ms"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

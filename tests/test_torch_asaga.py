@@ -349,17 +349,21 @@ def test_rejects_non_least_squares(regression):
 ])
 def test_unported_features_raise(option, regression, tmp_path):
     """These switches raised until they were ported; now each runs
-    (``tests/test_torch_checkpoint.py`` and ``test_torch_speculation.py``
-    hold what they do), and the one left unported, the live UI, raises
-    naming its ROADMAP item."""
+    (``tests/test_torch_checkpoint.py``, ``test_torch_speculation.py``
+    and ``test_torch_telemetry.py`` hold what they do), alone and beside
+    the live UI (``ui_port=0``, served on an ephemeral port)."""
     X, y = regression
     option = {k: str(tmp_path / v) if isinstance(v, str) else v
               for k, v in option.items()}
     res = ASAGA(X, y, SolverConfig(**_cfg(num_iterations=20, **option)),
                 devices=[CPU]).run()
     assert res.accepted == 20
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ASAGA(X, y, SolverConfig(**_cfg(ui_port=0, **option)), devices=[CPU])
+    if "checkpoint_dir" in option:  # a second run must not resume the first
+        option["checkpoint_dir"] = str(tmp_path / "ckpt_ui")
+    res = ASAGA(X, y, SolverConfig(**_cfg(num_iterations=20, ui_port=0,
+                                          **option)), devices=[CPU]).run()
+    assert res.accepted == 20
+    assert res.extras["ui_port"] > 0
 
 
 def test_run_fused_and_sparse_data_are_not_ported_yet(regression):

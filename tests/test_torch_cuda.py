@@ -1072,3 +1072,137 @@ def test_saga_slots_form_edges(dev):
     _close(g, want_g, REL[torch.float32])
     assert torch.equal(diff[2:], torch.zeros(2, device=dev))
     _close(diff, want_diff, 1e-5)
+
+
+# ------------------------------------------------------- telemetry plane
+def test_memory_gauges_read_the_card_only_once_cuda_is_up(dev):
+    """In a fresh process, a profiler readout before the first CUDA
+    allocation reports host memory only and leaves CUDA uninitialized (a
+    readout never creates a context); after it, ``device_bytes_in_use``
+    counts the allocation and ``device_bytes_limit`` is the card's."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import json, torch
+from asyncframework_tpu_torch.metrics import profiler
+before = profiler.memory_gauges()
+init_after_read = torch.cuda.is_initialized()
+x = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+after = profiler.memory_gauges()
+print(json.dumps({"before": before, "init": init_after_read, "after": after,
+                  "total": torch.cuda.get_device_properties(0).total_memory}))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "device_bytes_in_use" not in got["before"]
+    assert got["init"] is False
+    assert got["after"]["device_bytes_in_use"] >= 64 << 20
+    assert got["after"]["device_bytes_limit"] == got["total"]
+
+
+def test_profiled_fused_chunk_captures_and_replays_bit_equal(dev):
+    """With the profiler installed the worker steps are wrapped (host
+    timing only, no device synchronization): a chunk of the fused loop
+    still captures as a CUDA graph, and its replay leaves the state and
+    snapshots bit-equal to the unprofiled solver's replay of the same
+    chunk from the same state."""
+    from asyncframework_tpu_torch.metrics import profiler
+    from asyncframework_tpu_torch.solvers.base import RoundChunk, capture_chunks
+
+    def replay(profiled):
+        profiler.uninstall()
+        if profiled:
+            profiler.install("t-fused", hz=0)
+        try:
+            fused = _fused_solver("asgd_dense", dev).fused_rounds()
+            chunk = RoundChunk(fused, 4)
+            capture_chunks(fused, [chunk])
+            chunk()
+            torch.cuda.synchronize()
+            snap = profiler.active().snapshot() if profiled else None
+            return [t.clone() for t in (*fused.carry, chunk.snap)], snap
+        finally:
+            profiler.uninstall()
+
+    plain, _ = replay(False)
+    profiled, snap = replay(True)
+    assert all(torch.equal(a, b) for a, b in zip(plain, profiled))
+    assert bool((plain[-1][0] != plain[-1][-1]).any())  # the model moved
+    # warm-up and capture each called every worker's step four times
+    calls = snap["dispatch"]["labels"]["asgd_worker_step"]
+    assert calls["compile"] == 1
+    assert calls["compile"] + calls["dispatch"] == 2 * 4 * 8
+
+
+def test_sparse_dcn_worker_launches_one_residual_a_sample(dev):
+    """A sparse DCN worker with ``async.convergence.sample=3``: each
+    sample is one launch of S1's ``ell_residual`` (no plain call), and
+    the PS's convergence history holds every sample."""
+    from asyncframework_tpu_torch.conf import AsyncConf, set_global_conf
+    from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
+    from asyncframework_tpu_torch.metrics import timeseries
+    from asyncframework_tpu_torch.parallel import ps_dcn
+    from asyncframework_tpu_torch.solvers import SolverConfig
+    from asyncframework_tpu_torch.tools import runs
+
+    conf = AsyncConf()
+    conf.set("async.convergence.sample", 3)
+    set_global_conf(conf)
+    timeseries.convergence().reset()
+    try:
+        ds = SparseShardedDataset.generate_on_device(
+            8_000, 2_048, 20, 4, devices=[dev], seed=3, noise=0.01)
+        cfg = SolverConfig(num_workers=4, num_iterations=60, gamma=0.05 * ds.d,
+                           batch_rate=0.3, bucket_ratio=0.5, printer_freq=20,
+                           seed=5, calibration_iters=10, run_timeout_s=60.0)
+        ps = ps_dcn.ParameterServer(cfg, ds.d, ds.n, device=dev,
+                                    port=0).start()
+        runs.zero_counts()
+        ps_dcn.reset_conv_samples_taken()
+        counts = ps_dcn.run_worker_process(
+            "127.0.0.1", ps.port, list(range(4)),
+            {w: ds.shard(w) for w in range(4)}, cfg, ds.d, ds.n,
+            deadline_s=60.0)
+        launches = runs.counts()
+        assert ps.wait_done(timeout_s=30.0)
+        ps.stop()
+        samples = ps_dcn.conv_samples_taken()
+        assert samples == sum(c // 3 for c in counts.values()) > 0
+        assert launches["ell_residual"] == samples
+        assert launches["ell_residual_plain"] == 0
+        assert timeseries.convergence().offered == samples
+    finally:
+        timeseries.convergence().reset()
+        set_global_conf(None)
+
+
+@pytest.mark.parametrize("solver", ["asgd", "asaga"])
+@pytest.mark.parametrize("mode", ["run", "run_sync"])
+def test_ui_port_on_the_card(dev, solver, mode):
+    """``ui_port=0`` on ASGD and ASAGA ``run()`` and ``run_sync()`` on the
+    card: every endpoint answers 200 during the run (``/metrics`` parsed
+    strictly), the port is in the extras, and the server is gone after."""
+    from asyncframework_tpu_torch.metrics import live
+    from asyncframework_tpu_torch.solvers import ASAGA, ASGD, SolverConfig
+    from asyncframework_tpu_torch.tools.telemetry import Poller
+
+    rs = np.random.default_rng(2)
+    X = rs.normal(size=(40_000, 512)).astype(np.float32)
+    y = (X @ rs.normal(size=512)).astype(np.float32)
+    cfg = SolverConfig(num_workers=8, num_iterations=300, gamma=0.3,
+                       batch_rate=0.3, printer_freq=50, seed=3, ui_port=0)
+    cls = ASGD if solver == "asgd" else ASAGA
+    with Poller(period_s=0.05) as poller:
+        res = getattr(cls(X, y, cfg, devices=[dev]), mode)()
+    assert res.extras["ui_port"] > 0
+    assert (res.rounds if mode == "run_sync" else res.accepted) == 300
+    assert poller.answers and all(c == 200 for _p, c in poller.answers)
+    assert not poller.parse_errors and res.extras["ui_status"]
+    assert not live.active_servers()

@@ -360,13 +360,30 @@ def test_run_instruments_emit_lifecycle_spans_and_reset(pkg, tmp_path):
     assert trace.aggregator().spans_total == 0
 
 
-def test_live_ui_is_refused_naming_its_roadmap_item():
+def test_live_ui_serves_on_an_ephemeral_port_and_close_frees_it():
+    """``ui_port=0`` serves the live UI on an ephemeral port, reported in
+    the extras; ``close()`` stops the server and frees the port.  A
+    negative port is off, as in the JAX package."""
+    import socket
+    import urllib.request
+
     from asyncframework_tpu_torch.solvers import SolverConfig
     from asyncframework_tpu_torch.solvers.instrumentation import RunInstruments
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*live UI"):
-        RunInstruments(SolverConfig(ui_port=0), 2)
-    RunInstruments(SolverConfig(ui_port=-1), 2).close()  # negative is off
+    inst = RunInstruments(SolverConfig(ui_port=0), 2)
+    port = inst.extras()["ui_port"]
+    assert port > 0
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/status",
+                                timeout=5) as r:
+        assert r.status == 200
+        assert json.loads(r.read())["accepted"] == 0
+    inst.close()
+    with socket.socket() as s:  # no listener holds the port any more
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))
+    off = RunInstruments(SolverConfig(ui_port=-1), 2)
+    assert "ui_port" not in off.extras()
+    off.close()
 
 
 # ------------------------------------------- event logs across the packages

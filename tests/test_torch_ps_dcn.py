@@ -707,8 +707,18 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
             ps.attach_standby("127.0.0.1", 1)
         with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
             tps.PSClient("127.0.0.1", ps.port, epoch=1)
-        with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-            tps.PSClient("127.0.0.1", ps.port, cv_buf=object())
+        # convergence samples ride the client's headers now: a buffered
+        # sample leaves with the BYE and folds once on the PS
+        from asyncframework_tpu_torch.metrics import timeseries
+
+        timeseries.convergence().reset()
+        buf = timeseries.ConvergenceBuffer()
+        buf.add(3, 0.5, 1.0)
+        cvc = tps.PSClient("127.0.0.1", ps.port, cv_buf=buf)
+        cvc.bye()
+        assert timeseries.convergence().offered == 1
+        assert buf.take_wire() == []
+        timeseries.convergence().reset()
         cl = tps.PSClient("127.0.0.1", ps.port)
         with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
             cl.subscribe(0)
@@ -725,9 +735,51 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
 #: the cluster path's conf switches that the PS and its workers refuse
 #: (each set to 2: above its off value, and truthy for the flags)
 REFUSED_CONF = [("async.mesh.devices", "A6b"),
-                ("async.convergence.sample", "A5b"),
                 ("async.ps.shards", "A6b"), ("async.ps.standby", "A6b"),
-                ("async.control.enabled", "A6b")]
+                ("async.control.enabled", "A6b"), ("async.ui.port", "A8")]
+
+
+def test_convergence_sample_conf_runs_on_the_workers(conf):
+    """``async.convergence.sample`` (refused until the telemetry plane was
+    ported) runs: every 4th update of each logical worker takes a
+    sample, counted where it is taken, and the PS's convergence history
+    holds every one."""
+    from asyncframework_tpu_torch.metrics import timeseries
+
+    timeseries.convergence().reset()
+    tps.reset_conv_samples_taken()
+    conf.set("async.convergence.sample", 4)
+    cfg = TConfig(**_kw(num_iterations=120))
+    ps = _port_ps(cfg)
+    ds = _port_ds()
+    counts, _traj = _run(ps, tps.run_worker_process,
+                         {w: ds.shard(w) for w in range(NW)}, cfg, "asgd",
+                         eval_wid=None)
+    _exactly_once(ps, counts, 120)
+    summary = timeseries.convergence().summary()
+    assert summary["offered"] == tps.conv_samples_taken() \
+        == sum(c // 4 for c in counts.values()) > 0
+    assert summary["best_loss"] < summary["first_loss"]
+    timeseries.convergence().reset()
+
+
+def test_convergence_sample_conf_is_taken_by_the_ps(conf):
+    """The PS no longer refuses ``async.convergence.sample``: it starts,
+    registers its ``ps`` time-series source and unhooks it at stop."""
+    from asyncframework_tpu_torch.metrics import timeseries
+
+    conf.set("async.convergence.sample", 2)
+    conf.set("async.metrics.interval.s", 0)
+    ps = _port_ps(TConfig(**_kw()))
+    try:
+        st = timeseries.TimeSeriesStore(capacity=8)
+        timeseries.sample_once(st)
+        assert st.last("ps.accepted") == 0.0
+    finally:
+        ps.stop()
+    st2 = timeseries.TimeSeriesStore(capacity=8)
+    timeseries.sample_once(st2)
+    assert st2.last("ps.accepted") is None
 
 
 @pytest.mark.parametrize("conf_key,item", REFUSED_CONF)
