@@ -1,0 +1,95 @@
+"""The repo's lint suppressions.  EVERY entry carries a reason string --
+``run_lint`` refuses an empty one -- and ``--list-allow`` of the CLI
+renders this file, so the allowlist is itself documentation.  There is
+no inline-pragma escape hatch: a suppression that is not visible here
+does not exist.
+
+Policy (ARCHITECTURE.md "Correctness tooling"): an entry is acceptable
+only when the flagged code is (a) correct for a reason the rule's
+heuristic cannot see, and (b) the reason is written down well enough
+that a reviewer can re-check it when the code changes.  Prefer fixing
+the code; the list shrinking over time is the healthy direction.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+from asyncframework_tpu_torch.analysis.core import Allow
+
+ALLOWLIST: Tuple[Allow, ...] = (
+    # ------------------------------------------------------------- locks
+    # The lock rule exists for SERVER hot locks (the PS model lock class:
+    # many threads convoy behind one holder's I/O).  The entries below
+    # are client-side locks whose entire JOB is to serialize I/O on one
+    # channel; the "convoy" is one known peer thread, by design.
+    Allow(
+        "lock-blocking-call", "asyncframework_tpu_torch/parallel/ps_dcn.py",
+        "_win_lock:connect",
+        "pipelined push window (_win_lock): reconnect+replay must be "
+        "atomic against push_start sends or replayed and fresh pushes "
+        "interleave out of FIFO order and ACK pairing breaks; "
+        "contention is exactly two threads (sender + reaper), the "
+        "documented window contract",
+    ),
+    Allow(
+        "lock-blocking-call", "asyncframework_tpu_torch/parallel/shardgroup.py",
+        "_restart_lock:wait",
+        "shard restart path (_restart_lock): serializing "
+        "kill->wait->respawn per controller is the point -- two "
+        "monitors relaunching the same shard concurrently would "
+        "double-spawn it; only the monitor thread ever takes this lock",
+    ),
+    Allow(
+        "lock-blocking-call", "asyncframework_tpu_torch/parallel/shardgroup.py",
+        "_restart_lock:_oneshot",
+        "shard restart path (_restart_lock): the post-relaunch SETMAP "
+        "epoch fan-out must complete before another restart can "
+        "re-plan the map; same single-monitor-thread lock as above",
+    ),
+    # ---------------------------------------------------------- metrics
+    Allow(
+        "metrics-unregistered-totals",
+        "asyncframework_tpu_torch/metrics/registry.py", "all_totals",
+        "the registry's own aggregator: it IS the walk over every "
+        "registered family, registering it would recurse",
+    ),
+    Allow(
+        "metrics-unregistered-totals",
+        "asyncframework_tpu_torch/net/retry.py", "retry_totals",
+        "aggregated INTO the registered `net` family by net_totals() "
+        "(same exemption as the runtime registration audit): registering it "
+        "separately would double-count every retry on /metrics",
+    ),
+    # --------------------------------------------------------- protocol
+    # Ops of the JAX package's PS wire whose planes this package has not
+    # ported: the PS answers each ERR naming its ROADMAP item
+    # (parallel/ps_dcn.py::_REFUSED_OPS), so a peer of either package
+    # learns the refusal instead of hanging.  Each entry goes when its
+    # item lands.
+    Allow(
+        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
+        "PROMOTE",
+        "hot-standby promotion is ROADMAP A6b.3: the PS has no standby "
+        "role yet and answers PROMOTE with ERR naming the item",
+    ),
+    Allow(
+        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
+        "REPL_APPEND",
+        "the replication stream is ROADMAP A6b.3: no standby applies "
+        "it yet, and the PS answers REPL_APPEND with ERR naming the item",
+    ),
+    Allow(
+        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
+        "REPL_SYNC",
+        "the replication bootstrap is ROADMAP A6b.3: no standby installs "
+        "it yet, and the PS answers REPL_SYNC with ERR naming the item",
+    ),
+    Allow(
+        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
+        "SUBSCRIBE",
+        "the serving tier's snapshot subscription is ROADMAP A6b.5 (its "
+        "only client is A8's replica): the PS answers SUBSCRIBE with ERR "
+        "naming the item",
+    ),
+)

@@ -4,7 +4,8 @@ The two packages share no code, so tests and tools that run both on the
 same state pass it as numpy: the JAX package's model and per-worker shards,
 taken out with ``np.asarray``, become the port's tensors here.  Solver and
 DCN parameter-server checkpoints share one layout across the packages
-(:data:`MODEL_STATE`, :data:`PS_STATE`).
+(:data:`MODEL_STATE`, :data:`PS_STATE`), a sharded group's per-shard ones too
+(:func:`shard_checkpoints`).
 """
 
 from __future__ import annotations
@@ -124,3 +125,36 @@ def ps_checkpoint(path) -> Tuple[dict, Dict[str, np.ndarray]]:
         meta = json.loads(str(z["__meta__"]))
         arrays = {k: z[k].copy() for k in z.files if k != "__meta__"}
     return meta, arrays
+
+
+def shard_checkpoints(directory
+                      ) -> Dict[int, Tuple[dict, Dict[str, np.ndarray]]]:
+    """A sharded PS group's checkpoints (``ps_shard{i}.npz``, written by
+    either package's shards into one directory) as ``{i: (meta,
+    arrays)}``, by shard index.  Each one resumes in either package's
+    ``ParameterServer(..., checkpoint_path=...)`` for its range; a fenced
+    one (``meta["epoch"] > 0``) resumes one epoch above the one it saved."""
+    import os
+    import re
+
+    out = {}
+    for name in os.listdir(directory):
+        m = re.fullmatch(r"ps_shard(\d+)\.npz", name)
+        if m:
+            out[int(m.group(1))] = ps_checkpoint(os.path.join(directory,
+                                                              name))
+    return dict(sorted(out.items()))
+
+
+def assembled_ps_model(directory) -> Tuple[np.ndarray, list, list]:
+    """The whole model of a sharded group's checkpoints: each shard's
+    ``w`` concatenated in range order, with the shards' clocks and
+    fencing epochs (0 = fencing off) in the same order."""
+    shards = shard_checkpoints(directory)
+    if sorted(shards) != list(range(len(shards))):
+        raise ValueError(f"shard checkpoints {sorted(shards)} do not cover "
+                         f"ranges 0..{len(shards) - 1}")
+    w = np.concatenate([arrays["w"] for _meta, arrays in shards.values()])
+    clocks = [int(meta["clock"]) for meta, _a in shards.values()]
+    epochs = [int(meta.get("epoch", 0)) for meta, _a in shards.values()]
+    return w, clocks, epochs

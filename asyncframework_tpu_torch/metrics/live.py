@@ -20,7 +20,7 @@ single drain thread; HTTP reads take the same lock only per request.
 A copy of the JAX package's ``metrics/live.py``: one event log replayed
 into either package's :class:`LiveStateListener` gives the same snapshot.
 The sections of subsystems this package does not have yet are left out:
-``serving`` (ROADMAP A8), ``shuffle`` (A9) and ``shards`` (A6b).
+``serving`` (ROADMAP A8) and ``shuffle`` (A9).
 """
 
 from __future__ import annotations
@@ -135,8 +135,17 @@ def _telemetry_sections() -> Dict[str, object]:
         "health": health,
         "timeseries": timeseries.store().summary(),
     }
-    # (the JAX package's per-shard ``shards`` section comes with the
-    # sharded PS group, ROADMAP A6b)
+    try:
+        from asyncframework_tpu_torch.parallel import shardgroup
+
+        group = shardgroup.active_group()
+        if group is not None:
+            # per-shard section (parallel/shardgroup.py): the process
+            # hosting the shard-group controller shows its map + member
+            # liveness on every dashboard page
+            out["shards"] = group.status_section()
+    except Exception:  # noqa: BLE001 - a half-torn-down group must not
+        pass           # 500 every dashboard page
     with _SECTIONS_LOCK:
         sections = dict(_STATUS_SECTIONS)
     for name, fn in sections.items():

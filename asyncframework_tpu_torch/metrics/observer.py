@@ -42,8 +42,8 @@ persists history until stopped.
 
 A copy of the JAX package's ``metrics/observer.py``: either package's
 observer scrapes either package's endpoints and harvests either's flight
-dumps.  The JAX package's discovery of a sharded PS group's per-shard
-endpoints is left out until that group is ported (ROADMAP A6b).
+dumps, and discovers the active sharded PS group's per-shard endpoints
+(``parallel/shardgroup.py``) as there.
 """
 
 from __future__ import annotations
@@ -540,6 +540,21 @@ class ClusterObserver:
                     self._static.append(t)
                     known.add(t.name)
 
+    def _discover_shardgroup(self) -> List[RoleTarget]:
+        """The active ShardGroup's per-shard telemetry endpoints (the
+        controller pre-assigns each slot a metrics port, so a relaunched
+        shard keeps its scrape URL)."""
+        try:
+            from asyncframework_tpu_torch.parallel import shardgroup
+
+            group = shardgroup.active_group()
+            if group is None:
+                return []
+            return [RoleTarget(name=n, role=r, url=u)
+                    for (n, r, u) in group.telemetry_targets()]
+        except Exception:  # noqa: BLE001 - a half-built group must not
+            return []      # kill the scrape loop
+
     def _discover_supervisors(self) -> List[RoleTarget]:
         """Worker processes registered with any live ElasticSupervisor
         in this process: HELLO advertises the worker's telemetry port
@@ -572,9 +587,7 @@ class ClusterObserver:
             known = set(self._discovered_names)
         seen = {t.name for t in out}
         fresh = []
-        # (the JAX package also discovers a sharded PS group's per-shard
-        # endpoints here; that group is ROADMAP A6b)
-        for t in self._discover_supervisors():
+        for t in self._discover_shardgroup() + self._discover_supervisors():
             if t.name not in seen:
                 seen.add(t.name)
                 out.append(t)

@@ -96,9 +96,8 @@ UNPORTED_FAMILIES: Dict[str, str] = OrderedDict((
     ("shuffle", "A9"),       # data/spill.py
     ("serving", "A8"),       # serving/metrics.py
     ("relay", "A8"),         # relaycast/metrics.py
-    ("shardgroup", "A6b"),   # parallel/shardgroup.py
-    ("replication", "A6b"),  # parallel/replication.py
-    ("control", "A6b"),      # parallel/controller.py
+    ("replication", "A6b.3"),  # parallel/replication.py
+    ("control", "A6b.4"),      # parallel/controller.py
 ))
 
 
@@ -153,6 +152,13 @@ _register(CounterFamily(
         "silently running the slow path), and the shm-ring transport's "
         "upgrades/refusals/degrades plus frame/byte flow "
         "(native_build.py, net/shmring.py).",
+))
+_register(CounterFamily(
+    "shardgroup", "asyncframework_tpu_torch.parallel.shardgroup",
+    "shard_totals", "reset_shard_totals",
+    doc="Sharded PS group: shard deaths/restarts, fence epoch bumps, "
+        "finish broadcasts, assembled pulls/pushes, map re-resolves, "
+        "abandoned fan-out rounds (parallel/shardgroup.py).",
 ))
 _register(CounterFamily(
     "observer", "asyncframework_tpu_torch.metrics.observer",

@@ -44,11 +44,16 @@ convergence samples that workers of either package piggyback on PUSH and
 BYE (``cv``, ``async.convergence.sample``), and workers advertise their
 telemetry port on HELLO (``mport``).
 
+Epoch fencing (``async.fence.enabled``: the PS's minted epoch, the
+client's ``ep`` stamp, REJECT_FENCED and its self-healing, fenced
+checkpoints) and the shard-group surface (``shard_map``, SETMAP, SHARDMAP,
+FINISH, the map and epochs on WELCOME, the worker-side map handshake onto
+``parallel/shardgroup.py``'s ``ShardedPSClient``) run as there.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item (A6b): the hot standby, replication and promotion; epoch
-fencing; the adaptive controller and damped apply; SUBSCRIBE and relay
-offers; sharded PS groups (``async.ps.shards > 1``); the mesh worker
-steps (``async.mesh.devices > 1``).
+ROADMAP item: the hot standby, replication and promotion (A6b.3); the
+adaptive controller and damped apply (A6b.4); SUBSCRIBE and relay offers
+(A6b.5); the mesh worker steps (``async.mesh.devices > 1``, A6b.6).
 """
 
 from __future__ import annotations
@@ -151,7 +156,7 @@ def reset_conv_samples_taken() -> None:
         _cv_taken = 0
 
 
-def _refuse(what: str, item: str = "A6b") -> None:
+def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
 
@@ -163,7 +168,6 @@ def refuse_unported_conf() -> None:
     from asyncframework_tpu_torch.conf import (
         CONTROL_ENABLED,
         MESH_DEVICES,
-        PS_SHARDS,
         PS_STANDBY,
         UI_PORT,
         global_conf,
@@ -175,14 +179,12 @@ def refuse_unported_conf() -> None:
         # it; a port run takes SolverConfig.ui_port, a port process
         # async.metrics.port
         _refuse("the cluster CLI's live dashboard (async.ui.port)", "A8")
-    if int(conf.get(PS_SHARDS)) > 1:
-        _refuse("a sharded PS group (async.ps.shards > 1)")
     if int(conf.get(PS_STANDBY)) > 0:
-        _refuse("the hot standby (async.ps.standby > 0)")
+        _refuse("the hot standby (async.ps.standby > 0)", "A6b.3")
     if conf.get(CONTROL_ENABLED):
-        _refuse("the adaptive controller (async.control.enabled)")
+        _refuse("the adaptive controller (async.control.enabled)", "A6b.4")
     if int(conf.get(MESH_DEVICES)) > 1:
-        _refuse("the mesh worker steps (async.mesh.devices > 1)")
+        _refuse("the mesh worker steps (async.mesh.devices > 1)", "A6b.6")
 
 
 def _cv_fold(wire, clock: int = 0,
@@ -347,8 +349,8 @@ class _PendingPush:
 
 #: ops of the JAX package's wire that belong to refused switches, answered
 #: ERR with the ROADMAP item that ports them
-_REFUSED_OPS = {"SUBSCRIBE": "A6b", "SETMAP": "A6b", "REPL_APPEND": "A6b",
-                "REPL_SYNC": "A6b", "PROMOTE": "A6b"}
+_REFUSED_OPS = {"SUBSCRIBE": "A6b.5", "REPL_APPEND": "A6b.3",
+                "REPL_SYNC": "A6b.3", "PROMOTE": "A6b.3"}
 
 
 # ----------------------------------------------------------------- PS side
@@ -375,20 +377,46 @@ class ParameterServer:
         if algo not in ("asgd", "asaga"):
             raise ValueError(f"unknown PS algo {algo!r}")
         refuse_unported_conf()
-        if shard_map or shard_index or shard_epochs:
-            _refuse("a sharded PS group (shard_map, async.ps.shards > 1)")
         if standby:
-            _refuse("the hot standby (replication and promotion)")
-        if epoch or (epoch is None and _gc().get(FENCE_ENABLED)):
-            _refuse("epoch fencing (async.fence.enabled)")
+            _refuse("the hot standby (replication and promotion)", "A6b.3")
         self.cfg = cfg
         self.d, self.n = d, n
         self.algo = algo
-        # the wire keys of the switches this package refuses stay at their
-        # off values, so replies are the JAX package's legacy wire
-        self.epoch = 0
+        # fencing epoch (async.fence.enabled): 0 = fencing off, the
+        # byte-identical legacy wire (no ep header keys anywhere).  > 0 =
+        # this server incarnation's minted epoch; every PULL/PUSH stamped
+        # with a DIFFERENT epoch is answered REJECT_FENCED (admission in
+        # _fence_reject), so a deposed client replaying buffered pushes --
+        # or any op routed at a deposed incarnation of this range -- can
+        # never double-apply against the current owner's state.
+        # Restoring from checkpoint bumps past the persisted epoch (every
+        # incarnation is a new epoch), and a controller
+        # (shardgroup.ShardGroup) passes an explicit epoch that already
+        # counts its lease-expiry fences.
+        if epoch is None:
+            epoch = 1 if _gc().get(FENCE_ENABLED) else 0
+        self.epoch = int(epoch)
+        #: per-shard epochs of the whole group (index-aligned with
+        #: shard_map); installed by SETMAP / the launcher so WELCOME can
+        #: hand workers the full epoch vector next to the map
+        self.shard_epochs = ([int(e) for e in shard_epochs]
+                             if shard_epochs else None)
+        #: highest foreign epoch seen ABOVE ours: once a client proves a
+        #: successor exists for this range, this incarnation is a zombie
+        #: and refuses every stamped op (even same-epoch ones) -- "never
+        #: mutate or serve a range it no longer owns"
+        self._fenced_above = 0
         self.fenced_rejects = 0
-        self.shard_map = None
+        # sharded PS group (parallel/shardgroup.py): when this server is one
+        # range of a shard group, ``shard_map`` is the group's wire map
+        # (per-shard [host, port, lo, hi]) and ``shard_index`` names this
+        # server's range.  The map is what HELLO's WELCOME reply hands
+        # workers so they resolve the group with no side channel; it may
+        # also be installed after construction (SETMAP, or attribute
+        # assignment before start).  None/0 = the classic single PS --
+        # WELCOME omits the key and the wire stays byte-identical.
+        self.shard_map = [list(e) for e in shard_map] if shard_map else None
+        self.shard_index = int(shard_index)
         self.checkpoint_path = checkpoint_path
         self.resumed_from_k: Optional[int] = None
         self.device = (resolve_devices(None)[0] if device is None
@@ -677,7 +705,7 @@ class ParameterServer:
             "done": int(self._done.is_set()),
         }
         # (the JAX package's standby_lag / standby scalars come with the
-        # hot standby, ROADMAP A6b)
+        # hot standby, ROADMAP A6b.3)
         return out
 
     # ---------------------------------------------------------- checkpointing
@@ -779,9 +807,14 @@ class ParameterServer:
                     f"checkpoint algo {meta['algo']!r} != PS algo "
                     f"{self.algo!r}"
                 )
-            if int(meta.get("epoch", 0)):
-                _refuse("resuming a fenced PS checkpoint (epoch > 0)")
             self._install_state(z, meta)
+            if self.epoch > 0:
+                # every incarnation is a NEW epoch: a restart from this
+                # checkpoint must dominate anything the previous life
+                # stamped or accepted (a controller-passed epoch that
+                # already counts more fences wins via max)
+                self.epoch = max(self.epoch,
+                                 int(meta.get("epoch", 0)) + 1)
             self.fenced_rejects = int(meta.get("fenced_rejects", 0))
         self.resumed_from_k = self._k
         supervisor_mod.bump_total("ps_resumes")
@@ -907,14 +940,19 @@ class ParameterServer:
                 # verbs so fault schedules (net/faults.py) can target the
                 # ASAGA stream without also counting ASGD ops
                 if op in ("PULL", "PULL_SAGA"):
+                    if self._fence_reject(conn, header):
+                        continue
                     self._handle_pull(conn, header)
                 elif op in ("PUSH", "PUSH_SAGA"):
                     cached = self._dedup.check(header)
                     if cached is not None:
                         # duplicate of an already-applied push (the ACK was
-                        # lost on the wire): re-send it, merge nothing
+                        # lost on the wire): re-send it, merge nothing.
+                        # Dedup wins over the fence check: an op this
+                        # incarnation ALREADY applied must re-answer its
+                        # cached verdict, not invent a new one.
                         _send_msg(conn, cached[0])
-                    else:
+                    elif not self._fence_reject(conn, header, record=True):
                         self._handle_push(conn, header, payload)
                 elif op == "HELLO":
                     # a worker process introducing itself (elastic plane):
@@ -929,14 +967,68 @@ class ParameterServer:
                             pid_start=header.get("pstart"),
                             mport=header.get("mport"),
                         )
-                    _send_msg(conn, {"op": "WELCOME",
-                                     "elastic": self.supervisor is not None})
+                    welcome = {"op": "WELCOME",
+                               "elastic": self.supervisor is not None}
+                    if self.shard_map:
+                        # the shard-map handshake: workers resolve the
+                        # group here and fan every PULL/PUSH out per range
+                        # (shardgroup.ShardedPSClient).  Key absent on an
+                        # unsharded PS -- byte-identical legacy wire.
+                        welcome["shards"] = self.shard_map
+                        if self.shard_epochs:
+                            welcome["epochs"] = self.shard_epochs
+                    if self.epoch:
+                        welcome["epoch"] = self.epoch
+                    _send_msg(conn, welcome)
                 elif op == "SHARDMAP":
-                    # shard-map query: the single PS answers an empty
-                    # list -- "no group here"
-                    _send_msg(conn, {"op": "SHARDMAP", "shards": []})
+                    # shard-map query (group members, liveness probes):
+                    # the classic single PS answers an empty list -- "no
+                    # group here"
+                    reply = {"op": "SHARDMAP",
+                             "shards": self.shard_map or []}
+                    if self.epoch:
+                        reply["epoch"] = self.epoch
+                        reply["fenced_rejects"] = self.fenced_rejects
+                    if self.shard_epochs:
+                        reply["epochs"] = self.shard_epochs
+                    _send_msg(conn, reply)
+                elif op == "SETMAP":
+                    # group controller installing the assembled map on a
+                    # freshly-spawned shard child (it cannot know its
+                    # peers' ephemeral ports before they announce)
+                    # (a controller of the JAX package may also announce
+                    # standbys and CTRL decisions here: planes this
+                    # package refuses, so such a SETMAP installs nothing)
+                    if header.get("standbys"):
+                        _send_msg(conn, {"op": "ERR", "msg":
+                                         "hot-standby replication is not "
+                                         "ported to the PyTorch package "
+                                         "yet (ROADMAP A6b.3)"})
+                        continue
+                    if header.get("ctrl") is not None:
+                        _send_msg(conn, {"op": "ERR", "msg":
+                                         "the adaptive controller is not "
+                                         "ported to the PyTorch package "
+                                         "yet (ROADMAP A6b.4)"})
+                        continue
+                    wire = header.get("shards") or None
+                    self.shard_map = ([list(e) for e in wire]
+                                      if wire else None)
+                    if "index" in header:
+                        self.shard_index = int(header["index"])
+                    if header.get("epochs"):
+                        # the controller's epoch vector (post-fence
+                        # re-installs ride this too, so WELCOME hands new
+                        # workers current epochs, not boot-time ones)
+                        self.shard_epochs = [int(e)
+                                             for e in header["epochs"]]
+                    _send_msg(conn, {"op": "ACK"})
                 elif op == "FINISH":
-                    # group-wide DONE broadcast (idempotent)
+                    # group-wide DONE broadcast: a secondary shard serves
+                    # its range with an unbounded iteration budget and
+                    # learns run completion only from the primary's DONE,
+                    # fanned out here (worker BYE and the group controller
+                    # both send it; idempotent by construction)
                     self._done.set()
                     if self.supervisor is not None:
                         self.supervisor.freeze()
@@ -988,6 +1080,63 @@ class ParameterServer:
             return
         finally:
             conn.close()
+
+    def _fence_reject(self, conn: socket.socket, header: dict,
+                      record: bool = False) -> bool:
+        """Epoch-fencing admission (async.fence.enabled): True when the
+        op was answered REJECT_FENCED and must not be served.
+
+        Rules (``ep`` = the op's stamped epoch, ``self.epoch`` = this
+        incarnation's minted one):
+
+        - fencing off (``self.epoch == 0``) or unstamped op (legacy
+          client): serve -- the wire stays byte-identical and old
+          clients keep their old semantics;
+        - ``ep < self.epoch``: the CLIENT is deposed (it pulled its view
+          from a fenced incarnation) -- reject, tell it the current
+          epoch so it re-resolves and continues;
+        - ``ep > self.epoch``: a successor exists, so THIS server is the
+          zombie -- remember the foreign epoch and reject; from here on
+          every stamped op is refused (a zombie must neither mutate nor
+          serve its old range, even to same-epoch stragglers);
+        - ``ep == self.epoch`` and not deposed: serve.
+
+        The reply carries the highest epoch this server knows, so a
+        fenced client self-heals: it adopts the epoch and its next op
+        (stamped fresh) is admitted by the current owner.  Fenced PUSH
+        verdicts are recorded in the dedup window (``record=True``) so a
+        retry of the same stamp re-answers the fence instead of racing a
+        fresh admission."""
+        if not self.epoch:
+            return False
+        ep = header.get("ep")
+        if ep is None:
+            return False
+        ep = int(ep)
+        if ep > self.epoch:
+            # lock-free int write: monotone max under the GIL; a racing
+            # reader sees either value, both of which fence correctly
+            if ep > self._fenced_above:
+                self._fenced_above = ep
+        elif ep == self.epoch and self._fenced_above <= self.epoch:
+            return False
+        rej = {"op": "REJECT_FENCED",
+               "epoch": max(self.epoch, self._fenced_above)}
+        with self._stats_lock:
+            self.fenced_rejects += 1
+        supervisor_mod.bump_total("fenced_rejects")
+        if record:
+            # PUSH: fold the piggybacked telemetry BEFORE rejecting --
+            # the 'fold before any drop path' invariant (_handle_push).
+            # Dedup-replayed fenced stamps never reach here (the cached
+            # verdict answers them), so nothing double-folds.
+            self._fold_wire_spans(header.get("spans"))
+            _pl_fold(header.get("pl"))
+            _cv_fold(header.get("cv"), clock=self._clock,
+                     wall_ms=self._bus_time_ms())
+            self._dedup.record(header, rej)
+        _send_msg(conn, rej)
+        return True
 
     def _release_wave_locked(self) -> None:
         """Fire the partial barrier: everyone currently waiting rides this
@@ -1228,6 +1377,12 @@ class ParameterServer:
             orders = sup.orders_for(proc)
             if orders:
                 extra_hdr["adopt"] = orders
+        if self.epoch:
+            # fencing on: replies advertise the current epoch so a
+            # client that joined before a fence converges without a
+            # REJECT_FENCED round trip (absent with fencing off --
+            # byte-identical legacy wire)
+            extra_hdr["ep"] = self.epoch
         # vectored zero-copy framing: the cached model bytes and the ASAGA
         # extra payload go out as one kernel-gathered iovec -- the payload
         # is never copied into a fresh frame buffer
@@ -1471,7 +1626,7 @@ class ParameterServer:
                 # (bit-equal to len(batch) serial applies)
                 G = torch.from_numpy(np.stack([it.g_host for it, _ in batch]))
                 # every slot keeps its push (a mask of ones: no
-                # controller damps here, ROADMAP A6b)
+                # controller damps here, ROADMAP A6b.4)
                 mask = torch.ones(len(batch), dtype=torch.float32)
                 G_dev = G.to(self.device)
                 m_dev = mask.to(self.device)
@@ -1673,23 +1828,25 @@ class ParameterServer:
     # ------------------------------------------------ switches refused here
     def set_control(self, wire: Optional[dict]) -> bool:
         """The adaptive controller's CTRL install: not ported."""
-        _refuse("the adaptive controller (set_control, async.control.enabled)")
+        _refuse("the adaptive controller (set_control, async.control.enabled)",
+                "A6b.4")
 
     def attach_standby(self, host: str, port: int) -> None:
         """Hot-standby replication: not ported."""
-        _refuse("hot-standby replication (attach_standby)")
+        _refuse("hot-standby replication (attach_standby)", "A6b.3")
 
     def set_standby_map(self, wire) -> None:
         """Hot-standby replication: not ported."""
-        _refuse("hot-standby replication (set_standby_map)")
+        _refuse("hot-standby replication (set_standby_map)", "A6b.3")
 
 
 class FencedError(ConnectionError):
-    """A server answered REJECT_FENCED: it runs epoch fencing, which this
-    package's clients do not speak yet (ROADMAP A6b); they never stamp an
-    epoch, so only a fenced server that refuses unstamped ops sends it.
-    Subclasses ConnectionError so worker loops treat it like any other
-    dead endpoint."""
+    """The server refused this client's ops under epoch fencing and the
+    client cannot self-heal by adopting a newer epoch -- the server
+    itself is at (or below) the client's epoch, i.e. the client is
+    talking to a deposed zombie.  Subclasses ConnectionError so worker
+    loops treat it like any other dead endpoint: pace, re-dial, and
+    land on the current owner."""
 
 
 # -------------------------------------------------------------- worker side
@@ -1717,11 +1874,19 @@ class PSClient:
                  shm: Optional[bool] = None):
         self.host, self.port = host, int(port)
         if ctrl_sink is not None:
-            _refuse("the adaptive controller's control sink (ctrl_sink)")
-        if epoch:
-            _refuse("epoch fencing (a client epoch)")
+            _refuse("the adaptive controller's control sink (ctrl_sink)",
+                    "A6b.4")
         self.endpoint = f"{host}:{self.port}"
-        self.epoch = 0
+        # fencing epoch this client stamps on every PULL/PUSH (``ep``
+        # header key; 0 = fencing off, no key, byte-identical legacy
+        # wire).  Seeded from the WELCOME handshake and advanced by MODEL
+        # replies / REJECT_FENCED verdicts -- a fenced client adopts the
+        # minted epoch and its NEXT op is admitted; entries already
+        # stamped (the windowed push pipe replays verbatim) keep their
+        # old epoch and are rejected exactly once each, which is the
+        # point: a deposed incarnation's buffered writes never land.
+        self.epoch = int(epoch)
+        self.fenced_replies = 0
         self.retry = retry if retry is not None else RetryPolicy.from_conf(
             attempt_timeout_s=timeout_s
         )
@@ -1859,7 +2024,21 @@ class PSClient:
     def _proc_hdr(self, hdr: dict) -> dict:
         if self.proc is not None:
             hdr["proc"] = self.proc
+        if self.epoch:
+            hdr["ep"] = self.epoch
         return hdr
+
+    def _note_fenced(self, header: dict) -> bool:
+        """Fold one REJECT_FENCED verdict: adopt the minted epoch when it
+        is NEWER than ours (we were deposed and can self-heal -- the next
+        op, stamped fresh, will be admitted) and return True; False means
+        the SERVER is the stale party (a zombie) and cannot serve us."""
+        self.fenced_replies += 1
+        srv_ep = int(header.get("epoch", 0))
+        if srv_ep > self.epoch:
+            self.epoch = srv_ep
+            return True
+        return False
 
     def _note_orders(self, header: dict) -> None:
         if "adopt" in header:
@@ -1980,6 +2159,7 @@ class PSClient:
         a full reply always decodes; never a wrong model).  Returns
         (header, payload, w), or None on RELEASED/DONE (``self.released``
         distinguishes them)."""
+        fence_left = True
         fallback_left = True
         while True:
             op = header["op"]
@@ -1995,8 +2175,27 @@ class PSClient:
                 raise ConnectionError(
                     f"{self.endpoint} refused: {header.get('msg')!r}")
             if op == "REJECT_FENCED":
-                raise FencedError(f"fenced by {self.endpoint}: epoch "
-                                  f"fencing is ROADMAP A6b")
+                # deposed basis: adopt the minted epoch and re-pull ONCE
+                # with the fresh stamp (the current owner admits it); a
+                # second fence, or a server whose epoch does not exceed
+                # ours, is a zombie endpoint -- surface it
+                if self._note_fenced(header) and fence_left:
+                    fence_left = False
+                    header, payload = self._traced_call(
+                        tr, _trace.PULL_RTT,
+                        self._proc_hdr(self._have_hdr(wid, make_hdr())),
+                    )
+                    continue
+                raise FencedError(
+                    f"fenced by {self.endpoint} at epoch "
+                    f"{int(header.get('epoch', 0))} (client epoch "
+                    f"{self.epoch})"
+                )
+            srv_ep = header.get("ep")
+            if srv_ep is not None and int(srv_ep) > self.epoch:
+                # replies advertise the server's current epoch: track it
+                # so our next op is stamped current without a fence trip
+                self.epoch = int(srv_ep)
             self._note_orders(header)
             w = self._decode_model(wid, header, payload,
                                    extra_len_of(header))
@@ -2143,7 +2342,8 @@ class PSClient:
 
     def subscribe(self, wid: int = 0, extra: Optional[dict] = None):
         """The serving tier's snapshot subscription: not ported."""
-        _refuse("SUBSCRIBE (the serving tier's snapshot subscription)")
+        _refuse("SUBSCRIBE (the serving tier's snapshot subscription)",
+                "A6b.5")
 
     @staticmethod
     def _sparse_grad_enc(g: np.ndarray) -> Optional[Tuple[int, bytes]]:
@@ -2255,8 +2455,15 @@ class PSClient:
             self._requeue_piggybacks(spans, pl_delta, cv_wire)
             raise
         if header.get("op") == "REJECT_FENCED":
-            raise FencedError(f"push fenced by {self.endpoint}: epoch "
-                              f"fencing is ROADMAP A6b")
+            # this gradient was computed under a deposed epoch: it is
+            # DROPPED (the same loss as a taw rejection), and with the
+            # adopted epoch the next round is admitted
+            if self._note_fenced(header):
+                return False, False
+            raise FencedError(
+                f"push fenced by zombie {self.endpoint} (epoch "
+                f"{int(header.get('epoch', 0))} <= ours {self.epoch})"
+            )
         if header.get("op") == "ERR":
             # a refusing endpoint (standby / malformed push): dead-
             # endpoint semantics, same as the pull path
@@ -2356,8 +2563,26 @@ class PSClient:
             tr.rpc_end(token,
                        bytes=sent_bytes + _frame.last_recv_bytes())
         if header.get("op") == "REJECT_FENCED":
-            raise FencedError(f"windowed push fenced by {self.endpoint}: "
-                              f"epoch fencing is ROADMAP A6b")
+            # a windowed entry stamped under a deposed epoch (typically a
+            # replay onto a fenced range's replacement): dropped, epoch
+            # adopted -- later push_start calls stamp the current epoch.
+            # Judge against THIS ENTRY'S stamp, not self.epoch: with >= 2
+            # stale entries in flight, the first fence already advanced
+            # self.epoch, and comparing the second reply against the
+            # advanced value would misread the healthy replacement as a
+            # zombie (each stale entry is rejected exactly once, that is
+            # the design -- only a server whose epoch does not exceed
+            # what WE stamped on the op is actually stale itself).
+            self.fenced_replies += 1
+            srv_ep = int(header.get("epoch", 0))
+            if srv_ep > self.epoch:
+                self.epoch = srv_ep
+            if srv_ep > int(_hdr.get("ep", 0) or 0):
+                return False, False
+            raise FencedError(
+                f"push fenced by zombie {self.endpoint} (epoch "
+                f"{srv_ep} <= op stamp {_hdr.get('ep')})"
+            )
         if header.get("op") == "ERR":
             raise ConnectionError(
                 f"windowed push refused by {self.endpoint}: "
@@ -2573,13 +2798,37 @@ def run_worker_process(
         global _cv_taken
         sums = conv_eval(*shard_args(shard), w_dev[None, :])
         loss = float(sums[0]) / max(1, int(shard.y.shape[0]))
-        cv_buf.add(int(ts), loss, float(np.linalg.norm(g_host)))
+        # against a sharded PS group ``ts`` is the version VECTOR: the
+        # sample is stamped with the primary's component (its clock
+        # drives the convergence curves)
+        ver = int(ts[0]) if isinstance(ts, (tuple, list)) else int(ts)
+        cv_buf.add(ver, loss, float(np.linalg.norm(g_host)))
         with _cv_lock:
             _cv_taken += 1
 
+    # sharded PS group (parallel/shardgroup.py): resolved from the HELLO
+    # WELCOME below.  None = the classic single PS -- every client below
+    # is a stock PSClient and the wire is byte-identical.  The WELCOME
+    # also seeds the fencing epochs (async.fence.enabled on the servers;
+    # absent = 0 = legacy, clients stamp nothing).
+    smap = None
+    smap_epochs: Optional[List[int]] = None
+    ps_epoch = 0
+
     def make_client(recorder=None, pl_stats=None, cv_buf=None):
+        """One PS-facing client: a ShardedPSClient fan-out facade when
+        the HELLO resolved a shard map, the classic PSClient otherwise.
+        Same surface either way -- the loops below cannot tell."""
+        if smap is not None:
+            from asyncframework_tpu_torch.parallel.shardgroup import (
+                ShardedPSClient,
+            )
+
+            return ShardedPSClient(
+                smap, proc=proc_token, recorder=recorder,
+                pl_stats=pl_stats, cv_buf=cv_buf, epochs=smap_epochs)
         return PSClient(host, port, proc=proc_token, recorder=recorder,
-                        pl_stats=pl_stats, cv_buf=cv_buf)
+                        pl_stats=pl_stats, cv_buf=cv_buf, epoch=ps_epoch)
 
     # elastic adoption bookkeeping: which wids this process serves (own +
     # adopted), and every loop thread ever started (joined at the end)
@@ -2892,10 +3141,15 @@ def run_worker_process(
 
     # introduce this process to the PS before serving: the supervisor
     # learns the proc token, wids, and pid; a rejoining process's HELLO is
-    # also what deposes its surrogate.  The WELCOME reply says whether the
-    # PS is a shard group, fenced or controlled -- switches this package
-    # refuses -- so HELLO is retried for the WHOLE worker deadline, never
-    # skipped.  A PS dark past the deadline aborts the process cleanly.
+    # also what deposes its surrogate.  The WELCOME reply is also the
+    # SHARD-MAP handshake (parallel/shardgroup.py): against a sharded PS
+    # group it carries the per-shard [host, port, lo, hi] map (and the
+    # fencing epochs) and every loop below runs a ShardedPSClient instead
+    # -- so HELLO is retried for the WHOLE worker deadline, never skipped:
+    # without the WELCOME this process cannot know whether the PS is a
+    # shard group, and serving a sharded group as if it were one PS would
+    # pull a single range as the whole model.  A PS dark past the
+    # deadline aborts the process cleanly instead.
     hello_deadline = time.monotonic() + deadline_s
     hello_ok = False
     while True:
@@ -2915,12 +3169,19 @@ def run_worker_process(
         # the PS never answered within the worker budget: give up loudly
         # with empty counts
         return dict(counts)
-    if len(welcome.get("shards") or []) > 1:
-        _refuse("a sharded PS group (async.ps.shards > 1)")
-    if welcome.get("epoch"):
-        _refuse("epoch fencing (a fenced PS)")
+    wire_map = welcome.get("shards") or []
+    if len(wire_map) > 1:
+        from asyncframework_tpu_torch.parallel.shardgroup import ShardMap
+
+        if algo != "asgd":
+            raise ValueError("sharded PS groups serve algo='asgd' only")
+        smap = ShardMap.from_wire(wire_map)
+        wire_epochs = welcome.get("epochs")
+        if wire_epochs:
+            smap_epochs = [int(e) for e in wire_epochs]
+    ps_epoch = int(welcome.get("epoch", 0) or 0)
     if welcome.get("ctrl"):
-        _refuse("the adaptive controller (a controlled PS)")
+        _refuse("the adaptive controller (a controlled PS)", "A6b.4")
 
     for w in wids:
         spawn(w)
@@ -2952,6 +3213,19 @@ def run_worker_process(
             except (ConnectionError, OSError):
                 if time.monotonic() >= eval_deadline:
                     break  # trajectory forfeited, counts still returned
+                if smap is not None:
+                    # every retry builds a FRESH facade: refresh the map
+                    # from any live member so a rebuild dials the
+                    # group's current endpoints and epochs
+                    from asyncframework_tpu_torch.parallel.shardgroup import (
+                        resolve_live_group,
+                    )
+
+                    smap2, epochs2 = resolve_live_group(smap.entries)
+                    if smap2 is not None:
+                        smap = smap2
+                        if epochs2:
+                            smap_epochs = epochs2
                 time.sleep(0.5)
             finally:
                 if cl is not None:

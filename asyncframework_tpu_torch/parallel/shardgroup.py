@@ -1,0 +1,1475 @@
+"""Sharded parameter server: range-partitioned model, elastic shard group.
+
+Counterpart of ``asyncframework_tpu/parallel/shardgroup.py``, in PyTorch:
+the same shard map, worker-side fan-out client and shard-group controller,
+speaking the same wire, so a worker of either package trains against a
+group of the other.  **Staleness becomes a per-shard vector, not a
+scalar** (the delay-tolerant analysis of "Faster Asynchronous SGD",
+arXiv:1601.04033).
+
+Topology
+--------
+
+- the model ``w[0:d]`` is **range-partitioned** (:func:`shard_ranges`,
+  contiguous near-equal ranges) across N stock ``ParameterServer``
+  processes; each shard owns ``w[lo:hi]`` (on its device: ``cuda`` unless
+  the caller asks for the CPU) with its OWN merge clock, taw admission,
+  dedup window, and durable checkpoint.  The elementwise ASGD update
+  commutes with slicing, so per-range applies are exact;
+- a :class:`ShardMap` names the group: workers resolve it **at HELLO**
+  (the WELCOME reply carries it) or via the ``SHARDMAP`` op -- no side
+  channel, no config fan-out;
+- **shard 0 is the primary**: it keeps the partial-barrier wave gate
+  (cohort semantics unchanged at ``shards=1``), the elastic WORKER
+  supervisor, the calibration broadcast, and the end-of-run EVAL plane.
+  Secondaries serve their ranges ungated (``bucket_ratio=0``) and never
+  self-finish (their iteration budget is unbounded; the primary's DONE is
+  broadcast to them as ``FINISH``);
+- a worker-side :class:`ShardedPSClient` presents the PSClient surface to
+  the stock worker loops: a PULL becomes N parallel sub-pulls (sent
+  back-to-back, reaped primary-first -- each sub-pull reuses the
+  per-shard ``have=`` NM/XDELTA/FULL negotiation and CRC gating), a PUSH
+  fans out per-shard gradient rows under per-shard ``(sid, seq)``
+  exactly-once sessions, and the model version is a **vector** of
+  per-shard clocks assembled worker-side.
+
+Elastic shard failover
+----------------------
+
+:class:`ShardGroup` spawns the shard processes (the env-driven child
+``python -m asyncframework_tpu_torch.parallel.shardgroup``) and folds them
+into an :class:`~asyncframework_tpu_torch.parallel.supervisor.ElasticSupervisor`
+as first-class members (``adopt=False`` slots, one per shard): each
+monitor tick probes every shard's port (the contact signal) and the
+supervisor declares a shard dead on **local pid exit or silence**.  A dead
+shard is restarted on its pinned port from its durable checkpoint (model +
+clock + dedup window captured under one lock); live shards keep serving
+their ranges meanwhile.  With fencing on (``async.fence.enabled``) every
+restart runs under a freshly minted epoch, announced to the group by
+SETMAP.  In-flight pushes to the dead shard replay through the wire-window
+machinery onto the recovered shard: a push the dead shard
+applied-but-never-ACKed is re-answered from the RESTORED dedup window,
+never merged twice, while a push lost past the checkpoint is applied now
+(its effect was rolled back with the model).
+
+``async.ps.shards = 1`` (the default) never touches any of this: the
+launcher provisions the classic single PS and the wire is byte- and
+step-identical.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP item: the group's warm standbys and promotion (A6b.3), its
+adaptive-control fan-out (``install_ctrl``, ``CtrlFanout``; A6b.4), and
+the serving tier's ``ShardedSubscriber`` (A8).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from asyncframework_tpu_torch.metrics import flightrec as _flight
+from asyncframework_tpu_torch.net import frame as _frame
+from asyncframework_tpu_torch.parallel import supervisor as supervisor_mod
+
+# ------------------------------------------------------------- group totals
+# Process-global shard-group counters (metrics/registry.py family
+# "shardgroup"): bumped by the controller (restarts) and the worker-side
+# facade (finish broadcasts, assembled pulls) in whichever process hosts
+# them -- the same per-process discipline as every other family.
+_totals_lock = threading.Lock()
+_totals: Dict[str, int] = {}
+
+
+def shard_totals() -> Dict[str, int]:
+    """Shard-group counters: shard_deaths (supervisor declared a shard
+    dead), shards_restarted (children relaunched from checkpoint),
+    restart_failures (relaunch attempts that did not come back),
+    finish_broadcasts (primary DONE fanned out to secondaries),
+    sharded_pulls / sharded_pushes (assembled vector-clock round trips),
+    pull_vector_len_<N> (assembled pulls whose version vector had N
+    clocks), shard_round_errors (fan-out rounds abandoned on a sub-shard
+    fault), fence_epoch_bumps (relaunches announced under a new epoch),
+    map_re_resolves, restarts_uncheckpointed."""
+    with _totals_lock:
+        return dict(_totals)
+
+
+def reset_shard_totals() -> None:
+    """Zero the process-global shard-group counters (per-run isolation;
+    see ``asyncframework_tpu_torch.metrics.reset_totals``)."""
+    with _totals_lock:
+        _totals.clear()
+
+
+def _bump(key: str, n: int = 1) -> None:
+    with _totals_lock:
+        _totals[key] = _totals.get(key, 0) + n
+
+
+# The controller running in THIS process, if any (a cluster launcher, the
+# chaos harness): /api/status pages add a per-shard section from it
+# (metrics/live.py reads it via active_group()).  Last started wins; a
+# stopped group unhooks itself identity-gated, so a stale reference can
+# never shadow a live one.
+_active_group_lock = threading.Lock()
+_active_group: Optional["ShardGroup"] = None
+
+
+def active_group() -> Optional["ShardGroup"]:
+    with _active_group_lock:
+        return _active_group
+
+
+def _set_active_group(group, *, only_if=None) -> None:
+    global _active_group
+    with _active_group_lock:
+        if only_if is not None and _active_group is not only_if:
+            return
+        _active_group = group
+
+
+# ---------------------------------------------------------------- shard map
+def shard_ranges(d: int, shards: int) -> List[Tuple[int, int]]:
+    """Contiguous near-equal ``[lo, hi)`` ranges covering ``[0, d)``.
+    Shard count is clamped to ``d`` (a shard must own >= 1 coordinate);
+    the first ``d % shards`` ranges carry the remainder coordinate."""
+    d = int(d)
+    shards = max(1, min(int(shards), d))
+    base, rem = divmod(d, shards)
+    out: List[Tuple[int, int]] = []
+    lo = 0
+    for i in range(shards):
+        hi = lo + base + (1 if i < rem else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+class ShardMap:
+    """The group's wire-shareable identity: per-shard ``(host, port, lo,
+    hi)`` in range order.  Validated contiguous on construction -- a map
+    with a hole or an overlap cannot exist, so worker-side assembly by
+    concatenation is correct by construction."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, entries: Sequence[Sequence]):
+        norm = [(str(h), int(p), int(lo), int(hi))
+                for (h, p, lo, hi) in entries]
+        if not norm:
+            raise ValueError("empty shard map")
+        expect = 0
+        for (_h, _p, lo, hi) in norm:
+            if lo != expect or hi <= lo:
+                raise ValueError(f"non-contiguous shard map: {norm}")
+            expect = hi
+        self.entries = norm
+
+    @classmethod
+    def from_wire(cls, wire) -> "ShardMap":
+        return cls(wire)
+
+    def to_wire(self) -> List[List]:
+        return [list(e) for e in self.entries]
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.entries)
+
+    @property
+    def d(self) -> int:
+        return self.entries[-1][3]
+
+    def ranges(self) -> List[Tuple[int, int]]:
+        return [(lo, hi) for (_h, _p, lo, hi) in self.entries]
+
+    def __repr__(self) -> str:
+        return f"ShardMap({self.entries})"
+
+
+#: telemetry-port pre-assignment uses the shared reserve-and-release
+#: helper (net/frame.py): the slot's scrape URL must be known BEFORE
+#: the child binds it, and must survive relaunches
+_free_port = _frame.free_port
+
+
+def _oneshot(host: str, port: int, header: dict,
+             timeout_s: float) -> dict:
+    """One framed request/reply on a FRESH connection (never a data
+    connection: a prefetched PULL reply may be parked in its buffer and
+    must not be mispaired with this reply).  Returns the reply header."""
+    s = _frame.connect((host, int(port)), timeout=timeout_s)
+    try:
+        s.settimeout(timeout_s)
+        _frame.send_msg(s, header)
+        reply, _payload = _frame.recv_msg(s)
+        return reply
+    finally:
+        s.close()
+
+
+def fetch_shard_map(host: str, port: int,
+                    timeout_s: float = 10.0) -> Optional[ShardMap]:
+    """One SHARDMAP round trip against any group member.  Returns None
+    when the server is unsharded (the classic single PS answers an empty
+    map).  Raises on transport failure -- callers own retry pacing."""
+    smap, _epochs, _epoch = fetch_group_info(host, port, timeout_s)
+    return smap
+
+
+def fetch_group_info(host: str, port: int, timeout_s: float = 10.0
+                     ) -> Tuple[Optional[ShardMap],
+                                Optional[List[int]], int]:
+    """One SHARDMAP round trip returning ``(shard_map, epochs, epoch)``:
+    the group map (None when unsharded), the per-shard fencing-epoch
+    vector (None when fencing is off or unknown), and the answering
+    server's own epoch (0 = fencing off) -- everything a subscriber
+    needs to stamp its reads so a fenced zombie can never serve it."""
+    header = _oneshot(host, port, {"op": "SHARDMAP"}, timeout_s)
+    wire = header.get("shards") or []
+    epochs = header.get("epochs")
+    epoch = int(header.get("epoch", 0) or 0)
+    if len(wire) <= 1:
+        return None, None, epoch
+    return (ShardMap.from_wire(wire),
+            [int(e) for e in epochs] if epochs else None, epoch)
+
+
+def finish_endpoint(host: str, port: int, timeout_s: float = 5.0) -> None:
+    """One FINISH round trip; idempotent server-side."""
+    _oneshot(host, port, {"op": "FINISH"}, timeout_s)
+
+
+def resolve_live_group(entries, timeout_s: float = 2.0
+                       ) -> Tuple[Optional[ShardMap],
+                                  Optional[List[int]]]:
+    """Sweep a (possibly stale) map's entries for any LIVE member and
+    return its view of the CURRENT ``(shard_map, epochs)`` -- the one
+    re-resolution primitive behind every 'a promotion moved an
+    endpoint' recovery path (worker facade, serving subscriber, the
+    eval fan-out).  ``(None, None)`` when nobody answers."""
+    for e in list(entries):
+        try:
+            smap, epochs, _ep = fetch_group_info(
+                str(e[0]), int(e[1]), timeout_s=timeout_s)
+        except (ConnectionError, OSError):
+            continue
+        if smap is not None:
+            return smap, epochs
+        return None, None  # an unsharded answer: nothing to re-resolve
+    return None, None
+
+
+# ------------------------------------------------------- worker-side facade
+class ShardedPSClient:
+    """The PSClient surface over a shard group: same methods the stock
+    worker loops call (serial pull/push, the prefetch pair, the windowed
+    push pipe, orders/eval/bye), fanned out per shard.
+
+    Version vector: :meth:`pull` returns ``ts`` as a TUPLE of per-shard
+    clocks; :meth:`push` takes that tuple back and stamps each sub-push
+    with its own shard's component -- each shard prices staleness against
+    its own clock (the per-shard vector contract).  ``accepted`` / ``done``
+    verdicts are the PRIMARY's: its clock drives cohorts, calibration,
+    and run completion; secondaries follow via FINISH.
+
+    Fault discipline: any sub-shard RPC that exhausts its retry budget
+    abandons the WHOLE round on every shard (windows dropped, sockets
+    reset) and re-raises -- exactly how the serial loop loses a round
+    today, except per-shard sessions guarantee the abandoned pushes that
+    DID land are never re-applied when their stamps are seen again.
+    Within the retry budget, a restarting shard is ridden out invisibly:
+    each sub-client reconnects and replays its unacked window onto the
+    recovered shard (dedup-cached re-ACKs, never a double apply).
+    """
+
+    def __init__(self, smap: ShardMap, timeout_s: float = 120.0,
+                 proc: Optional[str] = None, recorder=None,
+                 pull_mode: Optional[str] = None, pl_stats=None,
+                 cv_buf=None, epochs: Optional[Sequence[int]] = None):
+        from asyncframework_tpu_torch.parallel.ps_dcn import PSClient
+
+        self.smap = smap
+        # rebuild context for a moved endpoint: a sub-shard endpoint can
+        # MOVE mid-run (a JAX-package controller promotes a standby onto
+        # its own port), so _re_resolve needs everything a fresh
+        # sub-client takes
+        self._timeout_s = float(timeout_s)
+        self._proc = proc
+        self._recorder = recorder
+        self._pull_mode = pull_mode
+        self._pl_stats = pl_stats
+        self._cv_buf = cv_buf
+        # piggybacked telemetry (trace spans, pipeline counters,
+        # convergence samples) rides the PRIMARY connection only: the
+        # primary folds it into the process that serves the dashboard;
+        # shipping copies per shard would double-count every sample.
+        # ``epochs`` (WELCOME handshake) seeds per-shard fencing epochs:
+        # each sub-client stamps ITS shard's epoch -- ranges fence
+        # independently, exactly like the staleness vector.
+        self.clients: List[PSClient] = [
+            PSClient(h, p, timeout_s=timeout_s, proc=proc,
+                     recorder=recorder if i == 0 else None,
+                     pull_mode=pull_mode,
+                     pl_stats=pl_stats if i == 0 else None,
+                     cv_buf=cv_buf if i == 0 else None,
+                     epoch=(int(epochs[i])
+                            if epochs and i < len(epochs) else 0))
+            for i, (h, p, _lo, _hi) in enumerate(smap.entries)
+        ]
+        self._saw_done = False
+        self._finished = False
+        # faulted fan-out rounds since construction: every 3rd one also
+        # re-resolves the map (promotion-following, paced -- see _reset)
+        self._round_errors = 0
+
+    # ------------------------------------------------------------ plumbing
+    @property
+    def released(self) -> bool:
+        return any(c.released for c in self.clients)
+
+    def take_orders(self) -> List[int]:
+        return self.clients[0].take_orders()
+
+    def hello(self, proc: str, wids: List[int],
+              pid: Optional[int] = None) -> dict:
+        return self.clients[0].hello(proc, wids, pid=pid)
+
+    def _rebuild_client(self, i: int, host: str, port: int,
+                        epoch: int):
+        """One sub-client re-homed onto a moved endpoint (promotion).
+        The replacement keeps the OLD client's ClientSession and
+        inherits its unacked push window VERBATIM -- original
+        ``(sid, seq)`` stamps, original epoch stamps -- and drains the
+        replay synchronously: an entry the deposed primary applied AND
+        streamed re-answers from the promoted standby's REPLICATED
+        dedup window (exactly-once across the failover); an unapplied
+        or unstreamed one comes back REJECT_FENCED on its stale stamp
+        and is dropped -- the same loss as an abandoned round, never a
+        double apply."""
+        from asyncframework_tpu_torch.parallel.ps_dcn import PSClient
+
+        old = self.clients[i]
+        nc = PSClient(host, int(port), timeout_s=self._timeout_s,
+                      proc=self._proc,
+                      recorder=self._recorder if i == 0 else None,
+                      pull_mode=self._pull_mode,
+                      pl_stats=self._pl_stats if i == 0 else None,
+                      cv_buf=self._cv_buf if i == 0 else None,
+                      session=old.session, epoch=int(epoch))
+        with old._win_lock:
+            entries = list(old._push_window)
+            old._push_window.clear()
+        old._drop_sock()
+        if entries:
+            nc._push_window.extend(entries)
+            nc._drop_sock()  # push_finish's reconnect REPLAYS them all
+            for _ in range(len(entries)):
+                try:
+                    nc.push_finish()
+                except (ConnectionError, OSError):
+                    nc.push_abandon()
+                    break
+        return nc
+
+    def _re_resolve(self) -> bool:
+        """After a sub-shard fault: ask any reachable member for the
+        CURRENT map (a promotion re-SETMAPs every member) and re-home
+        the sub-clients whose endpoints moved -- every moved one in ONE
+        pass, judged against each CLIENT's actual endpoint (an earlier
+        partial re-resolve must never mask a still-stale client).
+        Best-effort -- the caller is already on an error path and
+        retries either way."""
+        smap, epochs = resolve_live_group(self.smap.entries,
+                                          timeout_s=2.0)
+        if smap is None or smap.ranges() != self.smap.ranges():
+            return False
+        changed = False
+        for i, entry in enumerate(smap.entries):
+            c = self.clients[i]
+            if (str(entry[0]), int(entry[1])) == (c.host, c.port):
+                if (epochs and i < len(epochs)
+                        and int(epochs[i]) > c.epoch):
+                    c.epoch = int(epochs[i])
+                continue
+            try:
+                self.clients[i] = self._rebuild_client(
+                    i, entry[0], entry[1],
+                    int(epochs[i]) if epochs and i < len(epochs) else 0)
+            except (ConnectionError, OSError):
+                continue  # that replacement not up yet; retry later
+            changed = True
+        if changed:
+            self.smap = smap
+            _bump("map_re_resolves")
+        return changed
+
+    def _reset(self) -> None:
+        """Abandon the whole fan-out round: every shard's unacked window
+        is dropped (piggybacks requeued) and every socket closed, so the
+        next round starts from a clean slate on fresh connections --
+        a half-consumed reply can never be mispaired."""
+        _bump("shard_round_errors")
+        self._round_errors += 1
+        if self._round_errors % 3 == 0:
+            # hot-standby promotion moves a shard's endpoint mid-run:
+            # learn the current map and re-home moved sub-clients
+            # (their windows ride along and replay against the
+            # replicated dedup window).  PACED to every third faulted
+            # round -- the overwhelmingly common _reset trigger is a
+            # transient (a shard mid-relaunch), which must stay pure
+            # local cleanup, not a serial network sweep whose dark-
+            # member connect timeouts stall the worker's error path.
+            try:
+                self._re_resolve()
+            except Exception:  # noqa: BLE001 - recovery must never
+                pass           # mask the fault that brought us here
+        for c in self.clients:
+            try:
+                c.push_abandon()
+            except (ConnectionError, OSError):  # pragma: no cover
+                pass
+            c._drop_sock()
+
+    def _note_done(self, done: bool) -> None:
+        if done:
+            self._saw_done = True
+
+    def _broadcast_finish(self) -> None:
+        """Primary DONE -> tell the secondaries (idempotent, best-effort;
+        the controller's own finish() is the backstop)."""
+        if self._finished:
+            return
+        self._finished = True
+        _bump("finish_broadcasts")
+        for (h, p, _lo, _hi) in self.smap.entries[1:]:
+            try:
+                finish_endpoint(h, p)
+            except (ConnectionError, OSError):
+                pass
+
+    # ---------------------------------------------------------- model pull
+    def pull_start(self, wid: int, tr=None) -> None:
+        for i, c in enumerate(self.clients):
+            c.pull_start(wid, tr=tr if i == 0 else None)
+
+    def pull_ready(self) -> bool:
+        return all(c.pull_ready() for c in self.clients)
+
+    def _assemble(self, gots) -> Optional[tuple]:
+        if any(g is None for g in gots):
+            # DONE (run over / FINISHed shard) or RELEASED (primary
+            # deposed this wid).  A torn mix -- some shards answered a
+            # model -- is discarded whole; PULL is idempotent.
+            if gots[0] is None and not self.released:
+                self._note_done(True)
+            return None
+        _bump("sharded_pulls")
+        ts = tuple(int(g[0]) for g in gots)
+        # the version vector's length, counted where it is assembled (one
+        # clock per range of the map)
+        _bump(f"pull_vector_len_{len(ts)}")
+        w = np.concatenate([g[1] for g in gots])
+        return ts, w, float(gots[0][2]), bool(gots[0][3])
+
+    def pull_finish(self, wid: int) -> Optional[tuple]:
+        try:
+            gots = [c.pull_finish(wid) for c in self.clients]
+        except (ConnectionError, OSError):
+            self._reset()
+            raise
+        return self._assemble(gots)
+
+    def pull(self, wid: int, tr=None) -> Optional[tuple]:
+        """N parallel sub-pulls: all requests go out back-to-back (the
+        primary's parks in the wave gate; secondaries answer immediately
+        into their kernel buffers), then replies are reaped
+        primary-first.  Returns ``(ts_vector, w_assembled, avg_delay_ms,
+        calibrated)`` or None on DONE/RELEASED."""
+        try:
+            self.pull_start(wid, tr=tr)
+        except (ConnectionError, OSError):
+            self._reset()
+            raise
+        return self.pull_finish(wid)
+
+    # ---------------------------------------------------------- model push
+    def _slice(self, g: np.ndarray, i: int) -> np.ndarray:
+        _h, _p, lo, hi = self.smap.entries[i]
+        return g[lo:hi]
+
+    def _ts_of(self, ts, i: int) -> int:
+        if isinstance(ts, (tuple, list)):
+            return int(ts[i])
+        return int(ts)  # defensive: scalar stamps every shard
+
+    def push(self, wid: int, ts, g: np.ndarray, sparse: bool = False,
+             diff: Optional[np.ndarray] = None, tr=None
+             ) -> Tuple[bool, bool]:
+        """Fan one gradient out as per-shard row pushes (per-shard
+        ``(sid, seq)`` stamps, per-shard version stamps from the pull's
+        vector), overlapped: all sub-pushes are SENT before any ACK is
+        reaped (the per-connection server loop replies in order, so ACKs
+        pair FIFO per shard).  Verdict is the primary's."""
+        if diff is not None:
+            raise ValueError("ASAGA does not ride the sharded PS group "
+                             "(PS-side sampling is range-global)")
+        g = np.asarray(g, np.float32)
+        try:
+            for i, c in enumerate(self.clients):
+                c.push_start(wid, self._ts_of(ts, i), self._slice(g, i),
+                             sparse=sparse, tr=tr if i == 0 else None)
+            accepted = done = False
+            for i, c in enumerate(self.clients):
+                a, dn = c.push_finish()
+                if i == 0:
+                    accepted, done = a, dn
+        except (ConnectionError, OSError):
+            self._reset()
+            raise
+        _bump("sharded_pushes")
+        self._note_done(done)
+        return accepted, done
+
+    # ------------------------------------------------- windowed push pipe
+    def push_start(self, wid: int, ts, g: np.ndarray,
+                   sparse: bool = False, diff: Optional[np.ndarray] = None,
+                   tr=None) -> None:
+        if diff is not None:
+            raise ValueError("ASAGA does not ride the sharded PS group")
+        g = np.asarray(g, np.float32)
+        for i, c in enumerate(self.clients):
+            c.push_start(wid, self._ts_of(ts, i), self._slice(g, i),
+                         sparse=sparse, tr=tr if i == 0 else None)
+
+    def push_finish(self) -> Tuple[bool, bool]:
+        try:
+            accepted, done = self.clients[0].push_finish()
+            for c in self.clients[1:]:
+                c.push_finish()
+        except (ConnectionError, OSError):
+            self._reset()
+            raise
+        _bump("sharded_pushes")
+        self._note_done(done)
+        return accepted, done
+
+    def push_abandon(self) -> int:
+        return max(c.push_abandon() for c in self.clients)
+
+    def inflight_pushes(self) -> int:
+        return max(c.inflight_pushes() for c in self.clients)
+
+    # -------------------------------------------------------- end of run
+    def snapshots(self) -> Tuple[List[float], np.ndarray]:
+        """Assembled trajectory stacks: per-shard stacks are fetched and
+        tail-aligned (snapshot cadences can drift a row or two across
+        shards when accept patterns differ), then concatenated per row in
+        range order.  Times are the primary's -- its clock stamps the
+        trajectory the same way it governs the run."""
+        stacks = [c.snapshots() for c in self.clients]
+        length = min(len(t) for (t, _W) in stacks)
+        # positive start index: a shard relaunched fresh past the run's
+        # last cadence tick has an EMPTY stack, and [-0:] would take every
+        # row of the others instead of none
+        times = list(stacks[0][0][len(stacks[0][0]) - length:])
+        W = np.concatenate(
+            [W[W.shape[0] - length:] for (_t, W) in stacks], axis=1)
+        return times, W
+
+    def send_eval(self, wid: int, losses: np.ndarray) -> None:
+        self.clients[0].send_eval(wid, losses)
+
+    def bye(self) -> None:
+        if self._saw_done and not self.released:
+            # this worker watched the run finish: make sure the
+            # secondaries learn (idempotent; racing peers are fine)
+            self._broadcast_finish()
+        for c in self.clients:
+            c.bye()
+
+
+# ------------------------------------------------------ serving-side facade
+class ShardedSubscriber:
+    """The serving tier's per-range snapshot subscriber: its only user is
+    the serving replica, not ported yet."""
+
+    def __init__(self, *_args, **_kwargs):
+        raise NotImplementedError(
+            "ShardedSubscriber (the serving tier's per-range subscription) "
+            "is not ported to the PyTorch package yet (ROADMAP A8)")
+
+
+# --------------------------------------------------------- group controller
+class _ShardProc:
+    """One managed shard child: Popen handle, pinned port, stdout pump."""
+
+    def __init__(self, index: int):
+        self.index = index
+        self.proc: Optional[subprocess.Popen] = None
+        self.port: Optional[int] = None
+        self.restarts = 0
+        self.resumed_from: Optional[int] = None
+        self.lines: List[str] = []
+        self.lines_cv = threading.Condition()
+        self._reader: Optional[threading.Thread] = None
+
+    def attach(self, proc: subprocess.Popen) -> None:
+        self.proc = proc
+        lines: List[str] = []
+        self.lines = lines
+
+        # the pump binds ITS life's list: a previous life's reader still
+        # draining a killed child's pipe buffer must not deposit a stale
+        # line into the new child's announce slot
+        def pump(p=proc, lines=lines):
+            for line in p.stdout:
+                with self.lines_cv:
+                    lines.append(line.rstrip("\n"))
+                    self.lines_cv.notify_all()
+
+        self._reader = threading.Thread(
+            target=pump, name=f"shard-{self.index}-stdout", daemon=True
+        )
+        self._reader.start()
+
+    def next_line(self, seen: int, timeout_s: float) -> Optional[str]:
+        deadline = time.monotonic() + timeout_s
+        with self.lines_cv:
+            while len(self.lines) <= seen:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return None
+                self.lines_cv.wait(timeout=min(left, 0.2))
+            return self.lines[seen]
+
+
+class ShardGroup:
+    """Spawn, supervise, and recover a PS shard group on this host.
+
+    The controller imports no device code: it Popens the env-driven shard
+    child (:func:`_child_main`), probes each shard's port every monitor
+    tick (the supervisor's contact signal), and lets an
+    :class:`ElasticSupervisor` (``adopt=False``, one slot per shard)
+    declare deaths by **local pid exit or silence**.  A dead shard is
+    killed-if-wedged and relaunched on its pinned port from its durable
+    checkpoint; the restarted child's hello line reports ``resumed_from``
+    so recovery is observable.
+
+    ``indices`` selects which shards THIS controller manages (a launcher
+    may run the primary in-process and manage only the secondaries).
+    ``fixed_entries`` names the unmanaged shards' endpoints so the full
+    :class:`ShardMap` can be assembled and SETMAP'd to every managed
+    child.  ``device`` is the children's device (``PS_DEVICE`` in their
+    environment, as ``tools/ps_child.py`` takes it: ``cuda`` unless the
+    caller asks for ``cpu``).
+    """
+
+    def __init__(self, cfg, d: int, n: int, shards: int,
+                 host: str = "127.0.0.1", algo: str = "asgd",
+                 checkpoint_dir: Optional[str] = None,
+                 indices: Optional[Sequence[int]] = None,
+                 fixed_entries: Optional[Dict[int, Tuple[str, int]]] = None,
+                 conf_overlays: Optional[Dict[str, object]] = None,
+                 env: Optional[Dict[str, str]] = None,
+                 worker_procs: int = 0, elastic: bool = False,
+                 stderr_dir: Optional[str] = None,
+                 dead_after_s: float = 2.0,
+                 check_interval_s: float = 0.25,
+                 max_restarts: int = 10,
+                 spawn_timeout_s: float = 90.0,
+                 standbys: Optional[int] = None,
+                 telemetry_ports: Optional[object] = None,
+                 device: Optional[str] = None):
+        if algo != "asgd":
+            raise ValueError("sharded PS groups support algo='asgd' only "
+                             "(ASAGA's PS-side sampling is range-global)")
+        if shards < 1:
+            raise ValueError("ShardGroup needs shards >= 1")
+        if int(d) < int(shards):
+            # shard_ranges would clamp, but the controller still spawns
+            # `shards` children -- the surplus ones would die at an
+            # IndexError before announcing and start() would block its
+            # full spawn timeout on a misleading "did not announce"
+            raise ValueError(f"d={d} cannot range-partition over "
+                             f"{shards} shards (a shard owns >= 1 "
+                             f"coordinate)")
+        from asyncframework_tpu_torch.conf import (
+            FENCE_ENABLED,
+            GRAY_RTT_FACTOR,
+            GRAY_RTT_MIN_MS,
+            LEASE_S,
+            PS_STANDBY,
+            SUSPECT_AFTER_S,
+            AsyncConf,
+        )
+
+        overlay_conf = AsyncConf(dict(conf_overlays or {}))
+        if standbys is None:
+            standbys = int(overlay_conf.get(PS_STANDBY))
+        if int(standbys) > 0:
+            raise NotImplementedError(
+                "the shard group's warm standbys and promotion are not "
+                "ported to the PyTorch package yet (ROADMAP A6b.3)")
+        # shards=1 is the control arm: ONE managed child process serving
+        # the classic single-PS wire (no shard map is assembled or
+        # advertised, so clients cannot tell it from an unsharded PS)
+        self.cfg = cfg
+        self.d, self.n = int(d), int(n)
+        self.shards = int(shards)
+        self.host = host
+        self.algo = algo
+        self.checkpoint_dir = checkpoint_dir
+        self.indices = sorted(indices if indices is not None
+                              else range(self.shards))
+        self.fixed_entries = dict(fixed_entries or {})
+        self.conf_overlays = dict(conf_overlays or {})
+        self.env = dict(env if env is not None else os.environ)
+        if device is not None:
+            self.env["PS_DEVICE"] = str(device)
+        self.worker_procs = int(worker_procs)
+        self.elastic = bool(elastic)
+        self.stderr_dir = stderr_dir
+        self.max_restarts = int(max_restarts)
+        self.spawn_timeout_s = float(spawn_timeout_s)
+        self._ranges = shard_ranges(self.d, self.shards)
+        self._procs: Dict[int, _ShardProc] = {
+            i: _ShardProc(i) for i in self.indices
+        }
+        self.smap: Optional[ShardMap] = None
+        # epoch fencing (async.fence.enabled, read through the overlays
+        # the children will see so controller and children agree): the
+        # controller is the epoch minter for its managed shards -- a
+        # shard's running epoch is 1 + its slot's supervisor fence count,
+        # passed down at spawn and re-announced to the group via SETMAP
+        # after every relaunch.  The child additionally bumps past its
+        # checkpoint's persisted epoch, so even a controller-less restart
+        # mints a fresh incarnation.
+        self.fence = bool(overlay_conf.get(FENCE_ENABLED))
+        # gray-failure detection: the liveness probes below time their
+        # round trips into a cohort RTT suspector; a slow-but-alive shard
+        # is marked SUSPECT in membership (and surfaced in telemetry)
+        # without being killed -- lease expiry alone escalates to DEAD.
+        from asyncframework_tpu_torch.net.health import RttSuspector
+
+        self._gray = RttSuspector(
+            factor=overlay_conf.get(GRAY_RTT_FACTOR),
+            min_ms=overlay_conf.get(GRAY_RTT_MIN_MS),
+        )
+        # the supervisor, shard edition: one slot per shard, no adoption
+        # planning (a PS shard is re-homed by RESTART, not by handing its
+        # range to a peer -- the range's durable state lives in its
+        # checkpoint).  Port probes feed touch(); pid probes catch local
+        # exits between ticks.  async.lease.s / async.suspect.after.s
+        # (same overlay discipline as the fence flag) override the ctor's
+        # dead_after_s default.
+        self.sup = supervisor_mod.ElasticSupervisor(
+            self.shards, dead_after_s=dead_after_s,
+            check_interval_s=check_interval_s, boot_grace_s=dead_after_s,
+            adopt=False, fence=self.fence,
+            lease_s=float(overlay_conf.get(LEASE_S)) or None,
+            suspect_after_s=float(overlay_conf.get(SUSPECT_AFTER_S))
+            or None,
+        )
+        self._check_interval_s = float(check_interval_s)
+        self._stop = threading.Event()
+        self._finished = threading.Event()
+        self._monitor: Optional[threading.Thread] = None
+        self._restart_lock = threading.Lock()
+        self._ts_source = None
+        # per-slot telemetry endpoints (cluster-observer discovery):
+        # "auto" pre-assigns one free port per slot, a dict pins them
+        # explicitly.  The slot's port survives relaunches -- every
+        # (re)spawn sets it via ASYNCTPU_ASYNC_METRICS_PORT, so the
+        # observer's scrape URL for "ps-shard-i" stays valid across a
+        # failover.
+        self.telemetry_ports: Dict[int, int] = {}
+        if telemetry_ports == "auto":
+            self.telemetry_ports = {
+                i: _free_port(self.host) for i in self.indices
+            }
+        elif isinstance(telemetry_ports, dict):
+            self.telemetry_ports = {
+                int(i): int(p) for i, p in telemetry_ports.items()
+            }
+
+    def telemetry_targets(self) -> List[Tuple[str, str, str]]:
+        """(name, role, url) scrape targets for the observer: one per
+        managed shard slot with an assigned telemetry port."""
+        return [
+            (f"ps-shard-{i}", "ps",
+             f"http://{self.host}:{port}")
+            for i, port in sorted(self.telemetry_ports.items())
+        ]
+
+    # ------------------------------------------------------------ lifecycle
+    def _ckpt_path(self, index: int) -> Optional[str]:
+        if not self.checkpoint_dir:
+            return None
+        return os.path.join(self.checkpoint_dir,
+                            f"ps_shard{index}.npz")
+
+    def _child_env(self, index: int, bind_port: int) -> Dict[str, str]:
+        import dataclasses
+
+        env = dict(self.env)
+        env["ASYNC_SHARD_INDEX"] = str(index)
+        env["ASYNC_SHARD_COUNT"] = str(self.shards)
+        env["ASYNC_SHARD_D"] = str(self.d)
+        env["ASYNC_SHARD_N"] = str(self.n)
+        env["ASYNC_SHARD_ALGO"] = self.algo
+        env["ASYNC_SHARD_BIND_PORT"] = str(bind_port)
+        env["ASYNC_SHARD_CFG"] = json.dumps(dataclasses.asdict(self.cfg))
+        env["ASYNC_SHARD_ROLE"] = "primary"
+        env["ASYNC_SHARD_CKPT"] = self._ckpt_path(index) or ""
+        env["ASYNC_SHARD_WORKER_PROCS"] = str(self.worker_procs)
+        env["ASYNC_SHARD_ELASTIC"] = "1" if self.elastic else "0"
+        env["ASYNC_SHARD_CONF"] = json.dumps(self.conf_overlays)
+        env["ASYNC_SHARD_MAP"] = (json.dumps(self.smap.to_wire())
+                                  if self.smap is not None else "")
+        env["ASYNC_SHARD_EPOCH"] = str(self.epoch_of(index))
+        epochs = self.epochs_wire()
+        env["ASYNC_SHARD_EPOCHS"] = json.dumps(epochs) if epochs else ""
+        env["ASYNC_SHARD_STANDBYS"] = ""
+        mport = self.telemetry_ports.get(index)
+        if mport:
+            # the slot's pinned telemetry endpoint (observer discovery):
+            # conf async.metrics.port's env spelling -- the child's
+            # start_telemetry_from_conf lights it up
+            env["ASYNCTPU_ASYNC_METRICS_PORT"] = str(mport)
+        return env
+
+    def epoch_of(self, index: int) -> int:
+        """The fencing epoch shard ``index`` currently runs at (0 =
+        fencing off): base epoch 1 plus one bump per lease-expiry/exit
+        fence the supervisor declared for its slot."""
+        if not self.fence:
+            return 0
+        return 1 + self.sup.epoch_of(index)
+
+    def epochs_wire(self) -> Optional[List[int]]:
+        """The whole group's epoch vector in range order (None with
+        fencing off); unmanaged shards sit at their base epoch unless
+        their own restarts bump them -- their minting rides their
+        checkpoints, not this controller."""
+        if not self.fence:
+            return None
+        return [self.epoch_of(i) for i in range(self.shards)]
+
+    def _spawn(self, index: int, bind_port: int) -> dict:
+        rec = self._procs[index]
+        stderr = subprocess.DEVNULL
+        if self.stderr_dir:
+            # crash forensics: each life of each shard appends to its own
+            # log
+            os.makedirs(self.stderr_dir, exist_ok=True)
+            stderr = open(os.path.join(
+                self.stderr_dir, f"shard{index}.stderr.log"), "a")
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "asyncframework_tpu_torch.parallel.shardgroup"],
+            env=self._child_env(index, bind_port),
+            stdout=subprocess.PIPE, stderr=stderr, text=True,
+        )
+        if stderr is not subprocess.DEVNULL:
+            stderr.close()  # the child owns the fd now
+        rec.attach(proc)
+        # register the relaunch IMMEDIATELY -- pid + /proc start time land
+        # under the supervisor lock the moment the child exists, not after
+        # its (possibly long) announce wait.  Otherwise the slot stays
+        # DEAD for the whole spawn and a concurrent scan (check_once is
+        # public) could schedule a SECOND spawn for the same shard,
+        # killing the fresh child.  _restart's membership guard is the
+        # other half of the fix.
+        self.sup.register(f"ps-shard-{index}", [index], pid=proc.pid,
+                          host=socket.gethostname())
+        line = rec.next_line(0, self.spawn_timeout_s)
+        if line is None:
+            proc.kill()
+            raise RuntimeError(
+                f"PS shard {index} did not announce within "
+                f"{self.spawn_timeout_s:.0f}s"
+            )
+        hello = json.loads(line)
+        rec.port = int(hello["port"])
+        return hello
+
+    def start(self) -> "ShardGroup":
+        try:
+            # the children start together (each one's interpreter and
+            # device start-up overlap), and each announces its port
+            errors: List[BaseException] = []
+
+            def spawn(i: int) -> None:
+                try:
+                    self._spawn(i, 0)
+                except BaseException as e:  # noqa: BLE001 - re-raised below
+                    errors.append(e)
+
+            spawners = [threading.Thread(target=spawn, args=(i,),
+                                         name=f"shard-{i}-spawn",
+                                         daemon=True)
+                        for i in self.indices]
+            for t in spawners:
+                t.start()
+            for t in spawners:
+                t.join()
+            if errors:
+                raise errors[0]
+            if self.shards > 1:
+                entries = []
+                for i, (lo, hi) in enumerate(self._ranges):
+                    if i in self._procs:
+                        entries.append(
+                            (self.host, self._procs[i].port, lo, hi))
+                    else:
+                        fh, fp = self.fixed_entries[i]
+                        entries.append((fh, int(fp), lo, hi))
+                self.smap = ShardMap(entries)
+                # hand every managed child the assembled map (it answers
+                # SHARDMAP / HELLO from it); unmanaged shards get it from
+                # their own launcher
+                for i in self.indices:
+                    self._setmap(i)
+        except Exception:
+            # a later spawn, map assembly, or SETMAP failed: the children
+            # already up must not be leaked (the caller's `group` variable
+            # was never assigned, so its cleanup path cannot reach them)
+            for rec in self._procs.values():
+                if rec.proc is not None and rec.proc.poll() is None:
+                    rec.proc.kill()
+            raise
+        self._monitor = threading.Thread(
+            target=self._run, name="shard-group-monitor", daemon=True
+        )
+        self._monitor.start()
+        # continuous telemetry: per-range availability becomes the
+        # ``ps_shards.*`` series each sampler tick -- the
+        # shard_availability SLO rule's input surface
+        from asyncframework_tpu_torch.metrics import timeseries as _ts
+
+        self._ts_source = self._telemetry_source
+        _ts.register_source("ps_shards", self._ts_source)
+        _set_active_group(self)
+        return self
+
+    def install_ctrl(self, wire: dict) -> None:
+        """Adaptive-control decision fan-out: not ported."""
+        raise NotImplementedError(
+            "the shard group's adaptive-control fan-out (install_ctrl) is "
+            "not ported to the PyTorch package yet (ROADMAP A6b.4)")
+
+    def _setmap(self, index: int) -> None:
+        hdr = {"op": "SETMAP", "index": index,
+               "shards": (self.smap.to_wire()
+                          if self.smap is not None else [])}
+        epochs = self.epochs_wire()
+        if epochs:
+            hdr["epochs"] = epochs
+        _oneshot(self.host, self._procs[index].port, hdr, timeout_s=10.0)
+
+    def _announce_group(self, timeout_s: float = 3.0) -> None:
+        """Best-effort SETMAP of the CURRENT map + epoch vector to every
+        reachable member (unmanaged fixed entries included -- an
+        in-process primary serves every worker HELLO, so it above all
+        must hand out current epochs).  A still-partitioned member self-
+        heals later via fencing.  The per-target timeout is kept SHORT:
+        this runs on the monitor thread, and a partitioned member must
+        cost seconds, not stall the next death scan for 10s a target."""
+        epochs = self.epochs_wire()
+        if self.smap is not None:
+            targets = [(j, h, p)
+                       for j, (h, p, _lo, _hi)
+                       in enumerate(self.smap.entries)]
+        else:
+            targets = [(i, self.host, rec.port)
+                       for i, rec in self._procs.items()
+                       if rec.port is not None]
+        for j, h, p in targets:
+            hdr = {"op": "SETMAP", "index": j,
+                   "shards": (self.smap.to_wire()
+                              if self.smap is not None else [])}
+            if epochs:
+                hdr["epochs"] = epochs
+            try:
+                _oneshot(h, p, hdr, timeout_s=timeout_s)
+            except (ConnectionError, OSError):
+                pass
+
+    def _telemetry_source(self) -> Dict[str, float]:
+        member = self.sup.membership()
+        dark = sum(1 for i in self._procs
+                   if member.get(i, {}).get("state") == supervisor_mod.DEAD)
+        suspect = sum(
+            1 for i in self._procs
+            if member.get(i, {}).get("state") == supervisor_mod.SUSPECT
+        )
+        totals = shard_totals()
+        return {
+            "total": float(self.shards),
+            "managed": float(len(self._procs)),
+            "dark_ranges": float(dark),
+            "suspect_ranges": float(suspect),
+            "live": float(self.shards - dark),
+            "restarts": float(totals.get("shards_restarted", 0)),
+            "fence_epoch_bumps": float(
+                totals.get("fence_epoch_bumps", 0)),
+            "done": float(self._finished.is_set()),
+        }
+
+    # ------------------------------------------------------------- monitor
+    def _probe(self, index: int) -> bool:
+        """One liveness probe: a SHARDMAP round trip against the shard's
+        pinned port.  Success feeds the supervisor's contact signal (the
+        lease renewal) AND the gray-failure RTT suspector: a shard that
+        answers, but at a multiple of its cohort's round trip, is marked
+        SUSPECT -- surfaced in membership/telemetry, never killed on
+        latency alone."""
+        endpoint = f"{self.host}:{self._procs[index].port}"
+        t0 = time.monotonic()
+        try:
+            _oneshot(self.host, self._procs[index].port,
+                     {"op": "SHARDMAP"}, timeout_s=1.0)
+        except (ConnectionError, OSError):
+            return False
+        if self._gray.observe(endpoint, (time.monotonic() - t0) * 1e3):
+            self.sup.suspect(index)
+        else:
+            self.sup.unsuspect(index)
+        self.sup.touch(index, f"ps-shard-{index}")
+        return True
+
+    def check_once(self) -> List[int]:
+        """One monitor scan (public for deterministic tests): probe every
+        managed shard, let the supervisor declare deaths (pid exit or
+        probe silence), restart the dead from their checkpoints.  Shards
+        still DEAD from an earlier failed relaunch are retried every scan
+        (the supervisor reports a death once; the restart loop must not
+        strand the range on one unlucky spawn)."""
+        for i in self._procs:
+            self._probe(i)
+        newly_dead = [i for i in self.sup.check_once() if i in self._procs]
+        for i in newly_dead:
+            _bump("shard_deaths")
+            # a dead member's frozen RTT EWMA must leave the cohort:
+            # left in, it skews every later suspicion median
+            self._gray.forget(f"{self.host}:{self._procs[i].port}")
+            self._restart(i)
+        member = self.sup.membership()
+        for i in self._procs:
+            if (i not in newly_dead
+                    and member.get(i, {}).get("state")
+                    == supervisor_mod.DEAD):
+                self._restart(i)
+        return newly_dead
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._check_interval_s):
+            if self._finished.is_set():
+                continue  # post-done exits are teardown, not death
+            try:
+                self.check_once()
+            except Exception:  # noqa: BLE001 - the monitor must outlive
+                pass           # any one bad scan (spawn failure, junk IO)
+
+    def _restart(self, index: int) -> None:
+        """Re-home a dead shard: kill the corpse if the pid is somehow
+        still holding the port (wedged, not exited) and relaunch on the
+        SAME port from the durable checkpoint.  Live shards never stop
+        serving their ranges meanwhile."""
+        with self._restart_lock:
+            if self._stop.is_set() or self._finished.is_set():
+                return
+            rec = self._procs[index]
+            proc = rec.proc
+            # double-spawn guard (the other half of _spawn's early
+            # registration): a concurrent scan that queued behind this
+            # lock while a relaunch was in flight must NOT kill the
+            # fresh child and spawn a second one -- if the slot is no
+            # longer DEAD (the relaunch registered its pid the moment
+            # it was Popen'd) and its process is alive, there is
+            # nothing left to recover.
+            state = self.sup.membership().get(index, {}).get("state")
+            if (state != supervisor_mod.DEAD
+                    and proc is not None and proc.poll() is None):
+                return
+            if proc is not None and proc.poll() == 0:
+                # graceful conclusion (DONE/FINISH reached, result printed,
+                # exit 0), not a crash: nothing to recover -- restarting
+                # would resurrect a finished shard into a run that is over
+                return
+            if rec.restarts >= self.max_restarts:
+                return  # gave up on this range; counted at each failure
+            if not self._ckpt_path(index):
+                # no durable state: the relaunch serves a FRESH (zero)
+                # model for this range mid-run.  Still better than a dark
+                # range, but it must never happen silently -- convergence
+                # for the range restarts from scratch.
+                _bump("restarts_uncheckpointed")
+                print(f"shard-group: restarting shard {index} WITHOUT a "
+                      f"checkpoint (no checkpoint_dir) -- its model "
+                      f"range resets to zero", file=sys.stderr, flush=True)
+            if proc is not None and proc.poll() is None:
+                try:
+                    proc.kill()
+                    proc.wait(timeout=10.0)
+                except OSError:  # pragma: no cover
+                    pass
+            rec.restarts += 1
+            try:
+                hello = self._spawn(index, rec.port)
+            except (RuntimeError, OSError):
+                _bump("restart_failures")
+                return
+            if self._stop.is_set() or self._finished.is_set():
+                # stop()/finish() raced this relaunch while _spawn was
+                # blocking on the announce line: the fresh child would be
+                # an orphan nobody terminates -- reap it here
+                if rec.proc is not None and rec.proc.poll() is None:
+                    rec.proc.kill()
+                return
+            _bump("shards_restarted")
+            _flight.note("shard_restart", shard=int(index),
+                         restarts=rec.restarts)
+            # the child announces what it recovered: resumed_from is the
+            # checkpointed k it came back at (None = fresh model, e.g.
+            # death before the first cadence checkpoint)
+            rec.resumed_from = hello.get("resumed_from")
+            if self.fence and self.smap is not None:
+                # announce the bumped epoch vector to every reachable
+                # member: WELCOME hands NEW workers current epochs, and
+                # existing clients converge via MODEL ep stamps /
+                # REJECT_FENCED verdicts either way -- best-effort by
+                # design (a still-partitioned member self-heals later).
+                # This is where a fencing epoch actually reaches the wire,
+                # so it is also where recovery.epoch_bumps counts.
+                _bump("fence_epoch_bumps")
+                supervisor_mod.bump_total("epoch_bumps")
+                self._announce_group()
+
+    # ------------------------------------------------------------ plumbing
+    def port_of(self, index: int) -> int:
+        return self._procs[index].port
+
+    def pid_of(self, index: int) -> int:
+        return self._procs[index].proc.pid
+
+    def restarts_of(self, index: int) -> int:
+        return self._procs[index].restarts
+
+    def result_of(self, index: int, timeout_s: float) -> Optional[dict]:
+        """The child's result JSON line (the line after its hello);
+        None on timeout."""
+        line = self._procs[index].next_line(1, timeout_s)
+        return json.loads(line) if line else None
+
+    def status(self) -> Dict[int, dict]:
+        member = self.sup.membership()
+        out = {}
+        for i, rec in self._procs.items():
+            proc = rec.proc
+            out[i] = {
+                "port": rec.port,
+                "pid": proc.pid if proc is not None else None,
+                "alive": proc is not None and proc.poll() is None,
+                "restarts": rec.restarts,
+                "state": member.get(i, {}).get("state"),
+            }
+        return out
+
+    def finish(self) -> None:
+        """Broadcast FINISH to every shard (idempotent): the primary's
+        DONE becomes group-wide, secondaries' wait_done returns, and the
+        monitor stops treating exits as deaths."""
+        self._finished.set()
+        if self.smap is not None:
+            targets = [(h, p) for (h, p, _lo, _hi) in self.smap.entries]
+        else:  # shards=1 control group: no map, but the child still FINISHes
+            targets = [(self.host, rec.port)
+                       for rec in self._procs.values()
+                       if rec.port is not None]
+        for (h, p) in targets:
+            try:
+                finish_endpoint(h, p)
+            except (ConnectionError, OSError):
+                pass
+
+    def status_section(self) -> dict:
+        """The /api/status ``shards`` section: map + per-shard liveness,
+        fencing epochs, and the gray-failure RTT view."""
+        totals = shard_totals()
+        out = {
+            "shards": self.shards,
+            "map": self.smap.to_wire() if self.smap is not None else None,
+            "deaths": totals.get("shard_deaths", 0),
+            "restarts": totals.get("shards_restarted", 0),
+            "done": self._finished.is_set(),
+            "members": {str(i): st for i, st in self.status().items()},
+        }
+        if self.fence:
+            out["epochs"] = self.epochs_wire()
+        gray = self._gray.snapshot()
+        if gray:
+            out["rtt"] = gray
+        return out
+
+    def stop(self, timeout_s: float = 15.0) -> None:
+        _set_active_group(None, only_if=self)
+        self._stop.set()
+        self._finished.set()
+        if self._monitor is not None:
+            self._monitor.join(timeout=5.0)
+        self.sup.stop()
+        if self._ts_source is not None:
+            from asyncframework_tpu_torch.metrics import timeseries as _ts
+
+            _ts.unregister_source("ps_shards", self._ts_source)
+        procs = [rec.proc for rec in self._procs.values()
+                 if rec.proc is not None]
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        deadline = time.monotonic() + timeout_s
+        for proc in procs:
+            left = max(0.1, deadline - time.monotonic())
+            try:
+                proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+# -------------------------------------------------------- in-process groups
+def secondary_cfg(cfg):
+    """The cfg a NON-primary shard runs: no wave gate (``bucket_ratio=0``
+    -- cohorts are the primary's job) and an unbounded iteration budget
+    (a secondary must never self-finish on its own accept count; the
+    primary's DONE arrives as FINISH)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, bucket_ratio=0.0,
+                               num_iterations=2**31 - 1)
+
+
+def launch_inprocess_group(cfg, d: int, n: int, shards: int,
+                           device=None, host: str = "127.0.0.1",
+                           algo: str = "asgd",
+                           checkpoint_dir: Optional[str] = None,
+                           supervisor=None, bus=None):
+    """Test/bench helper: the shard group as in-process
+    ``ParameterServer`` instances on ephemeral loopback ports.  Returns
+    ``(ps_list, shard_map)``; ``shards=1`` returns the classic single PS
+    (``shard_map=None``) -- the byte-identity baseline.  Callers stop
+    every returned PS."""
+    from asyncframework_tpu_torch.parallel.ps_dcn import ParameterServer
+
+    def ckpt(i):
+        if not checkpoint_dir:
+            return None
+        return os.path.join(checkpoint_dir, f"ps_shard{i}.npz")
+
+    if shards <= 1:
+        ps = ParameterServer(cfg, d, n, device=device, port=0, algo=algo,
+                             checkpoint_path=ckpt(0),
+                             supervisor=supervisor, bus=bus).start()
+        return [ps], None
+    if algo != "asgd":
+        raise ValueError("sharded PS groups support algo='asgd' only")
+    ranges = shard_ranges(d, shards)
+    ps_list = []
+    for i, (lo, hi) in enumerate(ranges):
+        shard_cfg = cfg if i == 0 else secondary_cfg(cfg)
+        ps_list.append(ParameterServer(
+            shard_cfg, hi - lo, n, device=device, port=0, algo=algo,
+            checkpoint_path=ckpt(i),
+            supervisor=supervisor if i == 0 else None,
+            bus=bus if i == 0 else None,
+            shard_index=i,
+        ))
+    smap = ShardMap([
+        (host, ps.port, lo, hi)
+        for ps, (lo, hi) in zip(ps_list, ranges)
+    ])
+    for ps in ps_list:
+        ps.shard_map = smap.to_wire()
+    if any(p.epoch for p in ps_list):
+        # fencing on (each PS minted its conf-derived epoch): hand every
+        # member the group's epoch vector so WELCOME/SHARDMAP carry it
+        epochs = [p.epoch for p in ps_list]
+        for ps in ps_list:
+            ps.shard_epochs = epochs
+    # start secondaries first, primary LAST: the primary's ``ps`` rolling
+    # telemetry source registration must win (last wins by design)
+    for ps in reversed(ps_list):
+        ps.start()
+    return ps_list, smap
+
+
+# ------------------------------------------------------------- shard child
+class CtrlFanout:
+    """The controller-less adaptive-control fan-out: not ported."""
+
+    def __init__(self, *_args, **_kwargs):
+        raise NotImplementedError(
+            "CtrlFanout (the adaptive-control fan-out) is not ported to the "
+            "PyTorch package yet (ROADMAP A6b.4)")
+
+
+def _child_main() -> int:
+    """Env-driven shard process entry (``python -m
+    asyncframework_tpu_torch.parallel.shardgroup``): the role
+    :class:`ShardGroup` spawns.  Its device is ``PS_DEVICE`` (``cuda``,
+    the default, or ``cpu``), as ``tools/ps_child.py`` takes it.
+
+    Announces ``{"port", "shard", "resumed_from"}`` as the first stdout
+    line, serves its range until DONE/FINISH, prints a result line, then
+    KEEPS SERVING until the controller tears it down (SIGTERM): after the
+    primary's DONE the plane is still draining -- worker eval rounds fan
+    SNAPSHOTS over every range, pipelined workers reap their last pull
+    round -- so a shard that exits at DONE yanks its range out from under
+    them.  A non-zero / signal exit before FINISH is what the controller
+    treats as death."""
+    import signal
+
+    from asyncframework_tpu_torch.conf import AsyncConf, set_global_conf
+
+    term = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_a: term.set())
+
+    overlays = os.environ.get("ASYNC_SHARD_CONF")
+    if overlays:
+        set_global_conf(AsyncConf(json.loads(overlays)))
+    import torch
+
+    from asyncframework_tpu_torch.parallel.ps_dcn import ParameterServer
+    from asyncframework_tpu_torch.solvers import SolverConfig
+
+    index = int(os.environ["ASYNC_SHARD_INDEX"])
+    count = int(os.environ["ASYNC_SHARD_COUNT"])
+    d = int(os.environ["ASYNC_SHARD_D"])
+    n = int(os.environ["ASYNC_SHARD_N"])
+    algo = os.environ.get("ASYNC_SHARD_ALGO", "asgd")
+    if count > 1 and algo != "asgd":
+        print(json.dumps({"error": "sharded PS groups are ASGD-only"}),
+              flush=True)
+        return 2
+    if os.environ.get("ASYNC_SHARD_ROLE", "primary") != "primary":
+        print(json.dumps({"error": "the standby role is not ported to the "
+                                   "PyTorch package yet (ROADMAP A6b.3)"}),
+              flush=True)
+        return 2
+    if os.environ.get("ASYNC_SHARD_STANDBYS"):
+        print(json.dumps({"error": "hot-standby replication is not ported "
+                                   "to the PyTorch package yet (ROADMAP "
+                                   "A6b.3)"}), flush=True)
+        return 2
+    device = torch.device(os.environ.get("PS_DEVICE", "cuda"))
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    cfg = SolverConfig(**json.loads(os.environ["ASYNC_SHARD_CFG"]))
+    lo, hi = shard_ranges(d, count)[index]
+    shard_cfg = cfg if index == 0 else secondary_cfg(cfg)
+    map_env = os.environ.get("ASYNC_SHARD_MAP") or ""
+    smap_wire = json.loads(map_env) if map_env else None
+    sup = None
+    if index == 0 and os.environ.get("ASYNC_SHARD_ELASTIC") == "1":
+        from asyncframework_tpu_torch.parallel.supervisor import (
+            ElasticSupervisor,
+        )
+
+        sup = ElasticSupervisor.from_conf(cfg.num_workers)
+    # per-shard telemetry endpoint (async.metrics.port; -1 = off): the
+    # scrape label set carries the shard index so per-shard series do not
+    # collapse into one another in an aggregator
+    from asyncframework_tpu_torch.metrics.live import (
+        start_telemetry_from_conf,
+    )
+
+    start_telemetry_from_conf(f"ps-shard-{index}",
+                              labels={"shard": str(index)})
+    # fencing epoch: the controller passes the minted epoch (base 1 + its
+    # lease-expiry fences for this slot); 0/absent defers to conf
+    # (async.fence.enabled -> 1, off -> 0).  The PS restore additionally
+    # bumps past the checkpointed epoch, so every incarnation runs at a
+    # fresh epoch.
+    epoch_env = int(os.environ.get("ASYNC_SHARD_EPOCH") or 0)
+    epochs_env = os.environ.get("ASYNC_SHARD_EPOCHS") or ""
+    shard_epochs = json.loads(epochs_env) if epochs_env else None
+    ps = ParameterServer(
+        shard_cfg, hi - lo, n, device=device,
+        port=int(os.environ.get("ASYNC_SHARD_BIND_PORT", "0")),
+        algo=algo,
+        checkpoint_path=os.environ.get("ASYNC_SHARD_CKPT") or None,
+        supervisor=sup,
+        shard_map=smap_wire, shard_index=index,
+        epoch=epoch_env or None, shard_epochs=shard_epochs or None,
+    )
+    ps.start()
+    print(json.dumps({"port": ps.port, "shard": index, "role": "primary",
+                      "resumed_from": ps.resumed_from_k,
+                      "epoch": ps.epoch}), flush=True)
+    print(f"shard {index} serving on {ps.port}", file=sys.stderr, flush=True)
+    ok = ps.wait_done(timeout_s=cfg.run_timeout_s)
+    result = {
+        "role": "ps-shard", "shard": index, "done": bool(ok),
+        "accepted": ps.accepted, "dropped": ps.dropped,
+        "clock": ps._clock, "max_staleness": ps.max_staleness,
+        "dedup_hits": ps.dedup_hits,
+        "resumed_from": ps.resumed_from_k,
+        "promoted": False,
+        "epoch": ps.epoch,
+        "fenced_rejects": ps.fenced_rejects,
+        "pushes": int(sum(ps.pushes_by_wid.values())),
+        "merge_batches": ps.merge_batches,
+        "merge_merged": ps.merge_merged,
+        "push_bytes": ps.push_bytes,
+        "pull_model_bytes": ps.pull_model_bytes,
+        "pull_replies": dict(ps.pull_replies),
+        "peak_device_bytes": (int(torch.cuda.max_memory_allocated(device))
+                              if device.type == "cuda" else 0),
+        "wire_bytes": {k: int(v) for k, v in _frame.bytes_totals().items()
+                       if k in ("sent", "recv")},
+        "accepted_by_wid": {str(w): c
+                            for w, c in ps.accepted_by_wid.items()},
+    }
+    if index == 0:
+        # the primary's end-of-run eval plane
+        nproc = int(os.environ.get("ASYNC_SHARD_WORKER_PROCS", "0"))
+        traj = None
+        if nproc > 0:
+            total = ps.collect_eval(nproc, timeout_s=60.0)
+            if total is not None:
+                times, _W = ps.snapshot_stack()
+                # worker-side assembled stacks are tail-aligned across
+                # shards: loss rows pair with the TAIL of this primary's
+                # snapshot times
+                times = times[-len(total):]
+                traj = [[t, float(v) / n] for t, v in zip(times, total)]
+        result["trajectory"] = traj
+        result["recovery"] = sup.counters() if sup is not None else None
+    # one last durable save before exit: a graceful teardown leaves the
+    # freshest possible restart point for the next life
+    try:
+        ps.save_checkpoint()
+    except Exception:  # noqa: BLE001
+        pass
+    print(json.dumps(result), flush=True)
+    print(f"shard {index} done: {result}", file=sys.stderr, flush=True)
+    # post-done linger: serve the range until the controller says stop
+    # (bounded so a controller that died without SIGTERM cannot strand
+    # an orphan serving forever)
+    term.wait(timeout=float(os.environ.get("ASYNC_SHARD_LINGER_S", "600")))
+    ps.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_child_main())

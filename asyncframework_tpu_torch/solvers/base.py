@@ -141,10 +141,14 @@ def resolve_dataset(X, y, num_workers: int, devices):
                 )
         return X
     if not isinstance(X, np.ndarray):
-        raise NotImplementedError(
-            f"{type(X).__name__} is not taken as it is: pass a dense host "
-            "array or a pre-built dataset; sparse data goes in as a "
-            "SparseShardedDataset built from its CSR arrays (ROADMAP A4)"
+        # the JAX package takes the same two kinds of input: it hands any
+        # other X to ShardedDataset, whose device placement accepts only
+        # arrays
+        raise TypeError(
+            f"X must be a dense host array (numpy) or a pre-built dataset, "
+            f"not {type(X).__name__}: sparse data goes in as a "
+            "SparseShardedDataset built from its CSR arrays "
+            "(data/sparse.py)"
         )
     return ShardedDataset(X, y, num_workers, devices)
 

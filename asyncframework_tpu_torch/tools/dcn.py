@@ -25,6 +25,16 @@ rcv1 ASAGA a final below 1x (``:143-157``).
 
 :func:`in_process` runs the same recipe with the PS and the 8 logical
 workers as threads of this process, for comparison.
+
+``--shards N`` runs each deployment on a sharded PS group instead
+(``async.ps.shards``: the primary in the PS process, shards 1..N-1 as
+children of ``parallel/shardgroup.py``'s ``ShardGroup`` on the same card),
+``--fence`` turns epoch fencing on (``async.fence.enabled``), and
+``--kill-shard i --kill-at k`` SIGKILLs shard ``i`` once the primary has
+accepted ``k`` updates, with per-shard checkpoints every
+``--checkpoint-every`` updates of each shard.  :func:`summarize_sharded`
+adds the group's gates (:data:`SHARD_ARMS` are ``chip_smoke.py`` phase
+12's arms).
 """
 
 from __future__ import annotations
@@ -115,10 +125,13 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
                 p.wait()
 
 
-def objective_gates(config: str, algo: str, traj) -> Dict[str, bool]:
-    """The JAX package's bands for each deployment."""
+def objective_gates(config: str, algo: str, traj,
+                    obj0: "float | None" = None) -> Dict[str, bool]:
+    """The JAX package's bands for each deployment, against the
+    trajectory's first point (the model at w = 0) or ``obj0``."""
     objs = [v for _t, v in traj] if traj else [float("nan")]
-    obj0, best, final = objs[0], min(objs), objs[-1]
+    best, final = min(objs), objs[-1]
+    obj0 = objs[0] if obj0 is None else obj0
     finite = bool(np.isfinite(objs).all())
     if config == "rcv1" and algo == "asgd":
         return {"finite": finite, "best_below_0.1x": best < 0.1 * obj0,
@@ -194,6 +207,141 @@ def summarize(config: str, algo: str, iters: int, ps: dict,
     rec["gates"] = gates
     rec["ok"] = all(gates.values())
     return rec
+
+
+#: phase 12's arms: (name, deployment, updates, shards, kill, checkpoint
+#: cadence); every arm fenced, ASGD.  (c) kills shard 1 at 500 accepted.
+SHARD_ARMS = (("a", "epsilon", 1_000, 2, None, 0),
+              ("b", "rcv1", 1_200, 3, None, 0),
+              ("c", "epsilon", 1_000, 3, (1, 500), 250))
+
+
+def shard_env(shards: int, fence: bool = True, kill=None,
+              checkpoint_every: int = 0,
+              checkpoint_dir: "str | None" = None) -> Dict[str, str]:
+    """The processes' environment for a sharded group run."""
+    env = {"ASYNCTPU_ASYNC_PS_SHARDS": str(shards),
+           "ASYNCTPU_ASYNC_FENCE_ENABLED": "1" if fence else "0"}
+    if checkpoint_dir:
+        env["PS_CHECKPOINT_DIR"] = checkpoint_dir
+    if checkpoint_every:
+        env["PS_PRINTER_FREQ"] = str(checkpoint_every)
+    if kill:
+        env["PS_KILL_SHARD"], env["PS_KILL_AT"] = str(kill[0]), str(kill[1])
+    return env
+
+
+def summarize_sharded(config: str, iters: int, ps: dict,
+                      workers: List[dict], kill=None,
+                      obj0: "float | None" = None) -> dict:
+    """A sharded group run's record and its gates (``ok``): the
+    unsharded run's (:func:`summarize`, exactly-once judged on the
+    primary), and for the group: every pull a version vector of the map's
+    length, each shard's pushes counted once (accepted + dropped, no
+    secondary short of the primary's accepted updates, none past the
+    pushes the workers sent), fenced epochs with no fenced reject (arms
+    without a kill) or the kill's one restart, resumed from its
+    checkpoint under a new epoch (arm with a kill).
+
+    The group's trajectory is its shards' snapshot stacks aligned at the
+    tail, so a shard relaunched from a checkpoint (fewer snapshots) cuts
+    its head: the point at w = 0 is then missing, and ``obj0`` (the same
+    deployment's objective at w = 0 from another run) is what the bands
+    are held against."""
+    rec = summarize(config, "asgd", iters, ps, workers)
+    if obj0 is not None:
+        rec["gates"].update(objective_gates(config, "asgd",
+                                            ps["trajectory"], obj0))
+        rec["objective_at_w0"] = obj0
+        rec["trajectory_first_objective"] = (ps["trajectory"][0][1]
+                                             if ps["trajectory"] else None)
+    n_shards = ps["n_shards"]
+    members = ps["shards"]
+    # rounds the workers sent, plus the rounds abandoned on a sub-shard
+    # fault (a round may fail after some of its sub-pushes went out)
+    sent = ps["pipeline"].get("pushes_async", 0)
+    sent_max = sent + ps["pipeline"].get("push_errors", 0)
+    pulls = sum(w["shard_totals"].get("sharded_pulls", 0) for w in workers)
+    vec = sum(w["shard_totals"].get(f"pull_vector_len_{n_shards}", 0)
+              for w in workers)
+    wire = (ps["wire_bytes_sent"] + ps["wire_bytes_recv"]
+            + sum(m["wire_bytes"]["sent"] + m["wire_bytes"]["recv"]
+                  for m in members[1:]))
+    accepted = max(ps["accepted"], 1)
+    rec.update({
+        "shards": n_shards, "fence": ps["fence"], "spawn_s": ps["spawn_s"],
+        "sharded_pulls": pulls, "pulls_with_vector_of_map_length": vec,
+        "round_errors": sum(w["shard_totals"].get("shard_round_errors", 0)
+                            for w in workers),
+        "wire_bytes_per_update": wire / accepted,
+        "per_shard": [{k: m.get(k) for k in (
+            "shard", "accepted", "dropped", "pushes", "clock",
+            "dedup_hits", "epoch", "fenced_rejects", "max_staleness",
+            "merge_batches", "merge_merged", "restarts", "resumed_from",
+            "peak_device_bytes")} for m in members],
+        "kill": ps["kill"],
+        "group_totals": ps["shard_totals"],
+    })
+    rec["peak_device_bytes"]["shards"] = [
+        m.get("peak_device_bytes") for m in members[1:]]
+    gates = dict(rec["gates"])
+    # the primary's exactly-once (summarize's) stands; the group's:
+    gates["vector_of_map_length"] = pulls > 0 and vec == pulls
+    gates["each_shard_counts_each_push_once"] = all(
+        m["pushes"] == m["accepted"] + m["dropped"]
+        and m["pushes"] <= sent_max for m in members)
+    gates["no_range_short"] = all(
+        m["accepted"] >= ps["accepted"] for m in members[1:]
+        if not m.get("restarts"))
+    gates["fenced_epochs"] = ps["fence"] and all(
+        m["epoch"] >= 1 for m in members)
+    if kill is None:
+        gates["no_fenced_rejects"] = all(
+            m["fenced_rejects"] == 0 for m in members)
+        gates["no_dedup_hits"] = all(m["dedup_hits"] == 0 for m in members)
+    else:
+        # rounds abandoned around the kill: the primary may have applied
+        # a sub-push of a round the worker counted as an error, and the
+        # replays onto the restarted shard answer from its window
+        gates["exactly_once"] = (
+            ps["pushes"] == ps["accepted"] + ps["dropped"]
+            and sent <= ps["pushes"] <= sent_max)
+        k = ps["kill"] or {}
+        victim = members[kill[0]] if kill[0] < len(members) else {}
+        gates["killed_at"] = k.get("accepted_at_kill", -1) >= kill[1]
+        gates["one_restart"] = victim.get("restarts") == 1 and all(
+            not m.get("restarts") for j, m in enumerate(members)
+            if j != kill[0])
+        gates["resumed_from_checkpoint"] = (
+            victim.get("resumed_from") is not None)
+        gates["new_epoch_above_old"] = (
+            victim.get("epoch", 0) > k.get("epoch_before", 0) >= 1)
+    rec["gates"] = gates
+    rec["ok"] = all(gates.values())
+    return rec
+
+
+def shards_phase(arms=SHARD_ARMS, timeout_s: float = 600.0) -> List[dict]:
+    """Phase 12 of ``chip_smoke.py``: each arm of ``arms`` on one card,
+    one PS process (the primary and the group controller), its shard
+    children and two worker processes; returns each arm's record."""
+    import tempfile
+
+    out = []
+    obj0 = {}  # each deployment's objective at w = 0, from an unkilled arm
+    for name, config, iters, shards, kill, every in arms:
+        with tempfile.TemporaryDirectory() as ck:
+            env = shard_env(shards, True, kill, every,
+                            ck if every else None)
+            ps, workers = launch(config, "asgd", iters, env=env,
+                                 timeout_s=timeout_s)
+        rec = summarize_sharded(config, iters, ps, workers, kill,
+                                obj0.get(config) if kill else None)
+        if not kill:
+            obj0[config] = rec["objective_at_w0"]
+        rec.update(arm=name, mode="shards")
+        out.append(rec)
+    return out
 
 
 def in_process(config: str, algo: str, iters: int, device) -> dict:
@@ -276,6 +424,18 @@ def main(argv=None) -> int:
         help="config:algo:updates, comma separated")
     ap.add_argument("--in-process", action="store_true",
                     help="also run epsilon ASGD with threads")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="run on a sharded PS group of N shards")
+    ap.add_argument("--fence", action="store_true",
+                    help="epoch fencing on (async.fence.enabled)")
+    ap.add_argument("--kill-shard", type=int, default=0,
+                    help="SIGKILL this shard (1..N-1) mid-run")
+    ap.add_argument("--kill-at", type=int, default=500,
+                    help="... once the primary has accepted this many")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="per-shard checkpoints every N of its updates")
+    ap.add_argument("--phase12", action="store_true",
+                    help="run chip_smoke.py phase 12's arms and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dcn: no CUDA device", file=sys.stderr)
@@ -286,10 +446,26 @@ def main(argv=None) -> int:
     build_natives()
     dev = torch.device("cuda", 0)
     ok = True
+    if args.phase12:
+        for rec in shards_phase():
+            ok = ok and rec["ok"]
+            print(json.dumps(rec), flush=True)
+        return 0 if ok else 1
+    kill = (args.kill_shard, args.kill_at) if args.kill_shard else None
     for spec in args.runs.split(","):
         config, algo, iters = spec.split(":")
-        ps, workers = launch(config, algo, int(iters))
-        rec = summarize(config, algo, int(iters), ps, workers)
+        if args.shards > 1:
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as ck:
+                ps, workers = launch(config, algo, int(iters), env=shard_env(
+                    args.shards, args.fence, kill, args.checkpoint_every,
+                    ck if args.checkpoint_every else None))
+            rec = summarize_sharded(config, int(iters), ps, workers, kill)
+        else:
+            env = {"ASYNCTPU_ASYNC_FENCE_ENABLED": "1"} if args.fence else {}
+            ps, workers = launch(config, algo, int(iters), env=env)
+            rec = summarize(config, algo, int(iters), ps, workers)
         ok = ok and rec["ok"]
         print(json.dumps(rec), flush=True)
     if args.in_process:

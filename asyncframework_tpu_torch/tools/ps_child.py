@@ -34,12 +34,30 @@ line, counted where each is taken; ``counts``: the updates of each logical
 worker) and the PS's line carries its convergence history's summary
 (``convergence``).
 
+A sharded group (``async.ps.shards`` = N > 1, e.g.
+``ASYNCTPU_ASYNC_PS_SHARDS=3``): role ``ps`` runs the primary shard (range
+0, the wave gate and the evaluation) in its own process and a
+:class:`~asyncframework_tpu_torch.parallel.shardgroup.ShardGroup` that
+spawns and supervises shards 1..N-1 (``python -m
+asyncframework_tpu_torch.parallel.shardgroup``, on the same device), hands
+every member the map, and prints the primary's port; workers resolve the
+map at HELLO.  With ``async.fence.enabled`` every shard runs under a
+minted epoch.  ``PS_CHECKPOINT_DIR`` gives each shard its checkpoint
+(``ps_shard{i}.npz``, saved every ``PS_PRINTER_FREQ`` of its updates), and
+``PS_KILL_SHARD=i PS_KILL_AT=k`` SIGKILLs shard ``i`` (1..N-1) once the
+primary has accepted ``k`` updates: the group relaunches it from its
+checkpoint.  The PS's line then carries ``shards``: each shard's result
+(pushes, accepted, dropped, dedup hits, epoch, fenced rejects, merges,
+wire bytes, peak memory, restarts, the checkpointed k it resumed from) and
+the kill.
+
 Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 ``epsilon``: 400,000 x 2,000 f32; ``rcv1``: rcv1's padded-ELL shape),
 ``PS_ALGO`` (``asgd``/``asaga``), ``PS_DEVICE`` (``cuda``, the default, or
-``cpu``), ``PS_NUM_ITER``, ``PS_GAMMA``, ``PS_EVAL=0`` (no evaluation),
-``PS_ELASTIC=1`` (an elastic supervisor on the PS, ``PS_DEAD_AFTER_S``),
-``PS_CHECKPOINT`` (the PS's checkpoint path), ``PS_BIND_PORT``.
+``cpu``), ``PS_NUM_ITER``, ``PS_GAMMA``, ``PS_PRINTER_FREQ``, ``PS_EVAL=0``
+(no evaluation), ``PS_ELASTIC=1`` (an elastic supervisor on the PS,
+``PS_DEAD_AFTER_S``), ``PS_CHECKPOINT`` (the PS's checkpoint path),
+``PS_BIND_PORT``.
 """
 
 from __future__ import annotations
@@ -52,8 +70,9 @@ import time
 import numpy as np
 import torch
 
+from asyncframework_tpu_torch import conf as conf_mod
 from asyncframework_tpu_torch import native_build
-from asyncframework_tpu_torch.parallel import ps_dcn
+from asyncframework_tpu_torch.parallel import ps_dcn, shardgroup
 from asyncframework_tpu_torch.solvers import SolverConfig
 from asyncframework_tpu_torch.tools import runs
 
@@ -91,9 +110,10 @@ def apply_cluster_defaults() -> None:
             conf.set(key, value)
 
 
-def config(name: str, algo: str, iters: int = 0,
-           gamma: float = 0.0) -> SolverConfig:
-    """The deployment's solver settings (``iters``/``gamma`` override)."""
+def config(name: str, algo: str, iters: int = 0, gamma: float = 0.0,
+           printer_freq: int = 0) -> SolverConfig:
+    """The deployment's solver settings (``iters``/``gamma``/
+    ``printer_freq`` override)."""
     c = CONFIGS[name]
     if algo not in c["gamma"]:
         raise ValueError(f"{name} has no {algo} recipe")
@@ -101,7 +121,7 @@ def config(name: str, algo: str, iters: int = 0,
         num_workers=c["shape"][2], num_iterations=iters or c["iters"],
         gamma=gamma or c["gamma"][algo], taw=2**31 - 1,
         batch_rate=c["batch_rate"], bucket_ratio=c["bucket_ratio"],
-        printer_freq=c["printer_freq"], seed=42,
+        printer_freq=printer_freq or c["printer_freq"], seed=42,
         calibration_iters=c["calibration_iters"], run_timeout_s=600.0)
 
 
@@ -185,20 +205,140 @@ def ps_summary(ps, marks: dict, t_done: float, n: int,
     return rec
 
 
-def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
-           gamma: float = 0.0) -> dict:
-    """Role ``ps``: serve one run to its end and return its record."""
-    n, d, nw = CONFIGS[name]["shape"]
-    cfg = config(name, algo, iters, gamma)
-    sup = None
-    if os.environ.get("PS_ELASTIC") == "1":
-        from asyncframework_tpu_torch.parallel.supervisor import (
-            ElasticSupervisor,
-        )
+def _elastic_supervisor(nw: int):
+    """The PS's elastic supervisor when ``PS_ELASTIC=1``, else None."""
+    if os.environ.get("PS_ELASTIC") != "1":
+        return None
+    from asyncframework_tpu_torch.parallel.supervisor import (
+        ElasticSupervisor,
+    )
 
-        sup = ElasticSupervisor(
-            nw, dead_after_s=float(os.environ.get("PS_DEAD_AFTER_S", "2.0")),
-            check_interval_s=0.2)
+    return ElasticSupervisor(
+        nw, dead_after_s=float(os.environ.get("PS_DEAD_AFTER_S", "2.0")),
+        check_interval_s=0.2)
+
+
+def run_group(name: str, algo: str, device, nprocs: int, shards: int,
+              iters: int = 0, gamma: float = 0.0,
+              printer_freq: int = 0) -> dict:
+    """Role ``ps`` of a sharded group: the primary shard in this process,
+    shards 1..``shards``-1 as children of a ShardGroup; serve one run to
+    its end and return its record (the primary's, plus ``shards``)."""
+    import signal
+
+    from asyncframework_tpu_torch.conf import global_conf
+
+    def set_keys(conf) -> dict:
+        """The conf's keys set here or in the environment, resolved: the
+        children and the controller run under this process's switches
+        (fencing, the data plane's defaults)."""
+        return {k: conf.get(k) for k in conf_mod.registry()
+                if conf.contains(k)}
+
+    n, d, nw = CONFIGS[name]["shape"]
+    cfg = config(name, algo, iters, gamma, printer_freq)
+    ckdir = os.environ.get("PS_CHECKPOINT_DIR") or None
+    if ckdir:
+        os.makedirs(ckdir, exist_ok=True)
+    lo, hi = shardgroup.shard_ranges(d, shards)[0]
+    sup = _elastic_supervisor(nw)
+    ps = ps_dcn.ParameterServer(
+        cfg, hi - lo, n, device=device,
+        port=int(os.environ.get("PS_BIND_PORT", "0")), algo=algo,
+        checkpoint_path=(os.path.join(ckdir, "ps_shard0.npz")
+                         if ckdir else None),
+        supervisor=sup, shard_index=0).start()
+    group = shardgroup.ShardGroup(
+        cfg, d, n, shards, indices=range(1, shards),
+        fixed_entries={0: ("127.0.0.1", ps.port)}, checkpoint_dir=ckdir,
+        conf_overlays=set_keys(global_conf()), device=device.type,
+        dead_after_s=float(os.environ.get("PS_DEAD_AFTER_S", "2.0")),
+        check_interval_s=0.2, stderr_dir=os.environ.get("PS_STDERR_DIR"),
+        spawn_timeout_s=300.0)
+    t_spawn = time.monotonic()
+    try:
+        group.start()
+        spawn_s = time.monotonic() - t_spawn
+        # the primary hands the assembled map and epochs to every HELLO
+        ps.shard_map = group.smap.to_wire()
+        ps.shard_epochs = group.epochs_wire()
+        marks = watch_start(ps, nw)
+        kill = {}
+        kill_shard = int(os.environ.get("PS_KILL_SHARD", "0"))
+        kill_at = int(os.environ.get("PS_KILL_AT", "0"))
+        if kill_shard:
+            def killer():
+                while not ps._done.is_set() and ps.accepted < kill_at:
+                    time.sleep(0.001)
+                if ps._done.is_set():
+                    return
+                kill.update(shard=kill_shard, pid=group.pid_of(kill_shard),
+                            accepted_at_kill=ps.accepted,
+                            epoch_before=group.epoch_of(kill_shard))
+                os.kill(kill["pid"], signal.SIGKILL)
+                t_kill = time.monotonic()
+                # the relaunch, as the controller counts it
+                while (group.restarts_of(kill_shard) < 1
+                       and time.monotonic() - t_kill < 120.0):
+                    time.sleep(0.005)
+                kill["restart_s"] = time.monotonic() - t_kill
+
+            from asyncframework_tpu_torch.utils.threads import guarded
+
+            threading.Thread(target=guarded(killer, "ps-shard-killer"),
+                             name="ps-shard-killer", daemon=True).start()
+        print(json.dumps({"port": ps.port}), flush=True)
+        done = ps.wait_done(timeout_s=cfg.run_timeout_s)
+        t_done = time.monotonic()
+        marks["thread"].join(timeout=1.0)
+        total = None
+        if os.environ.get("PS_EVAL") != "0":
+            total = ps.collect_eval(num_worker_procs=nprocs,
+                                    timeout_s=120.0)
+        group.finish()
+        members = [{"shard": 0, "accepted": ps.accepted,
+                    "dropped": ps.dropped, "clock": ps._clock,
+                    "pushes": int(sum(ps.pushes_by_wid.values())),
+                    "dedup_hits": ps.dedup_hits, "epoch": ps.epoch,
+                    "fenced_rejects": ps.fenced_rejects,
+                    "max_staleness": ps.max_staleness,
+                    "merge_batches": ps.merge_batches,
+                    "merge_merged": ps.merge_merged, "restarts": 0,
+                    "resumed_from": ps.resumed_from_k, "done": bool(done)}]
+        for i in range(1, shards):
+            res = group.result_of(i, timeout_s=60.0) or {}
+            res["restarts"] = group.restarts_of(i)
+            members.append(res)
+        if kill:
+            kill["epoch_after"] = group.epoch_of(kill_shard)
+        rec = {"role": "ps", "config": name, "algo": algo,
+               "done": bool(done),
+               "diagnostic": None if done else str(done),
+               "recovery": sup.counters() if sup is not None else None,
+               "n_shards": shards,
+               "fence": bool(ps.epoch), "spawn_s": spawn_s,
+               "shards": members, "kill": kill or None,
+               "shard_totals": shardgroup.shard_totals(),
+               **ps_summary(ps, marks, t_done, n, total)}
+    finally:
+        group.stop()
+        ps.stop()
+    return rec
+
+
+def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
+           gamma: float = 0.0, printer_freq: int = 0) -> dict:
+    """Role ``ps``: serve one run to its end and return its record (a
+    sharded group's when ``async.ps.shards`` > 1)."""
+    from asyncframework_tpu_torch.conf import PS_SHARDS, global_conf
+
+    shards = int(global_conf().get(PS_SHARDS))
+    if shards > 1:
+        return run_group(name, algo, device, nprocs, shards, iters, gamma,
+                         printer_freq)
+    n, d, nw = CONFIGS[name]["shape"]
+    cfg = config(name, algo, iters, gamma, printer_freq)
+    sup = _elastic_supervisor(nw)
     ps = ps_dcn.ParameterServer(
         cfg, d, n, device=device,
         port=int(os.environ.get("PS_BIND_PORT", "0")), algo=algo,
@@ -234,6 +374,7 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
         torch.cuda.reset_peak_memory_stats(device)
     runs.zero_counts()
     ps_dcn.reset_conv_samples_taken()
+    shardgroup.reset_shard_totals()
     t0 = time.monotonic()
     counts = ps_dcn.run_worker_process(
         host, port, list(wids), shards, cfg, d, n,
@@ -250,6 +391,8 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
                            for s in shards.values()}),
            "launches": runs.counts(), "native": native_build.native_totals(),
            "pipeline": ps_dcn.pipeline_totals(),
+           # the sharded facade's counts (empty against a single PS)
+           "shard_totals": shardgroup.shard_totals(),
            "peak_device_bytes": _peak_bytes(device)}
     return rec
 
@@ -294,9 +437,10 @@ def main() -> None:
     nprocs = int(os.environ["PS_NUM_WORKER_PROCS"])
     iters = int(os.environ.get("PS_NUM_ITER", "0"))
     gamma = float(os.environ.get("PS_GAMMA", "0"))
+    printer_freq = int(os.environ.get("PS_PRINTER_FREQ", "0"))
     if role == "ps":
         srv = start_telemetry_from_conf("ps")
-        rec = run_ps(name, algo, device, nprocs, iters, gamma)
+        rec = run_ps(name, algo, device, nprocs, iters, gamma, printer_freq)
     else:
         pid = int(os.environ["PS_WORKER_ID"])
         srv = start_telemetry_from_conf(f"worker-{pid}",

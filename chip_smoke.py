@@ -135,7 +135,27 @@ exits non-zero without a result line):
    below 0.1x and its last below 0.3x the objective at w = 0, and each
    process's ``/metrics`` answered and parsed (``dcn_telemetry``, with
    updates/s and wire bytes per update beside phase 10's rcv1 ASGD line);
-12. the ``{"kernels": [...]}`` line, the card line again, and last the
+12. shards -- sharded PS groups with epoch fencing and shard failover
+   (``tools/dcn.py::shards_phase``): phase 10's machine shape (one PS
+   process, two worker processes of 4 logical workers each, loopback, the
+   shm ring, the native codecs), the PS process holding the primary shard
+   and a ``ShardGroup`` whose shard children run on this card, every shard
+   fenced (``async.fence.enabled``).  Arms: (a) epsilon ASGD on 2 shards
+   (1,000 updates); (b) rcv1 ASGD on 3 shards (1,200, bench.py's recipe;
+   each sparse push split by column range); (c) epsilon ASGD on 3 shards
+   with per-shard checkpoints every 250 updates and shard 1 SIGKILLed at
+   500 accepted.  Gates: phase 10's (the budget, one B1 or S1 launch a
+   worker gradient with no plain call, the objective bands), every pull a
+   version vector of the map's length, each shard's pushes counted once,
+   every shard under an epoch, no fenced reject in (a) and (b); in (c)
+   exactly one restart, resumed from its checkpoint, under an epoch above
+   the one it died with, and the objective band held against (a)'s
+   objective at w = 0 (the group's trajectory is aligned at the tail, and
+   the relaunched shard's shorter snapshot stack cuts its head).  Each ``shards`` line carries updates/s (beside
+   phase 10's unsharded line of the deployment), tasks and launches per
+   accepted update, wire bytes per update, per-shard merges, staleness,
+   fenced rejects and each process's peak device memory;
+13. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
@@ -1620,6 +1640,31 @@ def telemetry_phase(torch, card, dcn_records):
     return launches
 
 
+def shards_phase(card, dcn_records):
+    """Sharded PS groups with fencing and shard failover
+    (``tools/dcn.py::shards_phase``): each arm held to its gates; returns
+    the worker processes' kernel launches by form."""
+    from asyncframework_tpu_torch.tools import dcn
+
+    launches = {"masked_grad": 0, "compacted_grad": 0}
+    records = dcn.shards_phase()
+    for rec in records:
+        plain = next(r for r in dcn_records if r["config"] == rec["config"]
+                     and r["algo"] == "asgd" and r["mode"] == "processes")
+        emit({"phase": "shards", "card": card, **rec,
+              "updates_per_sec_unsharded": plain["updates_per_sec"],
+              "wire_bytes_per_update_unsharded":
+                  plain["wire_bytes_per_update"]})
+        for w in rec["worker_launches"]:
+            launches[rec["task_form"]] += w.get(rec["task_form"], 0)
+    failed = [f"{r['arm']}.{r['config']}: "
+              f"{[k for k, v in r['gates'].items() if not v]}"
+              for r in records if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"shards phase gates failed: {failed}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -1808,7 +1853,10 @@ def main() -> int:
     # -------------------------------------------------------- 11. telemetry
     tel = telemetry_phase(torch, card, dcn_records)
 
-    # ------------------------------------------------------ 12. results
+    # ----------------------------------------------------------- 12. shards
+    shard_launches = shards_phase(card, dcn_records)
+
+    # ------------------------------------------------------ 13. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -1838,7 +1886,8 @@ def main() -> int:
             r["launches_on_path"]["masked_grad"]
             for r in (eps_fused, mnist_fused, mnist_run))
               + feat["masked_grad"] + dcn_launches["masked_grad"]
-              + tel["masked_grad"], recs["b_epsilon_idx"],
+              + tel["masked_grad"] + shard_launches["masked_grad"],
+              recs["b_epsilon_idx"],
               recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
               saga_launches["saga_grad"]
@@ -1861,7 +1910,8 @@ def main() -> int:
         entry("sparse_grad.compacted_grad", "sparse_grad.cu",
               f"asyncframework_tpu/ops/steps.py:519 {xla}",
               s1_launches["compacted_grad"] + feat["compacted_grad"]
-              + dcn_launches["compacted_grad"] + tel["compacted_grad"],
+              + dcn_launches["compacted_grad"] + tel["compacted_grad"]
+              + shard_launches["compacted_grad"],
               s_task["task"],
               s_task["task"]["bound_ms"]),
         entry("sparse_grad.saga_slots_grad", "sparse_grad.cu",

@@ -369,10 +369,10 @@ def test_unported_features_raise(option, regression, tmp_path):
 def test_run_fused_and_sparse_data_are_not_ported_yet(regression):
     """``run_fused`` was a stub that raised; it is ported now and runs in
     full waves on the CPU (``tests/test_torch_fused.py`` holds it against
-    the JAX package).  A scipy sparse matrix is still not taken as it is
-    (sparse data goes in as a ``SparseShardedDataset`` built from its CSR
-    arrays, ``tests/test_torch_sparse.py``), and the refusal names ROADMAP
-    A4."""
+    the JAX package).  A scipy sparse matrix is not taken as it is, in
+    either package (sparse data goes in as a ``SparseShardedDataset``
+    built from its CSR arrays, ``tests/test_torch_sparse.py``): the
+    refusal says so, and names no ROADMAP item."""
     import scipy.sparse as sp
 
     X, y = regression
@@ -380,8 +380,12 @@ def test_run_fused_and_sparse_data_are_not_ported_yet(regression):
     assert res.extras["fused"] is True and res.dropped == 0
     assert res.accepted == _cfg()["num_iterations"]
     assert res.final_objective < res.trajectory[0][1]
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(TypeError, match="SparseShardedDataset") as err:
         ASAGA(sp.csr_matrix(X), y, SolverConfig(**_cfg()), devices=[CPU])
+    assert "ROADMAP" not in str(err.value)
+    # the JAX package does not take it either
+    with pytest.raises(Exception):
+        JaxASAGA(sp.csr_matrix(X), y, JaxConfig(**_cfg()))
 
 
 def test_entry_point_raises_without_a_gpu(regression):

@@ -1206,3 +1206,70 @@ def test_ui_port_on_the_card(dev, solver, mode):
     assert poller.answers and all(c == 200 for _p, c in poller.answers)
     assert not poller.parse_errors and res.extras["ui_status"]
     assert not live.active_servers()
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_fenced_sharded_group_on_the_card(dev, sparse):
+    """A fenced 3-shard in-process group (``parallel/shardgroup.py``)
+    with every range's model on the card, and a worker process's
+    loops on it: each gradient one launch of B1's compacted form (dense)
+    or S1's ``compacted_grad`` (padded ELL), no plain call; every pull a
+    version vector of 3 clocks; every shard under epoch 1, counting each
+    push once with no fenced reject; the objective down (dense: below
+    1/10 of its value at w = 0)."""
+    from asyncframework_tpu_torch.conf import AsyncConf, set_global_conf
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
+    from asyncframework_tpu_torch.parallel import ps_dcn, shardgroup
+    from asyncframework_tpu_torch.solvers import SolverConfig
+    from asyncframework_tpu_torch.tools import runs
+
+    set_global_conf(AsyncConf({"async.fence.enabled": True}))
+    try:
+        if sparse:
+            ds = SparseShardedDataset.generate_on_device(
+                8_000, 2_048, 20, 4, devices=[dev], seed=3, noise=0.01)
+            gamma, form = 0.05 * ds.d, "compacted_grad"
+        else:
+            ds = ShardedDataset.generate_on_device(
+                40_000, 512, 4, [dev], seed=7, noise=0.01)
+            gamma, form = 30.0, "masked_grad"
+        cfg = SolverConfig(num_workers=4, num_iterations=200, gamma=gamma,
+                           batch_rate=0.1, bucket_ratio=0.5,
+                           printer_freq=50, seed=5, calibration_iters=10,
+                           run_timeout_s=60.0)
+        ps_list, smap = shardgroup.launch_inprocess_group(
+            cfg, ds.d, ds.n, 3, device=dev)
+        shardgroup.reset_shard_totals()
+        try:
+            assert [p.epoch for p in ps_list] == [1, 1, 1]
+            assert all(p._w.device.type == "cuda" for p in ps_list)
+            runs.zero_counts()
+            counts = ps_dcn.run_worker_process(
+                "127.0.0.1", ps_list[0].port, list(range(4)),
+                {w: ds.shard(w) for w in range(4)}, cfg, ds.d, ds.n,
+                eval_wid=0, deadline_s=60.0)
+            launches = runs.counts()
+            assert ps_list[0].wait_done(timeout_s=30.0)
+            total = ps_list[0].collect_eval(num_worker_procs=1,
+                                            timeout_s=30.0)
+        finally:
+            for p in ps_list:
+                p.stop()
+        gradients = sum(counts.values())
+        assert ps_list[0].accepted == 200
+        assert launches[form] == gradients + 1  # + the warm-up launch
+        assert not any(launches[k] for k in (
+            "compacted_grad_plain", "grad_sum_plain", "ell_residual_plain",
+            "segment_sum_plain"))
+        totals = shardgroup.shard_totals()
+        assert totals["sharded_pulls"] == totals["pull_vector_len_3"] > 0
+        for p in ps_list:
+            assert sum(p.pushes_by_wid.values()) == p.accepted + p.dropped
+            assert p.fenced_rejects == 0 and p.dedup_hits == 0
+        # the sparse recipe (gamma 0.05 d) as test_sparse_dcn_worker_...;
+        # the dense one below 1/10, as chip_smoke.py's phase 3
+        frac = 0.5 if sparse else 0.1
+        assert total is not None and total[-1] < total[0] * frac
+    finally:
+        set_global_conf(None)

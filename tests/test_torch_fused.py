@@ -260,8 +260,12 @@ class TestFusedASGD:
             _run(ASGD, planted, coeff=1.0)
 
     def test_finite_taw_admitted_when_filter_cannot_fire(self, planted):
-        fused = _run(ASGD, planted, taw=7, num_iterations=240)
-        engine = _run(ASGD, planted, "run", taw=7, num_iterations=240)
+        """The reference's recipe (``tests/test_fused.py:66-76``): ASGD
+        taw=64 >= nw-1=7, so the fused wave's staleness never exceeds the
+        bound and the filter cannot fire; the fused run lands in the
+        engine band for the same recipe."""
+        fused = _run(ASGD, planted, taw=64, num_iterations=240)
+        engine = _run(ASGD, planted, "run", taw=64, num_iterations=240)
         assert fused.accepted >= 240
         assert fused.trajectory[-1][1] < max(engine.trajectory[-1][1] * 3.0,
                                              1e-8)

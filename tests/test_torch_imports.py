@@ -261,3 +261,16 @@ def test_the_dcn_plane_is_scanned():
                 "net/retry.py", "net/session.py", "net/faults.py",
                 "net/lockwatch.py", "net/health.py", "net/protocol.py"):
         assert rel in scanned, rel
+
+
+def test_the_lint_and_the_shard_group_are_scanned():
+    """The lint (``analysis/*``) and the sharded PS group are among the
+    sources both guards above read."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("analysis/__init__.py", "analysis/allowlist.py",
+                "analysis/cli.py", "analysis/core.py",
+                "analysis/rules_conf.py", "analysis/rules_locks.py",
+                "analysis/rules_metrics.py", "analysis/rules_native.py",
+                "analysis/rules_protocol.py", "analysis/rules_threads.py",
+                "parallel/shardgroup.py", "convert.py", "tools/dcn.py"):
+        assert rel in scanned, rel

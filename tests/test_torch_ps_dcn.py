@@ -689,24 +689,27 @@ def test_concurrent_checkpoint_saves_never_collide(tmp_path):
 
 # ---------------------------------------------------------- refused switches
 @pytest.mark.parametrize("kwargs", [
-    {"shard_map": [["127.0.0.1", 1, 0, 12], ["127.0.0.1", 2, 12, 24]]},
     {"standby": True},
-    {"epoch": 2},
+    {"standby": True, "epoch": 2,
+     "shard_map": [["127.0.0.1", 1, 0, 12], ["127.0.0.1", 2, 12, 24]]},
 ])
 def test_refused_ps_switches_name_their_roadmap_item(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    """The hot standby is refused, also on a fenced shard of a group
+    (fencing and shard maps themselves run: tests/test_torch_fencing.py,
+    tests/test_torch_shardgroup.py)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.3"):
         tps.ParameterServer(TConfig(**_kw()), D, N, device=CPU, **kwargs)
 
 
 def test_refused_methods_and_client_switches_name_their_roadmap_item():
     ps = _port_ps(TConfig(**_kw()))
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.4"):
             ps.set_control({"seq": 1})
-        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.3"):
             ps.attach_standby("127.0.0.1", 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-            tps.PSClient("127.0.0.1", ps.port, epoch=1)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.4"):
+            tps.PSClient("127.0.0.1", ps.port, ctrl_sink=object())
         # convergence samples ride the client's headers now: a buffered
         # sample leaves with the BYE and folds once on the PS
         from asyncframework_tpu_torch.metrics import timeseries
@@ -720,11 +723,11 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
         assert buf.take_wire() == []
         timeseries.convergence().reset()
         cl = tps.PSClient("127.0.0.1", ps.port)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.5"):
             cl.subscribe(0)
         # a JAX-package client's SUBSCRIBE gets an ERR naming the item
         jcl = jps.PSClient("127.0.0.1", ps.port)
-        with pytest.raises(ConnectionError, match="ROADMAP A6b"):
+        with pytest.raises(ConnectionError, match=r"ROADMAP A6b\.5"):
             jcl.subscribe(0)
         cl.bye()
         jcl.bye()
@@ -733,9 +736,9 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
 
 
 #: the cluster path's conf switches that the PS and its workers refuse
-#: (each set to 2: above its off value, and truthy for the flags)
-REFUSED_CONF = [("async.mesh.devices", "A6b"),
-                ("async.ps.shards", "A6b"), ("async.ps.standby", "A6b"),
+#: (each set to 2: above its off value, and truthy for the flags); the
+#: A6b entries are its parts 6 (mesh), 3 (standby) and 4 (controller)
+REFUSED_CONF = [("async.mesh.devices", "A6b"), ("async.ps.standby", "A6b"),
                 ("async.control.enabled", "A6b"), ("async.ui.port", "A8")]
 
 
@@ -800,21 +803,18 @@ def test_refused_conf_switches_on_the_ps(conf_key, item, conf):
 
 @pytest.mark.parametrize("role", ["ps", "worker"])
 def test_ps_child_refuses_a_sharded_cluster_before_its_data(role):
-    """``ASYNCTPU_ASYNC_PS_SHARDS=4`` on the role runner fails at once,
-    naming ROADMAP A6b, and prints no port and no result."""
+    """A sharded cluster with warm standbys (``ASYNCTPU_ASYNC_PS_SHARDS=4``
+    and ``ASYNCTPU_ASYNC_PS_STANDBY=1``) on the role runner fails at once,
+    naming ROADMAP A6b.3, and prints no port and no result (the sharded
+    group itself runs: tests/test_torch_shardgroup.py)."""
     env = _child_env(PS_ROLE=role, PS_ALGO="asgd", PS_NUM_WORKER_PROCS=1,
-                     PS_PORT=1, PS_WORKER_ID=0, ASYNCTPU_ASYNC_PS_SHARDS=4)
+                     PS_PORT=1, PS_WORKER_ID=0, ASYNCTPU_ASYNC_PS_SHARDS=4,
+                     ASYNCTPU_ASYNC_PS_STANDBY=1)
     out = subprocess.run(CHILD, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert "ROADMAP A6b" in out.stderr and "async.ps.shards" in out.stderr
+    assert "ROADMAP A6b.3" in out.stderr and "async.ps.standby" in out.stderr
     assert out.stdout == ""
-
-
-def test_fencing_conf_is_refused_on_the_ps(conf):
-    conf.set("async.fence.enabled", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        tps.ParameterServer(TConfig(**_kw()), D, N, device=CPU)
 
 
 def test_ps_refuses_to_fall_back_to_the_cpu():

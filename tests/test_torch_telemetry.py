@@ -11,10 +11,10 @@ against the JAX package's modules.
   globals by monkeypatch, their lazy imports by aliasing the JAX module
   names to the port's in ``sys.modules`` for the test's duration.  The
   cases left out need what the port does not have yet: the serving plane
-  (``TestFreshnessLagSignal``, ROADMAP A8), the sharded PS group's
-  telemetry ports (A6b), ``bench.py``'s profile block (the port's
+  (``TestFreshnessLagSignal``, ROADMAP A8), the shard group's standby
+  telemetry ports (A6b.3), ``bench.py``'s profile block (the port's
   benchmark is A2's), the k8s manifests, and the multi-process chaos and
-  acceptance runs of the JAX package's cluster (A6b).  A case whose body
+  acceptance runs of the JAX package's cluster (A8).  A case whose body
   names a JAX-only path (a classifier row, a JAX device, a serving
   counter) is rewritten for the port beside it, under the same name.
 - Across the packages: one event log replayed into both packages'
@@ -78,6 +78,7 @@ from asyncframework_tpu_torch.net import wiredelta as t_wiredelta
 from asyncframework_tpu_torch.net.retry import reset_breakers as t_breakers
 from asyncframework_tpu_torch.ops import steps as t_steps
 from asyncframework_tpu_torch.parallel import ps_dcn as t_ps
+from asyncframework_tpu_torch.parallel import shardgroup as t_sg
 from asyncframework_tpu_torch.parallel import supervisor as t_sup
 from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 from asyncframework_tpu_torch.utils.clock import ManualClock
@@ -152,7 +153,8 @@ def _port_modules(monkeypatch):
             straggler_scores=t_observer.straggler_scores,
             render_fleet=t_top.render_fleet, faults=t_faults,
             reset_net_totals=t_reset_net, reset_breakers=t_breakers,
-            ps_dcn=t_ps, sup_mod=t_sup, SolverConfig=SolverConfig).items():
+            ps_dcn=t_ps, sup_mod=t_sup, sg=t_sg,
+            SolverConfig=SolverConfig).items():
         monkeypatch.setattr(ref_obs, name, value)
     _clean()
     yield
@@ -401,8 +403,7 @@ class TestStatusSectionsOnThePort(ref_obs.TestStatusSections):
 
 @pytest.mark.usefixtures("_observer_conf")
 class TestDiscoveryOnThePort(ref_obs.TestDiscovery):
-    # the sharded PS group's telemetry ports: ROADMAP A6b
-    test_shardgroup_preassigns_telemetry_ports = None
+    # the shard group's standbys: ROADMAP A6b.3
     test_standby_gets_own_port_for_promotion_handoff = None
 
 
@@ -424,7 +425,8 @@ def test_registry_families_are_the_jax_packages_in_order():
     assert not set(port) & set(t_registry.UNPORTED_FAMILIES)
     assert [f for f in jax_fams if f not in t_registry.UNPORTED_FAMILIES] \
         == port
-    assert set(t_registry.UNPORTED_FAMILIES.values()) == {"A6b", "A8", "A9"}
+    assert set(t_registry.UNPORTED_FAMILIES.values()) == {"A6b.3", "A6b.4",
+                                                          "A8", "A9"}
     assert t_registry.DYNAMIC_SERIES_FAMILIES \
         == j_registry.DYNAMIC_SERIES_FAMILIES
 
