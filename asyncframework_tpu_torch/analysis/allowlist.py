@@ -61,35 +61,4 @@ ALLOWLIST: Tuple[Allow, ...] = (
         "(same exemption as the runtime registration audit): registering it "
         "separately would double-count every retry on /metrics",
     ),
-    # --------------------------------------------------------- protocol
-    # Ops of the JAX package's PS wire whose planes this package has not
-    # ported: the PS answers each ERR naming its ROADMAP item
-    # (parallel/ps_dcn.py::_REFUSED_OPS), so a peer of either package
-    # learns the refusal instead of hanging.  Each entry goes when its
-    # item lands.
-    Allow(
-        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
-        "PROMOTE",
-        "hot-standby promotion is ROADMAP A6b.3: the PS has no standby "
-        "role yet and answers PROMOTE with ERR naming the item",
-    ),
-    Allow(
-        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
-        "REPL_APPEND",
-        "the replication stream is ROADMAP A6b.3: no standby applies "
-        "it yet, and the PS answers REPL_APPEND with ERR naming the item",
-    ),
-    Allow(
-        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
-        "REPL_SYNC",
-        "the replication bootstrap is ROADMAP A6b.3: no standby installs "
-        "it yet, and the PS answers REPL_SYNC with ERR naming the item",
-    ),
-    Allow(
-        "proto-unhandled-op", "asyncframework_tpu_torch/parallel/ps_dcn.py",
-        "SUBSCRIBE",
-        "the serving tier's snapshot subscription is ROADMAP A6b.5 (its "
-        "only client is A8's replica): the PS answers SUBSCRIBE with ERR "
-        "naming the item",
-    ),
 )

@@ -101,8 +101,6 @@ PKG = "asyncframework_tpu_torch"
 #: no obligation is dropped without a word.
 PENDING_PATHS: Dict[str, str] = {
     PKG + "/cli.py": "A8",
-    PKG + "/parallel/controller.py": "A6b.4",
-    PKG + "/parallel/replication.py": "A6b.3",
     PKG + "/relaycast/node.py": "A8",
     PKG + "/relaycast/source.py": "A8",
     PKG + "/deploy/master.py": "A8",

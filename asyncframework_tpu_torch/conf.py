@@ -144,11 +144,25 @@ class AsyncConf:
 
 # --------------------------------------------------------------------------
 # Registered entries: the knobs of the DCN plane and of the telemetry
-# plane that this package reads, each a copy of the JAX package's entry.  The switches of the cluster path
-# it does not run yet (async.ps.shards, async.ps.standby, async.mesh.devices,
-# async.fence.enabled, async.control.enabled) are
-# registered so that the PS and its workers can refuse them when set.
+# plane that this package reads, each a copy of the JAX package's entry.  The switch of the cluster path
+# it does not run yet (async.mesh.devices) is registered so that the PS and
+# its workers can refuse it when set.
 # --------------------------------------------------------------------------
+# ------------------------------------------------------- controller tunables
+# The two engine knobs the adaptive controller actuates besides the DCN
+# plane's (parallel/controller.py): declared with their hard bounds.
+STEP_SIZE = ConfigEntry("async.step.size", 0.1, float, "Base step size gamma.",
+                        # tunable: the controller's per-push delay-adaptive
+                        # DAMP multiplier is clamped to [floor, ceiling] --
+                        # it scales the effective step, never gamma itself
+                        tunable=True, floor=0.05, ceiling=1.0)
+BUCKET_RATIO = ConfigEntry("async.bucket.ratio", 0.5, float,
+                           "Cohort availability threshold.",
+                           # tunable: the controller re-clamps the partial-
+                           # barrier cohort between floor*P (never solo
+                           # unless P=1) and ceiling*P (the configured b is
+                           # its own upper bound when smaller)
+                           tunable=True, floor=0.125, ceiling=1.0)
 # ------------------------------------------------------------- net plane
 # The shared robustness layer (net/retry.py, net/session.py, net/faults.py):
 # every DCN client (PS workers, remote topics, deploy daemons) resolves its
@@ -401,6 +415,20 @@ CONV_SAMPLE = ConfigEntry(
     "loss-vs-wallclock / loss-vs-version curves.  0 = off (the default: "
     "the piggyback adds header bytes, and byte-identity suites compare "
     "exact wires); async-cluster flips it to 16.")
+# ------------------------------------------------------------- tracing
+TRACE_SAMPLE = ConfigEntry(
+    "async.trace.sample", 1.0 / 64.0, float,
+    "Per-update trace sampling rate (1 = every update, 0 = tracing off; "
+    "counter-based per worker, so the first update is always sampled when "
+    "> 0 and runs of any length yield >= 1 trace).  This default governs "
+    "the DCN plane (PSClient/ParameterServer), whose stages are network-"
+    "dominated; the in-process engine traces only on explicit opt-in "
+    "(SolverConfig.trace_sample / --trace-sample) because its updater "
+    "thread is itself the measured hot path.")
+TRACE_BUFFER = ConfigEntry(
+    "async.trace.buffer", 512, int,
+    "Completed-span ring-buffer capacity per worker process (bounded, "
+    "lock-light; oldest spans dropped, counted).")
 # ------------------------------------------------------------- live UI
 UI_PORT = ConfigEntry("async.ui.port", -1, int,
                       "Live dashboard HTTP port (0 = ephemeral, -1 = off) "
@@ -569,3 +597,39 @@ CONTROL_ENABLED = ConfigEntry(
     "(the default) the wire is byte-identical legacy -- no CTRL "
     "payloads anywhere; async-cluster flips it on (straggler-heavy "
     "runs stop needing hand-tuned b/depth/merge/step conf).")
+CONTROL_INTERVAL_S = ConfigEntry(
+    "async.control.interval.s", 0.5, float,
+    "Controller decision period: every tick reads the observed "
+    "signals and re-evaluates every knob target.  <= 0 disables the "
+    "loop thread (tick() still works on demand -- the ManualClock "
+    "test surface).")
+CONTROL_HYSTERESIS = ConfigEntry(
+    "async.control.hysteresis", 0.25, float,
+    "Relative dead-band per knob: a recomputed target actuates only "
+    "when it differs from the current value by more than this "
+    "fraction (and by >= 1 for integer knobs).  The first defense "
+    "against knob flapping; the oscillation guard is the second.")
+CONTROL_COOLDOWN_S = ConfigEntry(
+    "async.control.cooldown.s", 2.0, float,
+    "Minimum seconds between successive changes of the SAME knob -- "
+    "a decision needs time to show up in the signals it was made "
+    "from (staleness EWMAs, queue depth) before being revised.")
+CONTROL_OSC_REVERSALS = ConfigEntry(
+    "async.control.osc.reversals", 3, int,
+    "Oscillation guard: this many direction REVERSALS of one knob "
+    "within the freeze window trips the guard -- the knob freezes at "
+    "its current value for async.control.osc.freeze.s and the trip "
+    "is counted (control.osc_trips) and surfaced in /api/status.")
+CONTROL_OSC_FREEZE_S = ConfigEntry(
+    "async.control.osc.freeze.s", 10.0, float,
+    "How long an oscillation-tripped knob stays frozen before the "
+    "controller may move it again (reversal history cleared).")
+CONTROL_DAMP_FREE = ConfigEntry(
+    "async.control.damp.free", -1.0, float,
+    "Staleness slack before delay-adaptive step damping engages: a "
+    "push at staleness tau is damped by 1/(1 + tau - free) only past "
+    "this threshold (floored at the async.step.size tunable floor).  "
+    "-1 (the default) auto-sizes to num_workers + pipeline depth + 2: "
+    "with P workers and a depth-D in-flight window the steady-state "
+    "staleness is ~P-1+D, so only ABNORMAL delay damps -- damping the "
+    "healthy steady state just slows convergence at a fixed budget.")

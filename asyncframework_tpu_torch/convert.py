@@ -133,16 +133,27 @@ def shard_checkpoints(directory
     either package's shards into one directory) as ``{i: (meta,
     arrays)}``, by shard index.  Each one resumes in either package's
     ``ParameterServer(..., checkpoint_path=...)`` for its range; a fenced
-    one (``meta["epoch"] > 0``) resumes one epoch above the one it saved."""
+    one (``meta["epoch"] > 0``) resumes one epoch above the one it saved.
+
+    A promoted hot standby checkpoints its range beside the primary's
+    file, one file per standby generation (``ps_shard{i}.standby{g}.npz``,
+    either package's ``ShardGroup``).  A range's image is then its
+    freshest file by the image's own ``(epoch, clock)``, as the group
+    picks it for a relaunch: a deposed primary's last save never wins
+    over its successor's."""
     import os
     import re
 
-    out = {}
+    found: Dict[int, list] = {}
     for name in os.listdir(directory):
-        m = re.fullmatch(r"ps_shard(\d+)\.npz", name)
+        m = re.fullmatch(r"ps_shard(\d+)(?:\.standby\d+)?\.npz", name)
         if m:
-            out[int(m.group(1))] = ps_checkpoint(os.path.join(directory,
-                                                              name))
+            found.setdefault(int(m.group(1)), []).append(
+                ps_checkpoint(os.path.join(directory, name)))
+    out = {}
+    for i, images in found.items():
+        out[i] = max(images, key=lambda img: (int(img[0].get("epoch", 0)),
+                                              int(img[0]["clock"])))
     return dict(sorted(out.items()))
 
 

@@ -96,8 +96,6 @@ UNPORTED_FAMILIES: Dict[str, str] = OrderedDict((
     ("shuffle", "A9"),       # data/spill.py
     ("serving", "A8"),       # serving/metrics.py
     ("relay", "A8"),         # relaycast/metrics.py
-    ("replication", "A6b.3"),  # parallel/replication.py
-    ("control", "A6b.4"),      # parallel/controller.py
 ))
 
 
@@ -157,8 +155,25 @@ _register(CounterFamily(
     "shardgroup", "asyncframework_tpu_torch.parallel.shardgroup",
     "shard_totals", "reset_shard_totals",
     doc="Sharded PS group: shard deaths/restarts, fence epoch bumps, "
-        "finish broadcasts, assembled pulls/pushes, map re-resolves, "
-        "abandoned fan-out rounds (parallel/shardgroup.py).",
+        "standby promotions/respawns, finish broadcasts, assembled "
+        "pulls/pushes, map re-resolves, abandoned fan-out rounds "
+        "(parallel/shardgroup.py).",
+))
+_register(CounterFamily(
+    "replication", "asyncframework_tpu_torch.parallel.replication",
+    "repl_totals", "reset_repl_totals",
+    doc="Hot-standby replication: batches/items streamed, syncs, "
+        "resyncs, reconnects, queue overflows, fenced streams "
+        "(primary sender); appends applied, sync installs, promotions "
+        "(standby applier) (parallel/replication.py).",
+))
+_register(CounterFamily(
+    "control", "asyncframework_tpu_torch.parallel.controller",
+    "control_totals", "reset_control_totals",
+    doc="Adaptive asynchrony controller: decision ticks, knob changes "
+        "(the controller_converged SLO watches their rate), bound "
+        "clamps, oscillation-guard trips, stale CTRL installs refused "
+        "(parallel/controller.py).",
 ))
 _register(CounterFamily(
     "observer", "asyncframework_tpu_torch.metrics.observer",

@@ -259,18 +259,11 @@ class UpdateTrace:
         return sp
 
 
-#: the JAX package's ``async.trace.sample`` and ``async.trace.buffer`` defaults
-DEFAULT_SAMPLE = 1.0 / 64.0
-DEFAULT_BUFFER = 512
-
-
 class TraceRecorder:
     """Per-process sampling decision + bounded ring of completed spans.
 
-    ``sample_rate`` / ``capacity`` default to the JAX package's conf
-    defaults (``async.trace.sample`` 1/64, ``async.trace.buffer`` 512:
-    :data:`DEFAULT_SAMPLE`, :data:`DEFAULT_BUFFER`; the conf registry is not
-    part of the port).  Sampling is counter-based per worker id --
+    ``sample_rate`` / ``capacity`` default from conf (``async.trace.sample``
+    / ``async.trace.buffer``).  Sampling is counter-based per worker id --
     deterministic, and the FIRST update of every worker is always sampled
     when the rate is > 0, so even a short run yields a complete trace.
     With rate 0 (or a None recorder) the hot path does no tracing work at
@@ -280,10 +273,18 @@ class TraceRecorder:
     def __init__(self, sample_rate: Optional[float] = None,
                  capacity: Optional[int] = None,
                  sink: Optional[Callable[[Span], None]] = None):
-        if sample_rate is None:
-            sample_rate = DEFAULT_SAMPLE
-        if capacity is None:
-            capacity = DEFAULT_BUFFER
+        if sample_rate is None or capacity is None:
+            from asyncframework_tpu_torch.conf import (
+                TRACE_BUFFER,
+                TRACE_SAMPLE,
+                global_conf,
+            )
+
+            conf = global_conf()
+            if sample_rate is None:
+                sample_rate = float(conf.get(TRACE_SAMPLE))
+            if capacity is None:
+                capacity = int(conf.get(TRACE_BUFFER))
         rate = max(0.0, min(1.0, float(sample_rate)))
         self.sample_rate = rate
         self.interval = 0 if rate <= 0.0 else max(1, round(1.0 / rate))

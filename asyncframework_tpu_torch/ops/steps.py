@@ -40,7 +40,8 @@ iteration counter ``k`` and the sync drain's accumulator.
   engine's worker steps wrap their ``grad`` half, which the tasks call.
 - The DCN parameter-server plane's steps (``parallel/ps_dcn.py``):
   :func:`make_asgd_apply_merge` / :func:`make_saga_apply_merge` (the PS's
-  merge drain, ``steps.py:271-326,353-397``), the DCN ASAGA worker steps
+  merge drain, ``steps.py:271-326,353-397``), its damped serial twin
+  :func:`make_asgd_apply_damped` (``:329-350``), the DCN ASAGA worker steps
   :func:`make_saga_dcn_worker_step` / :func:`make_saga_dcn_sparse_worker_step`
   (``:857-908``, through B1's and S1's per-slot forms) and
   :func:`make_pipelined_transfer` (``:51-81``).
@@ -491,9 +492,11 @@ def make_asgd_apply_merge(gamma: float, batch_rate: float, n: int,
     at m = 1.  Slot ``j`` applies ``w <- w - (a_j * (lr / parRecs)) * g_j``
     with ``lr = gamma / sqrt(k / P + 1)`` and advances ``k`` by one where
     ``a_j = mask[j] > 0``, and leaves both as they are where ``a_j`` is 0
-    (a padding slot).  ``a_j`` is 1.0 for every pushed gradient (no
-    controller damps here; ``1.0 * x`` is exact).  ``w'`` and ``k'`` are
-    new tensors; nothing is written in place."""
+    (a padding slot).  ``a_j`` is the per-item step-DAMP factor the
+    adaptive controller's law gives the push (``parallel/controller.py``;
+    1.0 undamped, and ``1.0 * x`` is exact); :func:`make_asgd_apply_damped`
+    is the serial twin.  ``w'`` and ``k'`` are new tensors; nothing is
+    written in place."""
     par_recs = batch_rate * n / num_workers
 
     def apply_merge(w, G, mask, k):
@@ -507,6 +510,27 @@ def make_asgd_apply_merge(gamma: float, batch_rate: float, n: int,
 
     return _prof.wrap_dispatch(apply_merge, "kernel.dispatch",
                                "asgd_apply_merge")
+
+
+def make_asgd_apply_damped(gamma: float, batch_rate: float, n: int,
+                           num_workers: int):
+    """``apply(w, g, k, a) -> (w', k + 1)``: :func:`make_asgd_apply` with a
+    per-call step-DAMP scalar ``a`` (delay-adaptive step sizes per
+    arXiv:1601.04033, actuated by ``parallel/controller.py``;
+    ``steps.py:329-350``).  The expression is verbatim the merge body
+    (``w - (a * (lr / parRecs)) * g``), with ``a`` an f32 tensor on ``w``'s
+    device as the merge's mask slot is, so m serial damped applies are
+    bit-equal to one :func:`make_asgd_apply_merge` over the same damps, and
+    at ``a == 1.0`` to :func:`make_asgd_apply` (``1.0 * x`` is exact).
+    ``w'`` and ``k + 1`` are new tensors; nothing is written in place."""
+    par_recs = batch_rate * n / num_workers
+
+    def apply(w, g, k, a):
+        a = torch.as_tensor(a, dtype=torch.float32, device=w.device)
+        lr = gamma / torch.sqrt(k / num_workers + 1.0)
+        return w - (a * (lr / par_recs)) * g, k + 1.0
+
+    return _prof.wrap_dispatch(apply, "kernel.dispatch", "asgd_apply_damped")
 
 
 def make_saga_apply_merge(gamma: float, batch_rate: float, n: int,

@@ -50,10 +50,19 @@ checkpoints) and the shard-group surface (``shard_map``, SETMAP, SHARDMAP,
 FINISH, the map and epochs on WELCOME, the worker-side map handshake onto
 ``parallel/shardgroup.py``'s ``ShardedPSClient``) run as there.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: the hot standby, replication and promotion (A6b.3); the
-adaptive controller and damped apply (A6b.4); SUBSCRIBE and relay offers
-(A6b.5); the mesh worker steps (``async.mesh.devices > 1``, A6b.6).
+So do the hot standby (``standby=True``: REPL_SYNC/REPL_APPEND applied
+through the same merge function as the primary's drain, the replicated
+dedup window, fence-stamped PROMOTE; ``parallel/replication.py`` streams
+from the primary), the adaptive controller's PS side (``set_control``:
+the per-item step-DAMP factor in the drain's mask slot, the cohort and
+merge-budget overrides, CTRL on WELCOME/PULL/SETMAP/SHARDMAP, the
+client's ``cs`` stamp and ``ctrl_sink``; ``parallel/controller.py``
+decides), and SUBSCRIBE (the ``have=``-negotiated read without the wave
+gate, served by primaries and standbys, with the freshness age).
+
+Not ported yet, each refused naming its ROADMAP item: a SUBSCRIBE that
+registers a relaycast child (``rport``, answered ERR; A8) and the mesh
+worker steps (``async.mesh.devices > 1``, A6b.6).
 """
 
 from __future__ import annotations
@@ -166,9 +175,7 @@ def refuse_unported_conf() -> None:
     this package does not run, on the PS and the workers alike: setting
     one must never run a plainer run without a word."""
     from asyncframework_tpu_torch.conf import (
-        CONTROL_ENABLED,
         MESH_DEVICES,
-        PS_STANDBY,
         UI_PORT,
         global_conf,
     )
@@ -179,10 +186,6 @@ def refuse_unported_conf() -> None:
         # it; a port run takes SolverConfig.ui_port, a port process
         # async.metrics.port
         _refuse("the cluster CLI's live dashboard (async.ui.port)", "A8")
-    if int(conf.get(PS_STANDBY)) > 0:
-        _refuse("the hot standby (async.ps.standby > 0)", "A6b.3")
-    if conf.get(CONTROL_ENABLED):
-        _refuse("the adaptive controller (async.control.enabled)", "A6b.4")
     if int(conf.get(MESH_DEVICES)) > 1:
         _refuse("the mesh worker steps (async.mesh.devices > 1)", "A6b.6")
 
@@ -328,7 +331,7 @@ class _PendingPush:
     __slots__ = ("wid", "ts", "g_host", "diff", "header", "payload_len",
                  "tc", "t_queue0", "done", "ack", "accepted", "staleness",
                  "task_ms", "t_apply0", "t_done", "k_at_merge",
-                 "do_snapshot")
+                 "do_snapshot", "damp")
 
     def __init__(self, wid: int, ts: int, g_host, diff, header: dict,
                  payload_len: int, tc, t_queue0: float):
@@ -345,12 +348,10 @@ class _PendingPush:
         self.t_done = 0.0
         self.k_at_merge = 0
         self.do_snapshot = False
-
-
-#: ops of the JAX package's wire that belong to refused switches, answered
-#: ERR with the ROADMAP item that ports them
-_REFUSED_OPS = {"SUBSCRIBE": "A6b.5", "REPL_APPEND": "A6b.3",
-                "REPL_SYNC": "A6b.3", "PROMOTE": "A6b.3"}
+        # delay-adaptive step-DAMP factor, decided per item at drain
+        # time from the installed CTRL law (1.0 = undamped, the only
+        # value with control off -- the bit-equal legacy apply)
+        self.damp = 1.0
 
 
 # ----------------------------------------------------------------- PS side
@@ -377,15 +378,13 @@ class ParameterServer:
         if algo not in ("asgd", "asaga"):
             raise ValueError(f"unknown PS algo {algo!r}")
         refuse_unported_conf()
-        if standby:
-            _refuse("the hot standby (replication and promotion)", "A6b.3")
         self.cfg = cfg
         self.d, self.n = d, n
         self.algo = algo
         # fencing epoch (async.fence.enabled): 0 = fencing off, the
         # byte-identical legacy wire (no ep header keys anywhere).  > 0 =
-        # this server incarnation's minted epoch; every PULL/PUSH stamped
-        # with a DIFFERENT epoch is answered REJECT_FENCED (admission in
+        # this server incarnation's minted epoch; every PULL/PUSH/
+        # SUBSCRIBE stamped with a DIFFERENT epoch is answered REJECT_FENCED (admission in
         # _fence_reject), so a deposed client replaying buffered pushes --
         # or any op routed at a deposed incarnation of this range -- can
         # never double-apply against the current owner's state.
@@ -419,6 +418,22 @@ class ParameterServer:
         self.shard_index = int(shard_index)
         self.checkpoint_path = checkpoint_path
         self.resumed_from_k: Optional[int] = None
+        # hot-standby replication (parallel/replication.py).
+        # standby=True: this server is a WARM STANDBY -- it refuses the
+        # training plane (PULL/PUSH answer ERR; it is not in the shard
+        # map), applies its primary's replicated merge batches (REPL_SYNC
+        # bootstrap + REPL_APPEND stream) through the same merge function
+        # the primary's drain runs, and serves SUBSCRIBE/SHARDMAP reads
+        # from the mirrored snapshot (staleness priced by replication
+        # lag).  A PROMOTE order flips it to range primary under the
+        # minted epoch.  standby_map names every shard's standby endpoint
+        # ([host, port] | None per range, installed via SETMAP or the
+        # launcher); a PRIMARY whose own entry is set runs a
+        # ReplicationStream (self.repl) to it.
+        self._standby = bool(standby)
+        self.standby_map: Optional[List] = None
+        self.repl = None
+        self.promoted = False
         self.device = (resolve_devices(None)[0] if device is None
                        else canonical(device))
         self._w = torch.zeros(d, dtype=torch.float32, device=self.device)
@@ -506,6 +521,20 @@ class ParameterServer:
         self.pull_replies: Dict[str, int] = {"full": 0, "nm": 0,
                                              "xdelta": 0}
         self.pull_model_bytes = 0  # model-part payload bytes sent via PULL
+        # SUBSCRIBE reply shapes + bytes, counted apart from PULL so the
+        # training data plane's numbers stay clean of read traffic
+        self.subscribe_replies: Dict[str, int] = {"full": 0, "nm": 0,
+                                                  "xdelta": 0}
+        self.subscribe_model_bytes = 0
+        # version birth times (bounded): ts -> run-clock ms at which that
+        # model version was PUBLISHED by an applying drain.  Feeds the
+        # freshness-lag-in-ms answer on SUBSCRIBE replies: the age of a
+        # served version is "how long ago did a NEWER version appear",
+        # which is 0 while the served version is still current (dropped
+        # pushes tick the clock without changing the model, and leave no
+        # entry here -- correctly aging nothing).
+        self._born_lock = threading.Lock()
+        self._ver_born: "_OD2[int, float]" = _OD2()
         # ---- data plane: batched gradient apply (merge queue).  All
         # pushes pending at lock acquisition coalesce into ONE drain
         # (at most _merge_max); per-push semantics stay per item.
@@ -557,6 +586,29 @@ class ParameterServer:
         from asyncframework_tpu_torch.conf import NET_DEDUP_WINDOW, global_conf
 
         self._dedup = DedupWindow(window=global_conf().get(NET_DEDUP_WINDOW))
+        # adaptive control plane (parallel/controller.py): the installed
+        # CTRL payload (None = control off, byte-identical legacy wire
+        # everywhere) + its parsed effective values.  Installed by the
+        # local AsyncController (primary), by SETMAP (shard secondaries
+        # and promoted standbys -- decisions SURVIVE promotion because
+        # the group re-announces its stored ctrl), and served to workers
+        # on WELCOME and on PULL replies whose ``cs`` stamp is stale.
+        # _ctrl_lock guards the swap; the drain reads the parsed fields
+        # via one attribute read each (GIL-atomic reference swaps).
+        self._ctrl_lock = threading.Lock()
+        self.ctrl: Optional[dict] = None
+        self._ctrl_b = 0            # cohort override (0 = conf value)
+        self._ctrl_merge = 0        # effective merge budget (0 = conf)
+        self._ctrl_damp: Optional[Tuple[float, float, float]] = None
+        self._ctrl_wdamp: Dict[int, float] = {}
+        self.ctrl_stale_rejects = 0  # stale (ep, seq) installs refused
+        self._apply_damped = None    # built on first damped install
+        # the damp factors this server's drains applied below 1.0: their
+        # count, sum and least value (the controller's effect, read by
+        # the launchers' records)
+        self.damped_applies = 0
+        self.damp_sum = 0.0
+        self.damp_min = 1.0
 
         # distributed tracing (metrics/trace.py): server-side spans for
         # traced updates plus spans piggybacked on PUSH/BYE fold into the
@@ -571,7 +623,13 @@ class ParameterServer:
         self._seen_span_ids: "_OD[str, None]" = _OD()
 
         self._elapsed_offset_ms = 0.0  # wall already spent before a resume
-        if checkpoint_path and os.path.exists(checkpoint_path):
+        # a STANDBY never boot-restores: its state arrives over the wire
+        # (REPL_SYNC) at the epoch its primary streams, and a stale
+        # checkpoint restore here would mint an epoch ABOVE the stream's
+        # and wrongly fence it out.  The path is still kept: once
+        # promoted, this server checkpoints its range there.
+        if (checkpoint_path and os.path.exists(checkpoint_path)
+                and not self._standby):
             self._restore(checkpoint_path)
 
         self._srv = socket.create_server((host, port))
@@ -704,8 +762,15 @@ class ParameterServer:
             "queue_depth": len(self._merge_q),
             "done": int(self._done.is_set()),
         }
-        # (the JAX package's standby_lag / standby scalars come with the
-        # hot standby, ROADMAP A6b.3)
+        repl = self.repl
+        if repl is not None:
+            # the standby's replication lag in merge units -- the
+            # ps.standby_lag series the default standby_lag SLO rule
+            # watches (read staleness on the standby is priced by it)
+            out["standby_lag"] = float(repl.lag_versions())
+            out["standby_synced"] = 1.0 if repl.synced else 0.0
+        if self._standby:
+            out["standby"] = 1.0
         return out
 
     # ---------------------------------------------------------- checkpointing
@@ -820,11 +885,21 @@ class ParameterServer:
         supervisor_mod.bump_total("ps_resumes")
 
     def _install_state(self, z, meta: dict) -> None:
-        """Install a checkpoint image's model + bookkeeping."""
+        """Install a checkpoint image's model + bookkeeping (shared by
+        the boot-time restore and the standby's REPL_SYNC applier).
+        Deliberately does NOT touch the fencing epoch or the fenced-
+        reject counter: incarnation identity belongs to the caller --
+        a restore bumps past the persisted epoch, a standby sync keeps
+        the epoch its stream runs at."""
+        # generation bump FIRST: a lock-free reader mid-build (a live
+        # standby keeps serving SUBSCRIBE through a re-sync) must fail
+        # its publish guard, or it would cache the PRE-install snapshot
         self._model_gen += 1
         self._w = torch.tensor(z["w"], dtype=torch.float32,
                                device=self.device)
         self._w_versions.clear()
+        with self._born_lock:
+            self._ver_born.clear()  # prior-life ages are meaningless
         self._snap_basis = (int(meta["clock"]), self._w,
                             self._model_gen)
         self._clock = int(meta["clock"])
@@ -870,6 +945,8 @@ class ParameterServer:
             for w, c in meta.get("accepted_by_wid", {}).items()
         }
         self.membership_rejects = int(meta.get("membership_rejects", 0))
+        # last: a reader that re-reads the basis builds the NEW state
+        self._snap = None
 
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
@@ -940,10 +1017,31 @@ class ParameterServer:
                 # verbs so fault schedules (net/faults.py) can target the
                 # ASAGA stream without also counting ASGD ops
                 if op in ("PULL", "PULL_SAGA"):
+                    if self._standby:
+                        # a standby is a READ replica: SUBSCRIBE serves
+                        # from its mirrored snapshot, but the training
+                        # plane (wave gate, membership, merges) belongs
+                        # to the range primary alone -- it is not in
+                        # the shard map, and a client that lands here
+                        # anyway must re-resolve, not train against a
+                        # mirror
+                        _send_msg(conn, {"op": "ERR", "msg": "standby"})
+                        continue
                     if self._fence_reject(conn, header):
                         continue
                     self._handle_pull(conn, header)
+                elif op == "SUBSCRIBE":
+                    # serving-tier snapshot subscription: a read-only,
+                    # wave-gate-free pull that keeps answering after DONE
+                    # (standbys serve it too -- the read-replica face of
+                    # hot-standby replication, staleness priced by lag)
+                    if self._fence_reject(conn, header):
+                        continue
+                    self._handle_subscribe(conn, header)
                 elif op in ("PUSH", "PUSH_SAGA"):
+                    if self._standby:
+                        _send_msg(conn, {"op": "ERR", "msg": "standby"})
+                        continue
                     cached = self._dedup.check(header)
                     if cached is not None:
                         # duplicate of an already-applied push (the ACK was
@@ -970,20 +1068,26 @@ class ParameterServer:
                     welcome = {"op": "WELCOME",
                                "elastic": self.supervisor is not None}
                     if self.shard_map:
-                        # the shard-map handshake: workers resolve the
-                        # group here and fan every PULL/PUSH out per range
-                        # (shardgroup.ShardedPSClient).  Key absent on an
-                        # unsharded PS -- byte-identical legacy wire.
+                        # the shard-map handshake: workers/replicas resolve
+                        # the group here and fan every PULL/PUSH out per
+                        # range (shardgroup.ShardedPSClient).  Key absent
+                        # on an unsharded PS -- byte-identical legacy wire.
                         welcome["shards"] = self.shard_map
                         if self.shard_epochs:
                             welcome["epochs"] = self.shard_epochs
                     if self.epoch:
                         welcome["epoch"] = self.epoch
+                    if self.ctrl is not None:
+                        # adaptive control plane: a joining worker gets
+                        # the current CTRL payload next to the map and
+                        # epoch vector (absent with control off --
+                        # byte-identical legacy wire)
+                        welcome["ctrl"] = self.ctrl
                     _send_msg(conn, welcome)
                 elif op == "SHARDMAP":
-                    # shard-map query (group members, liveness probes):
-                    # the classic single PS answers an empty list -- "no
-                    # group here"
+                    # shard-map query (group members, liveness probes,
+                    # serving replicas): the classic single PS answers an
+                    # empty list -- "no group here"
                     reply = {"op": "SHARDMAP",
                              "shards": self.shard_map or []}
                     if self.epoch:
@@ -991,26 +1095,20 @@ class ParameterServer:
                         reply["fenced_rejects"] = self.fenced_rejects
                     if self.shard_epochs:
                         reply["epochs"] = self.shard_epochs
+                    if self.standby_map:
+                        # discovery surface for the read path: serving
+                        # replicas / relaycast roots may subscribe to a
+                        # range's standby instead of its primary
+                        reply["standbys"] = self.standby_map
+                    if self._standby:
+                        reply["standby"] = True
+                    if self.ctrl is not None:
+                        reply["ctrl"] = self.ctrl
                     _send_msg(conn, reply)
                 elif op == "SETMAP":
                     # group controller installing the assembled map on a
                     # freshly-spawned shard child (it cannot know its
                     # peers' ephemeral ports before they announce)
-                    # (a controller of the JAX package may also announce
-                    # standbys and CTRL decisions here: planes this
-                    # package refuses, so such a SETMAP installs nothing)
-                    if header.get("standbys"):
-                        _send_msg(conn, {"op": "ERR", "msg":
-                                         "hot-standby replication is not "
-                                         "ported to the PyTorch package "
-                                         "yet (ROADMAP A6b.3)"})
-                        continue
-                    if header.get("ctrl") is not None:
-                        _send_msg(conn, {"op": "ERR", "msg":
-                                         "the adaptive controller is not "
-                                         "ported to the PyTorch package "
-                                         "yet (ROADMAP A6b.4)"})
-                        continue
                     wire = header.get("shards") or None
                     self.shard_map = ([list(e) for e in wire]
                                       if wire else None)
@@ -1022,7 +1120,56 @@ class ParameterServer:
                         # workers current epochs, not boot-time ones)
                         self.shard_epochs = [int(e)
                                              for e in header["epochs"]]
+                    if "standbys" in header:
+                        # the controller's standby endpoints: a primary
+                        # whose own entry is set (re)targets its
+                        # replication stream here -- promotion re-homes
+                        # a NEW standby behind the promoted primary via
+                        # the same install
+                        self.set_standby_map(header.get("standbys"))
+                    if "ctrl" in header:
+                        # adaptive-control decisions ride SETMAP next to
+                        # the map/epochs/standbys: shard secondaries
+                        # damp/serve under the SAME decision the primary
+                        # applies, and a promoted standby re-learns the
+                        # current CTRL from the group's re-announce
+                        # (monotone install; a deposed controller's
+                        # stale stamp is refused)
+                        self.set_control(header.get("ctrl"))
                     _send_msg(conn, {"op": "ACK"})
+                elif op in ("REPL_APPEND", "REPL_SYNC"):
+                    # primary->standby replication stream (parallel/
+                    # replication.py).  Only a standby applies it, and
+                    # the fence admission below is THE promotion-safety
+                    # gate: a deposed primary's post-promotion appends
+                    # carry its stale epoch and bounce REJECT_FENCED --
+                    # including against the PROMOTED (ex-standby)
+                    # server itself, whose minted epoch now dominates,
+                    # which is how the zombie learns it was deposed.
+                    if self._standby:
+                        ep = header.get("ep")
+                        if ep is not None and int(ep) > self.epoch:
+                            # adopt-forward: the stream's source is
+                            # authoritative for its standby (a primary
+                            # relaunched from checkpoint streams at its
+                            # bumped epoch); a STALE stamp still fails
+                            # the admission below
+                            self.epoch = int(ep)
+                    if self._fence_reject(conn, header):
+                        continue
+                    if not self._standby:
+                        _send_msg(conn, {"op": "ERR",
+                                         "msg": "not a standby"})
+                        continue
+                    if op == "REPL_SYNC":
+                        self._handle_repl_sync(conn, payload)
+                    else:
+                        self._handle_repl_append(conn, header, payload)
+                elif op == "PROMOTE":
+                    # controller order: this standby becomes its range's
+                    # primary under the minted epoch (idempotent by
+                    # monotone epoch compare)
+                    self._handle_promote(conn, header)
                 elif op == "FINISH":
                     # group-wide DONE broadcast: a secondary shard serves
                     # its range with an unbounded iteration budget and
@@ -1069,11 +1216,6 @@ class ParameterServer:
                     upgraded = _shmring.serve_attach(conn, header)
                     if upgraded is not None:
                         conn = upgraded
-                elif op in _REFUSED_OPS:
-                    _send_msg(conn, {"op": "ERR", "msg":
-                                     f"{op} is not ported to the PyTorch "
-                                     f"package yet (ROADMAP "
-                                     f"{_REFUSED_OPS[op]})"})
                 else:
                     _send_msg(conn, {"op": "ERR", "msg": f"bad op {op}"})
         except (ConnectionError, OSError):
@@ -1138,6 +1280,352 @@ class ParameterServer:
         _send_msg(conn, rej)
         return True
 
+    def note_fenced_above(self, ep: int) -> None:
+        """Fold a foreign successor epoch observed OUT of band (the
+        replication stream's REJECT_FENCED reply): from here on every
+        stamped op is refused, exactly as if a client had proven the
+        successor -- which drives workers to re-resolve onto it."""
+        ep = int(ep)
+        if ep > self._fenced_above:
+            self._fenced_above = ep
+
+    # ------------------------------------------------- adaptive control
+    def set_control(self, wire: Optional[dict]) -> bool:
+        """Install a CTRL payload (parallel/controller.py decisions).
+
+        Monotone by (epoch, seq) -- fence-stamped: a deposed
+        controller's decision (stamped with a pre-promotion epoch below
+        an already-installed one) is refused and counted, exactly like
+        a zombie's write.  ``None`` clears control entirely (back to
+        the byte-identical legacy path).  Returns True when installed.
+        """
+        from asyncframework_tpu_torch.parallel.controller import ctrl_seq
+
+        if wire is not None and self.algo == "asgd":
+            damp = wire.get("damp")
+            if damp and float(damp[0]) > 0:
+                # build the damped serial apply BEFORE the law is
+                # published: a single-item drain between install and
+                # build would otherwise fall through to the undamped
+                # apply while a contended (fused) drain damps -- the
+                # applied step must never depend on queue contention
+                self._ensure_apply_damped()
+        with self._ctrl_lock:
+            if wire is None:
+                self.ctrl = None
+                self._ctrl_b = 0
+                self._ctrl_merge = 0
+                self._ctrl_damp = None
+                self._ctrl_wdamp = {}
+                return True
+            new, cur = ctrl_seq(wire), ctrl_seq(self.ctrl)
+            if new == cur:
+                # idempotent re-delivery (the group re-announces its
+                # stored ctrl on every SETMAP sweep): not a fence event
+                return False
+            if new < cur:
+                self.ctrl_stale_rejects += 1
+                return False
+            self.ctrl = dict(wire)
+            self._ctrl_b = max(0, int(wire.get("b", 0) or 0))
+            self._ctrl_merge = max(0, int(wire.get("merge", 0) or 0))
+            damp = wire.get("damp")
+            if damp and self.algo == "asgd":
+                # [coeff, floor, free]: the bounded 1/(1+tau)-family
+                # law the drain applies per accepted push.  ASAGA is
+                # excluded by design: damping the gradient term alone
+                # would break its alpha_bar == mean(table) invariant
+                # (same exactness stance as the codec exclusion).
+                c, fl, fr = (float(damp[0]), float(damp[1]),
+                             float(damp[2]))
+                self._ctrl_damp = (c, fl, fr) if c > 0 else None
+            else:
+                self._ctrl_damp = None
+            wd = wire.get("wdamp") or {}
+            try:
+                self._ctrl_wdamp = {int(w): float(f)
+                                    for w, f in wd.items()}
+            except (TypeError, ValueError):
+                self._ctrl_wdamp = {}
+        return True
+
+    def _ensure_apply_damped(self) -> None:
+        """Build the damped serial apply once (ASGD only; called OFF the
+        model lock -- from set_control before the law publishes, and from
+        the replication receive path before a damped append takes the
+        lock).  A benign double-build under a race builds the identical
+        function twice."""
+        if self._apply_damped is not None or self.algo != "asgd":
+            return
+        from asyncframework_tpu_torch.ops import steps as _steps
+
+        self._apply_damped = _steps.make_asgd_apply_damped(
+            self.cfg.gamma, self.cfg.batch_rate, self.n,
+            self.cfg.num_workers)
+
+    def _item_damp(self, wid: int, staleness: int) -> float:
+        """The per-item step-DAMP factor under the installed CTRL law:
+        1/(1 + c*(tau - free)) past the free slack, floored, times the
+        per-worker extra factor for observer-flagged stragglers.  1.0
+        (exact) whenever control is off or the push is fresh enough."""
+        law = self._ctrl_damp
+        if law is None:
+            return 1.0
+        c, floor_, free = law
+        damp = 1.0
+        over = float(staleness) - free
+        if over > 0.0:
+            damp = max(floor_, 1.0 / (1.0 + c * over))
+        wd = self._ctrl_wdamp.get(wid)
+        if wd is not None:
+            damp = max(floor_, damp * wd)
+        # an ACCEPTED item's damp must stay strictly positive: the merge
+        # function's keep bit is ``mask > 0``, and a zero factor (possible
+        # only with a hand-crafted CTRL floor of 0) would silently turn
+        # an accepted push into a dropped one
+        return float(max(damp, 1e-6))
+
+    def control_signals(self) -> Dict[str, float]:
+        """PS-local scalars the adaptive controller reads each tick
+        (lock-free int reads, same stance as ``_telemetry_source``)."""
+        return {
+            "clock": float(self._clock),
+            "accepted": float(self.accepted),
+            "dropped": float(self.dropped),
+            "queue_depth": float(len(self._merge_q)),
+            "max_staleness": float(self.max_staleness),
+            "avg_delay_ms": float(self.avg_delay_ms),
+            "done": float(self._done.is_set()),
+        }
+
+    # ----------------------------------------------- hot-standby replication
+    def attach_standby(self, host: str, port: int) -> None:
+        """(Re)point this PRIMARY's replication stream at its warm
+        standby (parallel/replication.py).  Idempotent per endpoint.
+        ASGD-only, like the sharded plane it serves: ASAGA's per-sample
+        history table is not streamed."""
+        if self.algo != "asgd":
+            raise ValueError("standby replication is ASGD-only")
+        if self._standby:
+            raise ValueError("a standby does not stream to a standby")
+        from asyncframework_tpu_torch.parallel.replication import (
+            ReplicationStream,
+        )
+
+        cur = self.repl
+        if (cur is not None and not cur.fenced
+                and (cur.host, cur.port) == (host, int(port))):
+            return
+        if cur is not None:
+            cur.stop()
+        self.repl = ReplicationStream(self, host, int(port))
+
+    def set_standby_map(self, wire) -> None:
+        """Install the group's standby endpoints (``[host, port]`` |
+        None per range, SETMAP/launcher-supplied) and reconcile this
+        server's own stream: a primary whose entry is set streams to
+        it; an entry gone stops the stream."""
+        self.standby_map = ([list(e) if e else None for e in wire]
+                            if wire else None)
+        if self._standby:
+            return
+        mine = None
+        if (self.standby_map
+                and self.shard_index < len(self.standby_map)):
+            mine = self.standby_map[self.shard_index]
+        if mine:
+            self.attach_standby(str(mine[0]), int(mine[1]))
+        elif self.repl is not None:
+            self.repl.stop()
+            self.repl = None
+
+    def _handle_repl_sync(self, conn: socket.socket,
+                          payload: bytes) -> None:
+        """Standby side of REPL_SYNC: install the primary's checkpoint
+        image as this mirror's state.  Idempotent -- re-installing the
+        same image converges to the same state; a newer image simply
+        supersedes.  The epoch is NOT taken from the image: the stream's
+        ``ep`` stamp (adopt-forward in the dispatch) is the incarnation
+        authority."""
+        from asyncframework_tpu_torch.parallel import replication as _repl
+
+        try:
+            with np.load(io.BytesIO(payload), allow_pickle=False) as z:
+                meta = json.loads(str(z["__meta__"]))
+                if meta["algo"] != self.algo:
+                    raise ValueError(
+                        f"sync algo {meta['algo']!r} != {self.algo!r}")
+                with self._lock:
+                    self._install_state(z, meta)
+                    clock = self._clock
+        except (ValueError, KeyError, OSError) as e:
+            _send_msg(conn, {"op": "ERR", "msg": f"bad sync: {e}"})
+            return
+        if self._t0 is not None:
+            # align this process's run clock with the primary's elapsed
+            # wall, so mirrored version births / snapshot times price
+            # freshness on the primary's timeline, not this process's
+            self._t0 = time.monotonic() - self._elapsed_offset_ms / 1e3
+        _repl.bump("sync_installs")
+        _send_msg(conn, {"op": "ACK", "clock": clock})
+
+    def _handle_repl_append(self, conn: socket.socket, header: dict,
+                            payload: bytes) -> None:
+        """Standby side of REPL_APPEND: apply one replicated merge batch
+        exactly as the primary judged it -- same accept verdicts through
+        the same apply function in the same order, same ``(sid, seq)``
+        dedup records (so a promoted standby re-answers replayed worker
+        pushes from the REPLICATED window, never by re-applying), same
+        snapshot cadence (the promoted trajectory continues seamlessly).
+
+        Idempotence is the clock compare: a batch entirely at-or-below
+        the applied clock is a duplicate delivery and re-ACKs; a batch
+        starting exactly AT the clock applies; anything else is a gap --
+        refused with ``resync`` so the stream re-bootstraps.  Never
+        applied twice, never applied out of order."""
+        from asyncframework_tpu_torch.parallel import replication as _repl
+
+        if self.algo != "asgd":
+            _send_msg(conn, {"op": "ERR", "msg": "replication is "
+                                                 "ASGD-only"})
+            return
+        items = header.get("items") or []
+        pre = int(header.get("pre", -1))
+        cal = header.get("cal")
+        if any(len(it) > 7 and float(it[7]) != 1.0 for it in items):
+            # delay-adaptive damped items in this batch: build the
+            # damped apply BEFORE taking the model lock (one-time)
+            self._ensure_apply_damped()
+        with self._lock:
+            if pre + len(items) <= self._clock:
+                reply = {"op": "ACK", "clock": self._clock, "dup": True}
+            elif pre != self._clock:
+                _repl.bump("resyncs_requested")
+                reply = {"op": "ERR", "resync": True,
+                         "clock": self._clock}
+            else:
+                off = 0
+                for it in items:
+                    wid, ts = int(it[0]), int(it[1])
+                    acc = bool(it[2])
+                    sid, seq, ack = it[3], it[4], it[5]
+                    st = int(it[6])
+                    # per-item step-DAMP (absent on a pre-damping
+                    # primary's stream: 1.0 = the exact legacy apply)
+                    damp = float(it[7]) if len(it) > 7 else 1.0
+                    if sid is not None:
+                        self._dedup.record({"sid": sid, "seq": seq},
+                                           dict(ack))
+                    self.pushes_by_wid[wid] = (
+                        self.pushes_by_wid.get(wid, 0) + 1)
+                    if st > self.max_staleness:
+                        self.max_staleness = st
+                    if acc:
+                        g = np.frombuffer(
+                            payload[off:off + 4 * self.d], np.float32)
+                        off += 4 * self.d
+                        # same unpublish-before-tick discipline as the
+                        # drain: lock-free SUBSCRIBE readers must never
+                        # pair a new clock with old bytes
+                        self._model_gen += 1
+                        self._snap = None
+                        # the primary's apply for this push, exactly: the
+                        # serial apply IS the merge body, so the mirror's
+                        # state stays the primary's bit for bit whatever
+                        # batching the primary's drain used
+                        self._apply_asgd(g, damp)
+                        self._k += 1
+                        self.accepted += 1
+                        self.accepted_by_wid[wid] = (
+                            self.accepted_by_wid.get(wid, 0) + 1)
+                        if self._k % self.cfg.printer_freq == 0:
+                            # the primary's snapshot cadence, mirrored:
+                            # an owned host copy, never a buffer view
+                            self._snapshots.append((
+                                self._now_ms()
+                                if self._t0 is not None else 0.0,
+                                _host(self._w),
+                            ))
+                        if self._k >= self.cfg.num_iterations:
+                            self._done.set()
+                    else:
+                        self.dropped += 1
+                    self._clock += 1
+                if cal:
+                    self._cal_ms = float(cal[0])
+                    self._cal_n = int(cal[1])
+                    self.avg_delay_ms = float(cal[2])
+                self._snap_basis = (self._clock, self._w,
+                                    self._model_gen)
+                if self._t0 is not None:
+                    with self._born_lock:
+                        self._ver_born[self._clock] = self._now_ms()
+                        while len(self._ver_born) > 1024:
+                            self._ver_born.popitem(last=False)
+                _repl.bump("appends_applied")
+                _repl.bump("append_items", len(items))
+                reply = {"op": "ACK", "clock": self._clock}
+        # deliberately NO checkpoint trigger here: durability is the
+        # PRIMARY's job (a dead mirror is respawned and re-synced,
+        # nothing to restore), and a mirror writing the shard's durable
+        # files would race the acting primary's checkpoint thread on a
+        # shared path.  Once PROMOTED, this server checkpoints through
+        # the normal push path.
+        _send_msg(conn, reply)
+
+    def _handle_promote(self, conn: socket.socket,
+                        header: dict) -> None:
+        """PROMOTE: this standby becomes its range's primary at the
+        controller-minted epoch.  Idempotent by monotone compare; the
+        deposed primary needs no teardown order -- its next stream
+        append (or any worker op, once note_fenced_above folds the
+        bounce back) is REJECT_FENCED by the epoch installed here."""
+        from asyncframework_tpu_torch.parallel import replication as _repl
+
+        ep = int(header.get("epoch", 0) or 0)
+        with self._lock:
+            if self._standby and ep <= self.epoch:
+                # a STALE order against a fresh mirror (a late operator
+                # retry, a re-delivered PROMOTE after this standby was
+                # respawned): flipping would orphan it from its
+                # primary's stream -- refuse, loudly.  An already-
+                # promoted server re-ACKs below (idempotent).
+                stale_ep, cur_ep = ep, self.epoch
+                was_standby = None
+            else:
+                if ep > self.epoch:
+                    self.epoch = ep
+                was_standby = self._standby
+                self._standby = False
+                # an already-promoted server re-ACKs a DUPLICATE order
+                # (ep == epoch: same map, install idempotent by value)
+                # but must NOT install a STALE one (ep < epoch: a late
+                # re-delivery from before a LATER failover would regress
+                # the map/epoch vector this server hands out)
+                stale_order = ep < self.epoch
+            clock, k = self._clock, self._k
+        if was_standby is None:
+            _send_msg(conn, {"op": "ERR",
+                             "msg": f"stale promote: epoch {stale_ep} "
+                                    f"<= standby epoch {cur_ep}"})
+            return
+        if not stale_order:
+            wire = header.get("shards") or None
+            if wire:
+                self.shard_map = [list(e) for e in wire]
+            if "index" in header:
+                self.shard_index = int(header["index"])
+            if header.get("epochs"):
+                self.shard_epochs = [int(e) for e in header["epochs"]]
+            if "standbys" in header:
+                # the fresh standby spawned behind THIS promoted primary
+                self.set_standby_map(header.get("standbys"))
+        if was_standby:
+            self.promoted = True
+            _repl.bump("promotions")
+        _send_msg(conn, {"op": "ACK", "clock": clock, "k": k,
+                         "epoch": self.epoch})
+
     def _release_wave_locked(self) -> None:
         """Fire the partial barrier: everyone currently waiting rides this
         wave.  Caller holds ``_wave_cv``."""
@@ -1149,8 +1637,17 @@ class ParameterServer:
         """Partial-barrier ``b``, clamped to live membership: when the
         supervisor knows only L workers are alive, a wave of min(b, L)
         keeps flowing immediately instead of leaning on the starvation
-        fallback every round (ASAP's membership-as-staleness stance)."""
-        threshold = max(self.cfg.bucket_threshold, 1)
+        fallback every round (ASAP's membership-as-staleness stance).
+
+        The adaptive controller's cohort override (CTRL ``b``) takes
+        precedence over the configured ``bucket_threshold`` -- its
+        decision already respects the declared tunable bounds, and a
+        re-clamped wave is how one DELAYed worker stops gating every
+        round -- but live membership still caps it."""
+        b_ctrl = self._ctrl_b
+        threshold = (b_ctrl if b_ctrl > 0
+                     else max(self.cfg.bucket_threshold, 1))
+        threshold = max(threshold, 1)
         if self.supervisor is not None:
             threshold = max(1, min(threshold,
                                    self.supervisor.live_worker_count()))
@@ -1192,6 +1689,18 @@ class ParameterServer:
             # it is stamped with ITS ts and staleness is priced.
             if self._model_gen == gen:
                 self._snap = snap
+                # the compare-then-store above is not atomic: an
+                # invalidation (a drain's accepted item, a standby's
+                # REPL_SYNC install) may bump the generation and clear the
+                # reference between the two, and the store would then
+                # leave the stale snapshot published until the next
+                # invalidation -- a standby synced at the end of a run has
+                # none.  Every invalidation bumps the generation BEFORE
+                # it clears, so re-checking after the store closes the
+                # window (builds are serialized by _snap_build_lock: no
+                # newer snapshot can be unpublished here)
+                if self._model_gen != gen:
+                    self._snap = None
             return snap
 
     def _negotiated_model(self, have) -> Tuple[int, int, dict, bytes]:
@@ -1383,6 +1892,27 @@ class ParameterServer:
             # REJECT_FENCED round trip (absent with fencing off --
             # byte-identical legacy wire)
             extra_hdr["ep"] = self.epoch
+        ctrl = self.ctrl
+        if ctrl is not None:
+            # adaptive-control decisions ride PULL replies the same way
+            # adoption orders do: re-delivered until the client's ``cs``
+            # stamp catches up with the decision's FULL (epoch, seq)
+            # stamp -- a restarted controller under a minted epoch
+            # starts seq over, and a bare-seq compare would strand
+            # every surviving worker on the deposed decisions.  A lost
+            # reply cannot lose a decision and a settled cluster pays
+            # zero extra bytes per pull.  Absent with control off.
+            cs = header.get("cs")
+            if cs is None:
+                stamp = (0, -1)
+            elif isinstance(cs, (list, tuple)) and len(cs) == 2:
+                stamp = (int(cs[0]), int(cs[1]))
+            else:  # legacy bare-seq stamp: pair it with OUR epoch
+                stamp = (int(ctrl.get("ep", 0) or 0), int(cs))
+            from asyncframework_tpu_torch.parallel.controller import ctrl_seq
+
+            if stamp < ctrl_seq(ctrl):
+                extra_hdr["ctrl"] = ctrl
         # vectored zero-copy framing: the cached model bytes and the ASAGA
         # extra payload go out as one kernel-gathered iovec -- the payload
         # is never copied into a fresh frame buffer
@@ -1394,6 +1924,66 @@ class ParameterServer:
              **model_hdr, **extra_hdr},
             (model_part, extra_payload) if extra_payload
             else (model_part,),
+        )
+
+    def _version_age_ms(self, ts: int, clock: int) -> float:
+        """Freshness age of model version ``ts``: ms since the first NEWER
+        version was published (0 while ``ts`` is still the current model).
+        Bounded scan of the birth ring -- entries are clock-ascending, so
+        the first key past ``ts`` is the moment ``ts`` stopped being the
+        latest; an evicted birth (very stale subscriber) under-reports
+        rather than guessing."""
+        if ts >= clock or self._t0 is None:
+            return 0.0
+        now = self._now_ms()
+        with self._born_lock:
+            for v, born in self._ver_born.items():
+                if v > ts:
+                    return max(0.0, now - born)
+        return 0.0
+
+    def _handle_subscribe(self, conn: socket.socket, header: dict) -> None:
+        """Serving-tier snapshot subscription (the JAX package's
+        ``serving/replica.py``; a standby's read face).
+
+        Same ``have=``-negotiated NOT_MODIFIED / XDELTA / FULL reply
+        shapes as PULL -- the replica cache-invalidation protocol IS the
+        delta-pull protocol -- but deliberately WITHOUT the partial-
+        barrier wave gate (a read must never wait for a training cohort
+        to fill), without membership/ownership discipline (replicas are
+        not shard servers), and still answering after DONE (training
+        finishing must not take the read path down).  Entirely lock-free
+        on the model lock, like ``_handle_pull``.  The reply additionally
+        carries the PS merge clock, the accepted-update count, the served
+        version's age in ms, and the done flag, so replicas can price
+        their own freshness lag in versions AND ms."""
+        if header.get("rport") is not None:
+            # a relaycast node asking to be registered as this server's
+            # direct child (the offer path, relaycast/offers.py): that
+            # plane is not ported, and a silent plain reply would leave
+            # the node waiting for offers that never come
+            _send_msg(conn, {"op": "ERR", "msg":
+                             "SUBSCRIBE with rport (a relaycast child) is "
+                             "not ported to the PyTorch package yet "
+                             "(ROADMAP A8)"})
+            return
+        have = header.get("have")
+        ts, cur, model_hdr, model_part = self._negotiated_model(have)
+        shape = model_hdr.get("wenc", "full")
+        with self._stats_lock:
+            self.subscribe_replies[shape] = (
+                self.subscribe_replies.get(shape, 0) + 1
+            )
+            self.subscribe_model_bytes += len(model_part)
+        if self.epoch:
+            model_hdr["ep"] = self.epoch
+        _frame.send_msg_vectored(
+            conn,
+            {"op": "MODEL", "ts": ts, "clock": cur, "k": self._k,
+             "done": self._done.is_set(),
+             "age_ms": round(self._version_age_ms(ts, cur), 3),
+             **model_hdr},
+            (model_part,),
         )
 
     def _handle_push(self, conn: socket.socket, header: dict,
@@ -1533,7 +2123,14 @@ class ParameterServer:
         that version."""
         drained: List[_PendingPush] = []
         batch: List[Tuple[_PendingPush, Optional[np.ndarray]]] = []
-        budget = self._merge_max
+        # replication stream (parallel/replication.py): the standby
+        # applies from exactly this clock, so capture it before any item
+        # ticks it
+        pre_clock = self._clock
+        # adaptive control: the EFFECTIVE merge budget moves within
+        # [1, _merge_max].  0 = no override = the configured bound.
+        budget = self._ctrl_merge or self._merge_max
+        budget = max(1, min(budget, self._merge_max))
         while self._merge_q and len(drained) < budget:
             item = self._merge_q.popleft()
             drained.append(item)
@@ -1601,6 +2198,17 @@ class ParameterServer:
             item.staleness = staleness
             item.task_ms = task_ms
             item.accepted = accepted
+            if accepted:
+                # delay-adaptive step damping (CTRL law; 1.0 = exact
+                # undamped legacy whenever control is off): decided per
+                # item at drain time from ITS observed staleness, so a
+                # dedup-replayed stamp -- which never reaches a second
+                # drain -- keeps exactly the factor it was applied with
+                item.damp = self._item_damp(item.wid, staleness)
+                if item.damp != 1.0:
+                    self.damped_applies += 1
+                    self.damp_sum += item.damp
+                    self.damp_min = min(self.damp_min, item.damp)
             item.k_at_merge = self._k
             self._wstat_merge(item.wid, staleness, accepted)
             ack = {"op": "ACK", "accepted": bool(accepted),
@@ -1625,9 +2233,10 @@ class ParameterServer:
                 # the pushes in slot order through the serial expression
                 # (bit-equal to len(batch) serial applies)
                 G = torch.from_numpy(np.stack([it.g_host for it, _ in batch]))
-                # every slot keeps its push (a mask of ones: no
-                # controller damps here, ROADMAP A6b.4)
-                mask = torch.ones(len(batch), dtype=torch.float32)
+                # a mask slot carries the per-item step-DAMP factor (1.0 =
+                # the classic keep bit, exact)
+                mask = torch.tensor([it.damp for it, _ in batch],
+                                    dtype=torch.float32)
                 G_dev = G.to(self.device)
                 m_dev = mask.to(self.device)
                 if self.algo == "asaga":
@@ -1647,9 +2256,37 @@ class ParameterServer:
             # this drain already holds): the next snapshot rebuild reads
             # it lock-free instead of queueing on the model lock
             self._snap_basis = (self._clock, self._w, self._model_gen)
+            # version birth: this drain PUBLISHED a new model version --
+            # stamp its clock with the wall time so SUBSCRIBE replies can
+            # price freshness age in ms (O(1), its own small lock)
+            if self._t0 is not None:
+                with self._born_lock:
+                    self._ver_born[self._clock] = self._now_ms()
+                    while len(self._ver_born) > 1024:
+                        self._ver_born.popitem(last=False)
             self.merge_batches += 1
             self.merge_merged += len(batch)
             self.merge_batch_max = max(self.merge_batch_max, len(batch))
+        if self.repl is not None and drained:
+            # hot-standby replication: hand the WHOLE drained batch --
+            # verdicts, (sid, seq) stamps, staleness, damp factors and
+            # the accepted gradients' host arrays -- to the stream.
+            # O(items) list work under the lock; serialization and I/O
+            # happen on the sender thread.  Dropped items ride too: they
+            # tick the standby's clock and land their dedup verdicts, so
+            # a promoted standby re-answers EVERY replayed stamp.
+            items = []
+            grads = []
+            for it in drained:
+                items.append([it.wid, it.ts, 1 if it.accepted else 0,
+                              it.header.get("sid"), it.header.get("seq"),
+                              it.ack, int(it.staleness),
+                              float(it.damp)])
+                if it.accepted:
+                    grads.append(it.g_host)
+            self.repl.enqueue(pre_clock, items, grads,
+                              [self._cal_ms, self._cal_n,
+                               self.avg_delay_ms])
         if drained:
             # flight-recorder breadcrumb (metrics/flightrec.py): one
             # event per drain so a SIGKILLed PS's dump ends with its
@@ -1670,17 +2307,32 @@ class ParameterServer:
     def _apply_one(self, item: _PendingPush,
                    idx: Optional[np.ndarray]) -> None:
         """Serial single-push apply (caller holds ``_lock``): the merge
-        function at m = 1, so serial and fused drains cannot differ."""
-        g_dev = torch.tensor(item.g_host, dtype=torch.float32,
-                             device=self.device)
+        function at m = 1, or its damped twin, so serial and fused drains
+        cannot differ."""
         if self.algo == "asaga":
             # three-term update + alpha_bar advance (delta == g is exact
             # over DCN; see __init__); then the ScalarMap merge -- commit
             # this push's candidate scalars
+            g_dev = torch.tensor(item.g_host, dtype=torch.float32,
+                                 device=self.device)
             self._w, self._ab = self._apply_merge(
                 self._w, self._ab, g_dev[None], self._one)
             with self._saga_lock:  # vs checkpoint table copies
                 self._table[item.wid][idx] = item.diff[: idx.size]
+        else:
+            self._apply_asgd(item.g_host, item.damp)
+
+    def _apply_asgd(self, g_host: np.ndarray, damp: float) -> None:
+        """One ASGD apply at step-DAMP ``damp`` (caller holds ``_lock``):
+        the merge function at m = 1 undamped, the damped serial apply
+        otherwise -- the same expression as a fused drain's slot, so the
+        serial path, the fused drain and a standby's mirror agree bit
+        for bit at every damp value."""
+        g_dev = torch.tensor(g_host, dtype=torch.float32,
+                             device=self.device)
+        if damp != 1.0 and self._apply_damped is not None:
+            self._w, self._k_dev = self._apply_damped(
+                self._w, g_dev, self._k_dev, np.float32(damp))
         else:
             self._w, self._k_dev = self._apply_merge(
                 self._w, g_dev[None], self._one, self._k_dev)
@@ -1803,6 +2455,8 @@ class ParameterServer:
     def stop(self) -> None:
         self._stop.set()
         self._done.set()
+        if self.repl is not None:
+            self.repl.stop()
         if getattr(self, "_ts_source", None) is not None:
             from asyncframework_tpu_torch.metrics import timeseries as _ts
 
@@ -1824,20 +2478,6 @@ class ParameterServer:
         # reap on stop: drop every finished handler thread (live ones are
         # daemons draining their last reply; they exit with the sockets)
         self._threads = [x for x in self._threads if x.is_alive()]
-
-    # ------------------------------------------------ switches refused here
-    def set_control(self, wire: Optional[dict]) -> bool:
-        """The adaptive controller's CTRL install: not ported."""
-        _refuse("the adaptive controller (set_control, async.control.enabled)",
-                "A6b.4")
-
-    def attach_standby(self, host: str, port: int) -> None:
-        """Hot-standby replication: not ported."""
-        _refuse("hot-standby replication (attach_standby)", "A6b.3")
-
-    def set_standby_map(self, wire) -> None:
-        """Hot-standby replication: not ported."""
-        _refuse("hot-standby replication (set_standby_map)", "A6b.3")
 
 
 class FencedError(ConnectionError):
@@ -1873,9 +2513,13 @@ class PSClient:
                  push_codec: Optional[str] = None, ctrl_sink=None,
                  shm: Optional[bool] = None):
         self.host, self.port = host, int(port)
-        if ctrl_sink is not None:
-            _refuse("the adaptive controller's control sink (ctrl_sink)",
-                    "A6b.4")
+        # adaptive control plane: a ControlSink (parallel/controller.py)
+        # shared by this worker process's clients.  PULL requests stamp
+        # the sink's decision seq (``cs``) and PULL replies carrying a
+        # newer CTRL payload install into it (monotone by (ep, seq)).
+        # None (every non-controlled client) = no header field,
+        # byte-identical wire.
+        self.ctrl_sink = ctrl_sink
         self.endpoint = f"{host}:{self.port}"
         # fencing epoch this client stamps on every PULL/PUSH (``ep``
         # header key; 0 = fencing off, no key, byte-identical legacy
@@ -2043,6 +2687,10 @@ class PSClient:
     def _note_orders(self, header: dict) -> None:
         if "adopt" in header:
             self._orders.extend(int(w) for w in header["adopt"])
+        if self.ctrl_sink is not None and "ctrl" in header:
+            # adaptive-control decisions ride replies like adoption
+            # orders; the sink's monotone install discards stale ones
+            self.ctrl_sink.install(header["ctrl"])
 
     def take_orders(self) -> List[int]:
         """Adoption orders received so far (drained)."""
@@ -2100,11 +2748,16 @@ class PSClient:
         return out
 
     def _have_hdr(self, wid: int, hdr: dict) -> dict:
-        """Advertise this wid's basis version on a PULL (delta mode)."""
+        """Advertise this wid's basis version on a PULL (delta mode),
+        and the installed CTRL decision seq (``cs``) when this client
+        rides a control sink -- the PS re-delivers the CTRL payload
+        only while the stamp lags its newest decision."""
         if self.pull_mode == "delta":
             basis = self._basis.get(wid)
             if basis is not None:
                 hdr["have"] = basis[0]
+        if self.ctrl_sink is not None:
+            hdr["cs"] = self.ctrl_sink.stamp
         return hdr
 
     def _decode_model(self, wid: int, header: dict, payload: bytes,
@@ -2340,10 +2993,38 @@ class PSClient:
         return (int(header["ts"]), w, float(header["avg_delay_ms"]),
                 bool(header["calibrated"]))
 
-    def subscribe(self, wid: int = 0, extra: Optional[dict] = None):
-        """The serving tier's snapshot subscription: not ported."""
-        _refuse("SUBSCRIBE (the serving tier's snapshot subscription)",
-                "A6b.5")
+    def subscribe(self, wid: int = 0, extra: Optional[dict] = None
+                  ) -> Optional[Tuple[int, np.ndarray, int, int,
+                                      float, bool]]:
+        """Serving-tier snapshot subscription: one ``have=``-negotiated
+        SUBSCRIBE round trip (NOT_MODIFIED / XDELTA / FULL, CRC-gated,
+        full-pull fallback -- the same basis-cache machinery as delta
+        PULLs, keyed by ``wid``; replicas pass their replica id).
+
+        Returns ``(ts, w, clock, k, age_ms, done)``: the served version
+        and model, the PS merge clock and accepted-update count at reply
+        time, the served version's freshness age in ms (0 while it is
+        still the current model), and whether training has finished.
+        Unlike :meth:`pull` this never parks in the wave gate and keeps
+        working after DONE.  ``extra`` merges additional header fields
+        into every attempt (a relaycast node advertises its relay port as
+        ``rport``; the relay plane is not ported, and this package's PS
+        answers such a SUBSCRIBE with ERR)."""
+        def mk() -> dict:
+            hdr = {"op": "SUBSCRIBE", "wid": wid}
+            if extra:
+                hdr.update(extra)
+            return hdr
+
+        got = self._pull_model_rpc(wid, mk, lambda _h: 0, None)
+        if got is None:
+            return None  # RELEASED/DONE headers never come from SUBSCRIBE
+        header, _payload, w = got
+        ts = int(header["ts"])
+        return (ts, w, int(header.get("clock", ts)),
+                int(header.get("k", 0)),
+                float(header.get("age_ms", 0.0)),
+                bool(header.get("done", False)))
 
     @staticmethod
     def _sparse_grad_enc(g: np.ndarray) -> Optional[Tuple[int, bytes]]:
@@ -2814,6 +3495,12 @@ def run_worker_process(
     smap = None
     smap_epochs: Optional[List[int]] = None
     ps_epoch = 0
+    # adaptive control plane: built from the WELCOME's CTRL payload when
+    # the PS runs a controller (async.control.enabled); every client of
+    # this process shares it, and the pipelined loops read the live
+    # depth target off it each iteration.  None = control off -- no
+    # ``cs`` stamps, byte-identical wire.
+    ctrl_sink = None
 
     def make_client(recorder=None, pl_stats=None, cv_buf=None):
         """One PS-facing client: a ShardedPSClient fan-out facade when
@@ -2826,9 +3513,11 @@ def run_worker_process(
 
             return ShardedPSClient(
                 smap, proc=proc_token, recorder=recorder,
-                pl_stats=pl_stats, cv_buf=cv_buf, epochs=smap_epochs)
+                pl_stats=pl_stats, cv_buf=cv_buf, epochs=smap_epochs,
+                ctrl_sink=ctrl_sink)
         return PSClient(host, port, proc=proc_token, recorder=recorder,
-                        pl_stats=pl_stats, cv_buf=cv_buf, epoch=ps_epoch)
+                        pl_stats=pl_stats, cv_buf=cv_buf, epoch=ps_epoch,
+                        ctrl_sink=ctrl_sink)
 
     # elastic adoption bookkeeping: which wids this process serves (own +
     # adopted), and every loop thread ever started (joined at the end)
@@ -3100,11 +3789,17 @@ def run_worker_process(
                     cur_tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
                 if cv_buf is not None and counts[wid] % conv_every == 0:
                     conv_sample(shard, w_dev, ts, g_host)
-                # depth cap: at most pipe_depth unACKed pushes in flight
-                # -- THE staleness bound the taw admission prices
+                # depth cap: at most depth_now unACKed pushes in flight
+                # -- THE staleness bound the taw admission prices.  The
+                # adaptive controller moves the live window within
+                # [1, configured depth] (CTRL rides the pull replies
+                # this very loop prefetches); without control the cap
+                # IS the configured depth.
+                depth_now = (ctrl_sink.depth(pipe_depth)
+                             if ctrl_sink is not None else pipe_depth)
                 t_q0 = _trace.now_ms() if cur_tr is not None else 0.0
                 blocked = False
-                while (push_cl.inflight_pushes() >= pipe_depth
+                while (push_cl.inflight_pushes() >= depth_now
                        and not done):
                     blocked = True
                     reap_one()
@@ -3181,7 +3876,9 @@ def run_worker_process(
             smap_epochs = [int(e) for e in wire_epochs]
     ps_epoch = int(welcome.get("epoch", 0) or 0)
     if welcome.get("ctrl"):
-        _refuse("the adaptive controller (a controlled PS)", "A6b.4")
+        from asyncframework_tpu_torch.parallel.controller import ControlSink
+
+        ctrl_sink = ControlSink(welcome["ctrl"])
 
     for w in wids:
         spawn(w)

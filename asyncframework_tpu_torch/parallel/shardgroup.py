@@ -56,10 +56,15 @@ never merged twice, while a push lost past the checkpoint is applied now
 launcher provisions the classic single PS and the wire is byte- and
 step-identical.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: the group's warm standbys and promotion (A6b.3), its
-adaptive-control fan-out (``install_ctrl``, ``CtrlFanout``; A6b.4), and
-the serving tier's ``ShardedSubscriber`` (A8).
+With ``async.ps.standby`` the group also runs one warm standby child per
+managed shard (``parallel/replication.py``), and a dead primary is
+PROMOTED -- its standby takes the range under the minted epoch, with no
+process spawn and no checkpoint replay -- before a relaunch is tried.
+``install_ctrl`` and :class:`CtrlFanout` fan the adaptive controller's
+CTRL decisions out to every member (``parallel/controller.py``).
+
+Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
+item: the serving tier's ``ShardedSubscriber`` (A8).
 """
 
 from __future__ import annotations
@@ -294,20 +299,25 @@ class ShardedPSClient:
     def __init__(self, smap: ShardMap, timeout_s: float = 120.0,
                  proc: Optional[str] = None, recorder=None,
                  pull_mode: Optional[str] = None, pl_stats=None,
-                 cv_buf=None, epochs: Optional[Sequence[int]] = None):
+                 cv_buf=None, epochs: Optional[Sequence[int]] = None,
+                 ctrl_sink=None):
         from asyncframework_tpu_torch.parallel.ps_dcn import PSClient
 
         self.smap = smap
         # rebuild context for a moved endpoint: a sub-shard endpoint can
-        # MOVE mid-run (a JAX-package controller promotes a standby onto
-        # its own port), so _re_resolve needs everything a fresh
-        # sub-client takes
+        # MOVE mid-run (the controller promotes a standby onto its own
+        # port), so _re_resolve needs everything a fresh sub-client takes
         self._timeout_s = float(timeout_s)
         self._proc = proc
         self._recorder = recorder
         self._pull_mode = pull_mode
         self._pl_stats = pl_stats
         self._cv_buf = cv_buf
+        # adaptive control (parallel/controller.py): EVERY sub-client
+        # shares the sink -- any shard may deliver a newer CTRL payload
+        # (SETMAP reached it first) and the monotone install keeps the
+        # newest decision regardless of which range answered first
+        self._ctrl_sink = ctrl_sink
         # piggybacked telemetry (trace spans, pipeline counters,
         # convergence samples) rides the PRIMARY connection only: the
         # primary folds it into the process that serves the dashboard;
@@ -322,7 +332,8 @@ class ShardedPSClient:
                      pl_stats=pl_stats if i == 0 else None,
                      cv_buf=cv_buf if i == 0 else None,
                      epoch=(int(epochs[i])
-                            if epochs and i < len(epochs) else 0))
+                            if epochs and i < len(epochs) else 0),
+                     ctrl_sink=ctrl_sink)
             for i, (h, p, _lo, _hi) in enumerate(smap.entries)
         ]
         self._saw_done = False
@@ -364,7 +375,8 @@ class ShardedPSClient:
                       pull_mode=self._pull_mode,
                       pl_stats=self._pl_stats if i == 0 else None,
                       cv_buf=self._cv_buf if i == 0 else None,
-                      session=old.session, epoch=int(epoch))
+                      session=old.session, epoch=int(epoch),
+                      ctrl_sink=self._ctrl_sink)
         with old._win_lock:
             entries = list(old._push_window)
             old._push_window.clear()
@@ -671,6 +683,14 @@ class ShardGroup:
     child.  ``device`` is the children's device (``PS_DEVICE`` in their
     environment, as ``tools/ps_child.py`` takes it: ``cuda`` unless the
     caller asks for ``cpu``).
+
+    With standbys on (``standbys`` or ``async.ps.standby`` in the
+    overlays), ``standby_indices`` names the shards that get a warm
+    standby child (default: the managed ones).  It may name an unmanaged
+    shard too (a launcher's in-process primary): that primary learns its
+    standby from the SETMAPs the group sends every member and streams to
+    it; the group respawns the standby when it dies, but never promotes
+    over a primary it does not manage.
     """
 
     def __init__(self, cfg, d: int, n: int, shards: int,
@@ -688,7 +708,8 @@ class ShardGroup:
                  spawn_timeout_s: float = 90.0,
                  standbys: Optional[int] = None,
                  telemetry_ports: Optional[object] = None,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 standby_indices: Optional[Sequence[int]] = None):
         if algo != "asgd":
             raise ValueError("sharded PS groups support algo='asgd' only "
                              "(ASAGA's PS-side sampling is range-global)")
@@ -713,12 +734,6 @@ class ShardGroup:
         )
 
         overlay_conf = AsyncConf(dict(conf_overlays or {}))
-        if standbys is None:
-            standbys = int(overlay_conf.get(PS_STANDBY))
-        if int(standbys) > 0:
-            raise NotImplementedError(
-                "the shard group's warm standbys and promotion are not "
-                "ported to the PyTorch package yet (ROADMAP A6b.3)")
         # shards=1 is the control arm: ONE managed child process serving
         # the classic single-PS wire (no shard map is assembled or
         # advertised, so clients cannot tell it from an unsharded PS)
@@ -744,6 +759,15 @@ class ShardGroup:
         self._procs: Dict[int, _ShardProc] = {
             i: _ShardProc(i) for i in self.indices
         }
+        # adaptive control (parallel/controller.py): the group's stored
+        # CTRL payload, re-announced with every SETMAP so decisions
+        # reach every shard and survive relaunches/promotions.  None =
+        # control off -- SETMAPs carry no ctrl key.  The coalescing
+        # announcer thread (lazily started by install_ctrl) keeps dark-
+        # member connect timeouts off the controller's decision loop.
+        self._ctrl: Optional[dict] = None
+        self._ctrl_announce_evt = threading.Event()
+        self._ctrl_announce_thread: Optional[threading.Thread] = None
         self.smap: Optional[ShardMap] = None
         # epoch fencing (async.fence.enabled, read through the overlays
         # the children will see so controller and children agree): the
@@ -754,6 +778,29 @@ class ShardGroup:
         # checkpoint's persisted epoch, so even a controller-less restart
         # mints a fresh incarnation.
         self.fence = bool(overlay_conf.get(FENCE_ENABLED))
+        # hot-standby replication (async.ps.standby, read
+        # through the same overlays the children see): one warm standby
+        # child per managed shard, fed by its primary's REPL stream.
+        # Failover becomes PROMOTE-under-the-minted-epoch instead of
+        # restart-from-checkpoint -- promotion additionally requires
+        # fencing (the epoch IS the safety primitive) and a shard map
+        # to re-announce; without either, standbys still serve as read
+        # replicas and recovery stays the classic relaunch.
+        if standbys is None:
+            standbys = int(overlay_conf.get(PS_STANDBY))
+        self.standbys = 1 if int(standbys) > 0 else 0
+        self.standby_indices = sorted(
+            standby_indices if standby_indices is not None
+            else self.indices) if self.standbys else []
+        self._standby_procs: Dict[int, _ShardProc] = {}
+        self._standby_ok: Dict[int, float] = {}
+        self._standby_probe_t: Dict[int, float] = {}
+        self._standby_gen: Dict[int, int] = {}
+        self._promotions: Dict[int, int] = {}
+        self.promotions = 0
+        # deposed-but-alive primaries (promoted over while partitioned):
+        # fenced out of every write path, kept only so stop() reaps them
+        self._deposed: List[subprocess.Popen] = []
         # gray-failure detection: the liveness probes below time their
         # round trips into a cohort RTT suspector; a slow-but-alive shard
         # is marked SUSPECT in membership (and surfaced in telemetry)
@@ -786,16 +833,24 @@ class ShardGroup:
         self._restart_lock = threading.Lock()
         self._ts_source = None
         # per-slot telemetry endpoints (cluster-observer discovery):
-        # "auto" pre-assigns one free port per slot, a dict pins them
-        # explicitly.  The slot's port survives relaunches -- every
+        # "auto" pre-assigns one free port per PRIMARY slot, a dict pins
+        # them explicitly.  The slot's port survives relaunches -- every
         # (re)spawn sets it via ASYNCTPU_ASYNC_METRICS_PORT, so the
         # observer's scrape URL for "ps-shard-i" stays valid across a
-        # failover.
+        # failover.  Standbys get their OWN ports (two processes cannot
+        # share one bind), and a PROMOTION hands the standby's port to
+        # the slot -- the role name keeps resolving to whoever currently
+        # serves the range.
         self.telemetry_ports: Dict[int, int] = {}
+        self._standby_tports: Dict[int, int] = {}
         if telemetry_ports == "auto":
             self.telemetry_ports = {
                 i: _free_port(self.host) for i in self.indices
             }
+            if self.standbys:
+                self._standby_tports = {
+                    i: _free_port(self.host) for i in self.standby_indices
+                }
         elif isinstance(telemetry_ports, dict):
             self.telemetry_ports = {
                 int(i): int(p) for i, p in telemetry_ports.items()
@@ -817,7 +872,54 @@ class ShardGroup:
         return os.path.join(self.checkpoint_dir,
                             f"ps_shard{index}.npz")
 
-    def _child_env(self, index: int, bind_port: int) -> Dict[str, str]:
+    def _ckpt_standby_path(self, index: int) -> Optional[str]:
+        """Where THIS GENERATION's standby would checkpoint its range
+        once promoted.  Per-generation file (the spawn counter is in
+        the name): every durable file for a range has exactly ONE
+        writer ever -- a mirror never checkpoints while standby, and
+        successive promoted incarnations never share a path, so no
+        zombie's final save can race or roll back a successor's image."""
+        if not self.checkpoint_dir:
+            return None
+        gen = self._standby_gen.get(index, 0)
+        return os.path.join(self.checkpoint_dir,
+                            f"ps_shard{index}.standby{gen}.npz")
+
+    def _ckpt_newest_path(self, index: int) -> Optional[str]:
+        """The range's FRESHEST durable image for a fallback relaunch:
+        after promotions the acting primary persists to its generation's
+        standby file, so restoring the original path would silently
+        roll the range back past everything merged since the first
+        failover.  Candidates are ranked by the image's own (epoch,
+        clock) -- mtime alone could prefer a fenced zombie's last
+        stale save -- with mtime as the tiebreak/fallback for
+        unreadable files."""
+        primary = self._ckpt_path(index)
+        if not primary:
+            return None
+        import glob as _glob
+
+        candidates = [p for p in [primary] + sorted(_glob.glob(
+            os.path.join(self.checkpoint_dir,
+                         f"ps_shard{index}.standby*.npz")))
+            if os.path.exists(p)]
+        if not candidates:
+            return primary
+
+        def rank(path):
+            try:
+                with np.load(path, allow_pickle=False) as z:
+                    meta = json.loads(str(z["__meta__"]))
+                return (int(meta.get("epoch", 0)),
+                        int(meta.get("clock", 0)),
+                        os.path.getmtime(path))
+            except Exception:  # noqa: BLE001 - torn/corrupt image
+                return (-1, -1, os.path.getmtime(path))
+
+        return max(candidates, key=rank)
+
+    def _child_env(self, index: int, bind_port: int,
+                   role: str = "primary") -> Dict[str, str]:
         import dataclasses
 
         env = dict(self.env)
@@ -828,22 +930,33 @@ class ShardGroup:
         env["ASYNC_SHARD_ALGO"] = self.algo
         env["ASYNC_SHARD_BIND_PORT"] = str(bind_port)
         env["ASYNC_SHARD_CFG"] = json.dumps(dataclasses.asdict(self.cfg))
-        env["ASYNC_SHARD_ROLE"] = "primary"
-        env["ASYNC_SHARD_CKPT"] = self._ckpt_path(index) or ""
+        env["ASYNC_SHARD_ROLE"] = role
+        env["ASYNC_SHARD_CKPT"] = (
+            (self._ckpt_standby_path(index) if role == "standby"
+             else self._ckpt_newest_path(index)) or ""
+        )
         env["ASYNC_SHARD_WORKER_PROCS"] = str(self.worker_procs)
-        env["ASYNC_SHARD_ELASTIC"] = "1" if self.elastic else "0"
+        env["ASYNC_SHARD_ELASTIC"] = (
+            "1" if self.elastic and role == "primary" else "0"
+        )
         env["ASYNC_SHARD_CONF"] = json.dumps(self.conf_overlays)
         env["ASYNC_SHARD_MAP"] = (json.dumps(self.smap.to_wire())
                                   if self.smap is not None else "")
         env["ASYNC_SHARD_EPOCH"] = str(self.epoch_of(index))
         epochs = self.epochs_wire()
         env["ASYNC_SHARD_EPOCHS"] = json.dumps(epochs) if epochs else ""
-        env["ASYNC_SHARD_STANDBYS"] = ""
-        mport = self.telemetry_ports.get(index)
+        sbs = self.standbys_wire() if role == "primary" else None
+        env["ASYNC_SHARD_STANDBYS"] = (
+            json.dumps(sbs) if sbs and any(sbs) else ""
+        )
+        mport = (self.telemetry_ports.get(index) if role == "primary"
+                 else self._standby_tports.get(index))
         if mport:
             # the slot's pinned telemetry endpoint (observer discovery):
             # conf async.metrics.port's env spelling -- the child's
-            # start_telemetry_from_conf lights it up
+            # start_telemetry_from_conf lights it up.  Standbys bind
+            # their own port; a promotion hands it to the slot (see
+            # _promote).
             env["ASYNCTPU_ASYNC_METRICS_PORT"] = str(mport)
         return env
 
@@ -864,60 +977,91 @@ class ShardGroup:
             return None
         return [self.epoch_of(i) for i in range(self.shards)]
 
-    def _spawn(self, index: int, bind_port: int) -> dict:
-        rec = self._procs[index]
+    def _spawn(self, index: int, bind_port: int,
+               role: str = "primary") -> dict:
+        standby = role == "standby"
+        if standby:
+            # per-generation identity (names this life's post-promotion
+            # checkpoint file -- see _ckpt_standby_path)
+            self._standby_gen[index] = (
+                self._standby_gen.get(index, 0) + 1)
+        rec = (self._standby_procs if standby else self._procs)[index]
         stderr = subprocess.DEVNULL
         if self.stderr_dir:
             # crash forensics: each life of each shard appends to its own
             # log
             os.makedirs(self.stderr_dir, exist_ok=True)
+            suffix = "-standby" if standby else ""
             stderr = open(os.path.join(
-                self.stderr_dir, f"shard{index}.stderr.log"), "a")
+                self.stderr_dir,
+                f"shard{index}{suffix}.stderr.log"), "a")
         proc = subprocess.Popen(
             [sys.executable, "-m",
              "asyncframework_tpu_torch.parallel.shardgroup"],
-            env=self._child_env(index, bind_port),
+            env=self._child_env(index, bind_port, role=role),
             stdout=subprocess.PIPE, stderr=stderr, text=True,
         )
         if stderr is not subprocess.DEVNULL:
             stderr.close()  # the child owns the fd now
         rec.attach(proc)
-        # register the relaunch IMMEDIATELY -- pid + /proc start time land
-        # under the supervisor lock the moment the child exists, not after
-        # its (possibly long) announce wait.  Otherwise the slot stays
-        # DEAD for the whole spawn and a concurrent scan (check_once is
-        # public) could schedule a SECOND spawn for the same shard,
-        # killing the fresh child.  _restart's membership guard is the
-        # other half of the fix.
-        self.sup.register(f"ps-shard-{index}", [index], pid=proc.pid,
-                          host=socket.gethostname())
+        if not standby:
+            # register the relaunch IMMEDIATELY -- pid + /proc start time
+            # land under the supervisor lock the moment the child exists,
+            # not after its (possibly long) announce wait.  Otherwise the
+            # slot stays DEAD for the whole spawn and a concurrent scan
+            # (check_once is public) could schedule a SECOND spawn for the
+            # same shard, killing the fresh child.  _restart's membership
+            # guard is the other half of the fix.
+            self.sup.register(f"ps-shard-{index}", [index], pid=proc.pid,
+                              host=socket.gethostname())
         line = rec.next_line(0, self.spawn_timeout_s)
         if line is None:
             proc.kill()
             raise RuntimeError(
-                f"PS shard {index} did not announce within "
+                f"PS shard {index} {role} did not announce within "
                 f"{self.spawn_timeout_s:.0f}s"
             )
         hello = json.loads(line)
         rec.port = int(hello["port"])
+        if standby:
+            self._standby_ok[index] = time.monotonic()
         return hello
 
     def start(self) -> "ShardGroup":
         try:
-            # the children start together (each one's interpreter and
-            # device start-up overlap), and each announces its port
+            # the children start together, primaries and warm standbys
+            # alike (each one's interpreter and device start-up overlap),
+            # and each announces its port.  A standby is announced to its
+            # primary via SETMAP below; a failed standby spawn degrades
+            # that shard to the classic restart recovery -- it never
+            # fails the group.
             errors: List[BaseException] = []
+            if self.standbys:
+                for i in self.standby_indices:
+                    self._standby_procs[i] = _ShardProc(i)
 
-            def spawn(i: int) -> None:
+            def spawn(i: int, role: str) -> None:
                 try:
-                    self._spawn(i, 0)
+                    self._spawn(i, 0, role=role)
+                except (RuntimeError, OSError) as e:
+                    if role == "standby":
+                        _bump("standby_spawn_failures")
+                        self._standby_procs.pop(i, None)
+                    else:
+                        errors.append(e)
                 except BaseException as e:  # noqa: BLE001 - re-raised below
                     errors.append(e)
 
-            spawners = [threading.Thread(target=spawn, args=(i,),
+            spawners = [threading.Thread(target=spawn,
+                                         args=(i, "primary"),
                                          name=f"shard-{i}-spawn",
                                          daemon=True)
                         for i in self.indices]
+            spawners += [threading.Thread(target=spawn,
+                                          args=(i, "standby"),
+                                          name=f"shard-{i}-standby-spawn",
+                                          daemon=True)
+                         for i in list(self._standby_procs)]
             for t in spawners:
                 t.start()
             for t in spawners:
@@ -939,11 +1083,20 @@ class ShardGroup:
                 # their own launcher
                 for i in self.indices:
                     self._setmap(i)
+            elif self.standbys and self._standby_procs:
+                # shards=1 control arm: no map, but the single child
+                # still learns its standby endpoint (read replica +
+                # replicated state; failover for the unmapped single PS
+                # stays restart-from-checkpoint -- there is no map to
+                # re-announce a moved endpoint through)
+                for i in self.indices:
+                    self._setmap(i)
         except Exception:
             # a later spawn, map assembly, or SETMAP failed: the children
             # already up must not be leaked (the caller's `group` variable
             # was never assigned, so its cleanup path cannot reach them)
-            for rec in self._procs.values():
+            for rec in list(self._procs.values()) + list(
+                    self._standby_procs.values()):
                 if rec.proc is not None and rec.proc.poll() is None:
                     rec.proc.kill()
             raise
@@ -961,11 +1114,53 @@ class ShardGroup:
         _set_active_group(self)
         return self
 
+    def standbys_wire(self) -> Optional[List]:
+        """Per-shard standby endpoints in range order (``[host, port]``
+        or None per entry; None overall when the standby plane is off).
+        What SETMAP installs and SHARDMAP advertises."""
+        if not self.standbys:
+            return None
+        out: List = []
+        for i in range(self.shards):
+            rec = self._standby_procs.get(i)
+            alive = (rec is not None and rec.port is not None
+                     and rec.proc is not None and rec.proc.poll() is None)
+            out.append([self.host, rec.port] if alive else None)
+        return out
+
     def install_ctrl(self, wire: dict) -> None:
-        """Adaptive-control decision fan-out: not ported."""
-        raise NotImplementedError(
-            "the shard group's adaptive-control fan-out (install_ctrl) is "
-            "not ported to the PyTorch package yet (ROADMAP A6b.4)")
+        """Adaptive-control decision fan-out (parallel/controller.py):
+        store the CTRL payload and re-SETMAP it to every member next to
+        the map/epochs/standbys.  The STORE is what makes decisions
+        survive failover -- a relaunched shard's boot SETMAP and a
+        promoted standby's re-announce both carry the group's current
+        ctrl, and each member's monotone (ep, seq) install refuses
+        anything stale.
+
+        The announce runs on a lazily-started coalescing thread (the
+        relaycast offer-thread discipline): a dark/partitioned member's
+        per-target connect timeout must burn the announcer, never the
+        controller's decision loop -- which is busiest exactly when a
+        member is dark.  Back-to-back decisions coalesce into one sweep
+        carrying the newest ctrl."""
+        self._ctrl = dict(wire)
+        if self._ctrl_announce_thread is None:
+            import threading as _threading
+
+            from asyncframework_tpu_torch.utils.threads import guarded
+
+            def _announce_loop() -> None:
+                while not self._stop.is_set():
+                    if not self._ctrl_announce_evt.wait(timeout=0.5):
+                        continue
+                    self._ctrl_announce_evt.clear()
+                    self._announce_group()
+
+            self._ctrl_announce_thread = _threading.Thread(
+                target=guarded(_announce_loop),
+                name="shardgroup-ctrl-announce", daemon=True)
+            self._ctrl_announce_thread.start()
+        self._ctrl_announce_evt.set()
 
     def _setmap(self, index: int) -> None:
         hdr = {"op": "SETMAP", "index": index,
@@ -974,17 +1169,25 @@ class ShardGroup:
         epochs = self.epochs_wire()
         if epochs:
             hdr["epochs"] = epochs
+        sbs = self.standbys_wire()
+        if sbs is not None:
+            hdr["standbys"] = sbs
+        if self._ctrl is not None:
+            hdr["ctrl"] = self._ctrl
         _oneshot(self.host, self._procs[index].port, hdr, timeout_s=10.0)
 
     def _announce_group(self, timeout_s: float = 3.0) -> None:
-        """Best-effort SETMAP of the CURRENT map + epoch vector to every
-        reachable member (unmanaged fixed entries included -- an
-        in-process primary serves every worker HELLO, so it above all
-        must hand out current epochs).  A still-partitioned member self-
+        """Best-effort SETMAP of the CURRENT map + epoch vector +
+        standby endpoints to every reachable member (unmanaged fixed
+        entries included -- an in-process primary serves every worker
+        HELLO, so it above all must hand out current state).  This is
+        where a promotion or a standby respawn actually reaches the wire;
+        a still-partitioned member self-
         heals later via fencing.  The per-target timeout is kept SHORT:
         this runs on the monitor thread, and a partitioned member must
         cost seconds, not stall the next death scan for 10s a target."""
         epochs = self.epochs_wire()
+        sbs = self.standbys_wire()
         if self.smap is not None:
             targets = [(j, h, p)
                        for j, (h, p, _lo, _hi)
@@ -999,6 +1202,13 @@ class ShardGroup:
                               if self.smap is not None else [])}
             if epochs:
                 hdr["epochs"] = epochs
+            if sbs is not None:
+                hdr["standbys"] = sbs
+            if self._ctrl is not None:
+                # adaptive-control decisions survive relaunch AND
+                # promotion: every re-announce re-installs the group's
+                # current CTRL next to the map and epoch vector
+                hdr["ctrl"] = self._ctrl
             try:
                 _oneshot(h, p, hdr, timeout_s=timeout_s)
             except (ConnectionError, OSError):
@@ -1013,6 +1223,10 @@ class ShardGroup:
             if member.get(i, {}).get("state") == supervisor_mod.SUSPECT
         )
         totals = shard_totals()
+        live_standbys = sum(
+            1 for rec in self._standby_procs.values()
+            if rec.proc is not None and rec.proc.poll() is None
+        )
         return {
             "total": float(self.shards),
             "managed": float(len(self._procs)),
@@ -1022,6 +1236,8 @@ class ShardGroup:
             "restarts": float(totals.get("shards_restarted", 0)),
             "fence_epoch_bumps": float(
                 totals.get("fence_epoch_bumps", 0)),
+            "standbys": float(live_standbys),
+            "promotions": float(self.promotions),
             "done": float(self._finished.is_set()),
         }
 
@@ -1069,6 +1285,8 @@ class ShardGroup:
                     and member.get(i, {}).get("state")
                     == supervisor_mod.DEAD):
                 self._restart(i)
+        if self.standbys:
+            self._check_standbys()
         return newly_dead
 
     def _run(self) -> None:
@@ -1080,11 +1298,164 @@ class ShardGroup:
             except Exception:  # noqa: BLE001 - the monitor must outlive
                 pass           # any one bad scan (spawn failure, junk IO)
 
+    def _check_standbys(self) -> None:
+        """Standby liveness, OUTSIDE the fencing supervisor: a standby
+        owns no range, so its death mints no epoch -- it is simply
+        respawned, and its primary's stream re-bootstraps it with a
+        fresh REPL_SYNC on reconnect.  Runs on the monitor thread, so
+        its network work is bounded: probes are PACED (a dark standby's
+        1 s timeout must not recur every 0.25 s scan and delay the next
+        PRIMARY death scan -- the gap this module exists to bound)."""
+        now = time.monotonic()
+        if self._stop.is_set() or self._finished.is_set():
+            return
+        dead_after_s = self.sup.dead_after_ms / 1e3
+        probe_gap_s = max(0.5, self._check_interval_s)
+        for i in self.standby_indices:
+            rec = self._standby_procs.get(i)
+            if rec is None:
+                # a promotion (or an earlier failed spawn) left this
+                # shard un-backed: recreate the slot and try again
+                self._standby_procs[i] = rec = _ShardProc(i)
+            proc = rec.proc
+            if proc is not None and proc.poll() is None:
+                if now - self._standby_probe_t.get(i, 0.0) < probe_gap_s:
+                    continue  # paced: this scan skips the probe
+                self._standby_probe_t[i] = now
+                orphaned = False
+                try:
+                    hdr = _oneshot(self.host, rec.port,
+                                   {"op": "SHARDMAP"}, timeout_s=1.0)
+                    # a registered standby that no longer ANSWERS as one
+                    # is a self-promoted orphan (a PROMOTE was delivered
+                    # but its reply timed out, so the controller fell
+                    # back to a relaunch): it would wedge the acting
+                    # primary's stream with 'not a standby' forever --
+                    # reap and respawn a real standby behind it
+                    if hdr.get("standby"):
+                        self._standby_ok[i] = now
+                        continue
+                    orphaned = True
+                    _bump("standby_orphans_reaped")
+                except (ConnectionError, OSError):
+                    pass
+                if (not orphaned
+                        and now - self._standby_ok.get(i, now)
+                        <= dead_after_s):
+                    continue  # one dark probe is not death
+                try:
+                    proc.kill()
+                    proc.wait(timeout=5.0)
+                except OSError:  # pragma: no cover
+                    pass
+            if proc is not None:
+                _bump("standby_deaths")
+            try:
+                self._spawn(i, 0, role="standby")
+            except (RuntimeError, OSError):
+                _bump("standby_spawn_failures")
+                continue
+            _bump("standbys_respawned")
+            # the shard's primary must re-target its stream, and every
+            # SHARDMAP reply must advertise the new endpoint
+            self._announce_group()
+
+    def promotions_of(self, index: int) -> int:
+        return self._promotions.get(index, 0)
+
+    def _promote(self, index: int) -> bool:
+        """Hot-standby promotion: the shard's warm standby becomes the
+        range primary under the slot's freshly-minted fencing epoch --
+        no process spawn, no checkpoint replay on the recovery path;
+        the availability gap is the suspicion time plus one RPC.
+        Returns False when the promotion path is unavailable (standby
+        plane off, fencing off, no map to re-announce the moved
+        endpoint through, standby dead) -- the caller falls back to
+        restart-from-checkpoint."""
+        sb = self._standby_procs.get(index)
+        if (not self.standbys or not self.fence or self.smap is None
+                or sb is None or sb.proc is None
+                or sb.proc.poll() is not None or sb.port is None):
+            return False
+        new_epoch = self.epoch_of(index)  # the death already minted it
+        entries = [list(e) for e in self.smap.entries]
+        entries[index] = [self.host, sb.port,
+                          entries[index][2], entries[index][3]]
+        new_map = ShardMap(entries)
+        epochs = self.epochs_wire()
+        try:
+            rep = _oneshot(self.host, sb.port,
+                           {"op": "PROMOTE", "epoch": new_epoch,
+                            "index": index, "shards": new_map.to_wire(),
+                            "epochs": epochs}, timeout_s=10.0)
+        except (ConnectionError, OSError):
+            _bump("promotion_failures")
+            return False
+        if rep.get("op") != "ACK":
+            # refused (a stale order against a fresh mirror): fall back
+            # to the relaunch path rather than install a map pointing
+            # at a member that never flipped
+            _bump("promotion_failures")
+            return False
+        old = self._procs[index]
+        if old.proc is not None and old.proc.poll() is None:
+            # a PARTITIONED-but-alive primary is deliberately NOT
+            # killed here: promotion needs nothing it holds (the
+            # standby serves on its own port), and cross-host the
+            # controller could not reach it anyway -- the minted epoch
+            # deposes it the moment its stream append (or any stamped
+            # op) bounces REJECT_FENCED at the promoted member.  It is
+            # only retained for teardown reaping.
+            self._deposed.append(old.proc)
+        self._gray.forget(f"{self.host}:{old.port}")
+        promoted = sb
+        del self._standby_procs[index]
+        self._standby_ok.pop(index, None)
+        promoted.restarts = old.restarts
+        self._procs[index] = promoted
+        self.smap = new_map
+        self.promotions += 1
+        self._promotions[index] = self._promotions.get(index, 0) + 1
+        _bump("standby_promotions")
+        _flight.note("promote", shard=int(index),
+                     epoch=self.epoch_of(index))
+        # telemetry-port handoff: the promoted member serves its OWN
+        # (ex-standby) port; the dead primary's pre-assigned port would
+        # otherwise read DOWN forever in the fleet view.  The fresh
+        # standby spawned below gets a new port of its own.
+        sb_port = self._standby_tports.pop(index, None)
+        if sb_port is not None:
+            self.telemetry_ports[index] = sb_port
+            self._standby_tports[index] = _free_port(self.host)
+        else:
+            self.telemetry_ports.pop(index, None)
+        # the minted epoch reaches the wire through the announce below
+        # -- the same accounting point as the fenced relaunch path
+        _bump("fence_epoch_bumps")
+        supervisor_mod.bump_total("epoch_bumps")
+        self.sup.register(f"ps-shard-{index}", [index],
+                          pid=promoted.proc.pid,
+                          host=socket.gethostname())
+        # a fresh standby behind the new primary (best-effort: a failed
+        # spawn leaves the shard un-backed until the next scan retries)
+        self._standby_procs[index] = _ShardProc(index)
+        try:
+            self._spawn(index, 0, role="standby")
+        except (RuntimeError, OSError):
+            _bump("standby_spawn_failures")
+            del self._standby_procs[index]
+        # group-wide announce: every member re-learns map + epochs +
+        # standbys; workers/replicas re-resolve on their next fault
+        self._announce_group()
+        return True
+
     def _restart(self, index: int) -> None:
-        """Re-home a dead shard: kill the corpse if the pid is somehow
-        still holding the port (wedged, not exited) and relaunch on the
-        SAME port from the durable checkpoint.  Live shards never stop
-        serving their ranges meanwhile."""
+        """Re-home a dead shard: PROMOTE its warm standby when the
+        replication plane is on (failover without a restart), else kill
+        the corpse if the pid is somehow still holding the port
+        (wedged, not exited) and relaunch on the SAME port from the
+        durable checkpoint.  Live shards never stop serving their
+        ranges meanwhile."""
         with self._restart_lock:
             if self._stop.is_set() or self._finished.is_set():
                 return
@@ -1108,6 +1479,11 @@ class ShardGroup:
                 return
             if rec.restarts >= self.max_restarts:
                 return  # gave up on this range; counted at each failure
+            if self._promote(index):
+                # failover WITHOUT a restart: the standby took the
+                # range under the minted epoch -- no spawn, no
+                # checkpoint replay, availability gap = suspicion time
+                return
             if not self._ckpt_path(index):
                 # no durable state: the relaunch serves a FRESH (zero)
                 # model for this range mid-run.  Still better than a dark
@@ -1171,6 +1547,17 @@ class ShardGroup:
         line = self._procs[index].next_line(1, timeout_s)
         return json.loads(line) if line else None
 
+    def standby_result_of(self, index: int,
+                          timeout_s: float) -> Optional[dict]:
+        """Shard ``index``'s current standby's result JSON line (printed
+        once it learns DONE: FINISH); None without a standby or on
+        timeout."""
+        rec = self._standby_procs.get(index)
+        if rec is None or rec.proc is None:
+            return None
+        line = rec.next_line(1, timeout_s)
+        return json.loads(line) if line else None
+
     def status(self) -> Dict[int, dict]:
         member = self.sup.membership()
         out = {}
@@ -1196,6 +1583,11 @@ class ShardGroup:
             targets = [(self.host, rec.port)
                        for rec in self._procs.values()
                        if rec.port is not None]
+        # standbys learn DONE too (their mirrored k may sit just short
+        # of the finish when the stream lags the final merges)
+        targets += [(self.host, rec.port)
+                    for rec in self._standby_procs.values()
+                    if rec.port is not None]
         for (h, p) in targets:
             try:
                 finish_endpoint(h, p)
@@ -1214,6 +1606,9 @@ class ShardGroup:
             "done": self._finished.is_set(),
             "members": {str(i): st for i, st in self.status().items()},
         }
+        if self.standbys:
+            out["standbys"] = self.standbys_wire()
+            out["promotions"] = self.promotions
         if self.fence:
             out["epochs"] = self.epochs_wire()
         gray = self._gray.snapshot()
@@ -1232,8 +1627,11 @@ class ShardGroup:
             from asyncframework_tpu_torch.metrics import timeseries as _ts
 
             _ts.unregister_source("ps_shards", self._ts_source)
-        procs = [rec.proc for rec in self._procs.values()
+        procs = [rec.proc for rec in
+                 list(self._procs.values())
+                 + list(self._standby_procs.values())
                  if rec.proc is not None]
+        procs += self._deposed
         for proc in procs:
             if proc.poll() is None:
                 proc.terminate()
@@ -1315,12 +1713,68 @@ def launch_inprocess_group(cfg, d: int, n: int, shards: int,
 
 # ------------------------------------------------------------- shard child
 class CtrlFanout:
-    """The controller-less adaptive-control fan-out: not ported."""
+    """Adaptive-control decision fan-out, controller-less edition (the
+    k8s shard manifests): no :class:`ShardGroup` owns the children --
+    the Deployment controller restarts pods -- so the primary's
+    AsyncController hands decisions here and every OTHER map entry gets
+    a SETMAP re-announcing the static map + the CTRL payload.  Same
+    duck type as ShardGroup.install_ctrl; receivers' monotone (ep, seq)
+    install makes re-delivery harmless.
 
-    def __init__(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            "CtrlFanout (the adaptive-control fan-out) is not ported to the "
-            "PyTorch package yet (ROADMAP A6b.4)")
+    The sends run on a lazily-started coalescing thread (the same
+    discipline ShardGroup.install_ctrl uses): a dark member's connect
+    timeout burns the announcer, never the controller's decision loop.
+    Back-to-back decisions coalesce into one sweep of the newest wire."""
+
+    def __init__(self, ps):
+        self.ps = ps
+        self._wire: Optional[dict] = None
+        self._evt = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def install_ctrl(self, wire: dict) -> None:
+        self._wire = dict(wire)
+        if self._thread is None:
+            from asyncframework_tpu_torch.utils.threads import guarded
+
+            self._thread = threading.Thread(
+                target=guarded(self._loop), name="ctrl-fanout",
+                daemon=True)
+            self._thread.start()
+        self._evt.set()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._evt.set()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            if not self._evt.wait(timeout=0.5):
+                continue
+            self._evt.clear()
+            if self._stop.is_set():
+                return
+            self._sweep()
+
+    def _sweep(self) -> None:
+        wire = self._wire
+        if wire is None:
+            return
+        smap = self.ps.shard_map or []
+        epochs = self.ps.shard_epochs
+        for j, entry in enumerate(smap):
+            if j == self.ps.shard_index:
+                continue
+            hdr = {"op": "SETMAP", "index": j, "shards": smap,
+                   "ctrl": wire}
+            if epochs:
+                hdr["epochs"] = epochs
+            try:
+                _oneshot(str(entry[0]), int(entry[1]), hdr,
+                         timeout_s=3.0)
+            except (ConnectionError, OSError):
+                pass  # a dark shard re-learns ctrl from the next send
 
 
 def _child_main() -> int:
@@ -1361,16 +1815,6 @@ def _child_main() -> int:
         print(json.dumps({"error": "sharded PS groups are ASGD-only"}),
               flush=True)
         return 2
-    if os.environ.get("ASYNC_SHARD_ROLE", "primary") != "primary":
-        print(json.dumps({"error": "the standby role is not ported to the "
-                                   "PyTorch package yet (ROADMAP A6b.3)"}),
-              flush=True)
-        return 2
-    if os.environ.get("ASYNC_SHARD_STANDBYS"):
-        print(json.dumps({"error": "hot-standby replication is not ported "
-                                   "to the PyTorch package yet (ROADMAP "
-                                   "A6b.3)"}), flush=True)
-        return 2
     device = torch.device(os.environ.get("PS_DEVICE", "cuda"))
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -1379,8 +1823,16 @@ def _child_main() -> int:
     shard_cfg = cfg if index == 0 else secondary_cfg(cfg)
     map_env = os.environ.get("ASYNC_SHARD_MAP") or ""
     smap_wire = json.loads(map_env) if map_env else None
+    # hot-standby role: a standby child runs the SAME cfg as the shard
+    # it shadows (post-promotion behavior must match), applies its
+    # primary's replication stream instead of worker pushes, and never
+    # runs the worker supervisor (after a promotion, membership rebuilds
+    # from live traffic via implicit registration).
+    role = os.environ.get("ASYNC_SHARD_ROLE", "primary")
+    standby = role == "standby"
     sup = None
-    if index == 0 and os.environ.get("ASYNC_SHARD_ELASTIC") == "1":
+    if (index == 0 and not standby
+            and os.environ.get("ASYNC_SHARD_ELASTIC") == "1"):
         from asyncframework_tpu_torch.parallel.supervisor import (
             ElasticSupervisor,
         )
@@ -1393,8 +1845,9 @@ def _child_main() -> int:
         start_telemetry_from_conf,
     )
 
-    start_telemetry_from_conf(f"ps-shard-{index}",
-                              labels={"shard": str(index)})
+    start_telemetry_from_conf(
+        f"ps-{'standby' if standby else 'shard'}-{index}",
+        labels={"shard": str(index)})
     # fencing epoch: the controller passes the minted epoch (base 1 + its
     # lease-expiry fences for this slot); 0/absent defers to conf
     # (async.fence.enabled -> 1, off -> 0).  The PS restore additionally
@@ -1411,20 +1864,47 @@ def _child_main() -> int:
         supervisor=sup,
         shard_map=smap_wire, shard_index=index,
         epoch=epoch_env or None, shard_epochs=shard_epochs or None,
+        standby=standby,
     )
+    # adaptive asynchrony controller on the PRIMARY shard
+    # (async.control.enabled): closes the telemetry->knobs loop with
+    # decisions fanned to the other map entries via CtrlFanout.  Started
+    # BEFORE ps.start() so the very first WELCOME served already carries
+    # the CTRL payload -- a worker that HELLOs in the gap would never
+    # build a ControlSink.
+    controller = None
+    ctrl_fanout = None
+    from asyncframework_tpu_torch.conf import CONTROL_ENABLED, global_conf
+
+    if index == 0 and not standby and global_conf().get(CONTROL_ENABLED):
+        from asyncframework_tpu_torch.parallel.controller import (
+            AsyncController,
+        )
+
+        if smap_wire:
+            ctrl_fanout = CtrlFanout(ps)
+        controller = AsyncController(ps, group=ctrl_fanout).start()
     ps.start()
-    print(json.dumps({"port": ps.port, "shard": index, "role": "primary",
+    sbs_env = os.environ.get("ASYNC_SHARD_STANDBYS") or ""
+    if sbs_env and not standby:
+        # launcher-known standby endpoints (a controller-less launch,
+        # where no SETMAP sends them): installs the map and starts this
+        # primary's replication stream
+        ps.set_standby_map(json.loads(sbs_env))
+    print(json.dumps({"port": ps.port, "shard": index, "role": role,
                       "resumed_from": ps.resumed_from_k,
                       "epoch": ps.epoch}), flush=True)
-    print(f"shard {index} serving on {ps.port}", file=sys.stderr, flush=True)
+    print(f"shard {index} ({role}) serving on {ps.port}",
+          file=sys.stderr, flush=True)
     ok = ps.wait_done(timeout_s=cfg.run_timeout_s)
     result = {
-        "role": "ps-shard", "shard": index, "done": bool(ok),
+        "role": "ps-standby" if standby and not ps.promoted
+        else "ps-shard", "shard": index, "done": bool(ok),
         "accepted": ps.accepted, "dropped": ps.dropped,
         "clock": ps._clock, "max_staleness": ps.max_staleness,
         "dedup_hits": ps.dedup_hits,
         "resumed_from": ps.resumed_from_k,
-        "promoted": False,
+        "promoted": bool(ps.promoted),
         "epoch": ps.epoch,
         "fenced_rejects": ps.fenced_rejects,
         "pushes": int(sum(ps.pushes_by_wid.values())),
@@ -1440,8 +1920,10 @@ def _child_main() -> int:
         "accepted_by_wid": {str(w): c
                             for w, c in ps.accepted_by_wid.items()},
     }
-    if index == 0:
-        # the primary's end-of-run eval plane
+    if index == 0 and (not standby or ps.promoted):
+        # the primary's end-of-run eval plane -- a never-promoted
+        # standby must not sit a collect_eval timeout for EVAL_RESULTs
+        # that only ever go to the real primary
         nproc = int(os.environ.get("ASYNC_SHARD_WORKER_PROCS", "0"))
         traj = None
         if nproc > 0:
@@ -1467,6 +1949,10 @@ def _child_main() -> int:
     # (bounded so a controller that died without SIGTERM cannot strand
     # an orphan serving forever)
     term.wait(timeout=float(os.environ.get("ASYNC_SHARD_LINGER_S", "600")))
+    if controller is not None:
+        controller.stop()
+    if ctrl_fanout is not None:
+        ctrl_fanout.stop()
     ps.stop()
     return 0
 

@@ -35,6 +35,14 @@ accepted ``k`` updates, with per-shard checkpoints every
 ``--checkpoint-every`` updates of each shard.  :func:`summarize_sharded`
 adds the group's gates (:data:`SHARD_ARMS` are ``chip_smoke.py`` phase
 12's arms).
+
+``--standby`` gives every shard a warm standby (``async.ps.standby``: a
+killed primary is promoted, not relaunched), ``--control`` runs the
+adaptive controller on the primary (``async.control.enabled``), and
+``--delay-ms a,b`` delays each PUSH of worker process 0 by ``a`` ms and of
+process 1 by ``b`` (a straggler).  :func:`summarize_standby` adds the
+standby plane's and the controller's gates (:data:`STANDBY_ARMS` are
+``chip_smoke.py`` phase 13's arms; ``--phase13`` runs them).
 """
 
 from __future__ import annotations
@@ -85,11 +93,13 @@ def build_natives() -> Dict[str, str]:
 
 def launch(config: str, algo: str, iters: int, device: str = "cuda",
            nprocs: int = 2, timeout_s: float = 600.0,
-           env: "Dict[str, str] | None" = None) -> Tuple[dict, List[dict]]:
+           env: "Dict[str, str] | None" = None,
+           delays_ms=None) -> Tuple[dict, List[dict]]:
     """One PS process and ``nprocs`` worker processes; returns the PS's
     record and the workers'.  ``env`` is added to every process's
-    environment (e.g. conf keys by their ``ASYNCTPU_`` names).  Every
-    process is waited for or killed."""
+    environment (e.g. conf keys by their ``ASYNCTPU_`` names);
+    ``delays_ms[i]`` delays each PUSH of worker process ``i``
+    (``PS_DELAY_MS``).  Every process is waited for or killed."""
     env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
                PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
                PS_NUM_ITER=str(iters), **(env or {}))
@@ -105,9 +115,12 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
                                f"{ps.communicate()[1][-3000:]}")
         port = json.loads(line)["port"]
         for i in range(nprocs):
+            delay = (delays_ms[i] if delays_ms and i < len(delays_ms)
+                     else 0)
             procs.append(subprocess.Popen(
                 CHILD, env=dict(env, PS_ROLE="worker", PS_PORT=str(port),
-                                PS_WORKER_ID=str(i)),
+                                PS_WORKER_ID=str(i),
+                                PS_DELAY_MS=str(delay)),
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 cwd=ROOT))
         recs = []
@@ -344,6 +357,110 @@ def shards_phase(arms=SHARD_ARMS, timeout_s: float = 600.0) -> List[dict]:
     return out
 
 
+#: phase 13's arms: (name, deployment, updates, shards, kill, per-process
+#: PUSH delays in ms); every arm fenced, every shard with a warm standby,
+#: the controller on, ASGD.  (a) kills shard 1's primary at 500 accepted;
+#: (b) makes worker process 1 a straggler.
+STANDBY_ARMS = (("a", "epsilon", 1_000, 3, (1, 500), (0, 0)),
+                ("b", "rcv1", 1_200, 2, None, (0, 150)))
+
+
+def standby_env(shards: int, kill=None, control: bool = True,
+                checkpoint_dir: "str | None" = None) -> Dict[str, str]:
+    """The processes' environment for a sharded, fenced group run with
+    warm standbys (and the controller)."""
+    env = shard_env(shards, True, kill, 0, checkpoint_dir)
+    env["ASYNCTPU_ASYNC_PS_STANDBY"] = "1"
+    env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1" if control else "0"
+    return env
+
+
+def summarize_standby(config: str, iters: int, ps: dict,
+                      workers: List[dict], kill=None,
+                      delays_ms=None) -> dict:
+    """A standby group run's record and gates (``ok``): the sharded run's
+    (:func:`summarize_sharded`, exactly-once judged on each member), every
+    shard backed by a standby at the start, and after the run each
+    standby's model read by SUBSCRIBE bit-equal to its primary's at the
+    same clock; with a kill, exactly one promotion of the killed shard
+    and no relaunch of any, under an epoch above the one it died with
+    (the promoted member's own ledger: accepted + dropped == its clock);
+    with the controller, its ticks and every actuated value within the
+    tunable's declared bounds."""
+    rec = summarize_sharded(config, iters, ps, workers, None)
+    members = ps["shards"]
+    sb = ps["standby"] or {}
+    ctrl = ps["control"]
+    rec.update({
+        "standby": {k: v for k, v in sb.items() if k != "mirrors"},
+        "mirrors": sb.get("mirrors"),
+        "control": ctrl, "kill": ps["kill"], "delays_ms": delays_ms,
+        "per_shard": [dict(m, promotions=members[i].get("promotions", 0))
+                      for i, m in enumerate(rec["per_shard"])],
+    })
+    gates = dict(rec["gates"])
+    gates["every_shard_backed"] = bool(ps["standby"]) and len(
+        sb.get("mirrors") or []) == ps["n_shards"]
+    gates["mirrors_bit_equal"] = bool(sb.get("mirrors")) and all(
+        m["equal"] for m in sb["mirrors"])
+    if ctrl is not None:
+        gates["controller_ticked"] = ctrl["totals"].get("ticks", 0) > 0
+        gates["actuated_within_bounds"] = bool(
+            ctrl["actuated_within_bounds"])
+    if kill is not None:
+        # rounds fail around the kill (the dead range's sub-pushes), and
+        # the pipeline counters the workers piggyback on their pushes are
+        # lost with a failed round's header: judge delivery against the
+        # gradients the workers computed (one fan-out round each) and the
+        # rounds their facades abandoned
+        for key in ("no_fenced_rejects", "no_dedup_hits", "no_range_short"):
+            gates.pop(key, None)
+        gradients = sum(w["gradients"] for w in workers)
+        errors = sum(w["shard_totals"].get("shard_round_errors", 0)
+                     for w in workers)
+        gates["exactly_once"] = (
+            ps["pushes"] == ps["accepted"] + ps["dropped"]
+            and gradients - errors <= ps["pushes"] <= gradients)
+        gates["each_shard_counts_each_push_once"] = all(
+            m["pushes"] == m["accepted"] + m["dropped"]
+            and m["pushes"] <= gradients for m in members)
+        k = ps["kill"] or {}
+        victim = members[kill[0]] if kill[0] < len(members) else {}
+        gates["killed_at"] = k.get("accepted_at_kill", -1) >= kill[1]
+        gates["one_promotion_no_relaunch"] = (
+            victim.get("promotions") == 1 and victim.get("promoted") is True
+            and all(not m.get("restarts") for m in members))
+        gates["promoted_ledger_exact"] = (
+            victim.get("accepted", -1) + victim.get("dropped", -1)
+            == victim.get("clock"))
+        gates["new_epoch_above_old"] = (
+            victim.get("epoch", 0) > k.get("epoch_before", 0) >= 1)
+        # a range falls short of the primary only by rounds abandoned
+        gates["ranges_short_by_abandoned_rounds_only"] = all(
+            0 <= ps["accepted"] - m["accepted"] <= errors
+            for m in members[1:])
+        rec["round_errors"] = errors
+    rec["gates"] = gates
+    rec["ok"] = all(gates.values())
+    return rec
+
+
+def standby_phase(arms=STANDBY_ARMS, timeout_s: float = 600.0) -> List[dict]:
+    """Phase 13 of ``chip_smoke.py``: each arm of ``arms`` on one card,
+    one PS process (the primary, its standby's stream, the controller and
+    the group controller), the shard and standby children and two worker
+    processes; returns each arm's record."""
+    out = []
+    for name, config, iters, shards, kill, delays in arms:
+        ps, workers = launch(config, "asgd", iters,
+                             env=standby_env(shards, kill),
+                             timeout_s=timeout_s, delays_ms=delays)
+        rec = summarize_standby(config, iters, ps, workers, kill, delays)
+        rec.update(arm=name, mode="standby")
+        out.append(rec)
+    return out
+
+
 def in_process(config: str, algo: str, iters: int, device) -> dict:
     """The same recipe with the PS and its 8 logical workers as threads of
     this process (the cluster path's defaults set for the call)."""
@@ -436,6 +553,16 @@ def main(argv=None) -> int:
                     help="per-shard checkpoints every N of its updates")
     ap.add_argument("--phase12", action="store_true",
                     help="run chip_smoke.py phase 12's arms and exit")
+    ap.add_argument("--standby", action="store_true",
+                    help="a warm standby behind every shard "
+                         "(async.ps.standby=1; needs --shards and fencing)")
+    ap.add_argument("--control", action="store_true",
+                    help="the adaptive controller on the primary "
+                         "(async.control.enabled)")
+    ap.add_argument("--delay-ms", default="",
+                    help="per worker process PUSH delays in ms, e.g. 0,150")
+    ap.add_argument("--phase13", action="store_true",
+                    help="run chip_smoke.py phase 13's arms and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dcn: no CUDA device", file=sys.stderr)
@@ -446,25 +573,42 @@ def main(argv=None) -> int:
     build_natives()
     dev = torch.device("cuda", 0)
     ok = True
-    if args.phase12:
-        for rec in shards_phase():
+    if args.phase12 or args.phase13:
+        for rec in (shards_phase() if args.phase12 else standby_phase()):
             ok = ok and rec["ok"]
             print(json.dumps(rec), flush=True)
         return 0 if ok else 1
     kill = (args.kill_shard, args.kill_at) if args.kill_shard else None
+    delays = [float(x) for x in args.delay_ms.split(",") if x]
     for spec in args.runs.split(","):
         config, algo, iters = spec.split(":")
         if args.shards > 1:
             import tempfile
 
             with tempfile.TemporaryDirectory() as ck:
-                ps, workers = launch(config, algo, int(iters), env=shard_env(
-                    args.shards, args.fence, kill, args.checkpoint_every,
-                    ck if args.checkpoint_every else None))
-            rec = summarize_sharded(config, int(iters), ps, workers, kill)
+                env = shard_env(args.shards, args.fence, kill,
+                                args.checkpoint_every,
+                                ck if args.checkpoint_every else None)
+                if args.standby:
+                    env.update(standby_env(args.shards, kill, args.control,
+                                           ck if args.checkpoint_every
+                                           else None))
+                elif args.control:
+                    env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1"
+                ps, workers = launch(config, algo, int(iters), env=env,
+                                     delays_ms=delays)
+            if args.standby:
+                rec = summarize_standby(config, int(iters), ps, workers,
+                                        kill, delays)
+            else:
+                rec = summarize_sharded(config, int(iters), ps, workers,
+                                        kill)
         else:
             env = {"ASYNCTPU_ASYNC_FENCE_ENABLED": "1"} if args.fence else {}
-            ps, workers = launch(config, algo, int(iters), env=env)
+            if args.control:
+                env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1"
+            ps, workers = launch(config, algo, int(iters), env=env,
+                                 delays_ms=delays)
             rec = summarize(config, algo, int(iters), ps, workers)
         ok = ok and rec["ok"]
         print(json.dumps(rec), flush=True)

@@ -48,8 +48,25 @@ minted epoch.  ``PS_CHECKPOINT_DIR`` gives each shard its checkpoint
 primary has accepted ``k`` updates: the group relaunches it from its
 checkpoint.  The PS's line then carries ``shards``: each shard's result
 (pushes, accepted, dropped, dedup hits, epoch, fenced rejects, merges,
-wire bytes, peak memory, restarts, the checkpointed k it resumed from) and
-the kill.
+wire bytes, peak memory, restarts, promotion, the checkpointed k it
+resumed from) and the kill.
+
+With ``async.ps.standby=1`` every shard, the in-process primary
+included, gets a warm standby child that its primary streams to
+(``parallel/replication.py``), and a killed primary is PROMOTED over
+(``kill`` then carries ``promote_s``, kill to promotion).  Its line
+carries ``standby``: shard 0's replication lag sampled through the run,
+a SUBSCRIBE reader's replies from the last shard's standby (shapes,
+versions behind its primary, freshness age), and after the run each
+standby's model read by SUBSCRIBE against its primary's at the same
+clock (``mirrors``).  With ``async.control.enabled`` the PS process runs
+the adaptive controller on the primary (``parallel/controller.py``),
+fanning its decisions out to the group, and its line carries ``control``:
+the counters, the knobs' values and changes, the decision log, the damp
+factors its drain applied and whether every actuated value lay within its
+declared bounds.  ``PS_DELAY_MS`` on a worker delays each of its PUSHes
+by that many milliseconds (a fault schedule,
+``async.net.fault.schedule``): a deterministic straggler.
 
 Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 ``epsilon``: 400,000 x 2,000 f32; ``rcv1``: rcv1's padded-ELL shape),
@@ -254,14 +271,30 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
         conf_overlays=set_keys(global_conf()), device=device.type,
         dead_after_s=float(os.environ.get("PS_DEAD_AFTER_S", "2.0")),
         check_interval_s=0.2, stderr_dir=os.environ.get("PS_STDERR_DIR"),
-        spawn_timeout_s=300.0)
+        spawn_timeout_s=300.0, standby_indices=range(shards))
     t_spawn = time.monotonic()
+    controller = None
+    reader = None
     try:
         group.start()
         spawn_s = time.monotonic() - t_spawn
         # the primary hands the assembled map and epochs to every HELLO
         ps.shard_map = group.smap.to_wire()
         ps.shard_epochs = group.epochs_wire()
+        if group.standbys:
+            # the in-process primary's own standby: its stream starts here
+            ps.set_standby_map(group.standbys_wire())
+        if global_conf().get(conf_mod.CONTROL_ENABLED):
+            from asyncframework_tpu_torch.parallel.controller import (
+                AsyncController,
+            )
+
+            # before any worker learns the port: the first WELCOME must
+            # already carry the CTRL payload
+            controller = AsyncController(ps, conf=global_conf(),
+                                         group=group).start()
+        if group.standbys:
+            reader = StandbyReader(ps, group, shards - 1).start()
         marks = watch_start(ps, nw)
         kill = {}
         kill_shard = int(os.environ.get("PS_KILL_SHARD", "0"))
@@ -277,11 +310,16 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                             epoch_before=group.epoch_of(kill_shard))
                 os.kill(kill["pid"], signal.SIGKILL)
                 t_kill = time.monotonic()
-                # the relaunch, as the controller counts it
+                # the relaunch or the promotion, as the controller counts
+                # them
                 while (group.restarts_of(kill_shard) < 1
+                       and group.promotions_of(kill_shard) < 1
                        and time.monotonic() - t_kill < 120.0):
                     time.sleep(0.005)
-                kill["restart_s"] = time.monotonic() - t_kill
+                key = ("promote_s" if group.promotions_of(kill_shard)
+                       else "restart_s")
+                kill[key] = time.monotonic() - t_kill
+                kill["accepted_at_recovery"] = ps.accepted
 
             from asyncframework_tpu_torch.utils.threads import guarded
 
@@ -291,6 +329,8 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
         done = ps.wait_done(timeout_s=cfg.run_timeout_s)
         t_done = time.monotonic()
         marks["thread"].join(timeout=1.0)
+        if reader is not None:
+            reader.stop()
         total = None
         if os.environ.get("PS_EVAL") != "0":
             total = ps.collect_eval(num_worker_procs=nprocs,
@@ -308,9 +348,31 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
         for i in range(1, shards):
             res = group.result_of(i, timeout_s=60.0) or {}
             res["restarts"] = group.restarts_of(i)
+            res["promotions"] = group.promotions_of(i)
             members.append(res)
         if kill:
             kill["epoch_after"] = group.epoch_of(kill_shard)
+        standby = None
+        if group.standbys:
+            mirrors = mirror_check(group, shards)
+            wire = group.standbys_wire() or []
+            for entry in wire:
+                # a standby spawned after the group's FINISH learns DONE
+                # here, and prints its result line
+                if entry:
+                    try:
+                        shardgroup.finish_endpoint(str(entry[0]),
+                                                   int(entry[1]))
+                    except (ConnectionError, OSError):
+                        pass
+            sb_results = [group.standby_result_of(i, 30.0) or {}
+                          for i in range(shards)]
+            standby = {**reader.record(), "standbys": wire,
+                       "promotions": group.promotions, "mirrors": mirrors,
+                       "peak_device_bytes": [r.get("peak_device_bytes")
+                                             for r in sb_results]}
+        control = (control_record(controller, ps)
+                   if controller is not None else None)
         rec = {"role": "ps", "config": name, "algo": algo,
                "done": bool(done),
                "diagnostic": None if done else str(done),
@@ -319,11 +381,178 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                "fence": bool(ps.epoch), "spawn_s": spawn_s,
                "shards": members, "kill": kill or None,
                "shard_totals": shardgroup.shard_totals(),
+               "standby": standby, "control": control,
                **ps_summary(ps, marks, t_done, n, total)}
     finally:
+        if reader is not None:
+            reader.stop()
+        if controller is not None:
+            controller.stop()
         group.stop()
         ps.stop()
     return rec
+
+
+class StandbyReader:
+    """A SUBSCRIBE reader on one shard's standby while the run goes: a
+    round every 20 ms reads the standby (``have=``-negotiated, counted by
+    reply shape) and the shard's primary, and keeps the versions the
+    standby's reply is behind the primary's and its freshness age.  Shard
+    0's replication lag (``standby_lag``, the in-process primary's stream)
+    is sampled on the same rounds."""
+
+    def __init__(self, ps, group, index: int):
+        self.ps, self.group, self.index = ps, group, int(index)
+        self.behind: list = []
+        self.age_ms: list = []
+        self.lag0: list = []
+        self.errors = 0
+        self.rounds = 0
+        self.shapes: dict = {}
+        self._stop = threading.Event()
+        self._thread = None
+
+    def start(self) -> "StandbyReader":
+        from asyncframework_tpu_torch.utils.threads import guarded
+
+        self._thread = threading.Thread(
+            target=guarded(self._run, "standby-reader"),
+            name="standby-reader", daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        sub = prim = None
+        while not self._stop.wait(0.02):
+            repl = self.ps.repl
+            if repl is not None and repl.synced:
+                self.lag0.append(repl.lag_versions())
+            wire = self.group.standbys_wire() or []
+            entry = wire[self.index] if self.index < len(wire) else None
+            if entry is None:
+                continue
+            try:
+                if sub is None or sub.port != int(entry[1]):
+                    sub = ps_dcn.PSClient(str(entry[0]), int(entry[1]),
+                                          pull_mode="delta", timeout_s=5.0)
+                if prim is None:
+                    host, port = self.group.smap.entries[self.index][:2]
+                    prim = ps_dcn.PSClient(str(host), int(port),
+                                           timeout_s=5.0)
+                got = sub.subscribe(0)
+                head = prim.subscribe(0)
+            except (ConnectionError, OSError):
+                self.errors += 1
+                sub = prim = None
+                continue
+            self.rounds += 1
+            self.behind.append(max(0, int(head[2]) - int(got[0])))
+            self.age_ms.append(float(got[4]))
+        for c in (sub, prim):
+            if c is not None:
+                try:
+                    c.bye()
+                except (ConnectionError, OSError):
+                    pass
+        if sub is not None:
+            self.shapes = dict(sub.pull_wenc)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+
+    def record(self) -> dict:
+        def stats(xs):
+            if not xs:
+                return None
+            a = np.asarray(xs, np.float64)
+            return {"n": int(a.size), "p50": float(np.median(a)),
+                    "p99": float(np.percentile(a, 99)),
+                    "max": float(a.max())}
+
+        return {"reader_shard": self.index, "reader_rounds": self.rounds,
+                "reader_errors": self.errors,
+                "reader_reply_shapes": self.shapes,
+                "reader_versions_behind": stats(self.behind),
+                "reader_age_ms": stats(self.age_ms),
+                "standby_lag_shard0": stats(self.lag0)}
+
+
+def mirror_check(group, shards: int, timeout_s: float = 30.0) -> list:
+    """After the run: each standby's model, read by SUBSCRIBE, against its
+    primary's at the same clock (``torch.equal`` of the two f32 vectors),
+    waiting with a deadline for a standby respawned late in the run
+    (behind a promoted primary) to announce, and for each stream to
+    drain."""
+    out = []
+    deadline = time.monotonic() + timeout_s
+    while (not all(group.standbys_wire() or [None])
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    wire = group.standbys_wire() or []
+    for i in range(shards):
+        entry = wire[i] if i < len(wire) else None
+        if entry is None:
+            out.append({"shard": i, "standby": None, "equal": False})
+            continue
+        host, port = group.smap.entries[i][:2]
+        prim = ps_dcn.PSClient(str(host), int(port), timeout_s=10.0)
+        sb = ps_dcn.PSClient(str(entry[0]), int(entry[1]), timeout_s=10.0)
+        deadline = time.monotonic() + timeout_s
+        while True:
+            p_got, s_got = prim.subscribe(0), sb.subscribe(0)
+            if p_got[2] == s_got[2] or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        for c in (prim, sb):
+            c.bye()
+        w_p, w_s = torch.from_numpy(p_got[1]), torch.from_numpy(s_got[1])
+        out.append({
+            "shard": i, "primary_clock": int(p_got[2]),
+            "standby_clock": int(s_got[2]), "primary_ts": int(p_got[0]),
+            "standby_ts": int(s_got[0]),
+            "max_abs_diff": float((w_p - w_s).abs().max()),
+            "equal": bool(p_got[2] == s_got[2] and torch.equal(w_p, w_s))})
+    return out
+
+
+def control_record(controller, ps) -> dict:
+    """The controller's record: its counters, knobs and decision log,
+    the damp factors the primary's drain applied, and whether every
+    actuated value lay within its declared bounds."""
+    import math
+
+    from asyncframework_tpu_torch.parallel import controller as ctrl_mod
+
+    status = controller.status()
+    log = controller.decision_log()
+    p = max(1, int(controller.cfg.num_workers))
+    lo_b = max(1.0, math.ceil(controller._bounds["async.bucket.ratio"][0]
+                              * p))
+    hi_b = float(controller.b_conf)
+    lo_m, hi_m = controller._bounds["async.push.merge"]
+    lo_d, hi_d = controller._bounds["async.pipeline.depth"]
+    bounds = {"b": (lo_b, hi_b),
+              "merge": (lo_m, min(hi_m, float(controller.merge_conf))),
+              "depth": (lo_d, min(hi_d, float(controller.depth_conf)))}
+
+    def within(d) -> bool:
+        if d["knob"] == "wdamp":
+            return all(controller.damp_floor <= f <= 1.0
+                       for f in dict(d["to"]).values())
+        lo, hi = bounds[d["knob"]]
+        return lo <= float(d["to"]) <= hi
+
+    return {"totals": ctrl_mod.control_totals(), "seq": status["seq"],
+            "knobs": status["knobs"], "damp_law": status["damp"],
+            "decisions": log,
+            "actuated_within_bounds": all(within(d) for d in log),
+            "damped_applies": ps.damped_applies,
+            "damp_mean": (ps.damp_sum / ps.damped_applies
+                          if ps.damped_applies else None),
+            "damp_min": ps.damp_min if ps.damped_applies else None,
+            "ctrl_stale_rejects": ps.ctrl_stale_rejects}
 
 
 def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
@@ -425,6 +654,22 @@ def main() -> None:
     )
 
     apply_cluster_defaults()
+    delay_ms = float(os.environ.get("PS_DELAY_MS", "0") or 0)
+    if delay_ms > 0:
+        # the deterministic slow-but-alive member: every PUSH of this
+        # process pays delay_ms (count=0 = forever)
+        from asyncframework_tpu_torch.conf import global_conf
+        from asyncframework_tpu_torch.net import faults
+
+        sched = faults.FaultSchedule()
+        sched.add_delay("*", "PUSH", delay_ms, count=0)
+        global_conf().set(conf_mod.NET_FAULT_SCHEDULE.key, sched.to_json())
+    if os.environ.get("PS_ROLE") == "worker":
+        # a worker's fault schedule from the conf or the environment
+        # (async.net.fault.schedule), as a chaos run configures daemons
+        from asyncframework_tpu_torch.net import faults
+
+        faults.maybe_install_from_conf()
     # before either role builds its data: a switch of the cluster path
     # that this package does not run is refused, never ignored
     ps_dcn.refuse_unported_conf()

@@ -155,7 +155,31 @@ exits non-zero without a result line):
    phase 10's unsharded line of the deployment), tasks and launches per
    accepted update, wire bytes per update, per-shard merges, staleness,
    fenced rejects and each process's peak device memory;
-13. the ``{"kernels": [...]}`` line, the card line again, and last the
+13. standby_control -- the hot standby with replication and promotion,
+   the adaptive controller with the damped apply, and SUBSCRIBE
+   (``tools/dcn.py::standby_phase``): phase 12's machine shape, every
+   shard fenced and backed by a warm standby child (the primary's too),
+   the controller on the primary.  First, on the card: the merge drain
+   with 8 slots of random damps in (0, 1] bit-equal (``torch.equal``) to 8
+   serial ``make_asgd_apply_damped`` calls, and at damp 1.0 to
+   ``make_asgd_apply``.  Arms: (a) epsilon ASGD on 3 shards (1,000
+   updates), shard 1's primary SIGKILLed at 500 accepted, a SUBSCRIBE
+   reader on shard 2's standby through the run; (b) rcv1 ASGD on 2 shards
+   (1,200, bench.py's recipe), worker process 1 a straggler (150 ms on
+   each PUSH).  Gates: phase 12's (the budget, one B1 or S1 launch a
+   worker gradient with no plain call, the objective bands, a vector of
+   the map's length every pull, each shard's pushes counted once), every
+   shard backed, each surviving standby's model read by SUBSCRIBE after
+   the run bit-equal to its primary's at the same clock, the controller
+   ticking with every actuated value inside its declared bounds; in (a)
+   exactly one promotion of shard 1 and no relaunch, under an epoch above
+   the one it died with, the promoted member's ledger exact.  Each
+   ``standby_control`` line carries updates/s (beside phase 12's matching
+   arm), tasks per accepted update, wire bytes per update, the standby
+   lag, the reader's reply shapes and freshness, promotion seconds, the
+   controller's changes, clamps, oscillation trips and the damp factors
+   applied, and each process's peak device memory;
+14. the ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
@@ -1643,7 +1667,7 @@ def telemetry_phase(torch, card, dcn_records):
 def shards_phase(card, dcn_records):
     """Sharded PS groups with fencing and shard failover
     (``tools/dcn.py::shards_phase``): each arm held to its gates; returns
-    the worker processes' kernel launches by form."""
+    the worker processes' kernel launches by form and the arms' records."""
     from asyncframework_tpu_torch.tools import dcn
 
     launches = {"masked_grad": 0, "compacted_grad": 0}
@@ -1662,6 +1686,89 @@ def shards_phase(card, dcn_records):
               for r in records if not r["ok"]]
     if failed:
         raise RuntimeError(f"shards phase gates failed: {failed}")
+    return launches, records
+
+
+# phase 13's damped-merge check: slots, and the widths (epsilon, rcv1)
+DAMP_SLOTS = 8
+DAMP_WIDTHS = (2_000, 47_236)
+
+
+def damped_merge_check(torch, card):
+    """The damped merge drain against serial damped applies on the card:
+    ``make_asgd_apply_merge`` with :data:`DAMP_SLOTS` slots of random
+    damps in (0, 1] bit-equal to that many ``make_asgd_apply_damped``
+    calls, and at damp 1.0 to ``make_asgd_apply``."""
+    from asyncframework_tpu_torch.ops import steps
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    out = []
+    for d in DAMP_WIDTHS:
+        G = torch.randn(DAMP_SLOTS, d, device=dev, generator=gen)
+        w0 = torch.randn(d, device=dev, generator=gen)
+        # (0, 1]: 1 - U[0, 1)
+        damps = 1.0 - torch.rand(DAMP_SLOTS, device=dev, generator=gen)
+        k0 = torch.tensor(37.0, device=dev)
+        merge = steps.make_asgd_apply_merge(100.0, 0.1, 400_000, 8)
+        damped = steps.make_asgd_apply_damped(100.0, 0.1, 400_000, 8)
+        plain = steps.make_asgd_apply(100.0, 0.1, 400_000, 8)
+        w_m, k_m = merge(w0, G, damps, k0)
+        w_s, k_s = w0, k0
+        for j in range(DAMP_SLOTS):
+            w_s, k_s = damped(w_s, G[j], k_s, damps[j].item())
+        ones = torch.ones(DAMP_SLOTS, device=dev)
+        w_1, _ = merge(w0, G, ones, k0)
+        w_p, k_p = w0, k0.clone()
+        for j in range(DAMP_SLOTS):
+            w_p, k_p = plain(w_p, G[j], k_p)
+        out.append({
+            "d": d, "slots": DAMP_SLOTS,
+            "damps": [round(float(x), 6) for x in damps],
+            "merge_equal_serial_damped": bool(
+                torch.equal(w_m, w_s) and torch.equal(k_m, k_s)),
+            "damp_one_equal_apply": bool(torch.equal(w_1, w_p)),
+        })
+    emit({"phase": "damped_merge", "card": card, "cases": out})
+    bad = [c for c in out if not (c["merge_equal_serial_damped"]
+                                  and c["damp_one_equal_apply"])]
+    if bad:
+        raise RuntimeError(f"the damped merge is not serial damped "
+                           f"applies: {bad}")
+
+
+def standby_control_phase(card, shard_records):
+    """The hot standby, the adaptive controller and SUBSCRIBE
+    (``tools/dcn.py::standby_phase``): each arm held to its gates, beside
+    phase 12's matching arm; returns the worker processes' kernel
+    launches by form."""
+    from asyncframework_tpu_torch.tools import dcn
+
+    launches = {"masked_grad": 0, "compacted_grad": 0}
+    # phase 12's arm of the same deployment: (a) beside its killed
+    # epsilon arm (3 shards, a relaunch), (b) beside its rcv1 arm (3
+    # shards; this arm runs 2)
+    match = {"a": "c", "b": "b"}
+    records = dcn.standby_phase()
+    for rec in records:
+        twin = next(r for r in shard_records if r["arm"] == match[rec["arm"]])
+        ctrl = rec["control"] or {}
+        emit({"phase": "standby_control", "card": card, **{
+            k: v for k, v in rec.items() if k != "control"},
+            "control": {k: v for k, v in ctrl.items() if k != "decisions"},
+            "decisions": (ctrl.get("decisions") or [])[:32],
+            "updates_per_sec_phase12": twin["updates_per_sec"],
+            "phase12_arm": twin["arm"],
+            "wire_bytes_per_update_phase12": twin["wire_bytes_per_update"],
+            "relaunch_s_phase12": (twin.get("kill") or {}).get("restart_s")})
+        for w in rec["worker_launches"]:
+            launches[rec["task_form"]] += w.get(rec["task_form"], 0)
+    failed = [f"{r['arm']}.{r['config']}: "
+              f"{[k for k, v in r['gates'].items() if not v]}"
+              for r in records if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"standby_control phase gates failed: {failed}")
     return launches
 
 
@@ -1854,9 +1961,13 @@ def main() -> int:
     tel = telemetry_phase(torch, card, dcn_records)
 
     # ----------------------------------------------------------- 12. shards
-    shard_launches = shards_phase(card, dcn_records)
+    shard_launches, shard_records = shards_phase(card, dcn_records)
 
-    # ------------------------------------------------------ 13. results
+    # -------------------------------------------------- 13. standby_control
+    damped_merge_check(torch, card)
+    standby_launches = standby_control_phase(card, shard_records)
+
+    # ------------------------------------------------------ 14. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start})
     print(card, flush=True)
 
@@ -1886,7 +1997,8 @@ def main() -> int:
             r["launches_on_path"]["masked_grad"]
             for r in (eps_fused, mnist_fused, mnist_run))
               + feat["masked_grad"] + dcn_launches["masked_grad"]
-              + tel["masked_grad"] + shard_launches["masked_grad"],
+              + tel["masked_grad"] + shard_launches["masked_grad"]
+              + standby_launches["masked_grad"],
               recs["b_epsilon_idx"],
               recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
@@ -1911,7 +2023,8 @@ def main() -> int:
               f"asyncframework_tpu/ops/steps.py:519 {xla}",
               s1_launches["compacted_grad"] + feat["compacted_grad"]
               + dcn_launches["compacted_grad"] + tel["compacted_grad"]
-              + shard_launches["compacted_grad"],
+              + shard_launches["compacted_grad"]
+              + standby_launches["compacted_grad"],
               s_task["task"],
               s_task["task"]["bound_ms"]),
         entry("sparse_grad.saga_slots_grad", "sparse_grad.cu",

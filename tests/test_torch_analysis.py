@@ -9,15 +9,15 @@ package's own lint suite, and on the port's tree.
   the package directory renamed (``asyncframework_tpu/`` becomes
   ``asyncframework_tpu_torch/``), and the mutations edit a copy of the
   port's own ``parallel/ps_dcn.py``.  The cases left out need a module the
-  port does not have yet: the adaptive controller (ROADMAP A6b.4), the
-  replication stream (A6b.3) and the relaycast plane (A8); the cases that
-  name the JAX package's tree (its ``cli.py``, ``bin/async-lint``, its
-  allowlist) are rewritten for the port beside it, under the same name.
+  port does not have yet: the relaycast plane (A8); the cases that name
+  the JAX package's tree (its ``cli.py``, ``bin/async-lint``, its
+  allowlist, its controller and replication stream) are rewritten for the
+  port beside it, under the same name.
 - The port's own: the CLI (``python -m
   asyncframework_tpu_torch.analysis.cli``) clean and listing the skipped
   modules with their items; the allowlist is exactly the retargeted
-  reference entries and the four refused-op entries, each with a reason
-  naming its item; no ``proto-fence-gate`` and no SETMAP finding before
+  reference entries, each with a reason (no refused op is left in it);
+  no ``proto-fence-gate`` and no SETMAP finding before
   the allowlist; every ``NotImplementedError`` of the port names an open
   ROADMAP item.
 """
@@ -98,24 +98,55 @@ def _tokens(findings, rule):
 
 # ------------------------------- tests/test_analysis.py on the port
 class TestConfRuleOnThePort(ref_lint.TestConfRule):
-    # the adaptive controller's actuation surface: ROADMAP A6b.4
-    test_real_controller_surface_is_declared = None
+    def test_real_controller_surface_is_declared(self):
+        """The reference case on the port's controller and conf: every
+        tunable it actuates is a registered tunable ConfigEntry with
+        bounds."""
+        from asyncframework_tpu_torch.parallel.controller import (
+            CONTROLLER_TUNABLES,
+        )
+
+        ctx = LintContext(REPO)
+        tunables = t_rules_conf.declared_tunables(ctx)
+        actuated = {k for k, _line in t_rules_conf._actuated_keys(ctx)}
+        assert actuated, "controller actuation surface not parsed"
+        assert set(CONTROLLER_TUNABLES) <= actuated
+        for key in actuated:
+            assert key in tunables, key
+            has_floor, has_ceiling, _line = tunables[key]
+            assert has_floor and has_ceiling, key
 
     def test_real_controller_is_declared_pending(self):
-        """Until the controller is ported its module is a declared
-        pending path, and the conf-tunable rule skips it by name."""
-        assert t_core.PENDING_PATHS[t_rules_conf.CONTROLLER_PATH] == "A6b.4"
-        assert (t_rules_conf.CONTROLLER_PATH, "A6b.4") in \
-            t_core.pending_paths(REPO)
+        """The controller is ported (ROADMAP A6b.4): its module is no
+        longer a pending path, and the conf-tunable rule reads it."""
+        assert t_rules_conf.CONTROLLER_PATH not in t_core.PENDING_PATHS
+        assert os.path.isfile(os.path.join(REPO,
+                                           t_rules_conf.CONTROLLER_PATH))
+        assert t_rules_conf.CONTROLLER_PATH not in dict(
+            t_core.pending_paths(REPO))
 
 
 class TestProtocolRuleOnThePort(ref_lint.TestProtocolRule):
-    # the relaycast plane (ROADMAP A8) and the replication stream and the
-    # standby's admission (A6b.3) are not ported
+    # the relaycast plane (ROADMAP A8) is not ported
     test_deleting_relay_fence_admission_fails_lint = None
     test_deleting_relay_client_ep_stamp_fails_lint = None
-    test_deleting_standby_fence_admission_fails_lint = None
-    test_deleting_repl_stream_ep_stamp_fails_lint = None
+
+    def test_deleting_repl_stream_ep_stamp_fails_lint(self, tmp_path):
+        """The reference case on the port's replication stream:
+        ``ReplicationStream._stamped`` is the replication plane's
+        ep-stamp choke point."""
+        rel = f"{PKG}/parallel/replication.py"
+        with open(os.path.join(REPO, rel)) as f:
+            src = f.read()
+        i = src.index("def _stamped")
+        j = src.index('hdr["ep"] = self.ps.epoch', i)
+        mutated = (src[:j] + "pass"
+                   + src[j + len('hdr["ep"] = self.ps.epoch'):])
+        toks = _tokens(t_rules_protocol.check(
+            _ctx(tmp_path, {rel: mutated})), "proto-fence-gate")
+        assert toks == ["ep-stamp"]
+        assert _tokens(t_rules_protocol.check(
+            _ctx(tmp_path / "clean", {rel: src})), "proto-fence-gate") == []
 
 
 class TestLockRuleOnThePort(ref_lint.TestLockRule):
@@ -239,8 +270,6 @@ def test_pending_paths_are_skipped_by_name_and_item():
     pending = dict(t_core.pending_paths(REPO))
     assert pending == {
         f"{PKG}/cli.py": "A8", f"{PKG}/deploy/master.py": "A8",
-        f"{PKG}/parallel/controller.py": "A6b.4",
-        f"{PKG}/parallel/replication.py": "A6b.3",
         f"{PKG}/relaycast/node.py": "A8",
         f"{PKG}/relaycast/source.py": "A8",
         f"{PKG}/streaming/log_net.py": "A10",
@@ -248,7 +277,11 @@ def test_pending_paths_are_skipped_by_name_and_item():
     rule_paths = {t_rules_conf.CLI_PATH, t_rules_conf.CONTROLLER_PATH,
                   *t_rules_protocol.FENCE_SERVER_PATHS,
                   *t_rules_protocol.FENCE_CLIENT_STAMPS}
-    assert set(pending) >= rule_paths - {t_rules_protocol.PS_DCN_PATH}
+    ported = {t_rules_protocol.PS_DCN_PATH, t_rules_conf.CONTROLLER_PATH,
+              f"{PKG}/parallel/replication.py"}
+    assert ported <= rule_paths
+    assert set(pending) >= rule_paths - ported
+    assert not set(pending) & ported
     proc = subprocess.run([sys.executable, "-m", f"{PKG}.analysis.cli"],
                           capture_output=True, text=True, timeout=300,
                           cwd=REPO)
@@ -263,13 +296,11 @@ def test_allowlist_is_the_retargeted_reference_and_the_refused_ops():
 
     retargeted = {(a.rule, _port_path(a.path), a.token) for a in REF
                   if os.path.exists(os.path.join(REPO, _port_path(a.path)))}
-    ops = {("proto-unhandled-op", f"{PKG}/parallel/ps_dcn.py", op): item
-           for op, item in (("PROMOTE", "A6b.3"), ("REPL_APPEND", "A6b.3"),
-                            ("REPL_SYNC", "A6b.3"), ("SUBSCRIBE", "A6b.5"))}
     mine = {(a.rule, a.path, a.token): a.reason for a in ALLOWLIST}
-    assert set(mine) == retargeted | set(ops)
-    for key, item in ops.items():
-        assert f"ROADMAP {item}" in mine[key], mine[key]
+    # the refused ops (PROMOTE, REPL_APPEND, REPL_SYNC, SUBSCRIBE) were
+    # its last entries of its own: every op of the wire is handled now
+    assert set(mine) == retargeted
+    assert not any(rule == "proto-unhandled-op" for rule, _p, _t in mine)
     assert all(reason.strip() for reason in mine.values())
 
 
@@ -278,8 +309,8 @@ def test_no_fence_gate_or_setmap_finding_before_the_allowlist():
     raw = {(f.rule, f.token) for f in result.findings}
     assert not any(rule == "proto-fence-gate" for rule, _t in raw), raw
     assert ("proto-unhandled-op", "SETMAP") not in raw
-    assert {t for r, t in raw if r == "proto-unhandled-op"} == {
-        "PROMOTE", "REPL_APPEND", "REPL_SYNC", "SUBSCRIBE"}
+    # PROMOTE, REPL_APPEND, REPL_SYNC and SUBSCRIBE are handled now
+    assert {t for r, t in raw if r == "proto-unhandled-op"} == set()
 
 
 @pytest.mark.parametrize("mutation", ["dedup", "ep_stamp", "fence_push"])
@@ -360,8 +391,9 @@ def test_no_refusal_names_an_item_roadmap_marks_done():
     still lists as left (a done item's name in a refusal is a stale
     reason)."""
     open_items = _roadmap_open_items()
-    assert {"A2b", "A6b.3", "A6b.4", "A6b.5", "A6b.6", "A8"} <= open_items
-    assert not {"A4", "A11", "A6b.1", "A6b.2"} & open_items
+    assert {"A2b", "A6b.6", "A8"} <= open_items
+    assert not {"A4", "A11", "A6b.1", "A6b.2", "A6b.3", "A6b.4",
+                "A6b.5"} & open_items
     found = _refusal_items()
     assert found
     stale = [(os.path.relpath(p, REPO), line, item)

@@ -1273,3 +1273,88 @@ def test_fenced_sharded_group_on_the_card(dev, sparse):
         assert total is not None and total[-1] < total[0] * frac
     finally:
         set_global_conf(None)
+
+
+@pytest.mark.parametrize("d", [2_000, 47_236])
+def test_damped_merge_is_bit_equal_to_serial_damped_applies(dev, d):
+    """On the card: the merge drain with 8 slots of random damps in
+    (0, 1] is bit-equal (``torch.equal``) to 8 serial
+    ``make_asgd_apply_damped`` calls, and at damp 1.0 to 8 serial
+    ``make_asgd_apply`` calls."""
+    from asyncframework_tpu_torch.ops import steps
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d)
+    G = torch.randn(8, d, device=dev, generator=gen)
+    w0 = torch.randn(d, device=dev, generator=gen)
+    damps = 1.0 - torch.rand(8, device=dev, generator=gen)
+    k0 = torch.tensor(11.0, device=dev)
+    merge = steps.make_asgd_apply_merge(100.0, 0.1, 400_000, 8)
+    damped = steps.make_asgd_apply_damped(100.0, 0.1, 400_000, 8)
+    plain = steps.make_asgd_apply(100.0, 0.1, 400_000, 8)
+    w_m, k_m = merge(w0, G, damps, k0)
+    w_s, k_s = w0, k0
+    for j in range(8):
+        w_s, k_s = damped(w_s, G[j], k_s, np.float32(damps[j].item()))
+    assert torch.equal(w_m, w_s) and torch.equal(k_m, k_s)
+    assert float(k_s) == 19.0 and float(k0) == 11.0  # nothing in place
+    w_1, _ = merge(w0, G, torch.ones(8, device=dev), k0)
+    w_p, k_p = w0, k0.clone()
+    for j in range(8):
+        w_p, k_p = plain(w_p, G[j], k_p)
+    assert torch.equal(w_1, w_p)
+
+
+def test_standby_mirror_is_bit_equal_after_50_batches_on_the_card(dev):
+    """A primary and its hot standby, both with their models on the card:
+    50 pushes (re-pushed against an old basis, so most are damped by the
+    controller's law; a fused drain where they coalesce), each drained
+    batch replicated, and the standby's model is ``torch.equal`` to the
+    primary's at the same clock, its ledgers and dedup window the
+    primary's."""
+    import time
+
+    from asyncframework_tpu_torch.conf import AsyncConf, set_global_conf
+    from asyncframework_tpu_torch.parallel import ps_dcn
+    from asyncframework_tpu_torch.solvers import SolverConfig
+
+    set_global_conf(AsyncConf({"async.fence.enabled": True}))
+    cfg = SolverConfig(num_workers=2, num_iterations=10**6, gamma=1.0,
+                       taw=2**31 - 1, batch_rate=0.3, bucket_ratio=0.0,
+                       printer_freq=10, seed=42, calibration_iters=10**9,
+                       run_timeout_s=60.0)
+    prim = sb = None
+    try:
+        prim = ps_dcn.ParameterServer(cfg, 2_000, 400_000, device=dev,
+                                      port=0).start()
+        sb = ps_dcn.ParameterServer(cfg, 2_000, 400_000, device=dev, port=0,
+                                    standby=True).start()
+        prim.attach_standby("127.0.0.1", sb.port)
+        prim.set_control({"seq": 1, "ep": prim.epoch,
+                          "damp": [1.0, 0.1, 0.0]})
+        rng = np.random.default_rng(50)
+        clients = [ps_dcn.PSClient("127.0.0.1", prim.port) for _ in range(2)]
+        bases = [c.pull(w)[0] for w, c in enumerate(clients)]
+        for i in range(50):
+            w = i % 2
+            clients[w].push(w, bases[w],
+                            rng.normal(size=2_000).astype(np.float32))
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not (
+                sb._clock >= prim._clock and prim.repl.synced
+                and prim.repl.acked_clock >= prim._clock):
+            time.sleep(0.02)
+        assert (sb._clock, sb._k, sb.accepted) == (prim._clock, prim._k,
+                                                   prim.accepted) == (
+            50, 50, 50)
+        assert prim.damped_applies > 0
+        assert sb._w.device.type == "cuda"
+        assert torch.equal(prim._w, sb._w)
+        assert sb.accepted_by_wid == prim.accepted_by_wid
+        for c in clients:
+            c.bye()
+    finally:
+        for p in (prim, sb):
+            if p is not None:
+                p.stop()
+        set_global_conf(None)

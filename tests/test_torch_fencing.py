@@ -11,9 +11,8 @@ package's own fencing suite and across the packages.
   and its clients, fenced sharded groups, and the acceptance run: a real
   3-shard port ``ShardGroup`` on the CPU partitioned past lease expiry,
   fenced and relaunched, trained by two worker processes of the JAX
-  package (``tests/ps_dcn_child.py``; the run's watch on shard 1's clock
-  pulls instead of subscribing).  The case left out needs SUBSCRIBE
-  (ROADMAP A6b.5).
+  package (``tests/ps_dcn_child.py``), watching shard 1's clock through
+  SUBSCRIBE.
 - Across the packages: a port client against a fenced JAX-package PS and
   a JAX-package client against a fenced port PS (stale ops self-heal,
   the zombie refuses); with fencing off neither package's frames carry
@@ -145,25 +144,11 @@ class TestSocketDeadlineOnThePort(ref_fence.TestSocketDeadline):
 
 
 class TestEpochFencingOnThePort(ref_fence.TestEpochFencing):
-    # SUBSCRIBE: ROADMAP A6b.5
-    test_subscribe_is_fenced_and_heals = None
+    pass
 
 
 class TestShardedFencingOnThePort(ref_fence.TestShardedFencing):
     pass
-
-
-class _PullWatchClient(t_ps.PSClient):
-    """The reference run watches shard 1's merge clock through SUBSCRIBE
-    (ROADMAP A6b.5 on the port); a PULL of a secondary shard (ungated)
-    reads the same clock."""
-
-    def subscribe(self, wid: int = 0, extra=None):
-        got = self.pull(wid)
-        if got is None:
-            return None
-        ts, w, _avg, _cal = got
-        return ts, w, ts, 0, 0.0, False
 
 
 class TestPartitionFenceRelaunchOnThePort(
@@ -171,9 +156,7 @@ class TestPartitionFenceRelaunchOnThePort(
     """The acceptance run: the port's 3-shard group of real processes on
     the CPU, the JAX package's worker processes."""
 
-    def test_partition_shard_fence_and_relaunch(self, tmp_path,
-                                                monkeypatch):
-        monkeypatch.setattr(port_ps, "PSClient", _PullWatchClient)
+    def test_partition_shard_fence_and_relaunch(self, tmp_path):
         super().test_partition_shard_fence_and_relaunch(tmp_path)
 
 

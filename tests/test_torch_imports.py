@@ -62,6 +62,33 @@ print(len(names))
     assert int(proc.stdout.split()[-1]) >= 20
 
 
+@pytest.mark.parametrize("module", ["parallel.controller",
+                                    "parallel.replication"])
+def test_standby_and_controller_modules_import_with_jax_blocked(module):
+    """The hot standby's stream and the adaptive controller import (with
+    everything they reach) with ``jax`` and ``asyncframework_tpu``
+    blocked, in a fresh interpreter."""
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {REPO!r})
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "asyncframework_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+mod = importlib.import_module("asyncframework_tpu_torch.{module}")
+print(sorted(m for m in sys.modules if m.startswith("asyncframework_tpu_torch")
+             and "{module}" in m))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd="/")
+    assert proc.returncode == 0, proc.stderr
+    assert f"asyncframework_tpu_torch.{module}" in proc.stdout
+
+
 def test_no_jax_or_reference_import_in_the_source():
     offenders = []
     for path in _port_sources():

@@ -39,6 +39,7 @@ from asyncframework_tpu_torch.convert import ps_checkpoint
 from asyncframework_tpu_torch.data.sharded import ShardedDataset as TDataset
 from asyncframework_tpu_torch.ops import steps as tsteps
 from asyncframework_tpu_torch.parallel import ps_dcn as tps
+from asyncframework_tpu_torch.parallel import shardgroup as tshard
 from asyncframework_tpu_torch.solvers import SolverConfig as TConfig
 
 CPU = torch.device("cpu")
@@ -694,22 +695,44 @@ def test_concurrent_checkpoint_saves_never_collide(tmp_path):
      "shard_map": [["127.0.0.1", 1, 0, 12], ["127.0.0.1", 2, 12, 24]]},
 ])
 def test_refused_ps_switches_name_their_roadmap_item(kwargs):
-    """The hot standby is refused, also on a fenced shard of a group
-    (fencing and shard maps themselves run: tests/test_torch_fencing.py,
-    tests/test_torch_shardgroup.py)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.3"):
-        tps.ParameterServer(TConfig(**_kw()), D, N, device=CPU, **kwargs)
+    """The hot standby is no longer refused (ROADMAP A6b.3 is ported),
+    also on a fenced shard of a group: the standby itself refuses the
+    training plane -- a PULL or PUSH against it meets ``ERR standby``,
+    surfaced to the client as a dead endpoint -- and answers SHARDMAP
+    as a standby."""
+    ps = tps.ParameterServer(TConfig(**_kw()), D, N, device=CPU, port=0,
+                             **kwargs).start()
+    try:
+        assert ps._standby and not ps.promoted
+        cl = tps.PSClient("127.0.0.1", ps.port, epoch=ps.epoch)
+        with pytest.raises(ConnectionError):
+            cl.pull(0)
+        hdr = tshard._oneshot("127.0.0.1", ps.port, {"op": "SHARDMAP"},
+                              timeout_s=5.0)
+        assert hdr["standby"] is True
+    finally:
+        ps.stop()
 
 
 def test_refused_methods_and_client_switches_name_their_roadmap_item():
+    """``set_control``, ``attach_standby``, a client's ``ctrl_sink`` and
+    SUBSCRIBE run now (ROADMAP A6b.3-5); what stays refused is a
+    SUBSCRIBE that asks to register a relaycast child (``rport``), which
+    either package's client meets as an ERR naming ROADMAP A8."""
+    from asyncframework_tpu_torch.parallel.controller import ControlSink
+
     ps = _port_ps(TConfig(**_kw()))
     try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.4"):
-            ps.set_control({"seq": 1})
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.3"):
-            ps.attach_standby("127.0.0.1", 1)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.4"):
-            tps.PSClient("127.0.0.1", ps.port, ctrl_sink=object())
+        assert ps.set_control({"seq": 1, "ep": 0, "b": 2})
+        assert ps.ctrl["seq"] == 1 and ps._ctrl_b == 2
+        ps.attach_standby("127.0.0.1", 1)
+        assert ps.repl is not None and not ps.repl.synced
+        ps.set_standby_map(None)
+        assert ps.repl is None
+        sink = ControlSink({"seq": 1, "ep": 0})
+        ccl = tps.PSClient("127.0.0.1", ps.port, ctrl_sink=sink)
+        assert ccl.ctrl_sink is sink
+        ccl.bye()
         # convergence samples ride the client's headers now: a buffered
         # sample leaves with the BYE and folds once on the PS
         from asyncframework_tpu_torch.metrics import timeseries
@@ -723,12 +746,14 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
         assert buf.take_wire() == []
         timeseries.convergence().reset()
         cl = tps.PSClient("127.0.0.1", ps.port)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.5"):
-            cl.subscribe(0)
-        # a JAX-package client's SUBSCRIBE gets an ERR naming the item
+        ts, w, clock, k, age_ms, done = cl.subscribe(0)
+        assert (ts, clock, k, done) == (0, 0, 0, False)
+        assert w.shape == (D,) and age_ms == 0.0
         jcl = jps.PSClient("127.0.0.1", ps.port)
-        with pytest.raises(ConnectionError, match=r"ROADMAP A6b\.5"):
-            jcl.subscribe(0)
+        assert jcl.subscribe(0)[0] == 0
+        for client in (cl, jcl):
+            with pytest.raises(ConnectionError, match=r"ROADMAP A8"):
+                client.subscribe(0, extra={"rport": 1})
         cl.bye()
         jcl.bye()
     finally:
@@ -737,9 +762,8 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
 
 #: the cluster path's conf switches that the PS and its workers refuse
 #: (each set to 2: above its off value, and truthy for the flags); the
-#: A6b entries are its parts 6 (mesh), 3 (standby) and 4 (controller)
-REFUSED_CONF = [("async.mesh.devices", "A6b"), ("async.ps.standby", "A6b"),
-                ("async.control.enabled", "A6b"), ("async.ui.port", "A8")]
+#: A6b entry is its part 6 (mesh)
+REFUSED_CONF = [("async.mesh.devices", "A6b"), ("async.ui.port", "A8")]
 
 
 def test_convergence_sample_conf_runs_on_the_workers(conf):
@@ -803,17 +827,20 @@ def test_refused_conf_switches_on_the_ps(conf_key, item, conf):
 
 @pytest.mark.parametrize("role", ["ps", "worker"])
 def test_ps_child_refuses_a_sharded_cluster_before_its_data(role):
-    """A sharded cluster with warm standbys (``ASYNCTPU_ASYNC_PS_SHARDS=4``
+    """A sharded cluster with a switch the port refuses (mesh worker steps,
+    ``ASYNCTPU_ASYNC_MESH_DEVICES=2``, beside ``ASYNCTPU_ASYNC_PS_SHARDS=4``
     and ``ASYNCTPU_ASYNC_PS_STANDBY=1``) on the role runner fails at once,
-    naming ROADMAP A6b.3, and prints no port and no result (the sharded
-    group itself runs: tests/test_torch_shardgroup.py)."""
+    naming ROADMAP A6b.6, and prints no port and no result (the sharded
+    group with its standbys runs: tests/test_torch_replication.py)."""
     env = _child_env(PS_ROLE=role, PS_ALGO="asgd", PS_NUM_WORKER_PROCS=1,
                      PS_PORT=1, PS_WORKER_ID=0, ASYNCTPU_ASYNC_PS_SHARDS=4,
-                     ASYNCTPU_ASYNC_PS_STANDBY=1)
+                     ASYNCTPU_ASYNC_PS_STANDBY=1,
+                     ASYNCTPU_ASYNC_MESH_DEVICES=2)
     out = subprocess.run(CHILD, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert "ROADMAP A6b.3" in out.stderr and "async.ps.standby" in out.stderr
+    assert ("ROADMAP A6b.6" in out.stderr
+            and "async.mesh.devices" in out.stderr)
     assert out.stdout == ""
 
 

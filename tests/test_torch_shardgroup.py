@@ -13,7 +13,7 @@ package's own shard-group suite and across the packages.
   module names to the port's).  Left out: the serving tier's
   ``ShardedSubscriber`` cases and the k8s rendering (ROADMAP A8), and the
   primary-kill soak run (``soak``).  The acceptance run watches shard 1's
-  clock by pulling it (SUBSCRIBE is ROADMAP A6b.5).
+  clock through SUBSCRIBE.
 - Across the packages: a port worker process trains against a JAX-package
   group and a JAX-package worker against a port group; the port group's
   assembled model is byte-equal to one port PS fed the same pushes, and
@@ -61,24 +61,10 @@ class _CPUParameterServer(t_ps.ParameterServer):
                          **kwargs)
 
 
-class _PullWatchClient(t_ps.PSClient):
-    """The reference run watches a shard's merge clock through SUBSCRIBE
-    (ROADMAP A6b.5 on the port); a PULL of a secondary shard (ungated)
-    reads the same clock."""
-
-    def subscribe(self, wid: int = 0, extra=None):
-        got = self.pull(wid)
-        if got is None:
-            return None
-        ts, w, _avg, _cal = got
-        return ts, w, ts, 0, 0.0, False
-
-
 port_ps = types.ModuleType("port_ps_dcn_on_cpu")
 port_ps.__dict__.update({k: v for k, v in vars(t_ps).items()
                          if not k.startswith("__")})
 port_ps.ParameterServer = _CPUParameterServer
-port_ps.PSClient = _PullWatchClient
 
 
 class _CPUShardGroup(t_sg.ShardGroup):
@@ -150,16 +136,7 @@ class TestShardMapOnThePort(ref_sg.TestShardMap):
 
 
 class TestShardsOneIsClassicOnThePort(ref_sg.TestShardsOneIsClassic):
-    def test_conf_set_matches_unset_byte_identical(self, devices8,
-                                                   monkeypatch):
-        """The reference case turns tracing off through
-        ``async.trace.sample``, a key the port's conf does not declare yet
-        (ROADMAP C8): its recorder's default rate is set to 0 here
-        instead, so neither arm ships timed spans."""
-        from asyncframework_tpu_torch.metrics import trace as t_trace
-
-        monkeypatch.setattr(t_trace, "DEFAULT_SAMPLE", 0.0)
-        super().test_conf_set_matches_unset_byte_identical(devices8)
+    pass
 
 
 class TestShardedRunOnThePort(ref_sg.TestShardedRun):
@@ -381,16 +358,21 @@ def test_per_shard_checkpoints_resume_in_the_other_package(tmp_path,
 
 
 def test_refused_parts_of_the_group_name_their_items():
+    """What stays refused names its item (the serving tier's
+    ``ShardedSubscriber``: A8; a sharded ASAGA group: ValueError, as in
+    the JAX package).  The warm standbys and the CTRL fan-out are ported:
+    their constructors and ``install_ctrl`` refuse nothing."""
     cfg = _cfg("port")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.3"):
-        t_sg.ShardGroup(cfg, D, N, 2, standbys=1)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.3"):
-        t_sg.ShardGroup(cfg, D, N, 2,
-                        conf_overlays={"async.ps.standby": 1})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.4"):
-        t_sg.ShardGroup(cfg, D, N, 2).install_ctrl({"seq": 1})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6b\.4"):
-        t_sg.CtrlFanout(None)
+    for group in (t_sg.ShardGroup(cfg, D, N, 2, standbys=1),
+                  t_sg.ShardGroup(cfg, D, N, 2,
+                                  conf_overlays={"async.ps.standby": 1})):
+        assert group.standbys == 1 and group.standbys_wire() == [None, None]
+        group.stop()
+    group = t_sg.ShardGroup(cfg, D, N, 2)
+    group.install_ctrl({"seq": 1, "ep": 0})
+    assert group._ctrl == {"seq": 1, "ep": 0}
+    group.stop()
+    t_sg.CtrlFanout(None).stop()
     with pytest.raises(NotImplementedError, match=r"ROADMAP A8"):
         t_sg.ShardedSubscriber(None)
     with pytest.raises(ValueError, match="asgd"):

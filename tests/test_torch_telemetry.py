@@ -11,8 +11,7 @@ against the JAX package's modules.
   globals by monkeypatch, their lazy imports by aliasing the JAX module
   names to the port's in ``sys.modules`` for the test's duration.  The
   cases left out need what the port does not have yet: the serving plane
-  (``TestFreshnessLagSignal``, ROADMAP A8), the shard group's standby
-  telemetry ports (A6b.3), ``bench.py``'s profile block (the port's
+  (``TestFreshnessLagSignal``, ROADMAP A8), ``bench.py``'s profile block (the port's
   benchmark is A2's), the k8s manifests, and the multi-process chaos and
   acceptance runs of the JAX package's cluster (A8).  A case whose body
   names a JAX-only path (a classifier row, a JAX device, a serving
@@ -403,8 +402,7 @@ class TestStatusSectionsOnThePort(ref_obs.TestStatusSections):
 
 @pytest.mark.usefixtures("_observer_conf")
 class TestDiscoveryOnThePort(ref_obs.TestDiscovery):
-    # the shard group's standbys: ROADMAP A6b.3
-    test_standby_gets_own_port_for_promotion_handoff = None
+    pass
 
 
 @pytest.mark.usefixtures("_observer_conf")
@@ -425,8 +423,7 @@ def test_registry_families_are_the_jax_packages_in_order():
     assert not set(port) & set(t_registry.UNPORTED_FAMILIES)
     assert [f for f in jax_fams if f not in t_registry.UNPORTED_FAMILIES] \
         == port
-    assert set(t_registry.UNPORTED_FAMILIES.values()) == {"A6b.3", "A6b.4",
-                                                          "A8", "A9"}
+    assert set(t_registry.UNPORTED_FAMILIES.values()) == {"A8", "A9"}
     assert t_registry.DYNAMIC_SERIES_FAMILIES \
         == j_registry.DYNAMIC_SERIES_FAMILIES
 
