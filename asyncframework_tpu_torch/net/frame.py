@@ -149,6 +149,7 @@ def _count(direction: str, op: str, n: int) -> None:
     with _bytes_lock:
         _bytes_totals[key] = _bytes_totals.get(key, 0) + n
         _bytes_totals[direction] = _bytes_totals.get(direction, 0) + n
+    _io_tls.total = getattr(_io_tls, "total", 0) + n
 
 
 def bytes_totals() -> Dict[str, int]:
@@ -175,6 +176,13 @@ def last_io_bytes() -> int:
     :func:`last_recv_bytes` (captured at their receive) instead."""
     return (getattr(_io_tls, "sent", 0) or 0) + (getattr(_io_tls, "recv", 0)
                                                  or 0)
+
+
+def thread_bytes() -> int:
+    """Frame bytes this thread has sent and received in all: a thread's
+    own share of :func:`bytes_totals` (a diagnostic reader's, say, to be
+    left out of a run's wire cost)."""
+    return getattr(_io_tls, "total", 0)
 
 
 def last_sent_bytes() -> int:

@@ -551,6 +551,8 @@ class ParameterServer:
         self.dropped = 0
         self.push_bytes = 0      # wire payload bytes received via PUSH
         self.max_staleness = 0
+        # pushes merged at each staleness (clock - ts), dropped ones too
+        self.staleness_counts: Dict[int, int] = {}
         self._snapshots: List[Tuple[float, object]] = []
         self._t0: Optional[float] = None
         self._done = threading.Event()
@@ -602,7 +604,6 @@ class ParameterServer:
         self._ctrl_damp: Optional[Tuple[float, float, float]] = None
         self._ctrl_wdamp: Dict[int, float] = {}
         self.ctrl_stale_rejects = 0  # stale (ep, seq) installs refused
-        self._apply_damped = None    # built on first damped install
         # the damp factors this server's drains applied below 1.0: their
         # count, sum and least value (the controller's effect, read by
         # the launchers' records)
@@ -1301,15 +1302,6 @@ class ParameterServer:
         """
         from asyncframework_tpu_torch.parallel.controller import ctrl_seq
 
-        if wire is not None and self.algo == "asgd":
-            damp = wire.get("damp")
-            if damp and float(damp[0]) > 0:
-                # build the damped serial apply BEFORE the law is
-                # published: a single-item drain between install and
-                # build would otherwise fall through to the undamped
-                # apply while a contended (fused) drain damps -- the
-                # applied step must never depend on queue contention
-                self._ensure_apply_damped()
         with self._ctrl_lock:
             if wire is None:
                 self.ctrl = None
@@ -1348,20 +1340,6 @@ class ParameterServer:
             except (TypeError, ValueError):
                 self._ctrl_wdamp = {}
         return True
-
-    def _ensure_apply_damped(self) -> None:
-        """Build the damped serial apply once (ASGD only; called OFF the
-        model lock -- from set_control before the law publishes, and from
-        the replication receive path before a damped append takes the
-        lock).  A benign double-build under a race builds the identical
-        function twice."""
-        if self._apply_damped is not None or self.algo != "asgd":
-            return
-        from asyncframework_tpu_torch.ops import steps as _steps
-
-        self._apply_damped = _steps.make_asgd_apply_damped(
-            self.cfg.gamma, self.cfg.batch_rate, self.n,
-            self.cfg.num_workers)
 
     def _item_damp(self, wid: int, staleness: int) -> float:
         """The per-item step-DAMP factor under the installed CTRL law:
@@ -1492,10 +1470,6 @@ class ParameterServer:
         items = header.get("items") or []
         pre = int(header.get("pre", -1))
         cal = header.get("cal")
-        if any(len(it) > 7 and float(it[7]) != 1.0 for it in items):
-            # delay-adaptive damped items in this batch: build the
-            # damped apply BEFORE taking the model lock (one-time)
-            self._ensure_apply_damped()
         with self._lock:
             if pre + len(items) <= self._clock:
                 reply = {"op": "ACK", "clock": self._clock, "dup": True}
@@ -2143,6 +2117,8 @@ class ParameterServer:
             )
             staleness = self._clock - item.ts
             self.max_staleness = max(self.max_staleness, staleness)
+            self.staleness_counts[staleness] = (
+                self.staleness_counts.get(staleness, 0) + 1)
             task_ms = self._now_ms() - self._pull_times.get(
                 item.wid, self._now_ms()
             )
@@ -2307,8 +2283,7 @@ class ParameterServer:
     def _apply_one(self, item: _PendingPush,
                    idx: Optional[np.ndarray]) -> None:
         """Serial single-push apply (caller holds ``_lock``): the merge
-        function at m = 1, or its damped twin, so serial and fused drains
-        cannot differ."""
+        function at m = 1, so serial and fused drains cannot differ."""
         if self.algo == "asaga":
             # three-term update + alpha_bar advance (delta == g is exact
             # over DCN; see __init__); then the ScalarMap merge -- commit
@@ -2324,18 +2299,15 @@ class ParameterServer:
 
     def _apply_asgd(self, g_host: np.ndarray, damp: float) -> None:
         """One ASGD apply at step-DAMP ``damp`` (caller holds ``_lock``):
-        the merge function at m = 1 undamped, the damped serial apply
-        otherwise -- the same expression as a fused drain's slot, so the
-        serial path, the fused drain and a standby's mirror agree bit
-        for bit at every damp value."""
+        the merge function at m = 1 with ``damp`` in its mask slot -- the
+        fused drain's slot expression, so the serial path, the fused
+        drain and a standby's mirror agree bit for bit at every damp."""
         g_dev = torch.tensor(g_host, dtype=torch.float32,
                              device=self.device)
-        if damp != 1.0 and self._apply_damped is not None:
-            self._w, self._k_dev = self._apply_damped(
-                self._w, g_dev, self._k_dev, np.float32(damp))
-        else:
-            self._w, self._k_dev = self._apply_merge(
-                self._w, g_dev[None], self._one, self._k_dev)
+        mask = self._one if damp == 1.0 else torch.tensor(
+            [damp], dtype=torch.float32, device=self.device)
+        self._w, self._k_dev = self._apply_merge(
+            self._w, g_dev[None], mask, self._k_dev)
 
     # ------------------------------------------------------------ evaluation
     def wait_done(self, timeout_s: float,

@@ -1913,10 +1913,13 @@ def _child_main() -> int:
         "push_bytes": ps.push_bytes,
         "pull_model_bytes": ps.pull_model_bytes,
         "pull_replies": dict(ps.pull_replies),
+        "staleness_counts": {str(t): c
+                             for t, c in sorted(ps.staleness_counts.items())},
         "peak_device_bytes": (int(torch.cuda.max_memory_allocated(device))
                               if device.type == "cuda" else 0),
         "wire_bytes": {k: int(v) for k, v in _frame.bytes_totals().items()
-                       if k in ("sent", "recv")},
+                       if k in ("sent", "recv", "sent.REPL_APPEND",
+                                "sent.REPL_SYNC")},
         "accepted_by_wid": {str(w): c
                             for w, c in ps.accepted_by_wid.items()},
     }

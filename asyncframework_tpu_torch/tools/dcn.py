@@ -40,9 +40,10 @@ adds the group's gates (:data:`SHARD_ARMS` are ``chip_smoke.py`` phase
 killed primary is promoted, not relaunched), ``--control`` runs the
 adaptive controller on the primary (``async.control.enabled``), and
 ``--delay-ms a,b`` delays each PUSH of worker process 0 by ``a`` ms and of
-process 1 by ``b`` (a straggler).  :func:`summarize_standby` adds the
-standby plane's and the controller's gates (:data:`STANDBY_ARMS` are
-``chip_smoke.py`` phase 13's arms; ``--phase13`` runs them).
+process 1 by ``b`` (a straggler), and ``--reader`` reads the last shard's
+standby through SUBSCRIBE while the run goes.  :func:`summarize_standby`
+adds the standby plane's and the controller's gates (:data:`STANDBY_ARMS`
+are ``chip_smoke.py`` phase 13's arms; ``--phase13`` runs them).
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ import numpy as np
 import torch
 
 from asyncframework_tpu_torch import native_build
+from asyncframework_tpu_torch.net import faults
 from asyncframework_tpu_torch.tools import ps_child, runs
 
 #: the chip runs: (deployment, algorithm, updates); epsilon ASAGA at
@@ -98,8 +100,9 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
     """One PS process and ``nprocs`` worker processes; returns the PS's
     record and the workers'.  ``env`` is added to every process's
     environment (e.g. conf keys by their ``ASYNCTPU_`` names);
-    ``delays_ms[i]`` delays each PUSH of worker process ``i``
-    (``PS_DELAY_MS``).  Every process is waited for or killed."""
+    ``delays_ms[i]`` delays each PUSH of worker process ``i`` (its
+    ``async.net.fault.schedule``).  Every process is waited for or
+    killed."""
     env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
                PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
                PS_NUM_ITER=str(iters), **(env or {}))
@@ -115,12 +118,16 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
                                f"{ps.communicate()[1][-3000:]}")
         port = json.loads(line)["port"]
         for i in range(nprocs):
-            delay = (delays_ms[i] if delays_ms and i < len(delays_ms)
-                     else 0)
+            wenv = dict(env, PS_ROLE="worker", PS_PORT=str(port),
+                        PS_WORKER_ID=str(i))
+            if delays_ms and i < len(delays_ms) and delays_ms[i] > 0:
+                # the deterministic slow-but-alive member: every PUSH of
+                # this process pays the delay (count=0 = forever)
+                sched = faults.FaultSchedule().add_delay(
+                    "*", "PUSH", delays_ms[i], count=0)
+                wenv["ASYNCTPU_ASYNC_NET_FAULT_SCHEDULE"] = sched.to_json()
             procs.append(subprocess.Popen(
-                CHILD, env=dict(env, PS_ROLE="worker", PS_PORT=str(port),
-                                PS_WORKER_ID=str(i),
-                                PS_DELAY_MS=str(delay)),
+                CHILD, env=wenv,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 cwd=ROOT))
         recs = []
@@ -277,9 +284,12 @@ def summarize_sharded(config: str, iters: int, ps: dict,
     pulls = sum(w["shard_totals"].get("sharded_pulls", 0) for w in workers)
     vec = sum(w["shard_totals"].get(f"pull_vector_len_{n_shards}", 0)
               for w in workers)
+    # the diagnostics' frames (a SUBSCRIBE reader, the mirror check) are
+    # not the run's
     wire = (ps["wire_bytes_sent"] + ps["wire_bytes_recv"]
             + sum(m["wire_bytes"]["sent"] + m["wire_bytes"]["recv"]
-                  for m in members[1:]))
+                  for m in members[1:])
+            - ps.get("wire_bytes_diagnostic", 0))
     accepted = max(ps["accepted"], 1)
     rec.update({
         "shards": n_shards, "fence": ps["fence"], "spawn_s": ps["spawn_s"],
@@ -290,8 +300,9 @@ def summarize_sharded(config: str, iters: int, ps: dict,
         "per_shard": [{k: m.get(k) for k in (
             "shard", "accepted", "dropped", "pushes", "clock",
             "dedup_hits", "epoch", "fenced_rejects", "max_staleness",
-            "merge_batches", "merge_merged", "restarts", "resumed_from",
-            "peak_device_bytes")} for m in members],
+            "staleness_counts", "merge_batches", "merge_merged",
+            "restarts", "resumed_from", "peak_device_bytes")}
+            for m in members],
         "kill": ps["kill"],
         "group_totals": ps["shard_totals"],
     })
@@ -358,26 +369,31 @@ def shards_phase(arms=SHARD_ARMS, timeout_s: float = 600.0) -> List[dict]:
 
 
 #: phase 13's arms: (name, deployment, updates, shards, kill, per-process
-#: PUSH delays in ms); every arm fenced, every shard with a warm standby,
-#: the controller on, ASGD.  (a) kills shard 1's primary at 500 accepted;
-#: (b) makes worker process 1 a straggler.
-STANDBY_ARMS = (("a", "epsilon", 1_000, 3, (1, 500), (0, 0)),
-                ("b", "rcv1", 1_200, 2, None, (0, 150)))
+#: PUSH delays in ms, SUBSCRIBE reader); every arm fenced, every shard
+#: with a warm standby, the controller on, ASGD.  (a) kills shard 1's
+#: primary at 500 accepted and reads the last shard's standby through
+#: SUBSCRIBE; (b) makes worker process 1 a straggler.
+STANDBY_ARMS = (("a", "epsilon", 1_000, 3, (1, 500), (0, 0), True),
+                ("b", "rcv1", 1_200, 2, None, (0, 150), False))
 
 
 def standby_env(shards: int, kill=None, control: bool = True,
-                checkpoint_dir: "str | None" = None) -> Dict[str, str]:
+                checkpoint_dir: "str | None" = None,
+                reader: bool = False) -> Dict[str, str]:
     """The processes' environment for a sharded, fenced group run with
-    warm standbys (and the controller)."""
+    warm standbys (and the controller, and a SUBSCRIBE reader on the
+    last shard's standby)."""
     env = shard_env(shards, True, kill, 0, checkpoint_dir)
     env["ASYNCTPU_ASYNC_PS_STANDBY"] = "1"
     env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1" if control else "0"
+    if reader:
+        env["PS_STANDBY_READER"] = "1"
     return env
 
 
 def summarize_standby(config: str, iters: int, ps: dict,
                       workers: List[dict], kill=None,
-                      delays_ms=None) -> dict:
+                      delays_ms=None, obj0: "float | None" = None) -> dict:
     """A standby group run's record and gates (``ok``): the sharded run's
     (:func:`summarize_sharded`, exactly-once judged on each member), every
     shard backed by a standby at the start, and after the run each
@@ -387,12 +403,18 @@ def summarize_standby(config: str, iters: int, ps: dict,
     (the promoted member's own ledger: accepted + dropped == its clock);
     with the controller, its ticks and every actuated value within the
     tunable's declared bounds."""
-    rec = summarize_sharded(config, iters, ps, workers, None)
+    rec = summarize_sharded(config, iters, ps, workers, None, obj0)
     members = ps["shards"]
     sb = ps["standby"] or {}
     ctrl = ps["control"]
+    # the stream's own bytes (REPL_SYNC and REPL_APPEND frames, every
+    # primary's), inside wire_bytes_per_update
+    stream = ps.get("repl_bytes_sent", 0) + sum(
+        m["wire_bytes"].get("sent.REPL_APPEND", 0)
+        + m["wire_bytes"].get("sent.REPL_SYNC", 0) for m in members[1:])
     rec.update({
         "standby": {k: v for k, v in sb.items() if k != "mirrors"},
+        "stream_bytes_per_update": stream / max(ps["accepted"], 1),
         "mirrors": sb.get("mirrors"),
         "control": ctrl, "kill": ps["kill"], "delays_ms": delays_ms,
         "per_shard": [dict(m, promotions=members[i].get("promotions", 0))
@@ -445,17 +467,21 @@ def summarize_standby(config: str, iters: int, ps: dict,
     return rec
 
 
-def standby_phase(arms=STANDBY_ARMS, timeout_s: float = 600.0) -> List[dict]:
+def standby_phase(arms=STANDBY_ARMS, timeout_s: float = 600.0,
+                  obj0: "Dict[str, float] | None" = None) -> List[dict]:
     """Phase 13 of ``chip_smoke.py``: each arm of ``arms`` on one card,
     one PS process (the primary, its standby's stream, the controller and
     the group controller), the shard and standby children and two worker
-    processes; returns each arm's record."""
+    processes; returns each arm's record.  A kill arm's objective bands
+    are held against ``obj0[deployment]`` (the objective at w = 0) where
+    given, else against its tail-aligned trajectory's first point."""
     out = []
-    for name, config, iters, shards, kill, delays in arms:
+    for name, config, iters, shards, kill, delays, reader in arms:
         ps, workers = launch(config, "asgd", iters,
-                             env=standby_env(shards, kill),
+                             env=standby_env(shards, kill, reader=reader),
                              timeout_s=timeout_s, delays_ms=delays)
-        rec = summarize_standby(config, iters, ps, workers, kill, delays)
+        rec = summarize_standby(config, iters, ps, workers, kill, delays,
+                                (obj0 or {}).get(config) if kill else None)
         rec.update(arm=name, mode="standby")
         out.append(rec)
     return out
@@ -559,6 +585,9 @@ def main(argv=None) -> int:
     ap.add_argument("--control", action="store_true",
                     help="the adaptive controller on the primary "
                          "(async.control.enabled)")
+    ap.add_argument("--reader", action="store_true",
+                    help="with --standby, a SUBSCRIBE reader on the last "
+                         "shard's standby")
     ap.add_argument("--delay-ms", default="",
                     help="per worker process PUSH delays in ms, e.g. 0,150")
     ap.add_argument("--phase13", action="store_true",
@@ -592,7 +621,7 @@ def main(argv=None) -> int:
                 if args.standby:
                     env.update(standby_env(args.shards, kill, args.control,
                                            ck if args.checkpoint_every
-                                           else None))
+                                           else None, args.reader))
                 elif args.control:
                     env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1"
                 ps, workers = launch(config, algo, int(iters), env=env,

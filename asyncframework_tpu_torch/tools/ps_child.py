@@ -56,17 +56,18 @@ included, gets a warm standby child that its primary streams to
 (``parallel/replication.py``), and a killed primary is PROMOTED over
 (``kill`` then carries ``promote_s``, kill to promotion).  Its line
 carries ``standby``: shard 0's replication lag sampled through the run,
-a SUBSCRIBE reader's replies from the last shard's standby (shapes,
-versions behind its primary, freshness age), and after the run each
+with ``PS_STANDBY_READER=1`` a SUBSCRIBE reader's replies from the last
+shard's standby (shapes, versions behind its primary, freshness age; its
+frames are left out of the wire totals), and after the run each
 standby's model read by SUBSCRIBE against its primary's at the same
 clock (``mirrors``).  With ``async.control.enabled`` the PS process runs
 the adaptive controller on the primary (``parallel/controller.py``),
 fanning its decisions out to the group, and its line carries ``control``:
 the counters, the knobs' values and changes, the decision log, the damp
 factors its drain applied and whether every actuated value lay within its
-declared bounds.  ``PS_DELAY_MS`` on a worker delays each of its PUSHes
-by that many milliseconds (a fault schedule,
-``async.net.fault.schedule``): a deterministic straggler.
+declared bounds.  A worker installs the fault schedule of its conf
+(``async.net.fault.schedule``): a PUSH delay there makes it a
+deterministic straggler.
 
 Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 ``epsilon``: 400,000 x 2,000 f32; ``rcv1``: rcv1's padded-ELL shape),
@@ -89,6 +90,7 @@ import torch
 
 from asyncframework_tpu_torch import conf as conf_mod
 from asyncframework_tpu_torch import native_build
+from asyncframework_tpu_torch.net import frame
 from asyncframework_tpu_torch.parallel import ps_dcn, shardgroup
 from asyncframework_tpu_torch.solvers import SolverConfig
 from asyncframework_tpu_torch.tools import runs
@@ -189,7 +191,6 @@ def ps_summary(ps, marks: dict, t_done: float, n: int,
     which every logical worker was running, accepted and dropped, the
     staleness, the wire, the merge drain, the trajectory."""
     from asyncframework_tpu_torch.metrics import timeseries
-    from asyncframework_tpu_torch.net import frame
 
     t_all = marks.get("all", marks.get("first", t_done))
     window = max(t_done - t_all, 1e-9)
@@ -206,6 +207,10 @@ def ps_summary(ps, marks: dict, t_done: float, n: int,
         "push_bytes": ps.push_bytes, "pull_model_bytes": ps.pull_model_bytes,
         "wire_bytes_sent": int(wire.get("sent", 0)),
         "wire_bytes_recv": int(wire.get("recv", 0)),
+        "repl_bytes_sent": int(wire.get("sent.REPL_APPEND", 0)
+                               + wire.get("sent.REPL_SYNC", 0)),
+        "staleness_counts": {str(t): c for t, c in
+                             sorted(ps.staleness_counts.items())},
         "pull_replies": dict(ps.pull_replies),
         "merge_batches": ps.merge_batches, "merge_merged": ps.merge_merged,
         "merge_batch_max": ps.merge_batch_max,
@@ -294,7 +299,9 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
             controller = AsyncController(ps, conf=global_conf(),
                                          group=group).start()
         if group.standbys:
-            reader = StandbyReader(ps, group, shards - 1).start()
+            reader = StandbyReader(
+                ps, group, shards - 1,
+                os.environ.get("PS_STANDBY_READER") == "1").start()
         marks = watch_start(ps, nw)
         kill = {}
         kill_shard = int(os.environ.get("PS_KILL_SHARD", "0"))
@@ -342,6 +349,9 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                     "dedup_hits": ps.dedup_hits, "epoch": ps.epoch,
                     "fenced_rejects": ps.fenced_rejects,
                     "max_staleness": ps.max_staleness,
+                    "staleness_counts": {
+                        str(t): c
+                        for t, c in sorted(ps.staleness_counts.items())},
                     "merge_batches": ps.merge_batches,
                     "merge_merged": ps.merge_merged, "restarts": 0,
                     "resumed_from": ps.resumed_from_k, "done": bool(done)}]
@@ -353,7 +363,12 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
         if kill:
             kill["epoch_after"] = group.epoch_of(kill_shard)
         standby = None
+        # the frames of the diagnostics (the reader's, the mirror check's)
+        # are left out of the run's wire cost: both sides of each are
+        # counted here (the reader's primary is one of the members)
+        diag_bytes = reader.wire_bytes() if reader is not None else 0
         if group.standbys:
+            t_diag = frame.thread_bytes()
             mirrors = mirror_check(group, shards)
             wire = group.standbys_wire() or []
             for entry in wire:
@@ -365,6 +380,7 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                                                    int(entry[1]))
                     except (ConnectionError, OSError):
                         pass
+            diag_bytes += frame.thread_bytes() - t_diag
             sb_results = [group.standby_result_of(i, 30.0) or {}
                           for i in range(shards)]
             standby = {**reader.record(), "standbys": wire,
@@ -382,6 +398,7 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                "shards": members, "kill": kill or None,
                "shard_totals": shardgroup.shard_totals(),
                "standby": standby, "control": control,
+               "wire_bytes_diagnostic": diag_bytes,
                **ps_summary(ps, marks, t_done, n, total)}
     finally:
         if reader is not None:
@@ -394,21 +411,28 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
 
 
 class StandbyReader:
-    """A SUBSCRIBE reader on one shard's standby while the run goes: a
-    round every 20 ms reads the standby (``have=``-negotiated, counted by
-    reply shape) and the shard's primary, and keeps the versions the
-    standby's reply is behind the primary's and its freshness age.  Shard
-    0's replication lag (``standby_lag``, the in-process primary's stream)
-    is sampled on the same rounds."""
+    """Shard 0's replication lag (``standby_lag``, the in-process
+    primary's stream) sampled every 20 ms while the run goes; with
+    ``subscribe``, also a SUBSCRIBE reader on one shard's standby: each
+    round reads the standby (``have=``-negotiated, counted by reply
+    shape) and the shard's primary, and keeps the versions the standby's
+    reply is behind the primary's and its freshness age.  Its frames are
+    counted (:meth:`wire_bytes`) so that the run's wire cost leaves them
+    out."""
 
-    def __init__(self, ps, group, index: int):
+    def __init__(self, ps, group, index: int, subscribe: bool = True):
         self.ps, self.group, self.index = ps, group, int(index)
+        self.subscribe = subscribe
         self.behind: list = []
         self.age_ms: list = []
         self.lag0: list = []
         self.errors = 0
         self.rounds = 0
         self.shapes: dict = {}
+        # the reader's frames: all of them (this process's side) and
+        # those with the primary (counted again on the primary's side)
+        self.own_bytes = 0
+        self.primary_bytes = 0
         self._stop = threading.Event()
         self._thread = None
 
@@ -422,11 +446,20 @@ class StandbyReader:
         return self
 
     def _run(self) -> None:
+        t0 = frame.thread_bytes()
+        try:
+            self._rounds()
+        finally:
+            self.own_bytes = frame.thread_bytes() - t0
+
+    def _rounds(self) -> None:
         sub = prim = None
         while not self._stop.wait(0.02):
             repl = self.ps.repl
             if repl is not None and repl.synced:
                 self.lag0.append(repl.lag_versions())
+            if not self.subscribe:
+                continue
             wire = self.group.standbys_wire() or []
             entry = wire[self.index] if self.index < len(wire) else None
             if entry is None:
@@ -440,7 +473,11 @@ class StandbyReader:
                     prim = ps_dcn.PSClient(str(host), int(port),
                                            timeout_s=5.0)
                 got = sub.subscribe(0)
-                head = prim.subscribe(0)
+                t_prim = frame.thread_bytes()
+                try:
+                    head = prim.subscribe(0)
+                finally:
+                    self.primary_bytes += frame.thread_bytes() - t_prim
             except (ConnectionError, OSError):
                 self.errors += 1
                 sub = prim = None
@@ -450,10 +487,13 @@ class StandbyReader:
             self.age_ms.append(float(got[4]))
         for c in (sub, prim):
             if c is not None:
+                t_bye = frame.thread_bytes()
                 try:
                     c.bye()
                 except (ConnectionError, OSError):
                     pass
+                if c is prim:
+                    self.primary_bytes += frame.thread_bytes() - t_bye
         if sub is not None:
             self.shapes = dict(sub.pull_wenc)
 
@@ -461,6 +501,12 @@ class StandbyReader:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+
+    def wire_bytes(self) -> int:
+        """The reader's frames as the run's wire totals count them: its
+        own side, and the primary's side of its rounds with the
+        primary."""
+        return self.own_bytes + self.primary_bytes
 
     def record(self) -> dict:
         def stats(xs):
@@ -473,6 +519,7 @@ class StandbyReader:
 
         return {"reader_shard": self.index, "reader_rounds": self.rounds,
                 "reader_errors": self.errors,
+                "reader_wire_bytes": self.wire_bytes(),
                 "reader_reply_shapes": self.shapes,
                 "reader_versions_behind": stats(self.behind),
                 "reader_age_ms": stats(self.age_ms),
@@ -481,10 +528,10 @@ class StandbyReader:
 
 def mirror_check(group, shards: int, timeout_s: float = 30.0) -> list:
     """After the run: each standby's model, read by SUBSCRIBE, against its
-    primary's at the same clock (``torch.equal`` of the two f32 vectors),
-    waiting with a deadline for a standby respawned late in the run
-    (behind a promoted primary) to announce, and for each stream to
-    drain."""
+    primary's at the same clock and version (``torch.equal`` of the two
+    f32 vectors), waiting with a deadline for a standby respawned late in
+    the run (behind a promoted primary) to announce, and for each stream
+    to drain."""
     out = []
     deadline = time.monotonic() + timeout_s
     while (not all(group.standbys_wire() or [None])
@@ -501,8 +548,13 @@ def mirror_check(group, shards: int, timeout_s: float = 30.0) -> list:
         sb = ps_dcn.PSClient(str(entry[0]), int(entry[1]), timeout_s=10.0)
         deadline = time.monotonic() + timeout_s
         while True:
+            # the same clock AND the same served version: a SUBSCRIBE that
+            # races the standby's REPL_SYNC install serves the version it
+            # began building (stamped with its own, older ts) beside the
+            # new clock; the next one serves the installed model
             p_got, s_got = prim.subscribe(0), sb.subscribe(0)
-            if p_got[2] == s_got[2] or time.monotonic() > deadline:
+            if ((p_got[2] == s_got[2] and p_got[0] == s_got[0])
+                    or time.monotonic() > deadline):
                 break
             time.sleep(0.05)
         for c in (prim, sb):
@@ -513,7 +565,8 @@ def mirror_check(group, shards: int, timeout_s: float = 30.0) -> list:
             "standby_clock": int(s_got[2]), "primary_ts": int(p_got[0]),
             "standby_ts": int(s_got[0]),
             "max_abs_diff": float((w_p - w_s).abs().max()),
-            "equal": bool(p_got[2] == s_got[2] and torch.equal(w_p, w_s))})
+            "equal": bool(p_got[2] == s_got[2] and p_got[0] == s_got[0]
+                          and torch.equal(w_p, w_s))})
     return out
 
 
@@ -654,16 +707,6 @@ def main() -> None:
     )
 
     apply_cluster_defaults()
-    delay_ms = float(os.environ.get("PS_DELAY_MS", "0") or 0)
-    if delay_ms > 0:
-        # the deterministic slow-but-alive member: every PUSH of this
-        # process pays delay_ms (count=0 = forever)
-        from asyncframework_tpu_torch.conf import global_conf
-        from asyncframework_tpu_torch.net import faults
-
-        sched = faults.FaultSchedule()
-        sched.add_delay("*", "PUSH", delay_ms, count=0)
-        global_conf().set(conf_mod.NET_FAULT_SCHEDULE.key, sched.to_json())
     if os.environ.get("PS_ROLE") == "worker":
         # a worker's fault schedule from the conf or the environment
         # (async.net.fault.schedule), as a chaos run configures daemons

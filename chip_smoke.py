@@ -167,19 +167,24 @@ exits non-zero without a result line):
    reader on shard 2's standby through the run; (b) rcv1 ASGD on 2 shards
    (1,200, bench.py's recipe), worker process 1 a straggler (150 ms on
    each PUSH).  Gates: phase 12's (the budget, one B1 or S1 launch a
-   worker gradient with no plain call, the objective bands, a vector of
-   the map's length every pull, each shard's pushes counted once), every
+   worker gradient with no plain call, the objective bands -- (a)'s
+   against phase 12 (a)'s objective at w = 0, its own trajectory being
+   aligned at the tail -- a vector of the map's length every pull, each
+   shard's pushes counted once), every
    shard backed, each surviving standby's model read by SUBSCRIBE after
    the run bit-equal to its primary's at the same clock, the controller
    ticking with every actuated value inside its declared bounds; in (a)
    exactly one promotion of shard 1 and no relaunch, under an epoch above
    the one it died with, the promoted member's ledger exact.  Each
    ``standby_control`` line carries updates/s (beside phase 12's matching
-   arm), tasks per accepted update, wire bytes per update, the standby
-   lag, the reader's reply shapes and freshness, promotion seconds, the
+   arm), tasks per accepted update, wire bytes per update (the reader's
+   and the mirror check's frames left out) and the stream's share, each
+   shard's staleness at merge, the standby lag, the reader's reply
+   shapes and freshness, promotion seconds, the
    controller's changes, clamps, oscillation trips and the damp factors
    applied, and each process's peak device memory;
-14. the ``{"kernels": [...]}`` line, the card line again, and last the
+14. the ``total`` line (seconds, and each phase's), the
+   ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Each run line (``fused``, ``engine_run``) carries updates/s, rounds/s,
@@ -1750,7 +1755,12 @@ def standby_control_phase(card, shard_records):
     # epsilon arm (3 shards, a relaunch), (b) beside its rcv1 arm (3
     # shards; this arm runs 2)
     match = {"a": "c", "b": "b"}
-    records = dcn.standby_phase()
+    # a kill arm's trajectory is aligned at the tail (the promoted
+    # range's snapshot stack is shorter): its bands are held against the
+    # objective at w = 0 of phase 12's unkilled arm of the deployment
+    obj0 = {r["config"]: r["objective_at_w0"] for r in shard_records
+            if r["kill"] is None}
+    records = dcn.standby_phase(obj0=obj0)
     for rec in records:
         twin = next(r for r in shard_records if r["arm"] == match[rec["arm"]])
         ctrl = rec["control"] or {}
@@ -1793,6 +1803,13 @@ def main() -> int:
     from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 
     t_start = time.monotonic()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """The seconds since the previous phase ended, by phase."""
+        now = time.monotonic()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
     dev = torch.device("cuda", 0)
     # ---------------------------------------------------------- 1. device
     card = card_line()
@@ -1812,6 +1829,8 @@ def main() -> int:
         for function, info in ptxas_lines(_build.ptxas_report(name)):
             emit({"phase": "ptxas", "kernel": name, "function": function,
                   "info": info})
+
+    lap("device")
 
     # ---------------------------------------------------------- 2. kernel
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
@@ -1870,6 +1889,8 @@ def main() -> int:
         flush, gen)
     torch.cuda.empty_cache()
     del flush
+
+    lap("kernel")
 
     # ------------------------------------------------------- 3. main path
     ds = ShardedDataset.generate_on_device(
@@ -1934,41 +1955,64 @@ def main() -> int:
     if not diff <= tol:
         raise RuntimeError("run_sync on the card disagrees with the CPU path")
 
+    lap("main_path")
+
     # ---------------------------------------------------- 4. long context
     att_launches, _ = long_context_phase(torch, ca, card, recs)
 
+    lap("long_context")
+
     # ------------------------------------------------------------ 5. asaga
     saga_launches = asaga_phase(ds, torch, np, mg, card)
+
+    lap("asaga")
 
     # ---------------------------------------------------- 6. fused, epsilon
     eps_fused, saga_fused = fused_epsilon_phase(ds, torch, np, mg, card)
     del ds
     torch.cuda.empty_cache()
 
+    lap("fused")
+
     # ----------------------------------------------------------- 7. sparse
     s1_launches = sparse_phase(torch, card)
+
+    lap("sparse")
 
     # ---------------------------------------------------------- 8. mnist8m
     mnist_fused, mnist_run = mnist8m_phase(torch, card)
 
+    lap("mnist8m")
+
     # --------------------------------------------------------- 9. features
     feat = features_phase(torch, card)
+
+    lap("features")
 
     # -------------------------------------------------------------- 10. dcn
     dcn_launches, dcn_records = dcn_phase(torch, card)
 
+    lap("dcn")
+
     # -------------------------------------------------------- 11. telemetry
     tel = telemetry_phase(torch, card, dcn_records)
 
+    lap("telemetry")
+
     # ----------------------------------------------------------- 12. shards
     shard_launches, shard_records = shards_phase(card, dcn_records)
+
+    lap("shards")
 
     # -------------------------------------------------- 13. standby_control
     damped_merge_check(torch, card)
     standby_launches = standby_control_phase(card, shard_records)
 
+    lap("standby_control")
+
     # ------------------------------------------------------ 14. results
-    emit({"phase": "total", "seconds": time.monotonic() - t_start})
+    emit({"phase": "total", "seconds": time.monotonic() - t_start,
+          "phase_seconds": laps})
     print(card, flush=True)
 
     def entry(name, source, replaces, count, rec, bound_ms):

@@ -204,6 +204,55 @@ class TestKernelExactnessOnThePort(ref_ctl.TestKernelExactness):
         assert wm.numpy().tobytes() == wl.numpy().tobytes()
 
 
+@pytest.mark.parametrize("k0", [0.0, 37.0])
+def test_damped_applies_agree_with_the_jax_package(k0):
+    """The same ``(w, G, damps, k)`` through both packages: the port's
+    damped merge and its serial damped applies agree with the JAX
+    package's ``make_asgd_apply_merge`` and ``make_asgd_apply_damped``
+    within the apply's last bit (XLA's reciprocal square root, ROADMAP
+    C1), slot by slot, and advance ``k`` alike.  The port's own
+    bit-equality of merge and serial apply is checked above; this holds
+    both against an expression the port does not share."""
+    from asyncframework_tpu.ops import steps as j_steps
+
+    gamma, br, n, P, d, m = 1.2, 0.3, 64, 4, 96, 8
+    rs = np.random.default_rng(ref_ctl.CHAOS_SEED + 2)
+    w0 = rs.normal(size=d).astype(np.float32)
+    G = rs.normal(size=(m, d)).astype(np.float32)
+    damps = rs.uniform(0.05, 1.0, size=m).astype(np.float32)
+    damps[2] = 1.0
+    tol = lambda ref: 1e-6 * float(np.abs(ref).max())  # noqa: E731
+
+    tw, tk = t_steps.make_asgd_apply_merge(gamma, br, n, P)(
+        torch.from_numpy(w0), torch.from_numpy(G), torch.from_numpy(damps),
+        torch.tensor(k0))
+    jw, jk = j_steps.make_asgd_apply_merge(gamma, br, n, P)(
+        w0, G, damps, np.float32(k0))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=0,
+                               atol=tol(np.asarray(jw)))
+    assert float(tk) == float(jk) == k0 + m
+
+    t_serial = t_steps.make_asgd_apply_damped(gamma, br, n, P)
+    j_serial = j_steps.make_asgd_apply_damped(gamma, br, n, P)
+    ts_w, ts_k = torch.from_numpy(w0), torch.tensor(k0)
+    js_w, js_k = np.array(w0), np.float32(k0)
+    for j in range(m):
+        ts_w, ts_k = t_serial(ts_w, torch.from_numpy(G[j]), ts_k,
+                              np.float32(damps[j]))
+        # the JAX apply donates g and k: hand it fresh copies
+        js_w, js_k = j_serial(js_w, np.array(G[j]), np.float32(js_k),
+                              np.float32(damps[j]))
+        np.testing.assert_allclose(ts_w.numpy(), np.asarray(js_w), rtol=0,
+                                   atol=tol(np.asarray(js_w)))
+    assert float(ts_k) == float(js_k) == k0 + m
+    assert ts_w.numpy().tobytes() == tw.numpy().tobytes()
+    # a damp below 1 really moves the step: the undamped model differs
+    und, _ = t_steps.make_asgd_apply_merge(gamma, br, n, P)(
+        torch.from_numpy(w0), torch.from_numpy(G), torch.ones(m),
+        torch.tensor(k0))
+    assert not torch.equal(und, tw)
+
+
 class TestDecisionUnitsOnThePort(ref_ctl.TestDecisionUnits):
     pass
 
@@ -212,11 +261,26 @@ class TestCtrlPropagationOnThePort(ref_ctl.TestCtrlPropagation):
     pass
 
 
+def _wire_quiet(timeout_s: float = 10.0) -> None:
+    """Wait, up to ``timeout_s``, until no PS connection handler of this
+    process is alive: the frame-byte totals are process-wide, and a
+    handler of an earlier server still answering its last request (a
+    stopped PS leaves them to drain) counts its reply into whatever run
+    is being measured."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if not any(t.name.startswith("ps-conn-") and t.is_alive()
+                   for t in threading.enumerate()):
+            return
+        time.sleep(0.02)
+
+
 class TestControlOffIsClassicOnThePort(ref_ctl.TestControlOffIsClassic):
     def test_enabled0_conf_set_matches_unset_byte_identical(self):
         """The reference case with the port's dataset on the CPU: per-op
         frame-byte totals, counts and the merge ledger equal with
-        ``async.control.enabled=0`` and with the key unset."""
+        ``async.control.enabled=0`` and with the key unset.  Each run is
+        measured between quiet wires (:func:`_wire_quiet`)."""
         results = []
         for control_conf in (None, "0"):
             conf = (t_conf.AsyncConf().set("async.pull.mode", "full")
@@ -224,6 +288,7 @@ class TestControlOffIsClassicOnThePort(ref_ctl.TestControlOffIsClassic):
             if control_conf is not None:
                 conf.set("async.control.enabled", control_conf)
             t_conf.set_global_conf(conf)
+            _wire_quiet()
             t_reset_net()
             cfg = _port_make_cfg(num_workers=1, num_iterations=40,
                                  bucket_ratio=0.0)
@@ -237,6 +302,7 @@ class TestControlOffIsClassicOnThePort(ref_ctl.TestControlOffIsClassic):
                 assert ps.wait_done(timeout_s=10.0)
             finally:
                 ps.stop()
+            _wire_quiet()
             results.append({
                 "accepted": ps.accepted, "dropped": ps.dropped,
                 "max_staleness": ps.max_staleness, "clock": ps._clock,
@@ -295,6 +361,29 @@ class _BringUpSupervisor(t_sup.ElasticSupervisor):
         super().__init__(*args, **kwargs)
 
 
+def _stable_free_port(host: str = "127.0.0.1") -> int:
+    """A free port below the ephemeral range (``ip_local_port_range``
+    starts at 32768 by default)."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(20000, 32000)
+        with socket.socket() as s:
+            try:
+                s.bind(("0.0.0.0", port))  # free on every interface
+            except OSError:
+                continue
+        return port
+    return t_frame.free_port(host)
+
+
+stable_port_frame = types.ModuleType("port_frame_stable_ports")
+stable_port_frame.__dict__.update({k: v for k, v in vars(t_frame).items()
+                                   if not k.startswith("__")})
+stable_port_frame.free_port = _stable_free_port
+
 bring_up_sup = types.ModuleType("port_supervisor_bring_up")
 bring_up_sup.__dict__.update({k: v for k, v in vars(t_sup).items()
                               if not k.startswith("__")})
@@ -316,6 +405,10 @@ class TestWanDelayAcceptanceOnThePort(ref_ctl.TestWanDelayAcceptance):
         monkeypatch.setitem(sys.modules,
                             "asyncframework_tpu.parallel.supervisor",
                             bring_up_sup)
+        # its primary's port is reserved, released, then bound: taken
+        # below the ephemeral range, where no other process's port-0
+        # bind can take it in between
+        monkeypatch.setattr(ref_ctl, "frame", stable_port_frame)
         super().test_controller_on_heterogeneous_cluster_with_promotion(
             tmp_path)
 

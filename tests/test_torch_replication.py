@@ -326,6 +326,59 @@ def test_a_standby_of_either_package_mirrors_the_others_primary(primary,
         sb.stop()
 
 
+@pytest.mark.parametrize("primary,standby", [("port", "jax"),
+                                             ("jax", "port")])
+def test_a_standby_of_either_package_mirrors_damped_pushes(primary,
+                                                           standby):
+    """Under an installed CTRL whose free slack is 0, every push at
+    staleness >= 1 is damped: the primary decides each item's factor and
+    ships it in REPL_APPEND, and the other package's standby applies it
+    through its own damped apply.  The standby's model equals the
+    primary's within the apply's last bit (ROADMAP C1), and is bit-equal
+    to a second primary of the standby's package fed the same pushes
+    under the same CTRL -- so both packages decide the same damps and
+    apply them through the same expression."""
+    prim = _ps(primary)
+    sb = _ps(standby, standby=True)
+    twin = _ps(standby)
+    cls = []
+    try:
+        prim.attach_standby("127.0.0.1", sb.port)
+        for ps in (prim, twin):
+            assert ps.set_control({"seq": 1, "ep": ps.epoch or 0,
+                                   "damp": [1.0, 0.1, 0.0]})
+        cls = [_client(primary)("127.0.0.1", prim.port),
+               _client(standby)("127.0.0.1", twin.port)]
+        rng = np.random.default_rng(5)
+        grads = rng.normal(size=(20, D)).astype(np.float32)
+        for cl in cls:
+            ts0, _w, _a, _c = cl.pull(0)
+            for g in grads:
+                # against the first basis: staleness climbs 0, 1, ..., 19
+                cl.push(0, ts0, g.copy())
+        assert prim.max_staleness == twin.max_staleness == 19
+        port = prim if primary == "port" else twin
+        assert port.damped_applies == 19
+        _wait(lambda: sb._clock >= prim._clock and prim.repl.synced
+              and prim.repl.acked_clock >= prim._clock, 15.0,
+              "the standby to catch up")
+        assert sb._clock == twin._clock == prim._clock == 20
+        assert sb._k == twin._k == prim._k == 20
+        w_p, w_s, w_t = _host_w(prim), _host_w(sb), _host_w(twin)
+        np.testing.assert_allclose(w_s, w_p, rtol=0,
+                                   atol=1e-6 * float(np.abs(w_p).max()))
+        assert w_s.tobytes() == w_t.tobytes()
+        for cl in cls:
+            cl.bye()
+        cls = []
+    finally:
+        for cl in cls:
+            cl.bye()
+        prim.stop()
+        sb.stop()
+        twin.stop()
+
+
 @pytest.mark.parametrize("server", ["port", "jax"])
 def test_subscribe_across_the_packages_every_reply_shape(server):
     """The other package's ``PSClient.subscribe`` against a primary and
@@ -559,3 +612,80 @@ def test_a_sync_racing_a_snapshot_build_never_stays_published():
     finally:
         prim.stop()
         sb.stop()
+
+
+def test_mirror_check_waits_for_the_standby_to_serve_the_synced_version():
+    """``tools/ps_child.py::mirror_check`` on a standby whose REPL_SYNC
+    install races the check's first SUBSCRIBE: that reply pairs the
+    installed clock with the version its build began from (ts 0, the
+    zero model), as the serving core allows.  The check reads again until
+    the standby serves the primary's version, and reports it bit-equal --
+    it does not judge the racing reply."""
+    import io
+    import json
+
+    from asyncframework_tpu_torch.tools import ps_child
+
+    prim = _ps("port")
+    cl = t_ps.PSClient("127.0.0.1", prim.port)
+    rng = np.random.default_rng(7)
+    for _ in range(10):
+        ts, _w, _a, _c = cl.pull(0)
+        cl.push(0, ts, rng.normal(size=D).astype(np.float32))
+    cl.bye()
+    with prim._lock:
+        state = prim._checkpoint_state()
+    buf = io.BytesIO()
+    np.savez(buf, __meta__=json.dumps(state["meta"]), **state["arrays"])
+
+    class _RacingStandby(t_ps.ParameterServer):
+        """Installs the sync right before its first snapshot is stored."""
+
+        race = None
+
+        def __setattr__(self, name, value):
+            race = self.__dict__.get("race")
+            if name == "_snap" and value is not None and race is not None:
+                self.__dict__["race"] = None
+                race()
+            super().__setattr__(name, value)
+
+    sb = _RacingStandby(_cfg("port"), D, N, port=0, device=CPU,
+                        standby=True).start()
+    replies = []
+
+    class _Group:
+        """The two members the check reads, as a ShardGroup names them."""
+
+        smap = types.SimpleNamespace(entries=[("127.0.0.1", prim.port)])
+
+        @staticmethod
+        def standbys_wire():
+            return [("127.0.0.1", sb.port)]
+
+    real_subscribe = t_ps.PSClient.subscribe
+
+    def recorded(client, *args, **kwargs):
+        got = real_subscribe(client, *args, **kwargs)
+        replies.append((client.port, got[0], got[2]))
+        return got
+
+    try:
+        def install():
+            with np.load(io.BytesIO(buf.getvalue()),
+                         allow_pickle=False) as z:
+                with sb._lock:
+                    sb._install_state(z, json.loads(str(z["__meta__"])))
+
+        sb.__dict__["race"] = install
+        t_ps.PSClient.subscribe = recorded
+        out = ps_child.mirror_check(_Group, 1, timeout_s=10.0)
+    finally:
+        t_ps.PSClient.subscribe = real_subscribe
+        prim.stop()
+        sb.stop()
+    # the racing reply: the synced clock beside the pre-sync version
+    assert (sb.port, 0, 10) in replies
+    assert out == [{"shard": 0, "primary_clock": 10, "standby_clock": 10,
+                    "primary_ts": 10, "standby_ts": 10,
+                    "max_abs_diff": 0.0, "equal": True}]
