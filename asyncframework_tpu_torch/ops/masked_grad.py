@@ -103,11 +103,18 @@ _counters: dict = {}
 _pinned: Optional[str] = None
 
 
+def _count_plain(fn) -> None:
+    with _count_lock:
+        fn.calls += 1
+
+
 def masked_grad_reference(X, y, w, mask=None, idx=None,
                           loss: str = "least_squares"):
-    """Plain PyTorch version of the kernel, with the same casts."""
+    """Plain PyTorch version of the kernel, with the same casts.  Each of
+    the plain versions counts its calls in ``calls``."""
     if loss not in LOSSES:
         raise ValueError(f"unknown loss {loss!r}")
+    _count_plain(masked_grad_reference)
     if idx is not None:
         X = X[idx]
         y = y[idx]
@@ -121,6 +128,7 @@ def masked_grad_reference(X, y, w, mask=None, idx=None,
 
 def saga_grad_reference(X, y, w, alpha, mask=None):
     """Plain PyTorch version of :func:`saga_grad`, with the same casts."""
+    _count_plain(saga_grad_reference)
     Xf = X.float()
     diff = Xf @ w.to(X.dtype).float() - y
     c = diff - alpha
@@ -143,6 +151,7 @@ def _slot_rows(y, idx, valid):
 def saga_slots_grad_reference(X, y, w, idx, alpha, valid):
     """Plain PyTorch version of :func:`saga_slots_grad`, with the same
     casts (the JAX package's ``make_saga_dcn_worker_step``)."""
+    _count_plain(saga_slots_grad_reference)
     rows, ys, keep = _slot_rows(y, idx, valid)
     Xf = (X[rows] if X.shape[0] else X.new_zeros(idx.shape[0], X.shape[1]))
     Xf = Xf.float()
@@ -153,6 +162,7 @@ def saga_slots_grad_reference(X, y, w, idx, alpha, valid):
 
 def xt_coeff_reference(X, c):
     """Plain PyTorch version of :func:`xt_coeff`: ``X`` promoted to f32."""
+    _count_plain(xt_coeff_reference)
     return X.float().T @ c
 
 
@@ -519,3 +529,7 @@ masked_grad.launches_tiled = 0
 saga_grad.launches = 0
 saga_slots_grad.launches = 0
 xt_coeff.launches = 0
+masked_grad_reference.calls = 0
+saga_grad_reference.calls = 0
+saga_slots_grad_reference.calls = 0
+xt_coeff_reference.calls = 0

@@ -45,6 +45,9 @@ iteration counter ``k`` and the sync drain's accumulator.
   :func:`make_saga_dcn_worker_step` / :func:`make_saga_dcn_sparse_worker_step`
   (``:857-908``, through B1's and S1's per-slot forms) and
   :func:`make_pipelined_transfer` (``:51-81``).
+- The DCN worker's mesh steps (``async.mesh.devices``):
+  :func:`make_mesh_asgd_worker_step`, :func:`make_mesh_saga_dcn_worker_step`
+  (``:387-502``): one B1 launch a rank, the partials folded in rank order.
 """
 
 from __future__ import annotations
@@ -591,6 +594,88 @@ def make_saga_dcn_sparse_worker_step(d: int):
         return _sg.saga_slots_grad(cols, vals, y, w, idx, valid, alpha_sel)
 
     return step
+
+
+# ------------------------------------------------------------- mesh steps
+# A DCN worker with several devices computes its mini-batch gradient
+# batch-parallel over a local ``dp`` mesh (``steps.py:387-502`` of the JAX
+# package; ``async.mesh.devices``): each rank holds a static row block of
+# the worker's shard (placed once by ``parallel/mesh.py::pad_and_shard``),
+# computes its block's partial gradient in one launch of kernel B1, and
+# the partials fold in rank order (``ops/collectives.py``).  The worker
+# still pushes ONE gradient a step; the wire cannot tell.
+
+
+def make_mesh_asgd_worker_step(batch_rate: float, mesh,
+                               loss: str = "least_squares", axis: str = "dp"):
+    """``step(Xs, ys, vs, w, gen) -> g`` over a ``dp`` mesh.
+
+    ``Xs``/``ys``/``vs`` are the per-rank ``pad_and_shard`` placements of
+    the worker's shard; ``w`` lies on the first rank's device and each
+    rank reads it on its own (ranks on one device share it), and ``gen``
+    is the worker's generator on that device.  Sampling does not depend
+    on the device count: one :func:`bernoulli_mask` draw over the padded
+    length, sliced by rank, so the sampled rows are a function of the
+    generator state and the padded length alone; on an unpadded shard the
+    draw is :func:`make_asgd_worker_step`'s mask, and the generator
+    advances as that step's does.  Each rank makes one full-masked launch
+    of B1 on its block (never compacted, as in the JAX package), and the
+    partials fold in rank order onto the first rank's device."""
+    from asyncframework_tpu_torch.ops.collectives import psum_over_mesh
+
+    if loss == "least_squares":
+        grad_sum = least_squares_grad_sum
+    elif loss == "logistic":
+        grad_sum = logistic_grad_sum
+    else:
+        raise ValueError(f"unknown loss {loss!r}")
+    n_dev = mesh.shape[axis]
+    ranks = mesh.local_ranks()
+
+    def step(Xs, ys, vs, w, gen):
+        n_l = Xs[ranks[0]].shape[0]
+        mask_full = bernoulli_mask(gen, n_l * n_dev, batch_rate).float()
+        parts = [None] * mesh.size
+        for r in ranks:
+            dev, p = mesh.devices[r], mesh.coords(r)[axis]
+            ml = mask_full[p * n_l:(p + 1) * n_l].to(dev) * vs[r]
+            parts[r] = grad_sum(Xs[r], ys[r], w.to(dev), ml)
+        return psum_over_mesh(parts, mesh, axis)[ranks[0]]
+
+    return _prof.wrap_dispatch(step, "kernel.dispatch",
+                               "mesh_asgd_worker_step")
+
+
+def make_mesh_saga_dcn_worker_step(mesh, axis: str = "dp"):
+    """``step(Xs, ys, w, idx, alpha_sel, n_valid) -> (g, diff_sel)``: the
+    mesh face of :func:`make_saga_dcn_worker_step`.
+
+    The PS samples row ids ``idx`` into the worker's shard and ships the
+    history scalars ``alpha_sel``; the rows live split over ``axis``.  Rank
+    ``p`` calls B1's per-slot form on its block with ``idx - p * n_l``:
+    a slot whose row another rank holds falls outside ``[0, n_l)`` and
+    contributes exactly nothing (``diff`` 0), which is the JAX package's
+    ownership mask.  The per-rank ``(g, diff)`` fold in rank order: each
+    slot's scalar is its owner's plus zeros, the gradient the rank-order
+    sum of the partials."""
+    from asyncframework_tpu_torch.ops.collectives import psum_over_mesh
+
+    ranks = mesh.local_ranks()
+
+    def step(Xs, ys, w, idx, alpha_sel, n_valid):
+        n_l = Xs[ranks[0]].shape[0]
+        gs, diffs = [None] * mesh.size, [None] * mesh.size
+        for r in ranks:
+            dev, p = mesh.devices[r], mesh.coords(r)[axis]
+            valid = _slot_valid(idx.shape[0], n_valid, dev)
+            gs[r], diffs[r] = _mg.saga_slots_grad(
+                Xs[r], ys[r], w.to(dev), idx.to(dev) - p * n_l,
+                alpha_sel.to(dev), valid)
+        return (psum_over_mesh(gs, mesh, axis)[ranks[0]],
+                psum_over_mesh(diffs, mesh, axis)[ranks[0]])
+
+    return _prof.wrap_dispatch(step, "kernel.dispatch",
+                               "mesh_saga_dcn_worker_step")
 
 
 def make_pipelined_transfer(device) -> Tuple[Callable, Callable]:

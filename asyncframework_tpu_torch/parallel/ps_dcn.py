@@ -60,9 +60,14 @@ client's ``cs`` stamp and ``ctrl_sink``; ``parallel/controller.py``
 decides), and SUBSCRIBE (the ``have=``-negotiated read without the wave
 gate, served by primaries and standbys, with the freshness age).
 
-Not ported yet, each refused naming its ROADMAP item: a SUBSCRIBE that
-registers a relaycast child (``rport``, answered ERR; A8) and the mesh
-worker steps (``async.mesh.devices > 1``, A6b.6).
+A worker process with several devices computes each gradient over a
+local ``dp`` mesh (``async.mesh.devices`` or ``SolverConfig.mesh_devices``,
+over the process's device list): the shard's rows placed once a wid
+across the ranks, one B1 launch a rank, the partials folded in rank order
+(``ops/steps.py``'s mesh steps), one PUSH a gradient as before.
+
+Not ported yet, refused naming its ROADMAP item: a SUBSCRIBE that
+registers a relaycast child (``rport``, answered ERR; A8).
 """
 
 from __future__ import annotations
@@ -165,6 +170,31 @@ def reset_conv_samples_taken() -> None:
         _cv_taken = 0
 
 
+# ------------------------------------------------ the worker's mesh plane
+# Worker-side counts of the mesh plane (``async.mesh.devices``), taken
+# where each happens: ``ranks`` (the largest mesh a worker process of this
+# process built), ``placements`` (a wid's shard placed on it) and
+# ``steps`` (mesh steps run, each one B1 launch a rank, warm-ups included).
+_mesh_lock = threading.Lock()
+_mesh_counts_by_key: Dict[str, int] = {}
+
+
+def mesh_counts() -> Dict[str, int]:
+    """The mesh plane's counts since the last :func:`reset_mesh_counts`."""
+    with _mesh_lock:
+        return dict(_mesh_counts_by_key)
+
+
+def reset_mesh_counts() -> None:
+    with _mesh_lock:
+        _mesh_counts_by_key.clear()
+
+
+def _mesh_bump(key: str, n: int = 1) -> None:
+    with _mesh_lock:
+        _mesh_counts_by_key[key] = _mesh_counts_by_key.get(key, 0) + n
+
+
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
@@ -174,20 +204,13 @@ def refuse_unported_conf() -> None:
     """Refuse the conf switches of the JAX package's cluster path that
     this package does not run, on the PS and the workers alike: setting
     one must never run a plainer run without a word."""
-    from asyncframework_tpu_torch.conf import (
-        MESH_DEVICES,
-        UI_PORT,
-        global_conf,
-    )
+    from asyncframework_tpu_torch.conf import UI_PORT, global_conf
 
-    conf = global_conf()
-    if int(conf.get(UI_PORT)) >= 0:
+    if int(global_conf().get(UI_PORT)) >= 0:
         # the JAX package's cluster CLI serves its run dashboard on
         # it; a port run takes SolverConfig.ui_port, a port process
         # async.metrics.port
         _refuse("the cluster CLI's live dashboard (async.ui.port)", "A8")
-    if int(conf.get(MESH_DEVICES)) > 1:
-        _refuse("the mesh worker steps (async.mesh.devices > 1)", "A6b.6")
 
 
 def _cv_fold(wire, clock: int = 0,
@@ -3347,6 +3370,7 @@ def run_worker_process(
     algo: str = "asgd",
     shard_factory=None,
     proc_token: Optional[str] = None,
+    devices=None,
 ) -> Dict[int, int]:
     """Worker-process main loop: one thread per owned logical worker, each
     pulling models and pushing gradients until the PS says DONE.
@@ -3379,13 +3403,27 @@ def run_worker_process(
     sender, and the host<->device transfers staged on a side stream.
     ASAGA always runs serial (PS-side sampling requires pull->push
     alternation).
+
+    Mesh plane (``async.mesh.devices``, or ``cfg.mesh_devices`` when set):
+    N >= 2 builds a ``dp`` mesh over the first N of ``devices`` (this
+    process's device list: default every CUDA device; the tests pass
+    ``[cpu] * 8``, a card run ``[cuda:0] * 4``), clamped to its length
+    (logged).  Each wid's shard is placed on it once (ranks on the shard's
+    own device hold views), the pulled model lies on the first rank's
+    device and every rank reads it there, and each gradient is the mesh
+    step's: one B1 launch a rank, the partials folded in rank order, one
+    PUSH.  Both loops run it.  Fewer than 2 ranks after the clamp, or
+    sparse shards, log and run the single-device step.
     """
+    import logging
+
     from asyncframework_tpu_torch.engine.straggler import DelayModel
     from asyncframework_tpu_torch.ops import steps
     from asyncframework_tpu_torch.ops.sampling import worker_generator
 
     from asyncframework_tpu_torch.conf import (
         CONV_SAMPLE,
+        MESH_DEVICES,
         PIPELINE_DEPTH,
         global_conf,
     )
@@ -3421,6 +3459,64 @@ def run_worker_process(
         # push must commit against
         pipe_depth = 0
     pl_stats = _PipelineStats() if pipe_depth > 0 else None
+    # the mesh plane: 0 = the single-device step above, byte- and step-
+    # identical; >= 2 = the mesh step over this process's devices
+    mesh_devices = getattr(cfg, "mesh_devices", None)
+    if mesh_devices is None:
+        mesh_devices = global_conf().get(MESH_DEVICES)
+    mesh_devices = max(0, int(mesh_devices))
+    worker_mesh = None
+    mesh_step = None
+    if mesh_devices:
+        mlog = logging.getLogger(__name__)
+        if sparse:
+            mlog.warning("async.mesh.devices=%d ignored: sparse (padded-ELL) "
+                         "shards run the single-device step", mesh_devices)
+        else:
+            from asyncframework_tpu_torch.parallel.mesh import make_mesh
+
+            # make_mesh owns the clamp and its warning
+            mesh = make_mesh(mesh_devices, devices=devices, clamp=True)
+            if mesh.size < 2:
+                mlog.warning("async.mesh.devices=%d yields a %d-rank mesh; "
+                             "running the single-device step", mesh_devices,
+                             mesh.size)
+            else:
+                worker_mesh = mesh
+                mesh_step = (steps.make_mesh_saga_dcn_worker_step(mesh)
+                             if algo == "asaga"
+                             else steps.make_mesh_asgd_worker_step(
+                                 cfg.batch_rate, mesh, cfg.loss))
+                with _mesh_lock:
+                    _mesh_counts_by_key["ranks"] = max(
+                        _mesh_counts_by_key.get("ranks", 0), mesh.size)
+    # one placement a wid, kept for the run; built lazily under its own
+    # lock so adopted shards place too
+    mesh_lock = threading.Lock()
+    mesh_placed: Dict[int, tuple] = {}
+
+    def mesh_place(wid: int, shard):
+        """This wid's rows over the worker mesh (None: no mesh)."""
+        if worker_mesh is None:
+            return None
+        with mesh_lock:
+            got = mesh_placed.get(wid)
+        if got is not None:
+            return got
+        from asyncframework_tpu_torch.parallel.mesh import pad_and_shard
+
+        Xs, ys, vs, _n = pad_and_shard(worker_mesh, shard.X, shard.y)
+        with mesh_lock:
+            if wid not in mesh_placed:
+                _mesh_bump("placements")
+            return mesh_placed.setdefault(wid, (Xs, ys, vs))
+
+    def model_dev(shard, placed):
+        """Where the pulled model goes: the first rank's device on the
+        mesh, the shard's otherwise."""
+        return worker_mesh.devices[0] if placed is not None \
+            else shard_dev(shard)
+
     # convergence telemetry (async.convergence.sample): every Nth update
     # per logical worker
     # evaluates the shard's mean loss (one extra evaluation against the
@@ -3449,7 +3545,10 @@ def run_worker_process(
         failed evaluation raises like a failed gradient step: a sample is
         never dropped without a word."""
         global _cv_taken
-        sums = conv_eval(*shard_args(shard), w_dev[None, :])
+        # on the shard's own device (a mesh worker's model lies on the
+        # first rank's)
+        sums = conv_eval(*shard_args(shard),
+                         w_dev.to(shard_dev(shard))[None, :])
         loss = float(sums[0]) / max(1, int(shard.y.shape[0]))
         # against a sharded PS group ``ts`` is the version VECTOR: the
         # sample is stamped with the primary's component (its clock
@@ -3507,12 +3606,21 @@ def run_worker_process(
     def put_model(w_host, dev):
         return torch.tensor(np.asarray(w_host, np.float32), device=dev)
 
-    def saga_step(shard, w_dev, idx, alpha_sel, n_valid):
-        dev = shard_dev(shard)
-        return step(*shard_args(shard), w_dev,
-                    torch.from_numpy(idx.astype(np.int64)).to(dev),
-                    torch.from_numpy(np.array(alpha_sel, np.float32)).to(dev),
-                    int(n_valid))
+    def saga_step(shard, w_dev, idx, alpha_sel, n_valid, placed=None):
+        dev = w_dev.device
+        idx_t = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        alpha_t = torch.from_numpy(np.array(alpha_sel, np.float32)).to(dev)
+        if placed is not None:
+            _mesh_bump("steps")
+            return mesh_step(placed[0], placed[1], w_dev, idx_t, alpha_t,
+                             int(n_valid))
+        return step(*shard_args(shard), w_dev, idx_t, alpha_t, int(n_valid))
+
+    def asgd_step(shard, w_dev, gen, placed=None):
+        if placed is not None:
+            _mesh_bump("steps")
+            return mesh_step(*placed, w_dev, gen)
+        return step(*shard_args(shard), w_dev, gen)
 
     # warm every owned shard's step BEFORE the first pull (first-iteration-
     # blocking parity): on a card the first launch builds the kernel, and
@@ -3522,9 +3630,11 @@ def run_worker_process(
     warmed = set()
     for wid in wids:
         shard = shards[wid]
-        dev = shard_dev(shard)
+        placed = mesh_place(wid, shard)  # once a wid, kept for the run
+        dev = model_dev(shard, placed)
         n_p = int(shard.y.shape[0])
-        wkey = (tuple((shard.cols if sparse else shard.X).shape), dev)
+        wkey = (tuple((shard.cols if sparse else shard.X).shape),
+                "mesh" if placed is not None else dev)
         if wkey in warmed:
             continue
         warmed.add(wkey)
@@ -3532,9 +3642,9 @@ def run_worker_process(
         if algo == "asaga":
             cap = steps.sparse_step_capacity(cfg.batch_rate, n_p)
             saga_step(shard, w0, np.zeros(cap, np.int64),
-                      np.zeros(cap, np.float32), 0)
+                      np.zeros(cap, np.float32), 0, placed)
         else:
-            step(*shard_args(shard), w0, worker_generator(0, wid, dev))
+            asgd_step(shard, w0, worker_generator(0, wid, dev), placed)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -3561,7 +3671,8 @@ def run_worker_process(
 
     def worker_loop(wid: int) -> None:
         shard = shards[wid]
-        dev = shard_dev(shard)
+        placed = mesh_place(wid, shard)  # None = single-device step
+        dev = model_dev(shard, placed)
         gen = (worker_generator(cfg.seed, wid, dev) if algo != "asaga"
                else None)  # ASAGA samples PS-side
         deadline = time.monotonic() + deadline_s
@@ -3604,7 +3715,7 @@ def run_worker_process(
                     counts[wid] += 1
                     if algo == "asaga":
                         g, diff = saga_step(shard, w_dev, idx, alpha_sel,
-                                            n_valid)
+                                            n_valid, placed)
                         g_host = g.cpu().numpy()
                         diff_host = diff.cpu().numpy()
                         if tr is not None:
@@ -3617,7 +3728,7 @@ def run_worker_process(
                             tr=tr,
                         )
                     else:
-                        g = step(*shard_args(shard), w_dev, gen)
+                        g = asgd_step(shard, w_dev, gen, placed)
                         g_host = g.cpu().numpy()  # the push IS the readback
                         if tr is not None:
                             tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())
@@ -3665,7 +3776,10 @@ def run_worker_process(
         delivered-but-unACKed push is re-answered from the PS dedup
         window, never re-applied."""
         shard = shards[wid]
-        dev = shard_dev(shard)
+        placed = mesh_place(wid, shard)  # None = single-device step
+        dev = model_dev(shard, placed)
+        # with a mesh the staged model lands on the first rank's device,
+        # where every rank reads it
         stage, readback = steps.make_pipelined_transfer(dev)
         gen = worker_generator(cfg.seed, wid, dev)
         deadline = time.monotonic() + deadline_s
@@ -3755,7 +3869,7 @@ def run_worker_process(
                     time.sleep(dly / 1e3)
                 w_dev = stage(w_host)
                 counts[wid] += 1
-                g = step(*shard_args(shard), w_dev, gen)
+                g = asgd_step(shard, w_dev, gen, placed)
                 g_host = readback(g)
                 if cur_tr is not None:
                     cur_tr.add(_trace.COMPUTE, t_c0, _trace.now_ms())

@@ -19,9 +19,10 @@ From SPMD to one process: JAX runs the per-rank program under
 lives on ``mesh.devices[p]``.  ``ppermute`` becomes a rotation of the
 rank list with ``.to(next_device, non_blocking=True)`` (a no-op where a
 device repeats), and ``all_to_all`` becomes slicing along heads plus a
-concatenation along the sequence across ranks.  A multi-process ring over
-``torch.distributed`` (NCCL send and recv) is not ported yet (ROADMAP.md
-queue A5).
+concatenation along the sequence across ranks.  A mesh whose ranks span
+processes (``parallel/multihost.py::global_mesh``) is refused: the ring
+and the all-to-all over ``torch.distributed`` (send and recv,
+``all_to_all_single``) are not ported yet (ROADMAP A6b.6).
 
 ``block_kernel`` names the per-block computation:
 
@@ -120,6 +121,14 @@ def _rotate(blocks, devs) -> List[torch.Tensor]:
     return [blocks[(j - 1) % n].to(devs[j], non_blocking=True) for j in range(n)]
 
 
+def _check_one_process(mesh: Mesh) -> None:
+    if mesh.spans_processes():
+        raise NotImplementedError(
+            "ring and Ulysses attention over a mesh that spans processes "
+            "(torch.distributed send/recv and all_to_all_single) are not "
+            "ported to the PyTorch package yet (ROADMAP A6b.6)")
+
+
 def ring_attention(
     q, k, v, mesh: Mesh, axis: str = "sp", causal: bool = False,
     block_kernel: str = "torch",
@@ -133,6 +142,7 @@ def ring_attention(
     past folds unmasked.  The last fold has no rotation after it.
     """
     _check_kernel(block_kernel)
+    _check_one_process(mesh)
     devs = mesh.axis_devices(axis)
     n_dev = len(devs)
     if q.shape[1] % n_dev:
@@ -225,6 +235,7 @@ def ulysses_attention(
     flash rescale; ``"torch"`` runs :func:`reference_attention`.
     """
     _check_kernel(block_kernel)
+    _check_one_process(mesh)
     devs = mesh.axis_devices(axis)
     n_dev = len(devs)
     h = q.shape[2]

@@ -531,6 +531,13 @@ class SolverConfig:
     max_live_versions: int = 4
     # device-memory budget consulted before placement; None = the device's
     hbm_budget_bytes: Optional[int] = None
+    # mesh_devices: None = resolve from conf async.mesh.devices (0 = the
+    # classic single-device worker gradient step; >= 2 = each DCN worker
+    # computes its mini-batch gradient over a local dp mesh of this many
+    # ranks of its process's device list, one gradient a PUSH as before).
+    # Clamped to the list's length; degrades to the single-device step
+    # (logged) when fewer than 2 ranks result or the shard is sparse.
+    mesh_devices: Optional[int] = None
 
     def effective_calibration_iters(self) -> int:
         if self.calibration_iters is not None:

@@ -44,6 +44,13 @@ process 1 by ``b`` (a straggler), and ``--reader`` reads the last shard's
 standby through SUBSCRIBE while the run goes.  :func:`summarize_standby`
 adds the standby plane's and the controller's gates (:data:`STANDBY_ARMS`
 are ``chip_smoke.py`` phase 13's arms; ``--phase13`` runs them).
+
+``--mesh N --devices LIST`` runs each worker process's gradients over a
+``dp`` mesh of N ranks of its device list (``async.mesh.devices``;
+``tools/ps_child.py``): each gradient is one B1 launch a rank, so the
+launch gate becomes one launch a rank a gradient.  :data:`MESH_ARMS` are
+``chip_smoke.py`` phase 14's DCN arms (``--phase14`` runs them): epsilon
+ASGD without and with a 4-rank mesh on one card, then ASAGA with it.
 """
 
 from __future__ import annotations
@@ -75,7 +82,9 @@ TASK_FORM = {("epsilon", "asgd"): "masked_grad",
              ("small", "asgd"): "masked_grad",
              ("small", "asaga"): "saga_slots_grad"}
 PLAIN_CALLS = ("compacted_grad_plain", "grad_sum_plain",
-               "ell_residual_plain", "segment_sum_plain")
+               "ell_residual_plain", "segment_sum_plain",
+               "masked_grad_plain", "saga_grad_plain",
+               "saga_slots_grad_plain", "xt_coeff_plain")
 CHILD = [sys.executable, "-m", "asyncframework_tpu_torch.tools.ps_child"]
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -96,12 +105,13 @@ def build_natives() -> Dict[str, str]:
 def launch(config: str, algo: str, iters: int, device: str = "cuda",
            nprocs: int = 2, timeout_s: float = 600.0,
            env: "Dict[str, str] | None" = None,
-           delays_ms=None) -> Tuple[dict, List[dict]]:
+           delays_ms=None, worker_args=()) -> Tuple[dict, List[dict]]:
     """One PS process and ``nprocs`` worker processes; returns the PS's
     record and the workers'.  ``env`` is added to every process's
     environment (e.g. conf keys by their ``ASYNCTPU_`` names);
     ``delays_ms[i]`` delays each PUSH of worker process ``i`` (its
-    ``async.net.fault.schedule``).  Every process is waited for or
+    ``async.net.fault.schedule``); ``worker_args`` go on each worker's
+    command line (:func:`mesh_args`).  Every process is waited for or
     killed."""
     env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
                PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
@@ -127,7 +137,7 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
                     "*", "PUSH", delays_ms[i], count=0)
                 wenv["ASYNCTPU_ASYNC_NET_FAULT_SCHEDULE"] = sched.to_json()
             procs.append(subprocess.Popen(
-                CHILD, env=wenv,
+                CHILD + list(worker_args), env=wenv,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 cwd=ROOT))
         recs = []
@@ -162,10 +172,24 @@ def objective_gates(config: str, algo: str, traj,
     return {"finite": finite, f"final_below_{frac}x": final < frac * obj0}
 
 
+def mesh_args(ranks: int, devices: str = "") -> List[str]:
+    """A worker's command line for a ``ranks``-rank mesh over ``devices``
+    (comma separated; default ``cuda:0`` repeated: the ranks share one
+    card)."""
+    if not ranks:
+        return []
+    return ["--mesh", str(ranks), "--devices",
+            devices or ",".join(["cuda:0"] * ranks)]
+
+
 def summarize(config: str, algo: str, iters: int, ps: dict,
               workers: List[dict]) -> dict:
-    """The run's record and its gates (``ok``)."""
+    """The run's record and its gates (``ok``).  A worker process with a
+    mesh of R ranks makes R launches a gradient (and a warm-up), so its
+    launch gate is one launch a rank a gradient, every gradient a mesh
+    step."""
     form = TASK_FORM[(config, algo)]
+    ranks = [max(1, w.get("mesh", {}).get("ranks", 0)) for w in workers]
     accepted = max(ps["accepted"], 1)
     gradients = sum(w["gradients"] for w in workers)
     serial = algo == "asaga"  # ASAGA runs the serial loop
@@ -190,8 +214,10 @@ def summarize(config: str, algo: str, iters: int, ps: dict,
         "merge_batch_max": ps["merge_batch_max"],
         "pipeline": ps["pipeline"],
         "task_form": form,
+        "mesh_ranks": [w.get("mesh", {}).get("ranks", 0) for w in workers],
         "launches_per_accepted_update": [
-            (w["launches"][form] - w["warmups"]) / accepted for w in workers],
+            (w["launches"][form] - r * w["warmups"]) / accepted
+            for w, r in zip(workers, ranks)],
         "worker_launches": [{k: v for k, v in w["launches"].items() if v}
                             for w in workers],
         "python_fallbacks": [r["native"].get("python_fallbacks", 0)
@@ -212,15 +238,20 @@ def summarize(config: str, algo: str, iters: int, ps: dict,
         "exactly_once": (ps["pushes"] == ps["accepted"] + ps["dropped"]
                          and ps["pushes"] == sent and ps["dedup_hits"] == 0),
         "one_launch_a_gradient": all(
-            w["launches"][form] == w["gradients"] + w["warmups"]
+            w["launches"][form] == r * (w["gradients"] + w["warmups"])
+            and (r == 1 or w.get("mesh", {}).get("steps", 0)
+                 == w["gradients"] + w["warmups"])
             and not any(w["launches"][k] for k in PLAIN_CALLS)
-            for w in workers),
+            for w, r in zip(workers, ranks)),
         "no_python_fallback": not any(rec["python_fallbacks"]),
         "shm_ring": all(n > 0 for n in rec["shm_upgrades"][1:]),
         "native_codecs": rec["native_crc_calls"] > 0,
         **objective_gates(config, algo, traj),
     }
-    if form == "masked_grad":  # epsilon's compacted task: the staged route
+    if any(r > 1 for r in ranks):
+        gates["one_launch_per_rank_a_gradient"] = gates.pop(
+            "one_launch_a_gradient")
+    if form == "masked_grad":  # epsilon's task (compacted; mesh: full)
         gates["staged_route"] = all(
             w["launches"]["masked_grad_staged"] == w["launches"][form]
             for w in workers)
@@ -487,6 +518,29 @@ def standby_phase(arms=STANDBY_ARMS, timeout_s: float = 600.0,
     return out
 
 
+#: phase 14's DCN arms: (name, deployment, algorithm, updates, mesh ranks
+#: on one card); phase 10's machine shape, ASAGA on its serial loop
+MESH_ARMS = (("off", "epsilon", "asgd", 1_000, 0),
+             ("on", "epsilon", "asgd", 1_000, 4),
+             ("asaga_on", "epsilon", "asaga", 2_000, 4))
+
+
+def mesh_phase(arms=MESH_ARMS, timeout_s: float = 600.0) -> List[dict]:
+    """Phase 14's DCN arms of ``chip_smoke.py``: each arm one PS process
+    and two worker processes, the workers' mesh over ``cuda:0`` repeated
+    (the ranks share the card); returns each arm's record, gated as
+    :func:`summarize` gates it."""
+    out = []
+    for name, config, algo, iters, ranks in arms:
+        ps, workers = launch(config, algo, iters, timeout_s=timeout_s,
+                             worker_args=mesh_args(ranks))
+        rec = summarize(config, algo, iters, ps, workers)
+        rec.update(arm=name, mode="mesh" if ranks else "processes",
+                   mesh=ranks)
+        out.append(rec)
+    return out
+
+
 def in_process(config: str, algo: str, iters: int, device) -> dict:
     """The same recipe with the PS and its 8 logical workers as threads of
     this process (the cluster path's defaults set for the call)."""
@@ -592,6 +646,14 @@ def main(argv=None) -> int:
                     help="per worker process PUSH delays in ms, e.g. 0,150")
     ap.add_argument("--phase13", action="store_true",
                     help="run chip_smoke.py phase 13's arms and exit")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="each worker's gradients over a dp mesh of N "
+                         "ranks (async.mesh.devices)")
+    ap.add_argument("--devices", default="",
+                    help="with --mesh, the workers' device list, comma "
+                         "separated (default cuda:0 repeated)")
+    ap.add_argument("--phase14", action="store_true",
+                    help="run chip_smoke.py phase 14's DCN arms and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dcn: no CUDA device", file=sys.stderr)
@@ -602,13 +664,15 @@ def main(argv=None) -> int:
     build_natives()
     dev = torch.device("cuda", 0)
     ok = True
-    if args.phase12 or args.phase13:
-        for rec in (shards_phase() if args.phase12 else standby_phase()):
+    if args.phase12 or args.phase13 or args.phase14:
+        for rec in (shards_phase() if args.phase12 else standby_phase()
+                    if args.phase13 else mesh_phase()):
             ok = ok and rec["ok"]
             print(json.dumps(rec), flush=True)
         return 0 if ok else 1
     kill = (args.kill_shard, args.kill_at) if args.kill_shard else None
     delays = [float(x) for x in args.delay_ms.split(",") if x]
+    wargs = mesh_args(args.mesh, args.devices)
     for spec in args.runs.split(","):
         config, algo, iters = spec.split(":")
         if args.shards > 1:
@@ -625,7 +689,7 @@ def main(argv=None) -> int:
                 elif args.control:
                     env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1"
                 ps, workers = launch(config, algo, int(iters), env=env,
-                                     delays_ms=delays)
+                                     delays_ms=delays, worker_args=wargs)
             if args.standby:
                 rec = summarize_standby(config, int(iters), ps, workers,
                                         kill, delays)
@@ -637,7 +701,7 @@ def main(argv=None) -> int:
             if args.control:
                 env["ASYNCTPU_ASYNC_CONTROL_ENABLED"] = "1"
             ps, workers = launch(config, algo, int(iters), env=env,
-                                 delays_ms=delays)
+                                 delays_ms=delays, worker_args=wargs)
             rec = summarize(config, algo, int(iters), ps, workers)
         ok = ok and rec["ok"]
         print(json.dumps(rec), flush=True)

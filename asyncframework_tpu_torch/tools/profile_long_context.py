@@ -44,7 +44,7 @@ def main() -> None:
     gen.manual_seed(11)
     q, k, v = (torch.randn(1, T, H, D, device=dev, generator=gen)
                .to(torch.bfloat16) for _ in range(3))
-    mesh = make_mesh(RANKS, devices=[dev] * RANKS)
+    mesh = make_mesh(RANKS, axis_names=("sp",), devices=[dev] * RANKS)
     paths = {
         "ring": lambda: ring_attention(q, k, v, mesh, causal=True,
                                        block_kernel="cuda"),

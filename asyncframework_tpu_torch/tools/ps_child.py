@@ -69,6 +69,13 @@ declared bounds.  A worker installs the fault schedule of its conf
 (``async.net.fault.schedule``): a PUSH delay there makes it a
 deterministic straggler.
 
+A worker's mesh plane: ``--mesh N`` (``async.mesh.devices``) computes
+each gradient over a ``dp`` mesh of N ranks of ``--devices`` (the worker
+process's device list, comma separated, e.g. ``cuda:0,cuda:0,cuda:0,
+cuda:0`` for four ranks on one card; default every CUDA device), one B1
+launch a rank; its line then carries ``mesh``: the ranks, the shards
+placed and the mesh steps run (``parallel/ps_dcn.py::mesh_counts``).
+
 Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 ``epsilon``: 400,000 x 2,000 f32; ``rcv1``: rcv1's padded-ELL shape),
 ``PS_ALGO`` (``asgd``/``asaga``), ``PS_DEVICE`` (``cuda``, the default, or
@@ -80,6 +87,7 @@ Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import threading
@@ -644,9 +652,10 @@ def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
 
 def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
                iters: int = 0, gamma: float = 0.0, host: str = "127.0.0.1",
-               evaluate: bool = True) -> dict:
+               evaluate: bool = True, devices=None) -> dict:
     """Role ``worker``: run ``wids`` against the PS at ``host:port`` and
-    return this process's record."""
+    return this process's record; ``devices`` is the process's device
+    list for the mesh plane (default every CUDA device)."""
     n, d, _nw = CONFIGS[name]["shape"]
     cfg = config(name, algo, iters, gamma)
     ds = dataset(name, device)
@@ -656,13 +665,14 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
         torch.cuda.reset_peak_memory_stats(device)
     runs.zero_counts()
     ps_dcn.reset_conv_samples_taken()
+    ps_dcn.reset_mesh_counts()
     shardgroup.reset_shard_totals()
     t0 = time.monotonic()
     counts = ps_dcn.run_worker_process(
         host, port, list(wids), shards, cfg, d, n,
         eval_wid=wids[0] if evaluate else None, deadline_s=cfg.run_timeout_s,
         algo=algo, shard_factory=ds.shard,
-        proc_token=f"ps-child-{os.getpid()}")
+        proc_token=f"ps-child-{os.getpid()}", devices=devices)
     rec = {"role": "worker", "config": name, "algo": algo,
            "wids": list(wids), "gradients": int(sum(counts.values())),
            "counts": {str(w): c for w, c in counts.items()},
@@ -675,6 +685,8 @@ def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
            "pipeline": ps_dcn.pipeline_totals(),
            # the sharded facade's counts (empty against a single PS)
            "shard_totals": shardgroup.shard_totals(),
+           # the mesh plane's counts (empty without a mesh)
+           "mesh": ps_dcn.mesh_counts(),
            "peak_device_bytes": _peak_bytes(device)}
     return rec
 
@@ -701,11 +713,26 @@ def read_own_telemetry() -> "dict | None":
             "status_status": s_status, "sections": sorted(status)}
 
 
-def main() -> None:
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="a worker's mesh ranks (async.mesh.devices)")
+    ap.add_argument("--devices", default=None,
+                    help="the worker process's device list, comma "
+                         "separated (default every CUDA device)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
     from asyncframework_tpu_torch.metrics.live import (
         start_telemetry_from_conf,
     )
 
+    args = parse_args(argv)
+    if args.mesh is not None:
+        conf_mod.global_conf().set("async.mesh.devices", args.mesh)
+    mesh_list = ([torch.device(x) for x in args.devices.split(",")]
+                 if args.devices else None)
     apply_cluster_defaults()
     if os.environ.get("PS_ROLE") == "worker":
         # a worker's fault schedule from the conf or the environment
@@ -740,7 +767,8 @@ def main() -> None:
             wids = [w for w in range(nw) if w % nprocs == pid]
         rec = run_worker(name, algo, device, int(os.environ["PS_PORT"]),
                          wids, nprocs, iters, gamma,
-                         evaluate=os.environ.get("PS_EVAL") != "0")
+                         evaluate=os.environ.get("PS_EVAL") != "0",
+                         devices=mesh_list)
         rec["pid"] = pid
     rec["telemetry"] = read_own_telemetry()
     if srv is not None:

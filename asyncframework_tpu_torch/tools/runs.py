@@ -41,8 +41,8 @@ TASK_FORMS = ("masked_grad", "masked_grad_staged", "masked_grad_tiled",
 
 
 def counts() -> dict:
-    """Every kernel wrapper's launch count, and the calls of S1's plain
-    versions."""
+    """Every kernel wrapper's launch count, and the calls of B1's and S1's
+    plain versions."""
     return {"masked_grad": mg.masked_grad.launches,
             "masked_grad_staged": mg.masked_grad.launches_staged,
             "masked_grad_tiled": mg.masked_grad.launches_tiled,
@@ -57,7 +57,11 @@ def counts() -> dict:
             "compacted_grad_plain": sg.compacted_grad_plain.calls,
             "grad_sum_plain": sg.grad_sum_plain.calls,
             "ell_residual_plain": sg.ell_residual_plain.calls,
-            "segment_sum_plain": sg.segment_sum_plain.calls}
+            "segment_sum_plain": sg.segment_sum_plain.calls,
+            "masked_grad_plain": mg.masked_grad_reference.calls,
+            "saga_grad_plain": mg.saga_grad_reference.calls,
+            "saga_slots_grad_plain": mg.saga_slots_grad_reference.calls,
+            "xt_coeff_plain": mg.xt_coeff_reference.calls}
 
 
 def zero_counts() -> None:
@@ -68,7 +72,9 @@ def zero_counts() -> None:
     mg.masked_grad.launches_staged = 0
     mg.masked_grad.launches_tiled = 0
     for fn in (sg.compacted_grad_plain, sg.grad_sum_plain,
-               sg.ell_residual_plain, sg.segment_sum_plain):
+               sg.ell_residual_plain, sg.segment_sum_plain,
+               mg.masked_grad_reference, mg.saga_grad_reference,
+               mg.saga_slots_grad_reference, mg.xt_coeff_reference):
         fn.calls = 0
 
 

@@ -183,7 +183,29 @@ exits non-zero without a result line):
    shapes and freshness, promotion seconds, the
    controller's changes, clamps, oscillation trips and the damp factors
    applied, and each process's peak device memory;
-14. the ``total`` line (seconds, and each phase's), the
+14. mesh -- the data-parallel plane: B1's full masked form at a DCN mesh
+   rank's block (12,500 x 2,000 f32, b = 0.1) and its ``saga_grad`` form
+   at ``MiniBatchSGD``'s rank block (100,000 x 2,000 f32) against their
+   plain versions; (a) the DCN worker's mesh steps at 4 ranks of this card
+   over an epsilon worker shard (50,000 x 2,000 f32, b = 0.1): the ASGD
+   step ``torch.equal`` to 4 B1 launches on the row blocks folded in rank
+   order (exactly 4 launches, no plain call), the ASAGA step at 5,408 slots
+   with ``diff`` ``torch.equal`` to single-device ``saga_slots_grad`` and
+   ``g`` within TOL_REL (``mesh_step`` lines); (b) ``MiniBatchSGD`` at
+   epsilon's full width (400,000 x 2,000 f32 generated on the card, least
+   squares, the simple updater) on 1-rank and 4-rank meshes at b = 0.1,
+   each below 1/10 of the objective at w = 0 with one B1 launch a rank an
+   iteration, the 4-rank run's CUDA-graph replays bit-equal to its
+   iterations run eagerly, and at b = 1.0 the 1-rank, 4-rank and (dp 2,
+   md 2) runs agreeing (``minibatch_sgd``, ``minibatch_graph``,
+   ``minibatch_agreement``: iterations/s fenced, launches an iteration);
+   (c) the DCN plane in phase 10's shape: epsilon ASGD (1,000 updates)
+   without and with a 4-rank mesh in each worker process (``cuda:0``
+   repeated: one card gives no speedup, its ranks share it), then ASAGA
+   with it (2,000 updates, phase 10's budget for its band, the serial
+   loop), each with phase 10's gates and one B1 launch a rank a gradient
+   (``dcn_mesh`` lines);
+15. the ``total`` line (seconds, and each phase's), the
    ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -332,6 +354,7 @@ B1_ROUTES = {
     "e_epsilon_logistic": "staged",
     "saga_epsilon": "staged", "xt_epsilon": "staged",
     "saga_mnist8m_shard": "staged", "xt_mnist8m_shard": "staged",
+    "mesh_rank_block": "staged", "saga_minibatch_rank": "staged",
 }
 
 
@@ -653,7 +676,7 @@ def long_context_phase(torch, ca, card, recs):
     gen.manual_seed(11)
     q, k, v = (torch.randn(B, T, H, D, device=dev, generator=gen)
                .to(torch.bfloat16) for _ in range(3))
-    mesh = make_mesh(P, devices=[dev] * P)
+    mesh = make_mesh(P, axis_names=("sp",), devices=[dev] * P)
     emit({"phase": "long_context_note",
           "note": f"the {P} ranks of the mesh share one card: the ring's "
                   "K/V rotation and Ulysses' all-to-all are same-device "
@@ -1782,6 +1805,285 @@ def standby_control_phase(card, shard_records):
     return launches
 
 
+# phase 14, the data-parallel plane.  (a) the DCN worker's mesh steps at an
+# epsilon worker shard (b = 0.1; sparse_step_capacity(0.1, 50,000) = 5,408
+# slots), its rows over MESH_RANKS ranks of this one card
+MESH_RANKS = 4
+MESH_SHARD = (50_000, 2_000)
+MESH_B = 0.1
+MESH_SLOTS = 5_408
+# (b) MiniBatchSGD at epsilon's full width (bench.py:94-98, generated on
+# the card), least squares, the simple updater, learning rate
+# MB_GAMMA / sqrt(it + 1) on the mean gradient (rows ~ N(0, I/d): the mean
+# loss's curvature is ~1/d, so MB_GAMMA = d/2 halves the error a step)
+MB_SHAPE = (400_000, 2_000)
+MB_ITERS = 60
+MB_GAMMA = 1_000.0
+MB_B = 0.1
+# two layouts of one run agree elementwise to rtol 1e-4, atol 1e-6 (the
+# JAX package's 2-D test's band loosened to its multi-process test's rtol)
+MB_RTOL, MB_ATOL = 1e-4, 1e-6
+
+
+def _plain_calls(counts) -> int:
+    return sum(v for k, v in counts.items() if k.endswith("_plain"))
+
+
+def mesh_steps_check(torch, card, dev):
+    """(a) The two mesh worker steps at MESH_RANKS ranks of ``dev``: the
+    ASGD step ``torch.equal`` to MESH_RANKS B1 launches on the row blocks
+    folded in rank order (the same draw from the same generator state,
+    which both advance alike), within TOL_REL of the plain version over
+    the whole shard, with exactly MESH_RANKS B1 launches on the staged
+    route and no plain call; the ASAGA step's ``diff`` ``torch.equal`` to
+    single-device ``saga_slots_grad`` and its ``g`` within TOL_REL."""
+    from asyncframework_tpu_torch.ops import masked_grad as mg
+    from asyncframework_tpu_torch.ops import steps
+    from asyncframework_tpu_torch.ops.sampling import (
+        bernoulli_mask,
+        worker_generator,
+    )
+    from asyncframework_tpu_torch.parallel.mesh import (
+        make_mesh,
+        pad_and_shard,
+    )
+    from asyncframework_tpu_torch.tools import runs
+
+    n, d = MESH_SHARD
+    R = MESH_RANKS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    X = torch.randn(n, d, device=dev, generator=gen) / math.sqrt(d)
+    y = torch.randn(n, device=dev, generator=gen)
+    w = torch.randn(d, device=dev, generator=gen)
+    mesh = make_mesh(R, devices=[dev] * R)
+    Xs, ys, vs, _n = pad_and_shard(mesh, X, y)
+    nl = n // R
+    views = all(Xs[p].data_ptr() == X[p * nl].data_ptr() for p in range(R))
+    step = steps.make_mesh_asgd_worker_step(MESH_B, mesh)
+    wgen, ref_gen = worker_generator(42, 3, dev), worker_generator(42, 3, dev)
+    runs.zero_counts()
+    g = step(Xs, ys, vs, w, wgen)
+    fence_dev(torch, dev)
+    c = runs.counts()
+    mask = bernoulli_mask(ref_gen, n, MESH_B).float()
+    acc = None
+    for p in range(R):
+        rows = slice(p * nl, (p + 1) * nl)
+        part = mg.masked_grad(X[rows], y[rows], w, mask[rows])
+        acc = part if acc is None else acc + part
+    ref = mg.masked_grad_reference(X, y, w, mask)
+    scale = float(ref.abs().max())
+    asgd = {
+        "phase": "mesh_step", "step": "asgd", "card": card, "ranks": R,
+        "shard": [n, d], "rows_a_rank": nl, "batch_rate": MESH_B,
+        "blocks_are_views": views,
+        "b1_launches": c["masked_grad"],
+        "b1_staged": c["masked_grad_staged"], "plain_calls": _plain_calls(c),
+        "equal_to_rank_fold": bool(torch.equal(g, acc)),
+        "generator_advanced_as_single_device": bool(
+            torch.equal(wgen.get_state(), ref_gen.get_state())),
+        "max_abs_err_vs_plain": float((g - ref).abs().max()),
+        "tol_abs": TOL_REL["float32"] * scale,
+    }
+    asgd["ok"] = (asgd["b1_launches"] == R and asgd["b1_staged"] == R
+                  and asgd["plain_calls"] == 0 and asgd["equal_to_rank_fold"]
+                  and asgd["generator_advanced_as_single_device"]
+                  and asgd["max_abs_err_vs_plain"] <= asgd["tol_abs"])
+    emit(asgd)
+    idx = torch.sort(torch.randperm(n, device=dev, generator=gen)[
+        :MESH_SLOTS]).values
+    alpha = torch.randn(MESH_SLOTS, device=dev, generator=gen)
+    n_valid = MESH_SLOTS - 64  # the last slots are the PS's padding
+    sstep = steps.make_mesh_saga_dcn_worker_step(mesh)
+    runs.zero_counts()
+    gm, dm = sstep(Xs, ys, w, idx, alpha, n_valid)
+    fence_dev(torch, dev)
+    c = runs.counts()
+    g1, d1 = steps.make_saga_dcn_worker_step()(X, y, w, idx, alpha, n_valid)
+    scale = float(g1.abs().max())
+    saga = {
+        "phase": "mesh_step", "step": "asaga", "card": card, "ranks": R,
+        "shard": [n, d], "slots": MESH_SLOTS, "n_valid": n_valid,
+        "b1_launches": c["saga_slots_grad"], "plain_calls": _plain_calls(c),
+        "diff_equal_to_single_device": bool(torch.equal(dm, d1)),
+        "g_max_abs_err_vs_single_device": float((gm - g1).abs().max()),
+        "tol_abs": TOL_REL["float32"] * scale,
+    }
+    saga["ok"] = (saga["b1_launches"] == R and saga["plain_calls"] == 0
+                  and saga["diff_equal_to_single_device"]
+                  and saga["g_max_abs_err_vs_single_device"]
+                  <= saga["tol_abs"])
+    emit(saga)
+    if not (asgd["ok"] and saga["ok"]):
+        raise RuntimeError(f"the mesh steps failed: {asgd} {saga}")
+
+
+def fence_dev(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def minibatch_phase(torch, card, dev, shape=MB_SHAPE, iters=MB_ITERS):
+    """(b) ``MiniBatchSGD`` on a ``shape`` deployment generated on ``dev``
+    (phase 3's seed), least squares, the simple updater: 1-rank and
+    MESH_RANKS-rank meshes at b = MB_B (each below 1/10 of the objective
+    at w = 0, one B1 launch a rank an iteration, no plain call), the
+    MESH_RANKS run's graph replays bit-equal to the same iterations run
+    eagerly, and at b = 1.0 the 1-rank, MESH_RANKS-rank and (dp 2, md 2)
+    runs agreeing (MB_RTOL, MB_ATOL).  Returns the B1 launches on the
+    path by form."""
+    import numpy as np
+
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.parallel.mesh import make_mesh
+    from asyncframework_tpu_torch.solvers import MiniBatchSGD
+    from asyncframework_tpu_torch.tools import runs
+
+    n, d = shape
+    R = MESH_RANKS
+    t0 = time.monotonic()
+    ds = ShardedDataset.generate_on_device(n, d, 1, [dev], seed=7,
+                                           noise=0.01)
+    X, y = ds.shard(0).X, ds.shard(0).y
+    obj0 = 0.5 * float(torch.sum(y * y)) / n
+    fence_dev(torch, dev)
+    emit({"phase": "minibatch_data", "card": card, "shape": [n, d],
+          "bytes": X.numel() * X.element_size(), "objective_at_w0": obj0,
+          "generate_s": time.monotonic() - t0})
+    meshes = {
+        "dp1": make_mesh(1, devices=[dev]),
+        f"dp{R}": make_mesh(R, devices=[dev] * R),
+        "dp2_md2": make_mesh(4, axis_names=("dp", "md"), axis_sizes=(2, 2),
+                             devices=[dev] * 4),
+    }
+    on_path = {"saga_grad": 0, "xt_coeff": 0}
+    out = {}
+
+    def one(name, b, graph=None):
+        sgd = MiniBatchSGD(gamma=MB_GAMMA, batch_rate=b, num_iterations=iters,
+                           seed=3)
+        mesh = meshes[name]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        runs.zero_counts()
+        w, losses, _snaps = sgd.run(X, y, mesh=mesh, graph=graph)
+        c = runs.counts()
+        info = sgd.last_run
+        form = "xt_coeff" if "md" in name else "saga_grad"
+        per_it = c[form] / max(info["enqueued_iterations"], 1)
+        on_path[form] += int(round(per_it * iters))
+        rec = {
+            "phase": "minibatch_sgd", "card": card, "mesh": name,
+            "mesh_shape": mesh.shape, "batch_rate": b, "gamma": MB_GAMMA,
+            "iterations": iters, "graph_replays": info["graph_replays"],
+            "elapsed_s": info["elapsed_s"],
+            "iterations_per_s": iters / info["elapsed_s"],
+            "b1_form": form, "b1_launches": c[form],
+            "b1_launches_per_iteration": per_it,
+            "plain_calls": _plain_calls(c),
+            "objective_at_w0": obj0, "loss_first": float(losses[0]),
+            "loss_final": float(losses[-1]),
+            "finite": bool(np.isfinite(w).all()
+                           and np.isfinite(losses).all()),
+            "peak_device_bytes": (int(torch.cuda.max_memory_allocated(dev))
+                                  if dev.type == "cuda" else None),
+        }
+        rec["ok"] = (rec["finite"] and per_it == mesh.size
+                     and rec["plain_calls"] == 0)
+        if b == MB_B:
+            rec["loss_below_0.1x"] = rec["loss_final"] < obj0 / 10
+            rec["ok"] = rec["ok"] and rec["loss_below_0.1x"]
+        out[(name, b, graph)] = (w, losses)
+        emit(rec)
+        return rec
+
+    recs = [one("dp1", MB_B), one(f"dp{R}", MB_B)]
+    eager = one(f"dp{R}", MB_B, graph=False)
+    (wg, lg), (we, le) = out[(f"dp{R}", MB_B, None)], out[(f"dp{R}", MB_B,
+                                                         False)]
+    replay = {"phase": "minibatch_graph", "card": card, "mesh": f"dp{R}",
+              "graph_replays": recs[1]["graph_replays"],
+              "eager_graph_replays": eager["graph_replays"],
+              "w_bit_equal": bool(np.array_equal(wg, we)),
+              "losses_bit_equal": bool(np.array_equal(lg, le))}
+    replay["ok"] = (replay["graph_replays"] > 0 and replay["w_bit_equal"]
+                    and replay["losses_bit_equal"])
+    emit(replay)
+    full = [one(name, 1.0) for name in ("dp1", f"dp{R}", "dp2_md2")]
+    agree = {}
+    for a, b in (((f"dp{R}", "dp1")), ("dp2_md2", f"dp{R}")):
+        (wa, la), (wb, lb) = out[(a, 1.0, None)], out[(b, 1.0, None)]
+        agree[f"{a}_vs_{b}"] = {
+            "w_max_abs_diff": float(np.abs(wa - wb).max()),
+            "loss_max_abs_diff": float(np.abs(la - lb).max()),
+            "agree": bool(np.allclose(wa, wb, rtol=MB_RTOL, atol=MB_ATOL)
+                          and np.allclose(la, lb, rtol=MB_RTOL,
+                                          atol=MB_ATOL)),
+        }
+    emit({"phase": "minibatch_agreement", "card": card, "batch_rate": 1.0,
+          "rtol": MB_RTOL, "atol": MB_ATOL, **agree})
+    failed = ([r["mesh"] for r in recs + [eager] + full if not r["ok"]]
+              + ([] if replay["ok"] else ["graph replay"])
+              + [k for k, v in agree.items() if not v["agree"]])
+    del ds, X, y, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"minibatch_sgd gates failed: {failed}")
+    return on_path
+
+
+def mesh_phase(torch, card):
+    """Phase 14, the data-parallel plane: B1's full masked form at the mesh
+    rank block and its ASAGA form at MiniBatchSGD's rank block against
+    their plain versions, (a) :func:`mesh_steps_check`, (b)
+    :func:`minibatch_phase`, (c) the DCN arms (``tools/dcn.py::
+    mesh_phase``: epsilon ASGD without and with a MESH_RANKS-rank mesh on
+    this card, then ASAGA with it), each held to phase 10's gates with one
+    B1 launch a rank a gradient.  Returns the kernel records and the B1
+    launches on the phase's paths by form."""
+    from asyncframework_tpu_torch.ops import masked_grad as mg
+    from asyncframework_tpu_torch.tools import dcn
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    n, d = MESH_SHARD
+    recs = {
+        "mesh_rank_block": kernel_case(
+            "mesh_rank_block", n // MESH_RANKS, d, torch.float32, torch, mg,
+            flush, gen, MESH_B),
+        "saga_minibatch_rank": saga_case(
+            "saga_minibatch_rank", MB_SHAPE[0] // MESH_RANKS, MB_SHAPE[1],
+            torch.float32, torch, mg, flush, gen, MB_B),
+    }
+    del flush
+    torch.cuda.empty_cache()
+    mesh_steps_check(torch, card, dev)
+    torch.cuda.empty_cache()
+    launches = minibatch_phase(torch, card, dev)
+    launches.update({"masked_grad": 0, "masked_grad_mesh": 0,
+                     "saga_slots_grad": 0})
+    records = dcn.mesh_phase()
+    off = next(r for r in records if r["arm"] == "off")
+    for rec in records:
+        emit({"phase": "dcn_mesh", "card": card, **rec,
+              "updates_per_sec_mesh_off": off["updates_per_sec"]})
+        key = ("masked_grad_mesh" if rec["mesh"] and rec["algo"] == "asgd"
+               else rec["task_form"])
+        for w in rec["worker_launches"]:
+            launches[key] += w.get(rec["task_form"], 0)
+    failed = [f"{r['arm']}.{r['algo']}: "
+              f"{[k for k, v in r['gates'].items() if not v]}"
+              for r in records if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"dcn_mesh gates failed: {failed}")
+    return recs, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -2010,7 +2312,12 @@ def main() -> int:
 
     lap("standby_control")
 
-    # ------------------------------------------------------ 14. results
+    # ------------------------------------------------------------- 14. mesh
+    mesh_recs, mesh_launches = mesh_phase(torch, card)
+
+    lap("mesh")
+
+    # ------------------------------------------------------ 15. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
           "phase_seconds": laps})
     print(card, flush=True)
@@ -2042,7 +2349,8 @@ def main() -> int:
             for r in (eps_fused, mnist_fused, mnist_run))
               + feat["masked_grad"] + dcn_launches["masked_grad"]
               + tel["masked_grad"] + shard_launches["masked_grad"]
-              + standby_launches["masked_grad"],
+              + standby_launches["masked_grad"]
+              + mesh_launches["masked_grad"],
               recs["b_epsilon_idx"],
               recs["b_epsilon_idx"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
@@ -2050,12 +2358,23 @@ def main() -> int:
               + saga_fused["launches_on_path"]["saga_grad"],
               recs["saga_epsilon"], recs["saga_epsilon"]["bound_us"] / 1e3),
         entry("masked_grad.xt_coeff", "masked_grad.cu", b1,
-              saga_launches["xt_coeff"], recs["xt_epsilon"],
-              recs["xt_epsilon"]["bound_us"] / 1e3),
-        # the DCN ASAGA worker's per-slot form (the worker processes')
+              saga_launches["xt_coeff"] + mesh_launches["xt_coeff"],
+              recs["xt_epsilon"], recs["xt_epsilon"]["bound_us"] / 1e3),
+        # the DCN ASAGA worker's per-slot form (the worker processes',
+        # phase 14's mesh ranks too)
         entry("masked_grad.saga_slots_grad", "masked_grad.cu", b1,
-              dcn_launches["saga_slots_grad"], recs["saga_slots_epsilon"],
+              dcn_launches["saga_slots_grad"]
+              + mesh_launches["saga_slots_grad"], recs["saga_slots_epsilon"],
               recs["saga_slots_epsilon"]["bound_us"] / 1e3),
+        # phase 14: the full masked form at a DCN mesh rank's block (the
+        # mesh workers' launches), saga_grad at MiniBatchSGD's rank block
+        # (its 1-D least-squares runs, captured an iteration x iterations)
+        entry("masked_grad.mesh_rank", "masked_grad.cu", b1,
+              mesh_launches["masked_grad_mesh"], mesh_recs["mesh_rank_block"],
+              mesh_recs["mesh_rank_block"]["bound_us"] / 1e3),
+        entry("masked_grad.saga_grad.minibatch_rank", "masked_grad.cu", b1,
+              mesh_launches["saga_grad"], mesh_recs["saga_minibatch_rank"],
+              mesh_recs["saga_minibatch_rank"]["bound_us"] / 1e3),
         entry("chunk_attention", "chunk_attention.cu",
               "asyncframework_tpu/ops/pallas_kernels.py:155", att_launches,
               f_rec, f_rec["bound_ms"]),

@@ -423,7 +423,7 @@ def test_ring_and_ulysses_on_one_card(dev, causal):
         ulysses_attention,
     )
 
-    mesh = make_mesh(4, devices=[dev] * 4)
+    mesh = make_mesh(4, axis_names=("sp",), devices=[dev] * 4)
     q, k, v = _qkv(dev, 1, 256, 256, 8, 64, torch.float32, seed=3)
     want = reference_attention(q, k, v, causal=causal)
     before = chunk_attention.launches
@@ -1357,4 +1357,67 @@ def test_standby_mirror_is_bit_equal_after_50_batches_on_the_card(dev):
         for p in (prim, sb):
             if p is not None:
                 p.stop()
+        set_global_conf(None)
+
+
+# ---------------------------------------------- the data-parallel plane
+def test_mesh_steps_on_one_card(dev, monkeypatch):
+    """chip_smoke.py phase 14 (a) at a small shard: the ASGD mesh step
+    equal to 4 B1 launches folded in rank order (exactly 4 launches, no
+    plain call), the ASAGA step's ``diff`` equal to single-device
+    ``saga_slots_grad``; the check raises where a gate fails."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "MESH_SHARD", (8_000, 512))
+    monkeypatch.setattr(chip_smoke, "MESH_SLOTS", 880)
+    chip_smoke.mesh_steps_check(torch, "test", dev)
+
+
+def test_minibatch_sgd_on_one_card(dev, monkeypatch):
+    """chip_smoke.py phase 14 (b) at a small width: 1-rank and 4-rank
+    meshes below 1/10 of the objective at w = 0 with one B1 launch a rank
+    an iteration, graph replays bit-equal to eager iterations, and the
+    1-rank, 4-rank and (dp 2, md 2) layouts agreeing at b = 1.0."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "MB_GAMMA", 128.0)  # d / 2
+    launches = chip_smoke.minibatch_phase(torch, "test", dev,
+                                          shape=(20_000, 256), iters=40)
+    assert launches["saga_grad"] == (1 + 4 + 4 + 1 + 4) * 40
+    assert launches["xt_coeff"] == 4 * 40
+
+
+def test_dcn_mesh_worker_on_one_card(dev):
+    """A DCN worker with a 4-rank mesh of this card against the port's
+    PS: every gradient 4 B1 launches, exactly once."""
+    from asyncframework_tpu_torch.conf import AsyncConf, set_global_conf
+    from asyncframework_tpu_torch.data.sharded import ShardedDataset
+    from asyncframework_tpu_torch.parallel import ps_dcn
+    from asyncframework_tpu_torch.solvers import SolverConfig
+    from asyncframework_tpu_torch.tools import runs
+
+    set_global_conf(AsyncConf().set("async.trace.sample", 0.0))
+    cfg = SolverConfig(num_workers=2, num_iterations=60, gamma=1.2,
+                       taw=2**31 - 1, batch_rate=0.3, bucket_ratio=0.0,
+                       printer_freq=20, seed=42, calibration_iters=8,
+                       run_timeout_s=120.0, mesh_devices=4)
+    try:
+        ds = ShardedDataset.generate_on_device(4_096, 64, 2, devices=[dev],
+                                               seed=11, noise=0.01)
+        ps = ps_dcn.ParameterServer(cfg, 64, 4_096, device=dev,
+                                    port=0).start()
+        runs.zero_counts()
+        ps_dcn.reset_mesh_counts()
+        counts = ps_dcn.run_worker_process(
+            "127.0.0.1", ps.port, [0, 1], {w: ds.shard(w) for w in (0, 1)},
+            cfg, 64, 4_096, deadline_s=120.0, devices=[dev] * 4)
+        assert ps.wait_done(timeout_s=30.0)
+        ps.stop()
+        c = runs.counts()
+        steps = sum(counts.values()) + 1  # and one warm-up
+        assert ps.accepted == 60
+        assert ps_dcn.mesh_counts()["steps"] == steps
+        assert c["masked_grad"] == 4 * steps
+        assert not any(v for k, v in c.items() if k.endswith("_plain"))
+    finally:
         set_global_conf(None)

@@ -172,7 +172,7 @@ def test_long_context_and_asaga_entry_points_refuse_the_cpu():
     X = np.zeros((16, 4), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ASAGA(X, np.zeros(16, np.float32), SolverConfig(num_workers=2))
-    assert make_mesh(2, devices=[torch.device("cpu")] * 2).shape == {"sp": 2}
+    assert make_mesh(2, devices=[torch.device("cpu")] * 2).shape == {"dp": 2}
 
 
 @pytest.mark.parametrize("kernel", ["chunk_attention", "saga_grad", "xt_coeff",

@@ -458,13 +458,17 @@ def test_asgd_run_emits_event_log_and_metrics(problem, tmp_path):
     summary = EventLogReader(log).summary()
     assert summary["rounds"] > 0 and summary["merges"] >= 200
     assert summary["accepted"] == 200
-    assert summary["staleness"]["max"] >= res.max_staleness
     assert len(summary["trajectory"]) == len(res.trajectory)
     lines = csv.read_text().strip().splitlines()
     assert len(lines) >= 2 and "updates.accepted" in lines[0]
     last = json.loads(jl.read_text().strip().splitlines()[-1])
     assert last["updates.accepted"] == 200
     assert last["staleness"]["count"] == summary["merges"]
+    # the event log's largest merge staleness is the largest among the
+    # merges the run applied, as the run's own metrics recorded them
+    # (``res.max_staleness`` is the workers' last reported staleness,
+    # which no merge may have carried)
+    assert summary["staleness"]["max"] == last["staleness"]["max"]
     html = render_report(log, tmp_path / "report.html")
     assert "Summary" in html and (tmp_path / "report.html").exists()
 

@@ -761,9 +761,24 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
 
 
 #: the cluster path's conf switches that the PS and its workers refuse
-#: (each set to 2: above its off value, and truthy for the flags); the
-#: A6b entry is its part 6 (mesh)
-REFUSED_CONF = [("async.mesh.devices", "A6b"), ("async.ui.port", "A8")]
+#: (each set to 2: above its off value, and truthy for the flags)
+REFUSED_CONF = [("async.ui.port", "A8")]
+
+
+def test_mesh_conf_is_taken_by_the_ps_and_the_workers(conf):
+    """``async.mesh.devices`` (refused until the mesh plane was ported)
+    starts a PS and runs a worker process's gradients over its mesh
+    (``tests/test_torch_meshgrad.py`` holds the plane)."""
+    conf.set("async.mesh.devices", 2)
+    cfg = TConfig(**_kw(num_iterations=60))
+    ps = _port_ps(cfg)
+    ds = _port_ds()
+    tps.reset_mesh_counts()
+    counts, _traj = _run(ps, lambda *a, **k: tps.run_worker_process(
+        *a, devices=[CPU] * 2, **k), {w: ds.shard(w) for w in range(NW)},
+        cfg, "asgd", eval_wid=None)
+    _exactly_once(ps, counts, 60)
+    assert tps.mesh_counts()["ranks"] == 2
 
 
 def test_convergence_sample_conf_runs_on_the_workers(conf):
@@ -827,20 +842,19 @@ def test_refused_conf_switches_on_the_ps(conf_key, item, conf):
 
 @pytest.mark.parametrize("role", ["ps", "worker"])
 def test_ps_child_refuses_a_sharded_cluster_before_its_data(role):
-    """A sharded cluster with a switch the port refuses (mesh worker steps,
-    ``ASYNCTPU_ASYNC_MESH_DEVICES=2``, beside ``ASYNCTPU_ASYNC_PS_SHARDS=4``
-    and ``ASYNCTPU_ASYNC_PS_STANDBY=1``) on the role runner fails at once,
-    naming ROADMAP A6b.6, and prints no port and no result (the sharded
-    group with its standbys runs: tests/test_torch_replication.py)."""
+    """A sharded cluster with a switch the port refuses (the cluster
+    CLI's dashboard, ``ASYNCTPU_ASYNC_UI_PORT=0``, beside
+    ``ASYNCTPU_ASYNC_PS_SHARDS=4`` and ``ASYNCTPU_ASYNC_PS_STANDBY=1``) on
+    the role runner fails at once, naming ROADMAP A8, and prints no port
+    and no result (the sharded group with its standbys runs:
+    tests/test_torch_replication.py)."""
     env = _child_env(PS_ROLE=role, PS_ALGO="asgd", PS_NUM_WORKER_PROCS=1,
                      PS_PORT=1, PS_WORKER_ID=0, ASYNCTPU_ASYNC_PS_SHARDS=4,
-                     ASYNCTPU_ASYNC_PS_STANDBY=1,
-                     ASYNCTPU_ASYNC_MESH_DEVICES=2)
+                     ASYNCTPU_ASYNC_PS_STANDBY=1, ASYNCTPU_ASYNC_UI_PORT=0)
     out = subprocess.run(CHILD, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert ("ROADMAP A6b.6" in out.stderr
-            and "async.mesh.devices" in out.stderr)
+    assert ("ROADMAP A8" in out.stderr and "async.ui.port" in out.stderr)
     assert out.stdout == ""
 
 

@@ -1,7 +1,7 @@
 """The port's ring and Ulysses attention against the JAX package.
 
 The port runs the per-rank program as a loop over the ranks of
-``make_mesh(8, devices=[cpu] * 8)``; the JAX package runs it under
+``make_mesh(8, axis_names=("sp",), devices=[cpu] * 8)``; the JAX package runs it under
 ``shard_map`` on its 8 virtual CPU devices.  Both block paths are held:
 ``"torch"`` (JAX ``"xla"``) and ``"cuda"`` (JAX ``"pallas"``, whose kernel
 runs in interpret mode; the port's wrapper takes its plain version for CPU
@@ -40,7 +40,7 @@ JAX_KERNEL = {"torch": "xla", "cuda": "pallas"}
 
 @pytest.fixture(scope="module")
 def meshes():
-    return (make_mesh(8, devices=[CPU] * 8),
+    return (make_mesh(8, axis_names=("sp",), devices=[CPU] * 8),
             jax_make_mesh(8, axis_names=("sp",), devices=jax.devices()[:8]))
 
 
@@ -125,7 +125,7 @@ def test_cuda_block_path_goes_through_the_block_kernel(meshes, monkeypatch):
 
 def test_single_rank_mesh_degenerates():
     q, k, v = map(torch.from_numpy, _qkv(4, (2, 32, 8, 16)))
-    mesh = make_mesh(1, devices=[CPU])
+    mesh = make_mesh(1, axis_names=("sp",), devices=[CPU])
     _close(ring_attention(q, k, v, mesh), reference_attention(q, k, v))
     _close(ulysses_attention(q, k, v, mesh, block_kernel="cuda"),
            reference_attention(q, k, v))
@@ -235,3 +235,16 @@ def test_demo_runs_on_the_cpu(capsys):
     out = ring_attention_demo.main(t=64, h=2, d=8, devices=[CPU] * 4)
     assert out.shape == (1, 64, 2, 8)
     assert "max |err| vs full attention" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fn", [ring_attention, ulysses_attention])
+def test_a_mesh_across_processes_is_refused_naming_its_item(fn):
+    """Ranks held by other processes (``multihost.global_mesh``) need the
+    torch.distributed ring, which is not ported: refused, never run as if
+    every rank were local."""
+    from asyncframework_tpu_torch.parallel.mesh import Mesh
+
+    q, k, v = map(torch.from_numpy, _qkv(4, (1, 8, 2, 4)))
+    mesh = Mesh([CPU] * 4, ("sp",), process_of=[0, 0, 1, 1])
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b.6"):
+        fn(q, k, v, mesh)
