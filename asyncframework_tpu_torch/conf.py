@@ -143,11 +143,48 @@ class AsyncConf:
 
 
 # --------------------------------------------------------------------------
-# Registered entries: the knobs of the DCN plane and of the telemetry
-# plane that this package reads, each a copy of the JAX package's entry.  The switch of the cluster path
-# it does not run yet (async.mesh.devices) is registered so that the PS and
-# its workers can refuse it when set.
+# Registered entries: the engine knobs and the reference's 13 driver args
+# (the submit CLI's --conf table, cli.py::CONF_TO_FIELD), and the knobs of
+# the DCN plane and of the telemetry plane, each a copy of the JAX
+# package's entry.
 # --------------------------------------------------------------------------
+NUM_WORKERS = ConfigEntry("async.num.workers", 8, int, "Logical workers (device slots).")
+NUM_ITERATIONS = ConfigEntry("async.num.iterations", 1000, int, "Total accepted updates.")
+TAW = ConfigEntry("async.taw", 2**31 - 1, int, "Staleness bound tau.")
+BATCH_RATE = ConfigEntry("async.batch.rate", 0.1, float, "Per-round Bernoulli sample rate b.")
+PRINTER_FREQ = ConfigEntry("async.printer.freq", 100, int, "Trajectory snapshot period.")
+DELAY_COEFF = ConfigEntry("async.delay.coeff", 0.0, float,
+                          "Straggler delay intensity; -1 = cloud long-tail model.")
+SEED = ConfigEntry("async.seed", 42, int, "Root PRNG seed.")
+MODEL_VERSIONS = ConfigEntry("async.broadcast.versions", 4, int,
+                             "Model versions kept live in the versioned store "
+                             "(SolverConfig.max_live_versions).")
+DRAIN_BATCH = ConfigEntry("async.drain.batch", 1, int,
+                          "Queued gradients folded into one device dispatch.")
+SPECULATION_QUANTILE = ConfigEntry(
+    "async.speculation.quantile", 0.75, float,
+    "Fraction of tasks that must finish before speculating.")
+SPECULATION_MULTIPLIER = ConfigEntry(
+    "async.speculation.multiplier", 1.5, float,
+    "Running task speculated past multiplier * median duration.")
+SPECULATION_MIN_MS = ConfigEntry(
+    "async.speculation.min.ms", 100.0, float,
+    "Never speculate tasks younger than this.")
+ALLOCATION_MAX_EXTRA = ConfigEntry(
+    "async.allocation.max.extra", 1, int,
+    "Max sibling executors added per slot by dynamic allocation.")
+ALLOCATION_BACKLOG = ConfigEntry(
+    "async.allocation.backlog.threshold", 2, int,
+    "Queued tasks per slot that trigger a sibling (sustained).")
+ALLOCATION_IDLE_S = ConfigEntry(
+    "async.allocation.idle.timeout.s", 1.0, float,
+    "Idle seconds before a sibling executor retires.")
+HEARTBEAT_TIMEOUT_MS = ConfigEntry(
+    "async.heartbeat.timeout.ms", 2000.0, float,
+    "Solver-run heartbeat timeout (ms), see SolverConfig.")
+MAX_SLOT_FAILURES = ConfigEntry(
+    "async.max.slot.failures", 2, int,
+    "Repeated executor deaths on a slot before its shard re-homes.")
 # ------------------------------------------------------- controller tunables
 # The two engine knobs the adaptive controller actuates besides the DCN
 # plane's (parallel/controller.py): declared with their hard bounds.
@@ -353,6 +390,13 @@ SHM_RING_KB = ConfigEntry(
     "spinning on a healthy reader.",
     tunable=True, floor=64, ceiling=262144)
 # ---------------------------------------------------------- elastic plane
+# The process-level membership supervisor (parallel/supervisor.py): worker
+# death detection, shard adoption, rejoin, degraded-cohort clamping for
+# the multi-process DCN training path.
+ELASTIC_ENABLED = ConfigEntry(
+    "async.elastic.enabled", True, bool,
+    "Run the DCN parameter server with the elastic membership supervisor "
+    "(worker-death detection + shard adoption + rejoin).")
 ELASTIC_DEAD_AFTER_S = ConfigEntry(
     "async.elastic.dead.after.s", 5.0, float,
     "Silence past this declares a worker dead (local process exit is "

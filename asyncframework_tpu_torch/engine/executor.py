@@ -18,12 +18,21 @@ Failure semantics: a task closure raising is reported to the scheduler
 :class:`HeartbeatMonitor` (engine/heartbeat.py) declares it dead, triggering
 task resubmission on a replacement. That is the Spark executor-loss /
 ``DistributedSuite`` story in one process.
+
+Exit: an executor told to stop (``shutdown``/``kill``) finishes the task it
+holds on its own thread after ``run()`` has returned.  The interpreter's
+exit joins those threads (bounded): a daemon thread still inside a torch op
+when the runtime is torn down aborts the process (``terminate called
+without an active exception``) after the run has printed its result.
 """
 
 from __future__ import annotations
 
+import atexit
 import queue
 import threading
+import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
@@ -45,6 +54,17 @@ class TaskMetrics:
     injected_delay_ms: float = 0.0
     succeeded: bool = False
     error: Optional[str] = None
+
+
+# executors told to stop whose threads may still hold a task
+_stopping: "weakref.WeakSet[DeviceExecutor]" = weakref.WeakSet()
+
+
+@atexit.register
+def _join_stopping(timeout_s: float = 5.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    for ex in list(_stopping):
+        ex.join(max(0.0, deadline - time.monotonic()))
 
 
 class DeviceExecutor:
@@ -89,6 +109,7 @@ class DeviceExecutor:
         """Simulate worker loss: stop heartbeating and stop taking work."""
         self._killed = True
         self._alive = False
+        _stopping.add(self)
         self._inbox.put(None)
 
     def shutdown(self) -> None:
@@ -96,6 +117,7 @@ class DeviceExecutor:
         declare this executor lost (unlike :meth:`kill`)."""
         self.shutdown_requested = True
         self._alive = False
+        _stopping.add(self)
         self._inbox.put(None)
 
     def join(self, timeout: Optional[float] = None) -> None:

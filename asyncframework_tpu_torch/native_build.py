@@ -1,7 +1,8 @@
-"""Build the native C++ wire codecs at first use.
+"""Build the native C++ sources (wire codecs, LibSVM parser) at first use.
 
 Counterpart of ``asyncframework_tpu/native_build.py``, for the port's copies
-of ``net/``: ``native/{wirecodec,wiredelta,shmring}.cc`` are compiled with
+of ``net/`` and the dense LibSVM loader (``data/libsvm.py``):
+``native/{wirecodec,wiredelta,shmring,libsvm_parser}.cc`` are compiled with
 ``g++`` into ``asyncframework_tpu_torch/_build/native/`` (listed in
 ``.gitignore``), never next to their sources, and the port never loads the
 JAX package's ``native/*.so``.  The file name carries a hash of the source,
@@ -12,7 +13,7 @@ temporary file and renames it into place, so processes that start together
 load a half-written library.
 
 Library code calls :func:`ensure_built` lazily; without a toolchain it
-returns None and the ``net/`` loaders take their pure-Python oracles, the
+returns None and the loaders take their pure-Python oracles, the
 documented path, each counted in ``python_fallbacks`` of
 :func:`native_totals` (the JAX package's ``native`` counter family).
 
@@ -35,7 +36,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "_build", "native")
 
-SOURCES = ("wiredelta", "wirecodec", "shmring")
+SOURCES = ("wiredelta", "wirecodec", "shmring", "libsvm_parser")
 
 # ------------------------------------------------------------ native totals
 # Process-global counters: native_calls.<unit> / python_calls.<unit> per

@@ -195,24 +195,6 @@ def _mesh_bump(key: str, n: int = 1) -> None:
         _mesh_counts_by_key[key] = _mesh_counts_by_key.get(key, 0) + n
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
-
-
-def refuse_unported_conf() -> None:
-    """Refuse the conf switches of the JAX package's cluster path that
-    this package does not run, on the PS and the workers alike: setting
-    one must never run a plainer run without a word."""
-    from asyncframework_tpu_torch.conf import UI_PORT, global_conf
-
-    if int(global_conf().get(UI_PORT)) >= 0:
-        # the JAX package's cluster CLI serves its run dashboard on
-        # it; a port run takes SolverConfig.ui_port, a port process
-        # async.metrics.port
-        _refuse("the cluster CLI's live dashboard (async.ui.port)", "A8")
-
-
 def _cv_fold(wire, clock: int = 0,
              wall_ms: Optional[float] = None) -> None:
     """Fold piggybacked convergence samples (the ``cv`` PUSH/BYE header
@@ -400,7 +382,6 @@ class ParameterServer:
 
         if algo not in ("asgd", "asaga"):
             raise ValueError(f"unknown PS algo {algo!r}")
-        refuse_unported_conf()
         self.cfg = cfg
         self.d, self.n = d, n
         self.algo = algo
@@ -561,7 +542,9 @@ class ParameterServer:
         # ---- data plane: batched gradient apply (merge queue).  All
         # pushes pending at lock acquisition coalesce into ONE drain
         # (at most _merge_max); per-push semantics stay per item.
-        self._merge_max = max(1, int(_gconf().get(PUSH_MERGE)))
+        merge = getattr(cfg, "push_merge", None)
+        self._merge_max = max(1, int(merge if merge is not None
+                                     else _gconf().get(PUSH_MERGE)))
         from collections import deque as _deque
 
         self._merge_q: "_deque[_PendingPush]" = _deque()
@@ -3428,7 +3411,6 @@ def run_worker_process(
         global_conf,
     )
 
-    refuse_unported_conf()
     proc_token = proc_token or f"{socket.gethostname()}-{os.getpid()}"
     # distributed tracing (metrics/trace.py): one sampling recorder + span
     # ring per worker process, shared by its loop threads.  With
@@ -3452,7 +3434,10 @@ def run_worker_process(
     # serial pull -> compute -> push loop; >= 1 = prefetched pulls on a
     # second connection + a bounded in-flight push sender (at most
     # `depth` unacked pushes)
-    pipe_depth = max(0, int(global_conf().get(PIPELINE_DEPTH)))
+    pipe_depth = getattr(cfg, "pipeline_depth", None)
+    if pipe_depth is None:
+        pipe_depth = global_conf().get(PIPELINE_DEPTH)
+    pipe_depth = max(0, int(pipe_depth))
     if algo == "asaga":
         # the PS samples per pull and holds ONE pending (idx, alpha) slot
         # per wid: a prefetched pull would clobber the slot the in-flight
@@ -3526,7 +3511,10 @@ def run_worker_process(
     # entry -- the PS folds them into the process-global
     # loss-vs-wallclock / loss-vs-version curves (metrics/timeseries.py).
     # 0 = off: no eval, no header field, byte-identical wire.
-    conv_every = max(0, int(global_conf().get(CONV_SAMPLE)))
+    conv_every = getattr(cfg, "conv_sample", None)
+    if conv_every is None:
+        conv_every = global_conf().get(CONV_SAMPLE)
+    conv_every = max(0, int(conv_every))
     cv_buf = None
     conv_eval = None
     if conv_every > 0:
@@ -3584,10 +3572,13 @@ def run_worker_process(
 
             return ShardedPSClient(
                 smap, proc=proc_token, recorder=recorder,
+                pull_mode=getattr(cfg, "pull_mode", None),
                 pl_stats=pl_stats, cv_buf=cv_buf, epochs=smap_epochs,
                 ctrl_sink=ctrl_sink)
         return PSClient(host, port, proc=proc_token, recorder=recorder,
+                        pull_mode=getattr(cfg, "pull_mode", None),
                         pl_stats=pl_stats, cv_buf=cv_buf, epoch=ps_epoch,
+                        push_codec=getattr(cfg, "push_codec", None),
                         ctrl_sink=ctrl_sink)
 
     # elastic adoption bookkeeping: which wids this process serves (own +

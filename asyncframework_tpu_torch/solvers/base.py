@@ -492,6 +492,19 @@ class SolverConfig:
     # updater drain batching: with drain_batch >= BATCH_DRAIN_MIN a drained
     # batch folds into one masked weighted sum (exact up to addition order)
     drain_batch: int = 1
+    # DCN data plane (parallel/ps_dcn.py), each None = resolve from its conf
+    # key: pull_mode (async.pull.mode: 'full' ships the whole model a PULL,
+    # 'delta' negotiates NOT_MODIFIED / XOR delta / full), push_merge
+    # (async.push.merge: pushes coalesced into one drain), push_codec
+    # (async.codec.push: 'off', 'fp16', 'int8'), pipeline_depth
+    # (async.pipeline.depth: 0 = the serial worker loop), conv_sample
+    # (async.convergence.sample: every Nth update a logical worker samples
+    # its shard's loss for the PS's curves; 0 = off)
+    pull_mode: Optional[str] = None
+    push_merge: Optional[int] = None
+    push_codec: Optional[str] = None
+    pipeline_depth: Optional[int] = None
+    conv_sample: Optional[int] = None
     # checkpoint/resume (solvers/base.py of the JAX package; the same npz
     # layout, plus each worker's generator state under ``worker_gens``)
     checkpoint_dir: Optional[str] = None  # None = checkpointing off

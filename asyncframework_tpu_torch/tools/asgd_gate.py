@@ -4,6 +4,8 @@
         [--runs N] [--routes staged,tiled] [--entry run|run_fused]
     python3 -m asyncframework_tpu_torch.tools.asgd_gate --config rcv1 \
         [--runs N] [--saga-gamma G] [--drain-batch M] [--entry run|run_fused]
+    python3 -m asyncframework_tpu_torch.tools.asgd_gate --config file \
+        [--runs N] [--shape N,D] [--gammas G,...] [--on cuda,cpu]
 
 ``--config epsilon`` (the default) generates ``chip_smoke.py``'s phase-3
 deployment once on the card (epsilon, 400,000 x 2,000 f32, 8 workers,
@@ -29,6 +31,16 @@ solver run (its gates, trajectory, updates/s, tasks per accepted update,
 kernel S1's launches, the staleness at apply) and one summary line: each
 gate's pass count over the runs.
 
+``--config file`` makes the rows of ``chip_smoke.py``'s LibSVM-file arm
+(:func:`file_arrays`, ``--shape``, default 2,048 x 2,000) and runs, on
+each device of ``--on`` (the card and the CPU, one dataset each), for each
+gamma of ``--gammas`` and seed 42 + run: ``ASGD.run()`` to 1,000 updates
+with one result a wake (the reference's loop; on the card once on each
+route of the masked-gradient kernel, pinned), ``run()`` draining up to
+``--drain-batch`` results a wake, and ``run_sync()`` for 125 rounds (1,000
+tasks).  One JSON line a run, as ``--config epsilon``'s plus the mean
+staleness at apply and the tasks a wake the updater drained.
+
 ``--entry run_fused`` runs the fused loop in place of the engine: on
 epsilon ``ASGD.run_fused()`` (the same 1,000-update budget and gate), on
 rcv1 ``tools/rcv1.py::fused_phase`` (ASGD and ASAGA ``run_fused()``).  Its
@@ -47,6 +59,7 @@ import statistics
 import subprocess
 from collections import defaultdict, deque
 
+import numpy as np
 import torch
 
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
@@ -104,7 +117,74 @@ def apply_staleness():
 def quantiles(xs):
     xs = sorted(xs)
     return {"p50": xs[len(xs) // 2], "p90": xs[len(xs) * 9 // 10],
-            "max": xs[-1]} if xs else None
+            "max": xs[-1], "mean": sum(xs) / len(xs)} if xs else None
+
+
+def file_arrays(n: int, d: int, seed: int = 15):
+    """``chip_smoke.py``'s LibSVM-file rows: ``X`` N(0, 1/d) f32, a N(0, 1)
+    model and 0.01 noise, from numpy's generator at ``seed``."""
+    rs = np.random.default_rng(seed)
+    X = rs.standard_normal((n, d), dtype=np.float32) / np.float32(
+        np.sqrt(d))
+    w = rs.standard_normal(d).astype(np.float32)
+    y = (X @ w + 0.01 * rs.standard_normal(n).astype(np.float32)).astype(
+        np.float32)
+    return X, y
+
+
+def file_gates(runs: int, shape, gammas, drain_batch: int, card: str,
+               devices) -> None:
+    """``--config file``: the file arm's recipe (8 workers, b = 0.1, no
+    staleness bound, bucket ratio 0.7) on each device, as the module's
+    docstring says."""
+    X, y = file_arrays(*shape)
+    for dev in devices:
+        ds = ShardedDataset(X, y, 8, [dev])
+        variants = [("run", r, 1) for r in (
+            ("tiled", "staged") if dev.type == "cuda" else (None,))]
+        variants += [("run", None, drain_batch), ("run_sync", None, 1)]
+        for k in range(runs):
+            for gamma in gammas:
+                for entry, route, drain in variants:
+                    sync = entry == "run_sync"
+                    cfg = SolverConfig(
+                        num_workers=8, num_iterations=125 if sync else 1000,
+                        gamma=gamma, taw=2**31 - 1, batch_rate=0.1,
+                        bucket_ratio=0.7, printer_freq=5 if sync else 25,
+                        seed=42 + k, drain_batch=drain)
+                    before = (mg.masked_grad.launches_staged,
+                              mg.masked_grad.launches_tiled)
+                    solver = ASGD(ds, None, cfg, devices=[dev])
+                    pin = (mg.pinned_route(route) if route is not None
+                           else contextlib.nullcontext())
+                    with pin, apply_staleness():
+                        r = getattr(solver, entry)()
+                    at_apply = ApplyStaleness.made[-1].at_apply
+                    tasks = sum(m.succeeded
+                                for m in solver.scheduler.pool.all_metrics())
+                    objs = [obj for _, obj in r.trajectory]
+                    print(json.dumps({
+                        "phase": "file", "card": card, "device": str(dev),
+                        "shape": list(shape), "gamma": gamma, "seed": 42 + k,
+                        "entry": entry, "route": route, "drain_batch": drain,
+                        "final_x": r.final_objective / objs[0],
+                        "min_x": min(objs) / objs[0],
+                        "objective_at_w0": objs[0],
+                        "updates_per_sec": r.updates_per_sec,
+                        "max_staleness": r.max_staleness,
+                        "accepted": r.accepted, "tasks_run": tasks,
+                        "staleness_at_apply": quantiles(at_apply),
+                        "staleness_at_apply_first_100": quantiles(
+                            at_apply[:100]),
+                        "staleness_at_apply_last_100": quantiles(
+                            at_apply[-100:]),
+                        "launches_staged":
+                            mg.masked_grad.launches_staged - before[0],
+                        "launches_tiled":
+                            mg.masked_grad.launches_tiled - before[1],
+                        "trajectory_x": [round(o / objs[0], 4)
+                                         for o in objs],
+                    }), flush=True)
 
 
 def rcv1_gates(runs: int, saga_gamma: float, drain_batch: int, card: str,
@@ -140,12 +220,16 @@ def rcv1_gates(runs: int, saga_gamma: float, drain_batch: int, card: str,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("epsilon", "rcv1"), default="epsilon")
+    ap.add_argument("--config", choices=("epsilon", "rcv1", "file"),
+                    default="epsilon")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--routes", default="staged,tiled")
     ap.add_argument("--saga-gamma", type=float, default=rcv1.SAGA_GAMMA)
     ap.add_argument("--drain-batch", type=int, default=rcv1.DRAIN_BATCH)
     ap.add_argument("--entry", choices=("run", "run_fused"), default="run")
+    ap.add_argument("--shape", default="2048,2000")
+    ap.add_argument("--gammas", default="100,50,25")
+    ap.add_argument("--on", default="cuda,cpu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("asgd_gate: no CUDA device")
@@ -155,6 +239,13 @@ def main() -> None:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.config == "file":
+        file_gates(args.runs, tuple(int(v) for v in args.shape.split(",")),
+                   [float(g) for g in args.gammas.split(",")],
+                   args.drain_batch, card,
+                   [torch.device(v, 0) if v == "cuda" else torch.device(v)
+                    for v in args.on.split(",")])
+        return
     if args.config == "rcv1":
         rcv1_gates(args.runs, args.saga_gamma, args.drain_batch, card, dev,
                    args.entry)

@@ -111,24 +111,25 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
     environment (e.g. conf keys by their ``ASYNCTPU_`` names);
     ``delays_ms[i]`` delays each PUSH of worker process ``i`` (its
     ``async.net.fault.schedule``); ``worker_args`` go on each worker's
-    command line (:func:`mesh_args`).  Every process is waited for or
-    killed."""
+    command line (:func:`mesh_args`).  The workers start beside the PS,
+    building their data while it comes up, and read its port from a file
+    this function writes once the PS announces it (``PS_PORT_FILE``).
+    Every process is waited for or killed."""
+    import tempfile
+
     env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
                PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
                PS_NUM_ITER=str(iters), **(env or {}))
     procs = []
+    port_dir = tempfile.TemporaryDirectory(prefix="dcn-port-")
+    port_file = os.path.join(port_dir.name, "port")
     try:
         ps = subprocess.Popen(CHILD, env=dict(env, PS_ROLE="ps"),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, cwd=ROOT)
         procs.append(ps)
-        line = ps.stdout.readline()
-        if not line:
-            raise RuntimeError(f"the PS process died: "
-                               f"{ps.communicate()[1][-3000:]}")
-        port = json.loads(line)["port"]
         for i in range(nprocs):
-            wenv = dict(env, PS_ROLE="worker", PS_PORT=str(port),
+            wenv = dict(env, PS_ROLE="worker", PS_PORT_FILE=port_file,
                         PS_WORKER_ID=str(i))
             if delays_ms and i < len(delays_ms) and delays_ms[i] > 0:
                 # the deterministic slow-but-alive member: every PUSH of
@@ -140,6 +141,13 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
                 CHILD + list(worker_args), env=wenv,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 cwd=ROOT))
+        line = ps.stdout.readline()
+        if not line:
+            raise RuntimeError(f"the PS process died: "
+                               f"{ps.communicate()[1][-3000:]}")
+        with open(port_file + ".tmp", "w") as f:
+            f.write(str(json.loads(line)["port"]))
+        os.replace(port_file + ".tmp", port_file)
         recs = []
         for p in procs[1:] + procs[:1]:
             out, err = p.communicate(timeout=timeout_s)
@@ -153,6 +161,7 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        port_dir.cleanup()
 
 
 def objective_gates(config: str, algo: str, traj,
@@ -601,16 +610,17 @@ def in_process(config: str, algo: str, iters: int, device) -> dict:
         set_global_conf(before)
 
 
-def phase(device, runs_=RUNS) -> List[dict]:
+def phase(device, runs_=RUNS, in_process_iters: int = 1_000) -> List[dict]:
     """Every multi-process run of ``runs_``, then the in-process epsilon
-    ASGD run; each record carries its gates."""
+    ASGD run (``in_process_iters`` updates); each record carries its
+    gates."""
     out = []
     for config, algo, iters in runs_:
         ps, workers = launch(config, algo, iters)
         rec = summarize(config, algo, iters, ps, workers)
         rec["mode"] = "processes"
         out.append(rec)
-    out.append(in_process("epsilon", "asgd", 1_000, device))
+    out.append(in_process("epsilon", "asgd", in_process_iters, device))
     return out
 
 

@@ -6,9 +6,12 @@
         PS_CONFIG=epsilon PS_ALGO=asgd \\
         python -m asyncframework_tpu_torch.tools.ps_child
 
-The port's form of the JAX package's role split (``cli.py``'s
-``run_async_cluster``, with process 0 as the PS) and the twin of
-``tests/ps_dcn_child.py``.  Role ``ps`` binds the server, prints
+A worker given ``PS_PORT_FILE`` instead of ``PS_PORT`` builds its data
+first and then waits for the file (``tools/dcn.py::launch`` starts the
+workers beside the PS and writes it once the PS announces its port).
+
+The role split of ``cli.py``'s ``run_async_cluster`` (process 0 as the
+PS) as a measuring harness, and the twin of ``tests/ps_dcn_child.py``.  Role ``ps`` binds the server, prints
 ``{"port": ...}`` on its first stdout line, waits for the run to finish,
 collects the workers' evaluations and prints one result line.  Role
 ``worker`` builds the deployment's data on its device, keeps its logical
@@ -18,9 +21,10 @@ scores the PS's snapshots over its shards and prints one result line with
 its kernel launches (counted from 0 before the run), its gradients and its
 peak device memory.
 
-Before either role runs, the cluster path's data-plane defaults are set
-where the environment sets nothing (as ``cli.py`` sets them): delta pulls,
-pipeline depth 2, the native codecs and the shared-memory ring.  Any of
+Before either role runs, the cluster path's data-plane defaults
+(``cli.py``'s ``DATA_PLANE_DEFAULTS``) are set where the environment sets
+nothing: delta pulls, pipeline depth 2, the native codecs and the
+shared-memory ring.  Any of
 them can be overridden with the conf's environment names, e.g.
 ``ASYNCTPU_ASYNC_PIPELINE_DEPTH=0``.  Each role then starts its telemetry
 from the conf (``metrics/live.py::start_telemetry_from_conf``, as
@@ -96,6 +100,7 @@ import time
 import numpy as np
 import torch
 
+from asyncframework_tpu_torch import cli
 from asyncframework_tpu_torch import conf as conf_mod
 from asyncframework_tpu_torch import native_build
 from asyncframework_tpu_torch.net import frame
@@ -103,9 +108,6 @@ from asyncframework_tpu_torch.parallel import ps_dcn, shardgroup
 from asyncframework_tpu_torch.solvers import SolverConfig
 from asyncframework_tpu_torch.tools import runs
 
-#: the cluster path's data-plane defaults (``cli.py`` of the JAX package)
-CLUSTER_DEFAULTS = {"async.pull.mode": "delta", "async.pipeline.depth": 2,
-                    "async.native.enabled": True, "async.shm.enabled": True}
 
 #: each deployment: (n, d, workers), its solver settings, and the gamma of
 #: each algorithm (epsilon: chip_smoke.py phases 3 and 5; rcv1:
@@ -127,14 +129,28 @@ CONFIGS = {
 
 
 def apply_cluster_defaults() -> None:
-    """Set :data:`CLUSTER_DEFAULTS` on the process conf where neither the
-    conf nor the environment holds a value."""
+    """Set the cluster path's data-plane defaults (``cli.py``'s
+    :data:`~asyncframework_tpu_torch.cli.DATA_PLANE_DEFAULTS`) on the
+    process conf where neither the conf nor the environment holds a value.
+    Its other defaults (convergence samples, fencing, the controller) are
+    each arm's own choice here, by the conf's environment names."""
     from asyncframework_tpu_torch.conf import global_conf
 
-    conf = global_conf()
-    for key, value in CLUSTER_DEFAULTS.items():
-        if not conf.contains(key):
-            conf.set(key, value)
+    cli.apply_defaults(global_conf(), cli.DATA_PLANE_DEFAULTS)
+
+
+def refuse_ui_port() -> None:
+    """The cluster's live dashboard (``async.ui.port``) is served by the
+    CLI's PS process (``python -m asyncframework_tpu_torch.cli``), not by
+    these roles: set here it is refused, never ignored."""
+    from asyncframework_tpu_torch.conf import UI_PORT
+
+    port = int(conf_mod.global_conf().get(UI_PORT))
+    if port >= 0:
+        raise SystemExit(
+            f"async.ui.port={port}: the cluster's dashboard is served by "
+            "the CLI's PS process (python -m asyncframework_tpu_torch.cli "
+            "... --ui-port P); a ps_child role serves async.metrics.port")
 
 
 def config(name: str, algo: str, iters: int = 0, gamma: float = 0.0,
@@ -650,16 +666,33 @@ def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
     return rec
 
 
-def run_worker(name: str, algo: str, device, port: int, wids, nprocs: int,
+def ps_port(timeout_s: float = 600.0) -> int:
+    """The PS's port: ``PS_PORT``, else the file ``PS_PORT_FILE`` that the
+    launcher writes (whole, by a rename) once the PS has announced it."""
+    if "PS_PORT" in os.environ:
+        return int(os.environ["PS_PORT"])
+    path = os.environ["PS_PORT_FILE"]
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no PS port in {path} after {timeout_s} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        return int(f.read())
+
+
+def run_worker(name: str, algo: str, device, port_of, wids, nprocs: int,
                iters: int = 0, gamma: float = 0.0, host: str = "127.0.0.1",
                evaluate: bool = True, devices=None) -> dict:
-    """Role ``worker``: run ``wids`` against the PS at ``host:port`` and
-    return this process's record; ``devices`` is the process's device
-    list for the mesh plane (default every CUDA device)."""
+    """Role ``worker``: run ``wids`` against the PS at ``host`` and the
+    port ``port_of()`` gives once the data is built, and return this
+    process's record; ``devices`` is the process's device list for the
+    mesh plane (default every CUDA device)."""
     n, d, _nw = CONFIGS[name]["shape"]
     cfg = config(name, algo, iters, gamma)
     ds = dataset(name, device)
     shards = {w: ds.shard(w) for w in wids}
+    port = port_of()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -740,9 +773,8 @@ def main(argv=None) -> None:
         from asyncframework_tpu_torch.net import faults
 
         faults.maybe_install_from_conf()
-    # before either role builds its data: a switch of the cluster path
-    # that this package does not run is refused, never ignored
-    ps_dcn.refuse_unported_conf()
+    # before either role builds its data
+    refuse_ui_port()
     role = os.environ["PS_ROLE"]
     name = os.environ.get("PS_CONFIG", "small")
     algo = os.environ.get("PS_ALGO", "asgd")
@@ -765,7 +797,7 @@ def main(argv=None) -> None:
             wids = [int(w) for w in os.environ["PS_WIDS"].split(",")]
         else:
             wids = [w for w in range(nw) if w % nprocs == pid]
-        rec = run_worker(name, algo, device, int(os.environ["PS_PORT"]),
+        rec = run_worker(name, algo, device, ps_port,
                          wids, nprocs, iters, gamma,
                          evaluate=os.environ.get("PS_EVAL") != "0",
                          devices=mesh_list)

@@ -13,7 +13,9 @@ exits non-zero without a result line):
    tolerance, bit-equality of two launches, and the median time of the
    kernel, the plain version and a library yardstick, beside the least
    time the card could take (its bound).  masked_grad at the epsilon and
-   mnist8m shapes, its two ASAGA forms (saga_grad, xt_coeff) at the epsilon
+   mnist8m shapes, its compacted form at phase 15's LibSVM-file task (a
+   256-row shard of 2,048 x 2,000, 56 slots) and at a 512-row shard of
+   4,096 x 500 (96 slots), both on the tiled route, its two ASAGA forms (saga_grad, xt_coeff) at the epsilon
    and mnist8m shards, each with the route it took (staged or tiled) and
    the other route's time (pinned; on the staged route that is the earlier
    design) taken in turns with it, and chunk_attention at a ring block (f),
@@ -98,10 +100,10 @@ exits non-zero without a result line):
    serial applies on the card (``dcn_merge``), then one PS process and two
    worker processes (``tools/ps_child.py``, 4 logical workers each) on this
    card over loopback and the shm ring, with delta pulls, pipeline depth 2
-   (ASAGA: the serial loop) and the native codecs: epsilon ASGD (1,000
-   updates) and ASAGA (2,000, phase 5's budget), rcv1 ASGD (1,200,
-   bench.py's recipe) and ASAGA (600); then epsilon ASGD with the PS and
-   its workers as threads of this process.  Each ``dcn`` line carries updates/s, accepted and
+   (ASAGA: the serial loop) and the native codecs: epsilon ASGD (500
+   updates) and ASAGA (2,000, phase 5's budget), rcv1 ASGD (400, bench.py's
+   recipe at a third of its budget) and ASAGA (600); then epsilon ASGD
+   (300) with the PS and its workers as threads of this process.  Each ``dcn`` line carries updates/s, accepted and
    dropped, max staleness, tasks per accepted update, wire bytes per
    update, pull replies by shape, merge batches, each worker process's
    launches per accepted update, ``python_fallbacks`` and each process's
@@ -126,7 +128,7 @@ exits non-zero without a result line):
    updates/s, the ``queue.depth`` series' maximum and its value at every
    100 accepted updates, and the profiler's zone table
    (``telemetry_cost``: updates/s on and off).  Then rcv1 ASGD on the DCN
-   plane as in phase 10 (1,200 updates, one PS process, two worker
+   plane as in phase 10 (400 updates, one PS process, two worker
    processes) with ``async.convergence.sample=10`` and
    ``async.metrics.port=0`` in all three: phase 10's gates, one
    ``ell_residual`` launch a convergence sample in each worker process,
@@ -141,10 +143,10 @@ exits non-zero without a result line):
    shm ring, the native codecs), the PS process holding the primary shard
    and a ``ShardGroup`` whose shard children run on this card, every shard
    fenced (``async.fence.enabled``).  Arms: (a) epsilon ASGD on 2 shards
-   (1,000 updates); (b) rcv1 ASGD on 3 shards (1,200, bench.py's recipe;
-   each sparse push split by column range); (c) epsilon ASGD on 3 shards
-   with per-shard checkpoints every 250 updates and shard 1 SIGKILLed at
-   500 accepted.  Gates: phase 10's (the budget, one B1 or S1 launch a
+   (300 updates); (b) rcv1 ASGD on 3 shards (400, bench.py's recipe at a
+   third of its budget; each sparse push split by column range); (c)
+   epsilon ASGD on 3 shards (300) with per-shard checkpoints every 75
+   updates and shard 1 SIGKILLed at 150 accepted.  Gates: phase 10's (the budget, one B1 or S1 launch a
    worker gradient with no plain call, the objective bands), every pull a
    version vector of the map's length, each shard's pushes counted once,
    every shard under an epoch, no fenced reject in (a) and (b); in (c)
@@ -162,8 +164,8 @@ exits non-zero without a result line):
    the controller on the primary.  First, on the card: the merge drain
    with 8 slots of random damps in (0, 1] bit-equal (``torch.equal``) to 8
    serial ``make_asgd_apply_damped`` calls, and at damp 1.0 to
-   ``make_asgd_apply``.  Arms: (a) epsilon ASGD on 3 shards (1,000
-   updates), shard 1's primary SIGKILLed at 500 accepted, a SUBSCRIBE
+   ``make_asgd_apply``.  Arms: (a) epsilon ASGD on 3 shards (600
+   updates), shard 1's primary SIGKILLed at 300 accepted, a SUBSCRIBE
    reader on shard 2's standby through the run; (b) rcv1 ASGD on 2 shards
    (1,200, bench.py's recipe), worker process 1 a straggler (150 ms on
    each PUSH).  Gates: phase 12's (the budget, one B1 or S1 launch a
@@ -199,13 +201,34 @@ exits non-zero without a result line):
    iterations run eagerly, and at b = 1.0 the 1-rank, 4-rank and (dp 2,
    md 2) runs agreeing (``minibatch_sgd``, ``minibatch_graph``,
    ``minibatch_agreement``: iterations/s fenced, launches an iteration);
-   (c) the DCN plane in phase 10's shape: epsilon ASGD (1,000 updates)
+   (c) the DCN plane in phase 10's shape: epsilon ASGD (300 updates)
    without and with a 4-rank mesh in each worker process (``cuda:0``
    repeated: one card gives no speedup, its ranks share it), then ASAGA
    with it (2,000 updates, phase 10's budget for its band, the serial
    loop), each with phase 10's gates and one B1 launch a rank a gradient
    (``dcn_mesh`` lines);
-15. the ``total`` line (seconds, and each phase's), the
+15. entry -- the port's entry points on the card, one ``entry`` line an
+   arm: (a) ``cli.main`` in this process runs ``asgd`` (1,000 updates),
+   ``asgd-sync`` (300 rounds), ``asgd-fused`` (5,000) and ``asaga``
+   (2,000) on ``synthetic x 2000 400000 8`` at phases 3, 5 and 6's recipes
+   and bands, every count set to 0 before each call and read after (B1 on
+   the staged route, no plain call; the fused run's launches captured a
+   round x rounds), and ``sgd-mllib`` at phase 14's recipe with its host
+   data cut to 100,000 rows; (b) ``asgd --sparse`` at rcv1's shape
+   (697,641 x 47,236, 80 nonzeros a row from ``make_sparse_regression``,
+   gamma 2,361.8 / 80, ``async.drain.batch=16``): phase 7's bands through
+   S1; (c) ``python -m asyncframework_tpu_torch.cluster 3 -- asgd ...
+   --ui-port 0`` (phase 10's recipe, one PS and two worker processes):
+   exit 0, the budget accepted, the band, the dashboard's port in the
+   summary; (d) a master and a worker daemon on localhost, then a
+   ``--master`` submission of a 3-process app (100,000 rows, 500
+   updates): ``FINISHED``, every executor's exit 0; (e) a 2,048 x 2,000
+   LibSVM file written from a seed, the C++ parse bit-equal to the line
+   parser's, then ``asgd`` (gamma 50, ``async.drain.batch=16``) over it
+   through the native load, every launch on the tiled route.  The
+   subprocess arms' launches are not counted (their counts live in their
+   processes);
+16. the ``total`` line (seconds, and each phase's), the
    ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -355,6 +378,7 @@ B1_ROUTES = {
     "saga_epsilon": "staged", "xt_epsilon": "staged",
     "saga_mnist8m_shard": "staged", "xt_mnist8m_shard": "staged",
     "mesh_rank_block": "staged", "saga_minibatch_rank": "staged",
+    "f_file_idx_2048x2000": "tiled", "f_file_idx_4096x500": "tiled",
 }
 
 
@@ -1570,6 +1594,30 @@ def features_phase(torch, card):
     return launches
 
 
+# the DCN arms' update budgets here, cut from tools/dcn.py's to make room
+# for phase 15 (PERF.md lists each cut).  Undamped ASGD reaches ~1e-4x of
+# its objective at w = 0 within 500 updates on either deployment, so its
+# arms run 300-400 (phase 10's epsilon 1,000 -> 500 and rcv1 1,200 -> 400,
+# its threads arm 1,000 -> 300; phase 11's DCN run 1,200 -> 400; phase
+# 12's (a) 1,000 -> 300, (b) 1,200 -> 400, (c) 1,000 -> 300 with its kill
+# at 500 -> 150 and checkpoints every 250 -> 75; phase 14's mesh off and
+# on arms 1,000 -> 300).  ASAGA's 1/2 band needs its 2,000 updates, and
+# phase 13's damped arms theirs: (a) 1,000 -> 600 (kill at 500 -> 300;
+# 0.031x at 800 against 0.1x), (b) keeps 1,200 (its best was 0.065x at
+# 1,200 against 0.1x).
+DCN_RUNS = (("epsilon", "asgd", 500), ("epsilon", "asaga", 2_000),
+            ("rcv1", "asgd", 400), ("rcv1", "asaga", 600))
+DCN_THREADS_UPDATES = 300
+SHARD_ARMS = (("a", "epsilon", 300, 2, None, 0),
+              ("b", "rcv1", 400, 3, None, 0),
+              ("c", "epsilon", 300, 3, (1, 150), 75))
+STANDBY_ARMS = (("a", "epsilon", 600, 3, (1, 300), (0, 0), True),
+                ("b", "rcv1", 1_200, 2, None, (0, 150), False))
+MESH_DCN_ARMS = (("off", "epsilon", "asgd", 300, 0),
+                 ("on", "epsilon", "asgd", 300, 4),
+                 ("asaga_on", "epsilon", "asaga", 2_000, 4))
+
+
 def dcn_phase(torch, card):
     """The DCN parameter-server plane (``tools/dcn.py``): the wire codecs
     built with g++, the merge drain against serial applies on the card,
@@ -1611,7 +1659,7 @@ def dcn_phase(torch, card):
                            f"{merge_equal}")
     launches = {"masked_grad": 0, "saga_slots_grad": 0, "compacted_grad": 0,
                 "sparse_saga_slots_grad": 0, "ell_residual": 0}
-    records = dcn.phase(dev)
+    records = dcn.phase(dev, DCN_RUNS, DCN_THREADS_UPDATES)
     for rec in records:
         emit({"phase": "dcn", "card": card, **rec})
         for w in rec["worker_launches"]:
@@ -1627,10 +1675,10 @@ def dcn_phase(torch, card):
 
 
 # the telemetry phase: phase 3's epsilon recipe and budget; rcv1 ASGD on
-# the DCN plane at phase 10's budget, a convergence sample every 10th
-# update of each logical worker
+# the DCN plane at phase 10's budget (cut 1,200 -> 400 with it), a
+# convergence sample every 10th update of each logical worker
 TELEMETRY_UPDATES = 1_000
-TELEMETRY_DCN_UPDATES = 1_200
+TELEMETRY_DCN_UPDATES = 400
 TELEMETRY_CONV_SAMPLE = 10
 
 
@@ -1699,7 +1747,7 @@ def shards_phase(card, dcn_records):
     from asyncframework_tpu_torch.tools import dcn
 
     launches = {"masked_grad": 0, "compacted_grad": 0}
-    records = dcn.shards_phase()
+    records = dcn.shards_phase(SHARD_ARMS)
     for rec in records:
         plain = next(r for r in dcn_records if r["config"] == rec["config"]
                      and r["algo"] == "asgd" and r["mode"] == "processes")
@@ -1783,7 +1831,7 @@ def standby_control_phase(card, shard_records):
     # objective at w = 0 of phase 12's unkilled arm of the deployment
     obj0 = {r["config"]: r["objective_at_w0"] for r in shard_records
             if r["kill"] is None}
-    records = dcn.standby_phase(obj0=obj0)
+    records = dcn.standby_phase(STANDBY_ARMS, obj0=obj0)
     for rec in records:
         twin = next(r for r in shard_records if r["arm"] == match[rec["arm"]])
         ctrl = rec["control"] or {}
@@ -2067,7 +2115,7 @@ def mesh_phase(torch, card):
     launches = minibatch_phase(torch, card, dev)
     launches.update({"masked_grad": 0, "masked_grad_mesh": 0,
                      "saga_slots_grad": 0})
-    records = dcn.mesh_phase()
+    records = dcn.mesh_phase(MESH_DCN_ARMS)
     off = next(r for r in records if r["arm"] == "off")
     for rec in records:
         emit({"phase": "dcn_mesh", "card": card, **rec,
@@ -2082,6 +2130,341 @@ def mesh_phase(torch, card):
     if failed:
         raise RuntimeError(f"dcn_mesh gates failed: {failed}")
     return recs, launches
+
+
+# phase 15, the entry points.  (a) phases 3, 5 and 6's recipes through
+# the CLI in this process: ASGD run() and run_sync(), run_fused(), ASAGA,
+# each with its phase's band; sgd-mllib makes its data on the host, so its
+# rows are cut (400,000 to 100,000) at phase 14's MiniBatchSGD recipe
+ENTRY_ROWS, ENTRY_WIDTH = 400_000, "2000"
+#: (driver, updates (rounds for -sync), gamma, printer freq, band)
+ENTRY_DRIVERS = (("asgd", 1_000, 100.0, 25, 0.1),
+                 ("asgd-sync", 300, 100.0, 25, 0.1),
+                 ("asgd-fused", 5_000, 100.0, 25, 0.1),
+                 ("asaga", 2_000, 0.5, 100, 0.5))
+ENTRY_MLLIB_ROWS, ENTRY_MLLIB_ITERS = 100_000, 60
+# (b) rcv1's published shape through --sparse: int(density * d) = 80
+# nonzeros a row, N(0, 1) values, so phase 7's gamma over 80 (the same
+# step against E[x x^T] = 80 I / d); the updater drains 16 a wake
+ENTRY_RCV1 = (47_236, 697_641, 1_200, 2_361.8 / 80, "0.0016937")
+# (c) the local cluster: one PS and two worker processes, phase 10's
+# recipe; (d) the standalone deploy: rows cut to 100,000, 500 updates;
+# (e) a dense LibSVM file (rows, width, updates, gamma) at epsilon's width,
+# ~26-row tasks; the updater drains 16 a wake, as (b) does: with one a wake
+# the workers outrun it and results are applied ~250 updates stale (C4),
+# which drifts above the objective at w = 0 at gamma 50 on either route
+# (``tools/asgd_gate.py --config file``)
+ENTRY_CLUSTER_UPDATES = 1_000
+ENTRY_DEPLOY_ROWS, ENTRY_DEPLOY_UPDATES = 100_000, 500
+ENTRY_LIBSVM = (2_048, 2_000, 1_000, 50.0)
+
+
+def entry_cli(argv, torch):
+    """``cli.main(argv)`` in this process, every kernel count set to 0
+    just before it and read just after; returns its exit code, summary,
+    trajectory objectives, counts and seconds."""
+    import contextlib
+    import io
+
+    from asyncframework_tpu_torch import cli
+    from asyncframework_tpu_torch.tools import runs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    runs.zero_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    counts = runs.counts()
+    seconds = time.monotonic() - t0
+    lines = buf.getvalue().strip().splitlines()
+    traj = [float(ln.strip("()").split(",")[1]) for ln in lines[:-1]
+            if ln.startswith("(")]
+    return rc, json.loads(lines[-1]), traj, counts, seconds
+
+
+def entry_recipe(driver, rows, iters, gamma, pfreq,
+                 path=("synthetic", "x"), width=ENTRY_WIDTH, extra=()):
+    """A recipe of 8 workers, taw 2^31-1, b = 0.1, bucket ratio 0.7, seed
+    42 (phase 3's), at epsilon's width unless given."""
+    return [driver, *path, str(width), str(rows), "8", str(iters),
+            str(gamma), "2147483647", "0.1", "0.7", str(pfreq), "0", "42",
+            *extra]
+
+
+def _band(traj, summary, band):
+    obj0, final = (traj[0] if traj else float("nan"),
+                   summary.get("final_objective"))
+    return {"finite": final is not None and math.isfinite(final),
+            f"final_below_{band}x": final is not None and final < band * obj0}
+
+
+def entry_drivers(torch, card, on_path):
+    """(a) and (b): the in-process drivers, gated; adds their launches to
+    ``on_path`` (by form)."""
+    from asyncframework_tpu_torch.tools import runs
+
+    for driver, iters, gamma, pfreq, band in ENTRY_DRIVERS:
+        rc, s, traj, c, secs = entry_cli(
+            entry_recipe(driver, ENTRY_ROWS, iters, gamma, pfreq), torch)
+        budget = s["rounds"] if driver.endswith("-sync") else s["accepted"]
+        gates = {"exit_0": rc == 0,
+                 "budget": (s["accepted"] >= iters if driver.endswith(
+                     "-fused") else budget == iters),
+                 **_band(traj, s, band),
+                 "no_plain_call": _plain_calls(c) == 0}
+        if driver == "asaga":
+            launched = {"saga_grad": c["saga_grad"],
+                        "xt_coeff": c["xt_coeff"]}
+            gates["through_b1"] = (c["saga_grad"] >= s["accepted"] > 0
+                                   and c["xt_coeff"] >= s["accepted"])
+        else:
+            launched = ({"masked_grad": c["masked_grad"],
+                         "masked_grad_staged": c["masked_grad_staged"]}
+                        if not driver.endswith("-fused") else
+                        {k: v for k, v in runs._on_path(
+                            c, s["rounds"]).items() if k.startswith("mask")})
+            gates["through_b1_staged"] = (
+                launched["masked_grad"] >= s["accepted"] > 0
+                and launched["masked_grad_staged"] == launched["masked_grad"])
+        for form in ("masked_grad", "saga_grad", "xt_coeff"):
+            on_path[form] += launched.get(form, 0)
+        rec = {"phase": "entry", "arm": "a", "driver": driver, "card": card,
+               "argv": entry_recipe(driver, ENTRY_ROWS, iters, gamma, pfreq),
+               "seconds": secs, "objective_at_w0": traj[0] if traj else None,
+               "trajectory_lines": len(traj), "summary": s,
+               "launches": launched, "raw_counts": {
+                   k: v for k, v in c.items() if v},
+               "gates": gates, "ok": all(gates.values())}
+        emit(rec)
+        if not rec["ok"]:
+            raise RuntimeError(f"entry {driver} failed its gates: {gates}")
+    # sgd-mllib: its rows made on the host (cut), one rank of the card
+    argv = entry_recipe("sgd-mllib", ENTRY_MLLIB_ROWS, ENTRY_MLLIB_ITERS,
+                        MB_GAMMA, 25)
+    rc, s, traj, c, secs = entry_cli(argv, torch)
+    gates = {"exit_0": rc == 0,
+             "iterations": s["iterations"] == ENTRY_MLLIB_ITERS,
+             "finite": bool(traj) and all(math.isfinite(v) for v in traj),
+             "loss_below_0.1x_first": bool(traj) and traj[-1] < traj[0] / 10,
+             "through_b1": c["saga_grad"] > 0,
+             "no_plain_call": _plain_calls(c) == 0}
+    on_path["saga_grad_minibatch"] += c["saga_grad"]
+    rec = {"phase": "entry", "arm": "a", "driver": "sgd-mllib", "card": card,
+           "argv": argv, "cut": f"rows {ENTRY_MLLIB_ROWS} of 400,000 (host "
+           "data)", "seconds": secs, "summary": s,
+           "loss_first": traj[0] if traj else None,
+           "launches": {"saga_grad": c["saga_grad"]}, "gates": gates,
+           "ok": all(gates.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"entry sgd-mllib failed its gates: {gates}")
+    # (b) the sparse driver at rcv1's shape
+    d, n, iters, gamma, density = ENTRY_RCV1
+    argv = ["asgd", "synthetic", "x", str(d), str(n), "8", str(iters),
+            repr(gamma), "2147483647", "0.05", "0.7", "50", "0", "42",
+            "--sparse", "--sparse-density", density,
+            "--conf", "async.drain.batch=16"]
+    rc, s, traj, c, secs = entry_cli(argv, torch)
+    obj0 = traj[0] if traj else float("nan")
+    gates = {"exit_0": rc == 0, "budget": s["accepted"] == iters,
+             "finite": bool(traj) and all(math.isfinite(v) for v in traj),
+             "best_below_0.1x": bool(traj) and min(traj) < 0.1 * obj0,
+             "final_below_0.3x": bool(traj) and traj[-1] < 0.3 * obj0,
+             "through_s1": (c["compacted_grad"] >= s["accepted"] > 0
+                            and c["ell_residual"] > 0
+                            and c["segment_sum"] == 0
+                            and c["masked_grad"] == 0),
+             "no_plain_call": _plain_calls(c) == 0}
+    on_path["compacted_grad"] += c["compacted_grad"]
+    on_path["ell_residual"] += c["ell_residual"]
+    rec = {"phase": "entry", "arm": "b", "driver": "asgd --sparse",
+           "card": card, "argv": argv, "seconds": secs,
+           "objective_at_w0": obj0,
+           "best_objective": min(traj) if traj else None, "summary": s,
+           "launches": {k: c[k] for k in ("compacted_grad", "ell_residual")},
+           "gates": gates, "ok": all(gates.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"entry asgd --sparse failed its gates: {gates}")
+
+
+def _last_json(lines):
+    for ln in reversed(lines):
+        if ln.startswith("{"):
+            return json.loads(ln)
+    return {}
+
+
+def entry_cluster(card):
+    """(c) ``python -m asyncframework_tpu_torch.cluster 3 -- ...`` on the
+    card, its dashboard on an ephemeral port; gated."""
+    argv = entry_recipe("asgd", ENTRY_ROWS, ENTRY_CLUSTER_UPDATES, 100.0, 25,
+                        extra=("--ui-port", "0"))
+    cmd = [sys.executable, "-m", "asyncframework_tpu_torch.cluster", "3",
+           "--", *argv]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    lines = proc.stdout.strip().splitlines()
+    s = _last_json(lines)
+    traj = [float(ln.strip("()").split(",")[1]) for ln in lines
+            if ln.startswith("(")]
+    gates = {"exit_0": proc.returncode == 0, "done": s.get("done") is True,
+             "accepted_is_budget": s.get("accepted")
+             == ENTRY_CLUSTER_UPDATES,
+             **_band(traj, s, 0.1),
+             "ui_port": isinstance(s.get("ui_port"), int)
+             and s["ui_port"] > 0}
+    rec = {"phase": "entry", "arm": "c", "card": card, "command": cmd[1:],
+           "seconds": time.monotonic() - t0,
+           "objective_at_w0": traj[0] if traj else None,
+           "summary": s, "gates": gates, "ok": all(gates.values())}
+    if not rec["ok"]:
+        rec["stderr_tail"] = proc.stderr[-3000:]
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"entry cluster failed its gates: {gates}")
+
+
+def _stop(proc, timeout=30):
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    out, err = proc.communicate()
+    return out, err
+
+
+def entry_deploy(torch, card):
+    """(d) a master and one worker daemon on localhost, then a ``--master``
+    submission of a 3-process app through the CLI; gated.  Both daemons
+    are stopped (SIGINT, then killed) whatever happens."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    py = sys.executable
+    t0 = time.monotonic()
+    master = subprocess.Popen(
+        [py, "-m", "asyncframework_tpu_torch.deploy.master", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env)
+    worker = None
+    try:
+        addr = master.stdout.readline().split()[3]
+        worker = subprocess.Popen(
+            [py, "-m", "asyncframework_tpu_torch.deploy.worker", addr],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=env)
+        worker.stdout.readline()  # registered
+        argv = ["--master", addr, "--processes", "3", "--wait-timeout",
+                "600", "--quiet", *entry_recipe(
+                    "asgd", ENTRY_DEPLOY_ROWS, ENTRY_DEPLOY_UPDATES, 100.0,
+                    25)]
+        rc, s, _traj, _c, secs = entry_cli(argv, torch)
+    finally:
+        w_out = _stop(worker)[0] if worker is not None else ""
+        _stop(master)
+    app = _last_json(w_out.strip().splitlines())
+    gates = {"exit_0": rc == 0, "finished": s.get("state") == "FINISHED",
+             "executors_exit_0": s.get("exits") == {"0": 0, "1": 0, "2": 0},
+             "accepted_is_budget": app.get("accepted")
+             == ENTRY_DEPLOY_UPDATES}
+    rec = {"phase": "entry", "arm": "d", "card": card, "argv": argv,
+           "cut": f"rows {ENTRY_DEPLOY_ROWS} of 400,000, "
+           f"{ENTRY_DEPLOY_UPDATES} updates",
+           "seconds": time.monotonic() - t0, "submit_seconds": secs,
+           "final": s, "app_summary": app, "gates": gates,
+           "ok": all(gates.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"entry deploy failed its gates: {gates}")
+
+
+def entry_libsvm(torch, card, on_path):
+    """(e) a dense LibSVM file written from a seed, parsed by the C++
+    parser and the line parser (bit-equal), then ``asgd`` over it."""
+    import tempfile
+
+    import numpy as np
+
+    from asyncframework_tpu_torch import native_build
+    from asyncframework_tpu_torch.data import libsvm
+    from asyncframework_tpu_torch.tools import asgd_gate
+
+    n, d, iters, gamma = ENTRY_LIBSVM
+    X, y = asgd_gate.file_arrays(n, d)
+    fmt = "%.7g " + " ".join(f"{j + 1}:%.7g" for j in range(d)) + "\n"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.libsvm")
+        t0 = time.monotonic()
+        with open(path, "w") as f:
+            for i in range(n):
+                f.write(fmt % (float(y[i]), *X[i].tolist()))
+        write_s = time.monotonic() - t0
+        native_build.reset_native_totals()
+        t0 = time.monotonic()
+        Xn, yn = libsvm.load_libsvm(path, d)
+        native_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        Xp, yp = libsvm.load_libsvm(path, d, use_native=False)
+        python_s = time.monotonic() - t0
+        parsed = native_build.native_totals()
+        argv = entry_recipe("asgd", n, iters, gamma, 25,
+                            path=(tmp, os.path.basename(path)), width=d,
+                            extra=("--conf", "async.drain.batch=16"))
+        rc, s, traj, c, secs = entry_cli(argv, torch)
+        size = os.path.getsize(path)
+    totals = native_build.native_totals()
+    gates = {"bit_equal": bool(np.array_equal(Xn, Xp)
+                               and np.array_equal(yn, yp)),
+             "native_parse": parsed.get("native_calls.libsvm") == 1
+             and not parsed.get("python_fallbacks"),
+             "cli_native_load": totals.get("native_calls.libsvm") == 2
+             and not totals.get("python_fallbacks"),
+             "exit_0": rc == 0, "budget": s.get("accepted") == iters,
+             **_band(traj, s, 0.1),
+             # phase 2's f_file_idx_2048x2000: the tiled route
+             "through_b1_tiled": (c["masked_grad"] >= s["accepted"] > 0
+                                  and c["masked_grad_tiled"]
+                                  == c["masked_grad"]),
+             "no_plain_call": _plain_calls(c) == 0}
+    on_path["masked_grad_file"] += c["masked_grad"]
+    rec = {"phase": "entry", "arm": "e", "card": card,
+           "file": {"rows": n, "d": d, "bytes": size, "write_s": write_s},
+           "native_parse_s": native_s, "python_parse_s": python_s,
+           "argv": argv, "seconds": secs, "summary": s,
+           "objective_at_w0": traj[0] if traj else None,
+           "launches": {k: c[k] for k in ("masked_grad",
+                                          "masked_grad_staged",
+                                          "masked_grad_tiled")},
+           "gates": gates,
+           "ok": all(gates.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"entry libsvm failed its gates: {gates}")
+
+
+def entry_phase(torch, card):
+    """Phase 15, the entry points (arms (a)-(e)); returns the in-process
+    arms' kernel launches by form (the subprocess arms' launches are not
+    counted: their counts live in their processes)."""
+    on_path = {"masked_grad": 0, "saga_grad": 0, "xt_coeff": 0,
+               "saga_grad_minibatch": 0, "compacted_grad": 0,
+               "ell_residual": 0, "masked_grad_file": 0}
+    entry_drivers(torch, card, on_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_cluster(card)
+    entry_deploy(torch, card)
+    entry_libsvm(torch, card, on_path)
+    emit({"phase": "entry_launches", "card": card, **on_path})
+    return on_path
 
 
 def main() -> int:
@@ -2102,6 +2485,7 @@ def main() -> int:
     from asyncframework_tpu_torch.ops import chunk_attention as ca
     from asyncframework_tpu_torch.ops import masked_grad as mg
     from asyncframework_tpu_torch.ops import sparse_grad as sg
+    from asyncframework_tpu_torch.ops.steps import sparse_step_capacity
     from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 
     t_start = time.monotonic()
@@ -2150,6 +2534,12 @@ def main() -> int:
         # just over the staged route's least bytes of X (1 MB of 512 KB)
         ("d_small_132x2000", 132, 2_000, f32, 1.0, None, "least_squares"),
         ("e_epsilon_logistic", 50_000, 2_000, f32, 0.7, None, "logistic"),
+        # phase 15 (e)'s task: the compacted form of a file's 8-worker
+        # shard at b = 0.1 (under the staged route's 512 KB of X: tiled)
+        ("f_file_idx_2048x2000", 256, 2_000, f32, 0.1,
+         sparse_step_capacity(0.1, 256), "least_squares"),
+        ("f_file_idx_4096x500", 512, 500, f32, 0.1,
+         sparse_step_capacity(0.1, 512), "least_squares"),
     ]
     recs = {}
     for name, n, d, dtype, b, cap, loss in cases:
@@ -2317,7 +2707,12 @@ def main() -> int:
 
     lap("mesh")
 
-    # ------------------------------------------------------ 15. results
+    # ------------------------------------------------------------ 15. entry
+    entry_launches = entry_phase(torch, card)
+
+    lap("entry")
+
+    # ------------------------------------------------------ 16. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
           "phase_seconds": laps})
     print(card, flush=True)
@@ -2350,15 +2745,22 @@ def main() -> int:
               + feat["masked_grad"] + dcn_launches["masked_grad"]
               + tel["masked_grad"] + shard_launches["masked_grad"]
               + standby_launches["masked_grad"]
-              + mesh_launches["masked_grad"],
+              + mesh_launches["masked_grad"] + entry_launches["masked_grad"],
               recs["b_epsilon_idx"],
               recs["b_epsilon_idx"]["bound_us"] / 1e3),
+        # phase 15 (e): the compacted form at the LibSVM file's task
+        entry("masked_grad.file_task", "masked_grad.cu", b1,
+              entry_launches["masked_grad_file"],
+              recs["f_file_idx_2048x2000"],
+              recs["f_file_idx_2048x2000"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad", "masked_grad.cu", b1,
               saga_launches["saga_grad"]
-              + saga_fused["launches_on_path"]["saga_grad"],
+              + saga_fused["launches_on_path"]["saga_grad"]
+              + entry_launches["saga_grad"],
               recs["saga_epsilon"], recs["saga_epsilon"]["bound_us"] / 1e3),
         entry("masked_grad.xt_coeff", "masked_grad.cu", b1,
-              saga_launches["xt_coeff"] + mesh_launches["xt_coeff"],
+              saga_launches["xt_coeff"] + mesh_launches["xt_coeff"]
+              + entry_launches["xt_coeff"],
               recs["xt_epsilon"], recs["xt_epsilon"]["bound_us"] / 1e3),
         # the DCN ASAGA worker's per-slot form (the worker processes',
         # phase 14's mesh ranks too)
@@ -2373,7 +2775,9 @@ def main() -> int:
               mesh_launches["masked_grad_mesh"], mesh_recs["mesh_rank_block"],
               mesh_recs["mesh_rank_block"]["bound_us"] / 1e3),
         entry("masked_grad.saga_grad.minibatch_rank", "masked_grad.cu", b1,
-              mesh_launches["saga_grad"], mesh_recs["saga_minibatch_rank"],
+              mesh_launches["saga_grad"]
+              + entry_launches["saga_grad_minibatch"],
+              mesh_recs["saga_minibatch_rank"],
               mesh_recs["saga_minibatch_rank"]["bound_us"] / 1e3),
         entry("chunk_attention", "chunk_attention.cu",
               "asyncframework_tpu/ops/pallas_kernels.py:155", att_launches,
@@ -2387,7 +2791,8 @@ def main() -> int:
               s1_launches["compacted_grad"] + feat["compacted_grad"]
               + dcn_launches["compacted_grad"] + tel["compacted_grad"]
               + shard_launches["compacted_grad"]
-              + standby_launches["compacted_grad"],
+              + standby_launches["compacted_grad"]
+              + entry_launches["compacted_grad"],
               s_task["task"],
               s_task["task"]["bound_ms"]),
         entry("sparse_grad.saga_slots_grad", "sparse_grad.cu",
@@ -2402,7 +2807,8 @@ def main() -> int:
         entry("sparse_grad.ell_residual", "sparse_grad.cu",
               f"asyncframework_tpu/ops/gradients.py:131 {xla}",
               s1_launches["ell_residual"] + feat["ell_residual"]
-              + dcn_launches["ell_residual"] + tel["ell_residual"], s_eval,
+              + dcn_launches["ell_residual"] + tel["ell_residual"]
+              + entry_launches["ell_residual"], s_eval,
               s_eval["bound_ms"]),
     ]})
     emit({"ok": True, "device": {

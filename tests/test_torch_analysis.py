@@ -218,19 +218,19 @@ class TestWholeTreeSelfLintOnThePort(ref_lint.TestWholeTreeSelfLint):
 
     def test_deleting_a_conf_declaration_fails_lint(self, tmp_path):
         """Drop ONE ConfigEntry declaration from a copy of the port's
-        conf.py next to the real ``tools/ps_child.py`` -> its literal
-        read of that key (the cluster defaults) becomes an undeclared
-        read."""
+        conf.py next to the real ``cli.py`` -> its literal read of that
+        key (the cluster defaults, which ``tools/ps_child.py`` takes from
+        the CLI) becomes an undeclared read."""
         with open(os.path.join(REPO, PKG, "conf.py")) as f:
             conf_src = f.read()
-        with open(os.path.join(REPO, PKG, "tools", "ps_child.py")) as f:
+        with open(os.path.join(REPO, PKG, "cli.py")) as f:
             child_src = f.read()
         target = re.search(r'PULL_MODE = ConfigEntry\(\n(?:.*\n)*?.*\)\n',
                            conf_src).group(0)
         assert '"async.pull.mode"' in target
         ctx = _ctx(tmp_path, {
             f"{PKG}/conf.py": conf_src.replace(target, ""),
-            f"{PKG}/tools/ps_child.py": child_src,
+            f"{PKG}/cli.py": child_src,
         })
         toks = _tokens(t_rules_conf.check(ctx), "conf-undeclared-read")
         assert "async.pull.mode" in toks
@@ -238,6 +238,74 @@ class TestWholeTreeSelfLintOnThePort(ref_lint.TestWholeTreeSelfLint):
 
 class TestLockOrderDetectorOnThePort(ref_lint.TestLockOrderDetector):
     pass
+
+
+# ------------------------------------------- the entry points on the lint
+def _real_src(*parts):
+    with open(os.path.join(REPO, PKG, *parts)) as f:
+        return f.read()
+
+
+def test_the_entry_points_are_linted():
+    """The CLI, the launcher and the deploy modules are in the linted
+    tree and lint clean with the rest."""
+    paths = set(t_core.iter_lint_paths(REPO))
+    want = {f"{PKG}/cli.py", f"{PKG}/cluster.py"} | {
+        f"{PKG}/deploy/{m}.py"
+        for m in ("__init__", "client", "leader", "master", "worker")}
+    assert want <= paths
+
+
+def test_deleting_taw_next_to_the_ports_cli_fails_lint(tmp_path):
+    """The JAX package's acceptance mutation on the port's ``cli.py``:
+    drop ``async.taw``'s declaration from a copy of conf.py next to the
+    real CLI -> its ``CONF_TO_FIELD`` read becomes an undeclared read."""
+    conf_src = _real_src("conf.py")
+    target = ('TAW = ConfigEntry("async.taw", 2**31 - 1, int, '
+              '"Staleness bound tau.")')
+    assert target in conf_src
+    ctx = _ctx(tmp_path, {f"{PKG}/conf.py": conf_src.replace(target, ""),
+                          f"{PKG}/cli.py": _real_src("cli.py")})
+    assert "async.taw" in _tokens(t_rules_conf.check(ctx),
+                                  "conf-undeclared-read")
+    clean = _ctx(tmp_path / "clean", {f"{PKG}/conf.py": conf_src,
+                                      f"{PKG}/cli.py": _real_src("cli.py"),
+                                      f"{PKG}/solvers/base.py":
+                                          _real_src("solvers", "base.py")})
+    assert _tokens(t_rules_conf.check(clean), "conf-field-map") == []
+
+
+def test_a_cli_field_map_entry_without_its_field_fails_lint(tmp_path):
+    """A ``CONF_TO_FIELD`` entry naming no ``SolverConfig`` field (here
+    ``async.pipeline.depth``'s field renamed) is a ``conf-field-map``
+    finding on the port's CLI."""
+    cli_src = _real_src("cli.py")
+    old = '"async.pipeline.depth": "pipeline_depth",'
+    assert old in cli_src
+    ctx = _ctx(tmp_path, {
+        f"{PKG}/conf.py": _real_src("conf.py"),
+        f"{PKG}/solvers/base.py": _real_src("solvers", "base.py"),
+        f"{PKG}/cli.py": cli_src.replace(
+            old, '"async.pipeline.depth": "pipe_depth",')})
+    assert _tokens(t_rules_conf.check(ctx), "conf-field-map") == [
+        "async.pipeline.depth"]
+
+
+@pytest.mark.parametrize("mutation", ["hand_rolled", "deleted"])
+def test_the_ports_master_derives_its_dedup_set(tmp_path, mutation):
+    """The master's ``_MUTATING_OPS`` must come from the protocol table:
+    a hand-rolled set, or none, fails the lint on a copy of the port's
+    ``deploy/master.py``; the real file is clean."""
+    src = _real_src("deploy", "master.py")
+    old = "_MUTATING_OPS = _protocol.dedup_gated_ops(_protocol.MASTER)"
+    assert old in src
+    new = ('_MUTATING_OPS = frozenset({"SUBMIT_APP"})'
+           if mutation == "hand_rolled" else "_UNUSED = None")
+    ctx = _ctx(tmp_path, {f"{PKG}/deploy/master.py": src.replace(old, new)})
+    assert _tokens(t_rules_protocol.check(ctx), "proto-dedup-gate") == [
+        t_protocol.MASTER]
+    clean = _ctx(tmp_path / "clean", {f"{PKG}/deploy/master.py": src})
+    assert _tokens(t_rules_protocol.check(clean), "proto-dedup-gate") == []
 
 
 # ------------------------------------------------------- the port's own
@@ -269,7 +337,6 @@ def test_pending_paths_are_skipped_by_name_and_item():
     ROADMAP item, reported by the CLI, and skipped without a crash."""
     pending = dict(t_core.pending_paths(REPO))
     assert pending == {
-        f"{PKG}/cli.py": "A8", f"{PKG}/deploy/master.py": "A8",
         f"{PKG}/relaycast/node.py": "A8",
         f"{PKG}/relaycast/source.py": "A8",
         f"{PKG}/streaming/log_net.py": "A10",
@@ -277,8 +344,10 @@ def test_pending_paths_are_skipped_by_name_and_item():
     rule_paths = {t_rules_conf.CLI_PATH, t_rules_conf.CONTROLLER_PATH,
                   *t_rules_protocol.FENCE_SERVER_PATHS,
                   *t_rules_protocol.FENCE_CLIENT_STAMPS}
+    # the entry points (cli.py, deploy/master.py) are linted since they
+    # were ported
     ported = {t_rules_protocol.PS_DCN_PATH, t_rules_conf.CONTROLLER_PATH,
-              f"{PKG}/parallel/replication.py"}
+              f"{PKG}/parallel/replication.py", t_rules_conf.CLI_PATH}
     assert ported <= rule_paths
     assert set(pending) >= rule_paths - ported
     assert not set(pending) & ported
@@ -289,6 +358,9 @@ def test_pending_paths_are_skipped_by_name_and_item():
     for path, item in pending.items():
         assert f"{path}: not ported yet (ROADMAP {item})" in proc.stdout
     assert "async-lint: clean" in proc.stdout
+    for path in (t_rules_conf.CLI_PATH, f"{PKG}/deploy/master.py"):
+        assert os.path.isfile(os.path.join(REPO, path))
+        assert f"{path}: not ported yet" not in proc.stdout
 
 
 def test_allowlist_is_the_retargeted_reference_and_the_refused_ops():

@@ -208,3 +208,27 @@ def test_memory_plan_and_flops():
     assert hbm.device_memory_bytes("cpu") > 0
     assert flops.dense_task_flops(10, 5) == 200.0
     assert flops.chip_peak_flops("cpu") is None
+
+
+def test_exit_hook_joins_an_executor_stopped_mid_task():
+    """The port's executors, told to stop while one holds a task, finish
+    it before the interpreter exits (``engine/executor.py``'s exit hook):
+    a daemon thread left inside a torch op when the runtime is torn down
+    aborts the process after the run has printed its result."""
+    from asyncframework_tpu_torch.engine import executor as ex_mod
+    from asyncframework_tpu_torch.engine.job import TaskSpec
+
+    started, done = threading.Event(), []
+
+    def fn():
+        started.set()
+        time.sleep(0.3)
+        return torch.ones(4).sum()
+
+    ex = ex_mod.DeviceExecutor(0, lambda e, t, r, exc: done.append(r))
+    ex.launch_task(TaskSpec(job_id=0, worker_id=0, fn=fn))
+    assert started.wait(5)
+    ex.shutdown()
+    assert ex._thread.is_alive()  # still in the task
+    ex_mod._join_stopping()
+    assert not ex._thread.is_alive() and [float(r) for r in done] == [4.0]

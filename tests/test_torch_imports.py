@@ -105,6 +105,44 @@ def test_no_jax_or_reference_import_in_the_source():
     assert not offenders
 
 
+ENTRY_MODULES = ("cli", "cluster", "deploy.__init__", "deploy.client",
+                 "deploy.leader", "deploy.master", "deploy.worker")
+
+
+@pytest.mark.parametrize("module", ["cli", "cluster", "deploy.master",
+                                    "deploy.worker"])
+def test_command_line_entry_points_run_with_jax_blocked(module):
+    """The AST scan above reads the CLI, the launcher and every deploy
+    module; each command runs as ``python -m`` (``--help``) in a fresh
+    interpreter with ``jax`` and ``asyncframework_tpu`` blocked."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for mod in ENTRY_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+    code = f"""
+import runpy, sys
+sys.path.insert(0, {REPO!r})
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "asyncframework_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.argv = ["{module}", "--help"]
+try:
+    runpy.run_module("asyncframework_tpu_torch.{module}", run_name="__main__")
+except SystemExit:
+    pass
+print("ran", sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd="/")
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ran []")
+
+
 def test_entry_points_refuse_to_fall_back_to_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is the GPU")

@@ -183,6 +183,8 @@ SMOKE_PLANS = [
     ("xt_epsilon", 2_000, 50_000, 4, 3, "staged"),
     ("saga_mnist8m_shard", 784, 1_012_500, 2, 2, "staged"),
     ("xt_mnist8m_shard", 784, 1_012_500, 2, 3, "staged"),
+    ("f_file_idx_2048x2000", 2_000, 56, 4, 0, "tiled"),
+    ("f_file_idx_4096x500", 500, 96, 4, 0, "tiled"),
 ]
 
 # ragged edges on the staged route (pinned, as the probe pins it): m = 0,

@@ -10,7 +10,8 @@ dropped, and no retry was applied twice) and convergence, at
 trajectory against the JAX package's (one logical worker, so the run is
 serial and both PSes draw the same rows with numpy), the port's twins of
 ``tests/test_ps_dcn.py`` and ``tests/test_dataplane.py``, checkpoints
-across the packages, the merge drain, and the refused switches.
+across the packages, the merge drain, and the refused (and lifted)
+switches.
 
 Waits are on events, joins and the PS's own state, with deadlines; no
 test sleeps a fixed time to let another thread get somewhere.
@@ -760,8 +761,11 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
         ps.stop()
 
 
-#: the cluster path's conf switches that the PS and its workers refuse
-#: (each set to 2: above its off value, and truthy for the flags)
+#: the cluster path's conf switches that the PS and its workers refused
+#: until their ROADMAP item was ported, each set to 2 (above its off
+#: value, and truthy for the flags): ``async.ui.port`` is the cluster
+#: CLI's dashboard (A8's entry points), which neither the PS nor a worker
+#: reads, as in the JAX package
 REFUSED_CONF = [("async.ui.port", "A8")]
 
 
@@ -827,26 +831,42 @@ def test_convergence_sample_conf_is_taken_by_the_ps(conf):
 @pytest.mark.parametrize("conf_key,item", REFUSED_CONF)
 def test_refused_worker_switches_name_their_roadmap_item(conf_key, item,
                                                          conf):
+    """No longer refused (ROADMAP ``item`` is ported): a worker process
+    with the switch set trains the run to its budget, exactly once."""
     conf.set(conf_key, 2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tps.run_worker_process("127.0.0.1", 1, [0], {}, TConfig(**_kw()),
-                               D, N)
+    cfg = TConfig(**_kw(num_iterations=60))
+    ps = _port_ps(cfg)
+    ds = _port_ds()
+    counts, _traj = _run(ps, tps.run_worker_process,
+                         {w: ds.shard(w) for w in range(NW)}, cfg, "asgd",
+                         eval_wid=None)
+    _exactly_once(ps, counts, 60)
 
 
 @pytest.mark.parametrize("conf_key,item", REFUSED_CONF)
 def test_refused_conf_switches_on_the_ps(conf_key, item, conf):
+    """No longer refused (ROADMAP ``item`` is ported): the PS builds and
+    serves with the switch set, and binds no port for it (the dashboard
+    is the cluster CLI's, ``tests/test_torch_cli.py``)."""
+    from asyncframework_tpu_torch.metrics import live
+
     conf.set(conf_key, 2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tps.ParameterServer(TConfig(**_kw()), D, N, device=CPU)
+    before = list(live.active_servers())
+    ps = tps.ParameterServer(TConfig(**_kw()), D, N, device=CPU).start()
+    try:
+        assert ps.port > 0
+        assert list(live.active_servers()) == before
+    finally:
+        ps.stop()
 
 
 @pytest.mark.parametrize("role", ["ps", "worker"])
 def test_ps_child_refuses_a_sharded_cluster_before_its_data(role):
-    """A sharded cluster with a switch the port refuses (the cluster
-    CLI's dashboard, ``ASYNCTPU_ASYNC_UI_PORT=0``, beside
-    ``ASYNCTPU_ASYNC_PS_SHARDS=4`` and ``ASYNCTPU_ASYNC_PS_STANDBY=1``) on
-    the role runner fails at once, naming ROADMAP A8, and prints no port
-    and no result (the sharded group with its standbys runs:
+    """A sharded cluster with a switch the role runner refuses (the
+    cluster's dashboard, ``ASYNCTPU_ASYNC_UI_PORT=0``, beside
+    ``ASYNCTPU_ASYNC_PS_SHARDS=4`` and ``ASYNCTPU_ASYNC_PS_STANDBY=1``)
+    fails at once, pointing at the CLI that serves it, and prints no
+    port and no result (the sharded group with its standbys runs:
     tests/test_torch_replication.py)."""
     env = _child_env(PS_ROLE=role, PS_ALGO="asgd", PS_NUM_WORKER_PROCS=1,
                      PS_PORT=1, PS_WORKER_ID=0, ASYNCTPU_ASYNC_PS_SHARDS=4,
@@ -854,7 +874,8 @@ def test_ps_child_refuses_a_sharded_cluster_before_its_data(role):
     out = subprocess.run(CHILD, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert ("ROADMAP A8" in out.stderr and "async.ui.port" in out.stderr)
+    assert ("async.ui.port" in out.stderr
+            and "python -m asyncframework_tpu_torch.cli" in out.stderr)
     assert out.stdout == ""
 
 
