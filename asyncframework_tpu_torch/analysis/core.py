@@ -100,8 +100,6 @@ PKG = "asyncframework_tpu_torch"
 #: it; :func:`pending_paths` lists the skips, and the CLI prints them, so
 #: no obligation is dropped without a word.
 PENDING_PATHS: Dict[str, str] = {
-    PKG + "/relaycast/node.py": "A8",
-    PKG + "/relaycast/source.py": "A8",
     PKG + "/streaming/log_net.py": "A10",
 }
 

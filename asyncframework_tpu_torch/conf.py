@@ -389,6 +389,37 @@ SHM_RING_KB = ConfigEntry(
     "the ring to a few model payloads keeps the writer from ever "
     "spinning on a healthy reader.",
     tunable=True, floor=64, ceiling=262144)
+# ------------------------------------------------------------- relay plane
+# Relaycast (asyncframework_tpu_torch/relaycast/): peer-relayed versioned model
+# distribution -- replicas form a k-ary tree rooted at the PS, the root's
+# direct children SUBSCRIBE as usual, and every deeper node RELAY_FETCHes
+# CRC-gated XOR deltas from its parent and re-serves them to its own
+# children, so PS egress per version is O(fanout), not O(replicas).
+RELAY_FANOUT = ConfigEntry(
+    "async.relay.fanout", 2, int,
+    "Children per node in the relaycast distribution tree (the PS root "
+    "included: it accepts at most this many relay-child registrations "
+    "for its RELAY_OFFER push path; k8s/CLI tree plans use the same "
+    "arity).  Tree depth is log_fanout(replicas).")
+RELAY_COMPRESS = ConfigEntry(
+    "async.relay.compress", True, bool,
+    "Lossless zlib compression of relay-hop model payloads "
+    "(net/wirecodec.py): XOR deltas of a training step compress "
+    "severalfold (agreeing sign/exponent bits, ascending index half); "
+    "losslessness keeps the CRC gate exact.  On by default -- the relay "
+    "plane is new wire with no byte-identity legacy to preserve; "
+    "payloads that would not shrink ship raw automatically.")
+RELAY_VERSIONS = ConfigEntry(
+    "async.relay.versions", 8, int,
+    "Recent model versions a relay node keeps for delta-encoding "
+    "children's RELAY_FETCH have= requests (oldest evict first; a "
+    "missing basis answers full, exactly like the PS delta cache).")
+RELAY_PARENT_RETRY_S = ConfigEntry(
+    "async.relay.parent.retry.s", 5.0, float,
+    "After a relay parent fails (dead, fenced, CRC mismatch) the child "
+    "re-homes to the ROOT (direct SUBSCRIBE -- the always-safe path) "
+    "and only re-tries its parent after this many seconds, so a "
+    "flapping interior node cannot oscillate the subtree.")
 # ---------------------------------------------------------- elastic plane
 # The process-level membership supervisor (parallel/supervisor.py): worker
 # death detection, shard adoption, rejoin, degraded-cohort clamping for
@@ -450,6 +481,37 @@ GRAY_RTT_MIN_MS = ConfigEntry(
     "Gray-failure RTT floor: an endpoint is never latency-suspected "
     "while its EWMA is under this many ms (micro-jitter on a fast local "
     "cohort is not a gray failure).")
+# ----------------------------------------------------------- serving plane
+# The read path (asyncframework_tpu_torch/serving/): ModelReplica processes
+# subscribe to the PS's versioned snapshots (SUBSCRIBE = a wave-gate-free
+# delta-negotiated pull) and answer PREDICT RPCs while training runs; a
+# ServingFrontend round-robins client requests over registered replicas
+# with retry/circuit-breaker failover.
+SERVE_REFRESH_S = ConfigEntry(
+    "async.serve.refresh.interval.s", 0.05, float,
+    "Replica background refresh period: how often a ModelReplica sends a "
+    "SUBSCRIBE (delta-mode have= pull, CRC-gated, full-pull fallback) to "
+    "the PS.  Bounds the replica's freshness lag when training is "
+    "advancing the model.")
+SERVE_MAX_STALE_MS = ConfigEntry(
+    "async.serve.max.staleness.ms", 2000.0, float,
+    "A replica whose last SUCCESSFUL refresh is older than this marks "
+    "itself unhealthy: PREDICT is answered UNHEALTHY (the frontend fails "
+    "over) until a refresh lands again.  0 disables the health gate -- "
+    "the replica serves its last model forever (bounded-staleness reads "
+    "degrade to eventual consistency).")
+SERVE_REPLICAS = ConfigEntry(
+    "async.serve.replicas", 2, int,
+    "Replica count launchers (bench --serve, k8s manifests) provision.")
+SERVE_MAX_REPLICAS = ConfigEntry(
+    "async.serve.max.replicas", 16, int,
+    "Registration slots a ServingFrontend allocates (the ElasticSupervisor "
+    "membership table is sized once).")
+SERVE_DEADLINE_S = ConfigEntry(
+    "async.serve.failover.deadline.s", 2.0, float,
+    "Frontend per-request budget across failover attempts: a PREDICT that "
+    "cannot be answered by ANY healthy replica within this raises "
+    "PredictError to the caller.")
 CONV_SAMPLE = ConfigEntry(
     "async.convergence.sample", 0, int,
     "Worker-side convergence sampling: every Nth update per logical "

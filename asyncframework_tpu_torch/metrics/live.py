@@ -19,8 +19,8 @@ single drain thread; HTTP reads take the same lock only per request.
 
 A copy of the JAX package's ``metrics/live.py``: one event log replayed
 into either package's :class:`LiveStateListener` gives the same snapshot.
-The sections of subsystems this package does not have yet are left out:
-``serving`` (ROADMAP A8) and ``shuffle`` (A9).
+The section of a subsystem this package does not have yet is left out:
+``shuffle`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -108,6 +108,12 @@ def _baseline_families() -> Dict[str, object]:
     from asyncframework_tpu_torch.metrics import registry
 
     return {n: f for n, f in registry.families().items() if f.baseline}
+
+
+def _serving_snapshot() -> Dict:
+    from asyncframework_tpu_torch.serving.metrics import serving_snapshot
+
+    return serving_snapshot()
 
 
 def _lockwatch_totals() -> Dict:
@@ -341,8 +347,17 @@ class LiveStateListener(Listener):
                            self._bases["pipeline"]),
                     inflight_max=pl.get("inflight_max", 0),
                 ),
-                # (the JAX package's ``serving`` section comes with the
-                # serving plane, ROADMAP A8)
+                # serving-plane counters (serving/metrics.py): predicts,
+                # failovers, unhealthy rejects, refresh shapes (per-run
+                # delta of the flat counters) plus the derived views --
+                # QPS over the delta'd window, predict-latency and
+                # freshness-lag (versions + ms) percentiles, per-replica
+                # breakdown -- shown raw (rings are reset-scoped, not
+                # baseline-scoped)
+                "serving": dict(
+                    _delta(fams["serving"], self._bases["serving"]),
+                    detail=_serving_snapshot(),
+                ),
                 # debug lock watchdog (net/lockwatch.py): socket-IO-under-
                 # model-lock violations (the lock-free PULL claim; 0 =
                 # holding) and hold-time stats, raw

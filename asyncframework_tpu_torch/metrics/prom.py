@@ -3,7 +3,8 @@
 One :func:`render` call produces the ``/metrics`` body from the same
 sources the time-series sampler reads: the counter-family registry
 (``async_<family>_<key>_total`` counters), the live derived sources
-(trace stage percentiles, convergence scalars -- gauges), the SLO engine (``async_slo_state`` per rule:
+(serving freshness/latency, trace stage percentiles, convergence
+scalars -- gauges), the SLO engine (``async_slo_state`` per rule:
 0 = ok, 1 = pending, 2 = firing, -1 = no_data), and a process-identity
 ``async_process_info`` gauge.  Every sample carries the process labels
 (``role``, ``run_id``, plus whatever the server adds -- ``wid`` on
@@ -18,8 +19,7 @@ use: it validates comment/sample line shape, label syntax, float
 values, and TYPE declarations, returning ``{(name, labels): value}``.
 
 A copy of the JAX package's ``metrics/prom.py``: each package's
-exposition passes the other's parser.  The serving plane's gauges are
-left out until that plane is ported (ROADMAP A8).
+exposition passes the other's parser.
 """
 
 from __future__ import annotations
@@ -143,8 +143,13 @@ def render(labels: Optional[Dict[str, str]] = None) -> str:
                          help_="gradient staleness distribution",
                          extra={"quantile": q})
 
-    # (the JAX package's serving derived gauges come with the serving
-    # plane, ROADMAP A8)
+    # serving derived gauges (freshness is THE serve SLO input)
+    try:
+        for key, val in sorted(timeseries._serving_source().items()):
+            w.sample(_metric_name("async_serving", key), val,
+                     mtype="gauge", help_="serving-plane derived gauge")
+    except Exception:  # noqa: BLE001
+        pass
 
     # convergence scalars
     conv = timeseries.convergence().summary()

@@ -94,8 +94,6 @@ def reset_all() -> None:
 #: yet, each with the ROADMAP item that ports it
 UNPORTED_FAMILIES: Dict[str, str] = OrderedDict((
     ("shuffle", "A9"),       # data/spill.py
-    ("serving", "A8"),       # serving/metrics.py
-    ("relay", "A8"),         # relaycast/metrics.py
 ))
 
 
@@ -133,6 +131,20 @@ _register(CounterFamily(
     high_water=("inflight_max",),
     doc="Pipelined update loop: prefetch hits/waits, stale discards, "
         "async pushes, push errors; inflight_max is a high-water mark.",
+))
+_register(CounterFamily(
+    "serving", "asyncframework_tpu_torch.serving.metrics",
+    "serving_totals", "reset_serving_totals",
+    doc="Serving plane: predicts, failovers, unhealthy rejects, "
+        "refresh shapes (serving/metrics.py).",
+))
+_register(CounterFamily(
+    "relay", "asyncframework_tpu_torch.relaycast.metrics",
+    "relay_totals", "reset_relay_totals",
+    doc="Relaycast distribution plane: fetches served per shape, "
+        "offers sent/received, parent fetches vs root fallbacks, "
+        "re-homes, fenced hops, CRC rejects "
+        "(asyncframework_tpu_torch/relaycast/).",
 ))
 _register(CounterFamily(
     "codec", "asyncframework_tpu_torch.net.wirecodec",

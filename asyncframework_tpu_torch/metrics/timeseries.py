@@ -17,8 +17,8 @@ terminal dashboard (``metrics/top.py``) can all read:
 - a process-global **sampler thread** (:func:`ensure_started`) that
   every ``async.metrics.interval.s`` seconds walks the counter-family
   registry (``metrics/registry.py``) plus dynamically registered
-  sources (the PS registers one; trace/convergence sources are built
-  in) and records each flat numeric as ``<family>.<key>``.
+  sources (the PS registers one; serving/trace/convergence sources are
+  built in) and records each flat numeric as ``<family>.<key>``.
   Retention is bounded: ``async.metrics.retention`` samples per series
   (defaults: 512 samples x 1 s interval = ~8.5 min of history; RAM is
   O(series x retention) small floats).
@@ -43,8 +43,7 @@ for ``async-cluster``) so default wires stay byte-identical.
 
 A copy of the JAX package's ``metrics/timeseries.py``: a ``cv`` header
 either package writes folds in the other, and a trajectory folded here
-gives the same curves and summary as there.  The serving plane's source
-is left out until that plane is ported (ROADMAP A8).
+gives the same curves and summary as there.
 """
 
 from __future__ import annotations
@@ -459,13 +458,31 @@ def unregister_source(name: str, fn=None) -> None:
 
 
 def _builtin_sources() -> Dict[str, Callable[[], Dict[str, object]]]:
-    """Always-on derived sources beside the registry counters: trace
-    stage percentiles, convergence scalars.  (The JAX package's serving
-    freshness/latency source comes with the serving plane, ROADMAP A8.)"""
+    """Always-on derived sources beside the registry counters: serving
+    freshness/latency, trace stage percentiles, convergence scalars."""
     return {
+        "serving": _serving_source,
         "trace": _trace_source,
         "convergence": _convergence_source,
     }
+
+
+def _serving_source() -> Dict[str, object]:
+    from asyncframework_tpu_torch.serving import metrics as smetrics
+
+    snap = smetrics.serving_snapshot()
+    out: Dict[str, object] = {}
+    if "qps" in snap:
+        out["qps"] = snap["qps"]
+    fl = smetrics.freshness_lag_ms()
+    if fl is not None:
+        out["freshness_lag_ms"] = fl
+    for key, stat in (("predict_ms", "p99"), ("lag_ms", "p95"),
+                      ("lag_versions", "p95")):
+        s = snap.get(key) or {}
+        if s.get("count"):
+            out[f"{key}_{stat}"] = s[stat]
+    return out
 
 
 def _trace_source() -> Dict[str, object]:

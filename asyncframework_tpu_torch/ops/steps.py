@@ -277,6 +277,31 @@ def make_trajectory_loss_eval(loss: str = "least_squares"):
                                "trajectory_loss_eval")
 
 
+def make_predict_step(loss: str = "least_squares"):
+    """``predict(X (n, d) f32, w (d,) f32) -> (n,)`` f32 predictions: the
+    serving tier's PREDICT (``serving/replica.py``).
+
+    least_squares serves the raw regression score ``X @ w``; logistic
+    serves the positive-class probability ``sigmoid(X @ w)``.  The product
+    is ``mm_f32``'s matrix-vector form, a plain f32 ``gemv`` (cuBLAS has no
+    TF32 path for it; the replica also turns TF32 off for its process).
+    Array-likes are taken as the JAX package's jitted step takes them, on
+    ``X``'s device.
+    """
+    if loss not in ("least_squares", "logistic"):
+        raise ValueError(f"unknown loss {loss!r}")
+
+    def predict(X, w):
+        X = torch.as_tensor(X, dtype=torch.float32)
+        w = torch.as_tensor(w, dtype=torch.float32, device=X.device)
+        z = mm_f32(X, w)
+        if loss == "logistic":
+            return torch.sigmoid(z)
+        return z
+
+    return _prof.wrap_dispatch(predict, "kernel.dispatch", "predict_step")
+
+
 # ------------------------------------------------------------------ sparse
 # padded-ELL shards (data/sparse.py): the sampled rows are always compacted
 # to sparse_step_capacity slots, as in the JAX package

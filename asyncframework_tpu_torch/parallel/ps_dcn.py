@@ -58,16 +58,15 @@ the per-item step-DAMP factor in the drain's mask slot, the cohort and
 merge-budget overrides, CTRL on WELCOME/PULL/SETMAP/SHARDMAP, the
 client's ``cs`` stamp and ``ctrl_sink``; ``parallel/controller.py``
 decides), and SUBSCRIBE (the ``have=``-negotiated read without the wave
-gate, served by primaries and standbys, with the freshness age).
+gate, served by primaries and standbys, with the freshness age; a
+SUBSCRIBE carrying ``rport`` registers a relaycast child, which the
+root offer loop sends RELAY_OFFER as versions are published).
 
 A worker process with several devices computes each gradient over a
 local ``dp`` mesh (``async.mesh.devices`` or ``SolverConfig.mesh_devices``,
 over the process's device list): the shard's rows placed once a wid
 across the ranks, one B1 launch a rank, the partials folded in rank order
 (``ops/steps.py``'s mesh steps), one PUSH a gradient as before.
-
-Not ported yet, refused naming its ROADMAP item: a SUBSCRIBE that
-registers a relaycast child (``rport``, answered ERR; A8).
 """
 
 from __future__ import annotations
@@ -530,6 +529,24 @@ class ParameterServer:
         self.subscribe_replies: Dict[str, int] = {"full": 0, "nm": 0,
                                                   "xdelta": 0}
         self.subscribe_model_bytes = 0
+        # relaycast root offer path (asyncframework_tpu_torch/relaycast/): a
+        # SUBSCRIBE whose header carries ``rport`` registers the
+        # subscriber as a direct relay child (the shared ChildRegistry:
+        # bounded by async.relay.fanout with LRU eviction, so a deep
+        # node that root-subscribed once cannot squat a slot a planned
+        # direct child keeps renewing), and a lazy offer thread
+        # announces each new version via RELAY_OFFER so depth-1 nodes
+        # fetch event-driven instead of poll-bounded.  Offers are
+        # advisory: a lost one costs nothing (the child's refresh loop
+        # still polls).
+        from asyncframework_tpu_torch.conf import RELAY_FANOUT as _RF
+
+        self._relay_fanout = max(1, int(_gconf().get(_RF)))
+        self._relay_registry = None  # built with the first rport seen
+        self._relay_lock = threading.Lock()
+        self._relay_thread: Optional[threading.Thread] = None
+        self._relay_offered = -1  # newest clock already offered
+        self.relay_offers = 0
         # version birth times (bounded): ts -> run-clock ms at which that
         # model version was PUBLISHED by an applying drain.  Feeds the
         # freshness-lag-in-ms answer on SUBSCRIBE replies: the age of a
@@ -1922,6 +1939,57 @@ class ParameterServer:
                     return max(0.0, now - born)
         return 0.0
 
+    def _register_relay_child(self, host: str, port: int) -> None:
+        """Record a relaycast direct child (SUBSCRIBE carried ``rport``)
+        and lazily start the offer thread.  The shared ChildRegistry
+        (relaycast/offers.py) bounds the set at the tree fanout with
+        LRU eviction: direct children renew their slot on every
+        subscribe, so a stale registrant (a deep node that re-homed
+        here once) is displaced, never a live one."""
+        start = False
+        with self._relay_lock:
+            if self._relay_registry is None:
+                from asyncframework_tpu_torch.relaycast.offers import (
+                    ChildRegistry,
+                )
+
+                self._relay_registry = ChildRegistry(self._relay_fanout)
+            if self._relay_thread is None:
+                from asyncframework_tpu_torch.utils.threads import guarded
+
+                self._relay_thread = threading.Thread(
+                    target=guarded(self._relay_offer_loop,
+                                   "ps-relay-offer"),
+                    name="ps-relay-offer", daemon=True,
+                )
+                start = True
+        self._relay_registry.register(host, port)
+        if start:
+            self._relay_thread.start()
+
+    def _relay_offer_loop(self) -> None:
+        """The root offer path: watch the merge clock and announce each
+        new published version (RELAY_OFFER: ts + CRC + epoch) to the
+        registered direct children via the shared ChildRegistry fan-out.
+        Entirely off the hot path -- the snapshot build it may trigger
+        is the same one the next pull would pay, and sends happen
+        outside every lock with short timeouts."""
+        while not self._stop.is_set():
+            self._stop.wait(0.02)
+            clock = self._clock
+            if clock == self._relay_offered:
+                continue
+            registry = self._relay_registry
+            if registry is None or not registry.children():
+                self._relay_offered = clock
+                continue
+            snap = self._model_snap()
+            hdr = {"op": "RELAY_OFFER", "ts": snap.ts, "crc": snap.crc}
+            if self.epoch:
+                hdr["ep"] = self.epoch
+            self.relay_offers += registry.offer(hdr)
+            self._relay_offered = clock
+
     def _handle_subscribe(self, conn: socket.socket, header: dict) -> None:
         """Serving-tier snapshot subscription (the JAX package's
         ``serving/replica.py``; a standby's read face).
@@ -1937,16 +2005,16 @@ class ParameterServer:
         carries the PS merge clock, the accepted-update count, the served
         version's age in ms, and the done flag, so replicas can price
         their own freshness lag in versions AND ms."""
-        if header.get("rport") is not None:
-            # a relaycast node asking to be registered as this server's
-            # direct child (the offer path, relaycast/offers.py): that
-            # plane is not ported, and a silent plain reply would leave
-            # the node waiting for offers that never come
-            _send_msg(conn, {"op": "ERR", "msg":
-                             "SUBSCRIBE with rport (a relaycast child) is "
-                             "not ported to the PyTorch package yet "
-                             "(ROADMAP A8)"})
-            return
+        rp = header.get("rport")
+        if rp is not None:
+            # relaycast: the subscriber runs a relay node on this port --
+            # register it for the root offer path
+            try:
+                peer = conn.getpeername()[0]
+            except OSError:
+                peer = None
+            if peer is not None:
+                self._register_relay_child(peer, int(rp))
         have = header.get("have")
         ts, cur, model_hdr, model_part = self._negotiated_model(have)
         shape = model_hdr.get("wenc", "full")
@@ -2986,8 +3054,7 @@ class PSClient:
         Unlike :meth:`pull` this never parks in the wave gate and keeps
         working after DONE.  ``extra`` merges additional header fields
         into every attempt (a relaycast node advertises its relay port as
-        ``rport``; the relay plane is not ported, and this package's PS
-        answers such a SUBSCRIBE with ERR)."""
+        ``rport``)."""
         def mk() -> dict:
             hdr = {"op": "SUBSCRIBE", "wid": wid}
             if extra:

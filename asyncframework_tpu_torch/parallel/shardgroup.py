@@ -62,9 +62,8 @@ PROMOTED -- its standby takes the range under the minted epoch, with no
 process spawn and no checkpoint replay -- before a relaunch is tried.
 ``install_ctrl`` and :class:`CtrlFanout` fan the adaptive controller's
 CTRL decisions out to every member (``parallel/controller.py``).
-
-Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
-item: the serving tier's ``ShardedSubscriber`` (A8).
+:class:`ShardedSubscriber` is the serving replica's view of a group: a
+per-range SUBSCRIBE fan-out, assembled on the replica.
 """
 
 from __future__ import annotations
@@ -611,13 +610,221 @@ class ShardedPSClient:
 
 # ------------------------------------------------------ serving-side facade
 class ShardedSubscriber:
-    """The serving tier's per-range snapshot subscriber: its only user is
-    the serving replica, not ported yet."""
+    """The serving tier's view of a shard group (``serving/replica.py``):
+    per-range SUBSCRIBE fan-out with replica-side assembly.
 
-    def __init__(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            "ShardedSubscriber (the serving tier's per-range subscription) "
-            "is not ported to the PyTorch package yet (ROADMAP A8)")
+    Each range rides the stock delta-pull machinery (``have=`` NM/XDELTA/
+    FULL, CRC-gated, full-pull fallback) on its own connection, and the
+    subscriber keeps every range's LAST VALIDATED reply.  A refresh round
+    touches every range even after one fails, so live ranges keep their
+    basis caches warm while a dead shard restarts -- that is the partial
+    refresh: when the dark range comes back, one NM/delta round trip
+    completes the model instead of a full resync.
+
+    :meth:`subscribe` assembles the per-range slices (each individually
+    CRC-validated -- a torn slice is unrepresentable) and returns the
+    PSClient.subscribe tuple shape with SUMMED version/clock/k scalars,
+    so ``clock - ts`` is the total versions behind across ranges.  Sum
+    equality is NOT version identity (a restarted shard rolls its clock
+    back, so distinct vectors can sum equal): :attr:`changed_since_last`
+    carries the exact vector comparison, and the replica consults it
+    before reusing a device buffer on an apparently-unchanged ts.  ``age_ms`` is the WORST range's content age including time
+    a dark range has been unreachable -- the replica's freshness gate
+    prices the range that is actually stale, not the average.  A range
+    with no validated reply yet raises (there is nothing correct to
+    serve); per-range ages are exposed so the replica can answer
+    UNHEALTHY naming the stale ranges rather than serving a silent lie.
+    """
+
+    def __init__(self, smap: ShardMap, timeout_s: float = 120.0,
+                 epochs: Optional[Sequence[int]] = None):
+        from asyncframework_tpu_torch.net.retry import RetryPolicy
+        from asyncframework_tpu_torch.parallel.ps_dcn import PSClient
+
+        self.smap = smap
+        # snappy per-call retry: the refresh LOOP is the real retry here
+        # (it comes back every interval), so a dark range must cost this
+        # round milliseconds of backoff, not the full worker-grade budget
+        # -- live ranges' freshness is priced by wall clock and a slow
+        # dead-range probe would smear staleness onto healthy ranges.
+        # The attempt timeout is capped too: a SYN-blackholed shard (node
+        # death, the k8s case) times out the connect, and a 120s socket
+        # budget there would stall the serial round just as badly as the
+        # backoff would -- a range that cannot answer a SUBSCRIBE in 5s
+        # is already hopeless for a 50ms-refresh serving tier
+        # max_attempts=1: after ~breaker-threshold dark rounds the shared
+        # circuit opens and subsequent rounds fail INSTANTLY, so steady-
+        # state cost of a dead range is one <=2s half-open probe per
+        # cooldown, not a per-round stall
+        retry = RetryPolicy.from_conf(
+            attempt_timeout_s=min(float(timeout_s), 2.0), max_attempts=1,
+            base_ms=20.0, max_ms=80.0,
+        )
+        self._retry = retry
+        self._timeout_s = float(timeout_s)
+        self.clients = [
+            PSClient(h, p, timeout_s=timeout_s, retry=retry,
+                     pull_mode="delta",
+                     epoch=(int(epochs[i])
+                            if epochs and i < len(epochs) else 0))
+            for i, (h, p, _lo, _hi) in enumerate(smap.entries)
+        ]
+        self._last: List[Optional[tuple]] = [None] * smap.n_shards
+        self._ok_mono: List[Optional[float]] = [None] * smap.n_shards
+        # consecutive dark rounds per range: every third one also asks a
+        # live member whether the range's endpoint MOVED (hot-standby
+        # promotion) -- bounded extra probing, so a plainly-dead shard
+        # mid-restart does not buy a map round trip per refresh
+        self._dark_rounds: List[int] = [0] * smap.n_shards
+        # collision guard for the replica's NOT_MODIFIED fast path: the
+        # returned ts is the SUM of per-shard versions (the lag math
+        # needs clock - ts in merge units), but a shard RESTART rolls its
+        # clock back, so two different vectors can sum equal.  The
+        # replica consults this flag before reusing its device buffer.
+        self._prev_vector: Optional[tuple] = None
+        self.changed_since_last = True
+
+    # aggregated PSClient-compatible counters (the replica reports these)
+    @property
+    def pull_wenc(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for c in self.clients:
+            for k, v in c.pull_wenc.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def delta_fallbacks(self) -> int:
+        return sum(c.delta_fallbacks for c in self.clients)
+
+    def subscribe(self, rid: int = 0
+                  ) -> Tuple[int, np.ndarray, int, int, float, bool]:
+        """One refresh round over every range; see the class docstring.
+        Raises ``ConnectionError`` only when some range has never
+        answered -- a partially-dark group still returns the assembled
+        model (stale ranges priced into ``age_ms``)."""
+        for i, c in enumerate(self.clients):
+            try:
+                got = c.subscribe(rid)
+            except (ConnectionError, OSError):
+                _bump("subscribe_dark_rounds")
+                self._dark_rounds[i] += 1
+                if self._dark_rounds[i] % 3 == 0:
+                    self._maybe_re_resolve(i)
+                continue
+            self._dark_rounds[i] = 0
+            if got is None:  # pragma: no cover - SUBSCRIBE never says DONE
+                continue
+            self._last[i] = got
+            # stamped per reply, not per round: a dark range's retry
+            # budget burns seconds mid-round, and pricing that wait into
+            # the LIVE ranges' freshness would mark the whole model stale
+            self._ok_mono[i] = time.monotonic()
+        now = time.monotonic()
+        missing = [i for i, l in enumerate(self._last) if l is None]
+        if missing:
+            raise ConnectionError(
+                f"sharded SUBSCRIBE: no validated model yet for "
+                f"range(s) {missing}"
+            )
+        vector = tuple(int(l[0]) for l in self._last)
+        self.changed_since_last = vector != self._prev_vector
+        self._prev_vector = vector
+        ts = sum(vector)
+        w = np.concatenate([l[1] for l in self._last])
+        clock = sum(int(l[2]) for l in self._last)
+        k = sum(int(l[3]) for l in self._last)
+        age = 0.0
+        for i, l in enumerate(self._last):
+            age = max(age,
+                      float(l[4]) + (now - self._ok_mono[i]) * 1e3)
+        done = all(bool(l[5]) for l in self._last)
+        _bump("sharded_subscribes")
+        return ts, w, clock, k, age, done
+
+    def _maybe_re_resolve(self, i: int) -> None:
+        """Range ``i`` has been dark for a few rounds: ask a LIVE member
+        for the current map -- a hot-standby promotion moved the range's
+        endpoint, and the subscriber must follow it (the replica's
+        partial-refresh machinery then completes the model with one
+        NM/delta round trip).  Rebuilds EVERY range whose endpoint
+        moved (simultaneous promotions included), judged against each
+        CLIENT's actual endpoint -- adopting the new map while
+        rebuilding only one range would strand the others forever.
+        Best-effort and bounded: one sweep, the dark range excluded
+        from the query targets (its blackholed probe must not stall
+        the refresh round)."""
+        from asyncframework_tpu_torch.parallel.ps_dcn import PSClient
+
+        others = [e for j, e in enumerate(self.smap.entries) if j != i]
+        smap, epochs = resolve_live_group(others, timeout_s=1.0)
+        if smap is None or smap.ranges() != self.smap.ranges():
+            return
+        changed = False
+        for j, entry in enumerate(smap.entries):
+            c = self.clients[j]
+            if (str(entry[0]), int(entry[1])) == (c.host, c.port):
+                continue
+            try:
+                nc = PSClient(entry[0], int(entry[1]),
+                              timeout_s=self._timeout_s,
+                              retry=self._retry, pull_mode="delta",
+                              epoch=(int(epochs[j])
+                                     if epochs and j < len(epochs)
+                                     else 0))
+            except (ConnectionError, OSError):
+                continue  # that replacement not up yet; next dark round
+            c._drop_sock()
+            self.clients[j] = nc
+            changed = True
+        if changed:
+            self.smap = smap
+            _bump("subscriber_re_resolves")
+
+    def all_ranges_dark(self) -> bool:
+        """Whether the last refresh round reached no range at all (the
+        group has gone)."""
+        return all(n > 0 for n in self._dark_rounds)
+
+    def oldest_ok_age_ms(self) -> Optional[float]:
+        """Age of the STALEST range's last successful refresh; None until
+        every range has answered at least once."""
+        if any(m is None for m in self._ok_mono):
+            return None
+        now = time.monotonic()
+        return max((now - m) * 1e3 for m in self._ok_mono)
+
+    def stale_ranges(self, max_age_ms: float) -> List[int]:
+        """Range indices whose last successful refresh is older than
+        ``max_age_ms`` (never-refreshed ranges included) -- the
+        UNHEALTHY-per-range answer."""
+        now = time.monotonic()
+        return [
+            i for i, m in enumerate(self._ok_mono)
+            if m is None or (now - m) * 1e3 > max_age_ms
+        ]
+
+    def range_status(self) -> List[Dict]:
+        """Per-range freshness for the replica's STATUS reply."""
+        now = time.monotonic()
+        out = []
+        for i, (_h, _p, lo, hi) in enumerate(self.smap.entries):
+            last, ok = self._last[i], self._ok_mono[i]
+            out.append({
+                "shard": i, "lo": lo, "hi": hi,
+                "ts": int(last[0]) if last is not None else None,
+                "clock": int(last[2]) if last is not None else None,
+                "ok_age_ms": (round((now - ok) * 1e3, 1)
+                              if ok is not None else None),
+            })
+        return out
+
+    def bye(self) -> None:
+        for c in self.clients:
+            try:
+                c.bye()
+            except (ConnectionError, OSError):  # pragma: no cover
+                pass
 
 
 # --------------------------------------------------------- group controller

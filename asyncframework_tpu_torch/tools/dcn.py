@@ -115,15 +115,49 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
     building their data while it comes up, and read its port from a file
     this function writes once the PS announces it (``PS_PORT_FILE``).
     Every process is waited for or killed."""
-    import tempfile
+    with Launched(config, algo, iters, device, nprocs, env, delays_ms,
+                  worker_args) as run:
+        return run.collect(timeout_s)
 
-    env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config, PS_ALGO=algo,
-               PS_DEVICE=device, PS_NUM_WORKER_PROCS=str(nprocs),
-               PS_NUM_ITER=str(iters), **(env or {}))
-    procs = []
-    port_dir = tempfile.TemporaryDirectory(prefix="dcn-port-")
-    port_file = os.path.join(port_dir.name, "port")
-    try:
+
+class Launched:
+    """:func:`launch` in two halves, for a caller that works against the
+    PS while the run goes (``tools/serve.py``): entering starts the
+    processes and waits for the PS's port (:attr:`port`); :meth:`collect`
+    waits for every process and returns the PS's record and the
+    workers'; leaving kills whatever still runs."""
+
+    def __init__(self, config: str, algo: str, iters: int,
+                 device: str = "cuda", nprocs: int = 2,
+                 env: "Dict[str, str] | None" = None, delays_ms=None,
+                 worker_args=()):
+        self.config, self.algo = config, algo
+        self.env = dict(os.environ, PYTHONPATH=ROOT, PS_CONFIG=config,
+                        PS_ALGO=algo, PS_DEVICE=device,
+                        PS_NUM_WORKER_PROCS=str(nprocs),
+                        PS_NUM_ITER=str(iters), **(env or {}))
+        self.nprocs, self.delays_ms = nprocs, delays_ms
+        self.worker_args = list(worker_args)
+        self.procs: List[subprocess.Popen] = []
+        self._drains: list = []
+        self.port = None
+        self._port_dir = None
+
+    def __enter__(self) -> "Launched":
+        import tempfile
+
+        self._port_dir = tempfile.TemporaryDirectory(prefix="dcn-port-")
+        try:
+            self._start()
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def _start(self) -> None:
+        env, nprocs, delays_ms = self.env, self.nprocs, self.delays_ms
+        procs = self.procs
+        port_file = os.path.join(self._port_dir.name, "port")
         ps = subprocess.Popen(CHILD, env=dict(env, PS_ROLE="ps"),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, cwd=ROOT)
@@ -138,30 +172,58 @@ def launch(config: str, algo: str, iters: int, device: str = "cuda",
                     "*", "PUSH", delays_ms[i], count=0)
                 wenv["ASYNCTPU_ASYNC_NET_FAULT_SCHEDULE"] = sched.to_json()
             procs.append(subprocess.Popen(
-                CHILD + list(worker_args), env=wenv,
+                CHILD + self.worker_args, env=wenv,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 cwd=ROOT))
         line = ps.stdout.readline()
         if not line:
             raise RuntimeError(f"the PS process died: "
                                f"{ps.communicate()[1][-3000:]}")
+        self.port = int(json.loads(line)["port"])
         with open(port_file + ".tmp", "w") as f:
-            f.write(str(json.loads(line)["port"]))
+            f.write(str(self.port))
         os.replace(port_file + ".tmp", port_file)
+        # every pipe read as it comes: a caller that works against the PS
+        # for a while must not leave a process blocked on a full pipe
+        for i, p in enumerate(procs):
+            self._drains.append([self._drain(p.stdout, f"dcn-out-{i}"),
+                                 self._drain(p.stderr, f"dcn-err-{i}")])
+
+    @staticmethod
+    def _drain(stream, name: str):
+        import threading
+
+        chunks: List[str] = []
+        t = threading.Thread(target=lambda: chunks.extend(iter(
+            stream.readline, "")), name=name, daemon=True)
+        t.start()
+        return t, chunks
+
+    def collect(self, timeout_s: float = 600.0) -> Tuple[dict, List[dict]]:
+        deadline = time.monotonic() + timeout_s
+        order = list(range(1, len(self.procs))) + [0]
         recs = []
-        for p in procs[1:] + procs[:1]:
-            out, err = p.communicate(timeout=timeout_s)
+        for i in order:
+            p = self.procs[i]
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            (t_out, out), (t_err, err) = self._drains[i]
+            t_out.join()
+            t_err.join()
             if p.returncode != 0:
-                raise RuntimeError(f"a {config} {algo} process failed "
-                                   f"({p.returncode}): {err[-3000:]}")
-            recs.append(json.loads(out.strip().splitlines()[-1]))
+                raise RuntimeError(f"a {self.config} {self.algo} process "
+                                   f"failed ({p.returncode}): "
+                                   f"{''.join(err)[-3000:]}")
+            lines = "".join(out).strip().splitlines()
+            recs.append(json.loads(lines[-1]))
         return recs[-1], recs[:-1]
-    finally:
-        for p in procs:
+
+    def __exit__(self, *_exc) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        port_dir.cleanup()
+        if self._port_dir is not None:
+            self._port_dir.cleanup()
 
 
 def objective_gates(config: str, algo: str, traj,

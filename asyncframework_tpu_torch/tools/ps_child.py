@@ -86,7 +86,11 @@ Environment: ``PS_CONFIG`` (``small``: 4,096 x 24, the CPU tests' size;
 ``cpu``), ``PS_NUM_ITER``, ``PS_GAMMA``, ``PS_PRINTER_FREQ``, ``PS_EVAL=0``
 (no evaluation), ``PS_ELASTIC=1`` (an elastic supervisor on the PS,
 ``PS_DEAD_AFTER_S``), ``PS_CHECKPOINT`` (the PS's checkpoint path),
-``PS_BIND_PORT``.
+``PS_BIND_PORT``, ``PS_LINGER_S`` (seconds the PS, and a group's shards,
+go on serving SUBSCRIBE after the run and its evaluation: serving
+replicas read the final version from it, ``tools/serve.py``).  The PS's
+record carries its SUBSCRIBE replies by shape, their model bytes and the
+RELAY_OFFERs its root offer loop delivered.
 """
 
 from __future__ import annotations
@@ -236,6 +240,9 @@ def ps_summary(ps, marks: dict, t_done: float, n: int,
         "staleness_counts": {str(t): c for t, c in
                              sorted(ps.staleness_counts.items())},
         "pull_replies": dict(ps.pull_replies),
+        "subscribe_replies": dict(ps.subscribe_replies),
+        "subscribe_model_bytes": ps.subscribe_model_bytes,
+        "relay_offers": ps.relay_offers,
         "merge_batches": ps.merge_batches, "merge_merged": ps.merge_merged,
         "merge_batch_max": ps.merge_batch_max,
         "resumed_from": ps.resumed_from_k,
@@ -424,6 +431,7 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                "standby": standby, "control": control,
                "wire_bytes_diagnostic": diag_bytes,
                **ps_summary(ps, marks, t_done, n, total)}
+        linger()
     finally:
         if reader is not None:
             reader.stop()
@@ -662,8 +670,16 @@ def run_ps(name: str, algo: str, device, nprocs: int, iters: int = 0,
            "diagnostic": None if done else str(done),
            "recovery": sup.counters() if sup is not None else None,
            **ps_summary(ps, marks, t_done, n, total)}
+    linger()
     ps.stop()
     return rec
+
+
+def linger() -> None:
+    """Go on serving for ``PS_LINGER_S`` seconds after the run (0 by
+    default): readers of the final version (serving replicas) get it from
+    a PS that has not stopped yet."""
+    time.sleep(float(os.environ.get("PS_LINGER_S", "0")))
 
 
 def ps_port(timeout_s: float = 600.0) -> int:

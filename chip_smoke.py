@@ -228,7 +228,36 @@ exits non-zero without a result line):
    through the native load, every launch on the tiled route.  The
    subprocess arms' launches are not counted (their counts live in their
    processes);
-16. the ``total`` line (seconds, and each phase's), the
+16. serving -- the read path (``tools/serve.py``), one ``serving`` line an
+   arm: (a) ``serve``: phase 10's epsilon ASGD recipe (one PS process, two
+   worker processes, 1,000 updates) trains while two ``serving.cli
+   replica`` processes on this card subscribe to the PS behind a frontend
+   in this process; four client threads send 16-row f32 batches and a
+   fifth cycles 1, 3, 17, 64 and 256 rows; replica 1 is SIGKILLed once
+   the PS's clock passes half the budget.  It prints QPS, predict latency
+   p50 and p99, lag in versions and ms, failovers, errors, each replica's
+   STATUS (predicts, device, refresh shapes) and the PS's SUBSCRIBE
+   replies by shape; gates: no client error with a failover counted,
+   every bucket hit, the survivor serving the PS's final model on the
+   card, its predictions on a fixed 256 x 2,000 batch within rtol 1e-5 of
+   ``X @ w_final`` in float64 on the host (relative to each row's
+   ``|X| @ |w|``), and phase 10's gates on the training run; (b)
+   ``serve_sharded``: phase 12's fenced 2-shard epsilon group (300
+   updates) and one replica in this process resolving it
+   (``ShardedSubscriber``): its predictions against ``X`` times the
+   concatenated final shards, its STATUS naming both ranges, phase 12's
+   gates; (c) ``relay``: a PS in this process on the card at rcv1's width
+   (d = 47,236) and eight relay nodes with sources (fanout 2, 18 versions
+   of decaying size) in three arms, direct SUBSCRIBE, the tree raw and
+   the tree compressed: the PS's egress bytes a version and the ratio of
+   direct to tree; interior node 1 is then stopped and two more versions
+   pushed.  Gates: every node bit-equal to the PS's snapshot with its CRC
+   at every version, node 1's children re-homed to the root,
+   ``relay_offers`` > 0.  The training arms' B1 launches (in the worker
+   processes) join the kernel line's count.  No kernel is new here: the
+   predict is ``mm_f32``'s f32 ``gemv`` (TF32 off), as the JAX package's
+   is XLA's;
+17. the ``total`` line (seconds, and each phase's), the
    ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -2467,6 +2496,29 @@ def entry_phase(torch, card):
     return on_path
 
 
+def serving_phase(card):
+    """Phase 16, the read path (``tools/serve.py``): (a) serve, (b)
+    serve_sharded, (c) relay, each held to its gates; returns the training
+    arms' kernel launches by form (counted in their worker processes)."""
+    from asyncframework_tpu_torch.tools import serve
+
+    launches = {"masked_grad": 0}
+    failed = []
+    for fn in (serve.serve_arm, serve.sharded_arm, serve.relay_arm):
+        t0 = time.monotonic()
+        rec = fn(device="cuda")
+        rec["seconds"] = time.monotonic() - t0
+        emit({"phase": "serving", "card": card, **rec})
+        for w in rec.get("worker_launches", []):
+            launches[rec["task_form"]] += w.get(rec["task_form"], 0)
+        if not rec["ok"]:
+            failed.append(f"{rec['arm']}: "
+                          f"{[k for k, v in rec['gates'].items() if not v]}")
+    if failed:
+        raise RuntimeError(f"serving phase gates failed: {failed}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -2712,7 +2764,12 @@ def main() -> int:
 
     lap("entry")
 
-    # ------------------------------------------------------ 16. results
+    # ---------------------------------------------------------- 16. serving
+    serving_launches = serving_phase(card)
+
+    lap("serving")
+
+    # ------------------------------------------------------ 17. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
           "phase_seconds": laps})
     print(card, flush=True)
@@ -2745,7 +2802,8 @@ def main() -> int:
               + feat["masked_grad"] + dcn_launches["masked_grad"]
               + tel["masked_grad"] + shard_launches["masked_grad"]
               + standby_launches["masked_grad"]
-              + mesh_launches["masked_grad"] + entry_launches["masked_grad"],
+              + mesh_launches["masked_grad"] + entry_launches["masked_grad"]
+              + serving_launches["masked_grad"],
               recs["b_epsilon_idx"],
               recs["b_epsilon_idx"]["bound_us"] / 1e3),
         # phase 15 (e): the compacted form at the LibSVM file's task

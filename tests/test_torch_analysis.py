@@ -8,11 +8,10 @@ package's own lint suite, and on the port's tree.
   module's globals by monkeypatch).  Fixture trees keep their layout with
   the package directory renamed (``asyncframework_tpu/`` becomes
   ``asyncframework_tpu_torch/``), and the mutations edit a copy of the
-  port's own ``parallel/ps_dcn.py``.  The cases left out need a module the
-  port does not have yet: the relaycast plane (A8); the cases that name
-  the JAX package's tree (its ``cli.py``, ``bin/async-lint``, its
-  allowlist, its controller and replication stream) are rewritten for the
-  port beside it, under the same name.
+  port's own ``parallel/ps_dcn.py``.  The cases that name the JAX
+  package's tree (its ``cli.py``, ``bin/async-lint``, its allowlist, its
+  controller, replication stream, relay node and relay source) are
+  rewritten for the port beside it, under the same name.
 - The port's own: the CLI (``python -m
   asyncframework_tpu_torch.analysis.cli``) clean and listing the skipped
   modules with their items; the allowlist is exactly the retargeted
@@ -127,9 +126,42 @@ class TestConfRuleOnThePort(ref_lint.TestConfRule):
 
 
 class TestProtocolRuleOnThePort(ref_lint.TestProtocolRule):
-    # the relaycast plane (ROADMAP A8) is not ported
-    test_deleting_relay_fence_admission_fails_lint = None
-    test_deleting_relay_client_ep_stamp_fails_lint = None
+    def test_deleting_relay_fence_admission_fails_lint(self, tmp_path):
+        """The reference case on the port's relay node: its dispatch runs
+        fencing admission on every fence-stamped relay verb, and deleting
+        the admission call is a ``proto-fence-gate`` finding."""
+        rel = f"{PKG}/relaycast/node.py"
+        with open(os.path.join(REPO, rel)) as f:
+            src = f.read()
+        mutated = src.replace(
+            'if op == "RELAY_FETCH":\n'
+            '            if not self._fence_reject(conn, header):\n'
+            '                self._handle_fetch(conn, header)\n',
+            'if op == "RELAY_FETCH":\n'
+            '            self._handle_fetch(conn, header)\n', 1)
+        assert mutated != src
+        toks = _tokens(t_rules_protocol.check(
+            _ctx(tmp_path, {rel: mutated})), "proto-fence-gate")
+        assert "RELAY_FETCH" in toks
+        assert _tokens(t_rules_protocol.check(
+            _ctx(tmp_path / "clean", {rel: src})), "proto-fence-gate") == []
+
+    def test_deleting_relay_client_ep_stamp_fails_lint(self, tmp_path):
+        """The reference case on the port's relay source:
+        ``RelaySource._stamped`` is the relay plane's ep-stamp choke
+        point, pinned like ``PSClient._proc_hdr``."""
+        rel = f"{PKG}/relaycast/source.py"
+        with open(os.path.join(REPO, rel)) as f:
+            src = f.read()
+        i = src.index("def _stamped")
+        j = src.index('hdr["ep"] = self.node.epoch', i)
+        mutated = (src[:j] + "pass"
+                   + src[j + len('hdr["ep"] = self.node.epoch'):])
+        toks = _tokens(t_rules_protocol.check(
+            _ctx(tmp_path, {rel: mutated})), "proto-fence-gate")
+        assert toks == ["ep-stamp"]
+        assert _tokens(t_rules_protocol.check(
+            _ctx(tmp_path / "clean", {rel: src})), "proto-fence-gate") == []
 
     def test_deleting_repl_stream_ep_stamp_fails_lint(self, tmp_path):
         """The reference case on the port's replication stream:
@@ -337,17 +369,16 @@ def test_pending_paths_are_skipped_by_name_and_item():
     ROADMAP item, reported by the CLI, and skipped without a crash."""
     pending = dict(t_core.pending_paths(REPO))
     assert pending == {
-        f"{PKG}/relaycast/node.py": "A8",
-        f"{PKG}/relaycast/source.py": "A8",
         f"{PKG}/streaming/log_net.py": "A10",
     }
     rule_paths = {t_rules_conf.CLI_PATH, t_rules_conf.CONTROLLER_PATH,
                   *t_rules_protocol.FENCE_SERVER_PATHS,
                   *t_rules_protocol.FENCE_CLIENT_STAMPS}
-    # the entry points (cli.py, deploy/master.py) are linted since they
-    # were ported
+    # the entry points (cli.py, deploy/master.py) and the relaycast
+    # plane are linted since they were ported
     ported = {t_rules_protocol.PS_DCN_PATH, t_rules_conf.CONTROLLER_PATH,
-              f"{PKG}/parallel/replication.py", t_rules_conf.CLI_PATH}
+              f"{PKG}/parallel/replication.py", t_rules_conf.CLI_PATH,
+              f"{PKG}/relaycast/node.py", f"{PKG}/relaycast/source.py"}
     assert ported <= rule_paths
     assert set(pending) >= rule_paths - ported
     assert not set(pending) & ported
@@ -358,7 +389,8 @@ def test_pending_paths_are_skipped_by_name_and_item():
     for path, item in pending.items():
         assert f"{path}: not ported yet (ROADMAP {item})" in proc.stdout
     assert "async-lint: clean" in proc.stdout
-    for path in (t_rules_conf.CLI_PATH, f"{PKG}/deploy/master.py"):
+    for path in (t_rules_conf.CLI_PATH, f"{PKG}/deploy/master.py",
+                 f"{PKG}/relaycast/node.py", f"{PKG}/relaycast/source.py"):
         assert os.path.isfile(os.path.join(REPO, path))
         assert f"{path}: not ported yet" not in proc.stdout
 

@@ -1421,3 +1421,162 @@ def test_dcn_mesh_worker_on_one_card(dev):
         assert not any(v for k, v in c.items() if k.endswith("_plain"))
     finally:
         set_global_conf(None)
+
+
+# ------------------------------------------------------- the serving replica
+def _serving_ps(d, dev=torch.device("cpu")):
+    from asyncframework_tpu_torch.parallel import ps_dcn
+    from asyncframework_tpu_torch.solvers import SolverConfig
+
+    cfg = SolverConfig(num_workers=2, num_iterations=100_000, gamma=0.5,
+                       taw=2**31 - 1, batch_rate=0.3, bucket_ratio=0.0,
+                       printer_freq=10_000, seed=42, calibration_iters=4,
+                       run_timeout_s=600.0)
+    return ps_dcn.ParameterServer(cfg, d, 1_024, device=dev, port=0).start()
+
+
+def _within(y, X, w, rtol=1e-5):
+    """``y`` against ``X @ w`` in float64, relative to each row's
+    ``|X| @ |w|``."""
+    X64, w64 = X.astype(np.float64), w.astype(np.float64)
+    err = np.abs(y.astype(np.float64) - X64 @ w64)
+    return bool(np.all(err <= rtol * (np.abs(X64) @ np.abs(w64))))
+
+
+@pytest.mark.serve
+def test_replica_refresh_races_predict_on_the_card(dev):
+    """1,000 refreshes, each a new version copied to the card, raced by
+    three threads sending PREDICT: every reply equals ``X @ w`` of the
+    version the reply stamps (a handler never computes against a model
+    whose copy has not landed, nor one rewritten in place)."""
+    import threading
+
+    from asyncframework_tpu_torch.net import frame
+    from asyncframework_tpu_torch.parallel import ps_dcn
+    from asyncframework_tpu_torch.serving import ModelReplica
+
+    d = 2_000
+    rs = np.random.default_rng(3)
+    ps = _serving_ps(d)
+    rep = None
+    stop = threading.Event()
+    X = rs.normal(size=(8, d)).astype(np.float32)
+    replies = [[] for _ in range(3)]
+    try:
+        rep = ModelReplica("127.0.0.1", ps.port, rid=0, host="127.0.0.1",
+                           device=dev, refresh_interval_s=3600.0,
+                           max_stale_ms=0.0).start()
+        pusher = ps_dcn.PSClient("127.0.0.1", ps.port, pull_mode="full")
+        direct = ps_dcn.PSClient("127.0.0.1", ps.port, pull_mode="full")
+        versions = {}
+        ts, w, *_ = direct.subscribe(9)
+        versions[ts] = w.copy()
+        assert rep.refresh_once()
+
+        def predictor(out):
+            sock = frame.connect(("127.0.0.1", rep.port))
+            try:
+                while not stop.is_set():
+                    frame.send_msg(sock, {"op": "PREDICT", "n": 8},
+                                   X.tobytes())
+                    hdr, body = frame.recv_msg(sock)
+                    assert hdr["op"] == "PREDICTION", hdr
+                    out.append((hdr["ts"], np.frombuffer(body, np.float32)))
+            finally:
+                sock.close()
+
+        threads = [threading.Thread(target=predictor, args=(out,),
+                                    name=f"race-predict-{i}", daemon=True)
+                   for i, out in enumerate(replies)]
+        for t in threads:
+            t.start()
+        for _ in range(1_000):
+            pts, _w, _a, _c = pusher.pull(0)
+            pusher.push(0, pts, (0.01 * rs.normal(size=d)).astype(np.float32))
+            ts, w, *_ = direct.subscribe(9)
+            versions[ts] = w.copy()
+            assert rep.refresh_once()
+        stop.set()
+        for t in threads:
+            t.join(timeout=30.0)
+        assert rep.status()["device"].startswith("cuda")
+        n = sum(len(r) for r in replies)
+        assert n > 1_000
+        seen = {ts for r in replies for ts, _y in r}
+        assert len(seen) > 100
+        for r in replies:
+            for ts, y in r:
+                assert _within(y, X, versions[ts]), ts
+    finally:
+        stop.set()
+        if rep is not None:
+            rep.stop()
+        ps.stop()
+
+
+@pytest.mark.serve
+@pytest.mark.parametrize("loss", ["least_squares", "logistic"])
+def test_replica_process_predict_matches_the_cpu(dev, loss):
+    """A ``serving.cli replica`` process on the card (TF32 off, whatever
+    its caller set) against the CPU's predict step on the same model, at
+    every power-of-two bucket up to 256 rows."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from asyncframework_tpu_torch.net import frame
+    from asyncframework_tpu_torch.ops.steps import make_predict_step
+    from asyncframework_tpu_torch.parallel import ps_dcn
+
+    d = 2_000
+    rs = np.random.default_rng(4)
+    ps = _serving_ps(d)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "ASYNCTPU_FORCE_CPU"}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "asyncframework_tpu_torch.serving.cli",
+         "replica", "--ps", f"127.0.0.1:{ps.port}", "--host", "127.0.0.1",
+         "--loss", loss], env=env, cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        port = json.loads(proc.stdout.readline())["port"]
+        pusher = ps_dcn.PSClient("127.0.0.1", ps.port, pull_mode="full")
+        for _ in range(3):
+            pts, _w, _a, _c = pusher.pull(0)
+            pusher.push(0, pts, (0.05 * rs.normal(size=d)).astype(np.float32))
+        ts, w, *_ = ps_dcn.PSClient("127.0.0.1", ps.port,
+                                    pull_mode="full").subscribe(9)
+
+        def call(hdr, payload=b""):
+            sock = frame.connect(("127.0.0.1", port))
+            try:
+                frame.send_msg(sock, hdr, payload)
+                return frame.recv_msg(sock)
+            finally:
+                sock.close()
+
+        deadline = time.monotonic() + 60.0
+        while call({"op": "STATUS"})[0].get("ts") != ts:
+            assert time.monotonic() < deadline, "the replica never caught up"
+            time.sleep(0.05)
+        assert call({"op": "STATUS"})[0]["device"].startswith("cuda")
+        step = make_predict_step(loss)
+        for n in (1, 3, 17, 64, 256):
+            X = rs.normal(size=(n, d)).astype(np.float32)
+            hdr, body = call({"op": "PREDICT", "n": n}, X.tobytes())
+            assert hdr["op"] == "PREDICTION" and hdr["ts"] == ts
+            got = np.frombuffer(body, np.float32)
+            want = step(torch.from_numpy(X), torch.from_numpy(w.copy())).numpy()
+            if loss == "least_squares":
+                assert _within(got, X, w)
+                np.testing.assert_allclose(
+                    got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+            else:
+                np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-6)
+    finally:
+        proc.kill()
+        proc.wait()
+        ps.stop()

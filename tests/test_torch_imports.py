@@ -52,6 +52,10 @@ import asyncframework_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# the read path's packages are among them (serving, relaycast)
+for sub_pkg in ("serving.replica", "serving.frontend", "serving.cli",
+                "relaycast.node", "relaycast.source", "relaycast.offers"):
+    assert pkg.__name__ + "." + sub_pkg in names, sub_pkg
 import runpy
 runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="imported")
 print(len(names))
@@ -106,11 +110,12 @@ def test_no_jax_or_reference_import_in_the_source():
 
 
 ENTRY_MODULES = ("cli", "cluster", "deploy.__init__", "deploy.client",
-                 "deploy.leader", "deploy.master", "deploy.worker")
+                 "deploy.leader", "deploy.master", "deploy.worker",
+                 "serving.__init__", "serving.cli", "relaycast.__init__")
 
 
 @pytest.mark.parametrize("module", ["cli", "cluster", "deploy.master",
-                                    "deploy.worker"])
+                                    "deploy.worker", "serving.cli"])
 def test_command_line_entry_points_run_with_jax_blocked(module):
     """The AST scan above reads the CLI, the launcher and every deploy
     module; each command runs as ``python -m`` (``--help``) in a fresh

@@ -717,9 +717,11 @@ def test_refused_ps_switches_name_their_roadmap_item(kwargs):
 
 def test_refused_methods_and_client_switches_name_their_roadmap_item():
     """``set_control``, ``attach_standby``, a client's ``ctrl_sink`` and
-    SUBSCRIBE run now (ROADMAP A6b.3-5); what stays refused is a
-    SUBSCRIBE that asks to register a relaycast child (``rport``), which
-    either package's client meets as an ERR naming ROADMAP A8."""
+    SUBSCRIBE run now (ROADMAP A6b.3-5), and so does a SUBSCRIBE that
+    registers a relaycast child (``rport``): from either package's
+    client it is answered with the model, registers the subscriber as a
+    child of the root offer path, and the child is offered each new
+    version."""
     from asyncframework_tpu_torch.parallel.controller import ControlSink
 
     ps = _port_ps(TConfig(**_kw()))
@@ -752,9 +754,30 @@ def test_refused_methods_and_client_switches_name_their_roadmap_item():
         assert w.shape == (D,) and age_ms == 0.0
         jcl = jps.PSClient("127.0.0.1", ps.port)
         assert jcl.subscribe(0)[0] == 0
-        for client in (cl, jcl):
-            with pytest.raises(ConnectionError, match=r"ROADMAP A8"):
-                client.subscribe(0, extra={"rport": 1})
+        from asyncframework_tpu.relaycast import RelayNode as JNode
+        from asyncframework_tpu_torch.relaycast import RelayNode as TNode
+
+        nodes = [TNode(rid=0, port=0).start(), JNode(rid=1, port=0).start()]
+        try:
+            for client, node in zip((cl, jcl), nodes):
+                got = client.subscribe(0, extra={"rport": node.port})
+                assert got[0] == 0 and got[1].shape == (D,)
+            assert sorted(ps._relay_registry.children()) == sorted(
+                ("127.0.0.1", n.port) for n in nodes)
+            # a new version is offered to both children
+            pusher = tps.PSClient("127.0.0.1", ps.port, pull_mode="full")
+            ts, _w, _a, _c = pusher.pull(0)
+            pusher.push(0, ts, np.ones(D, np.float32))
+            deadline = time.monotonic() + 10.0
+            # the PS counts an offer once the child has ACKed it
+            while (min(n.offers_in for n in nodes) < 1
+                   or ps.relay_offers < 2):
+                assert time.monotonic() < deadline, "no RELAY_OFFER"
+                time.sleep(0.01)
+            pusher.bye()
+        finally:
+            for node in nodes:
+                node.stop()
         cl.bye()
         jcl.bye()
     finally:

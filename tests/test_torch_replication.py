@@ -13,9 +13,9 @@ package's own replication suite and across the packages.
   whose shard-1 primary is SIGKILLed or partitioned and PROMOTED over)
   run here a second time with the modules they test swapped for the
   port's copies (the reference module's globals by monkeypatch; its lazy
-  imports by aliasing the JAX module names to the port's).  Left out,
-  naming ROADMAP A8: ``test_subscriber_follows_simultaneous_promotions``
-  (``ShardedSubscriber``, whose only user is the serving replica) and
+  imports by aliasing the JAX module names to the port's), the serving
+  tier's ``ShardedSubscriber`` following two simultaneous promotions
+  included.  Left out, naming ROADMAP A8:
   ``test_k8s_renders_standby_pods`` (the k8s manifests).
 - Across the packages: a JAX-package standby mirrors a port primary and a
   port standby mirrors a JAX-package primary (same clock, ledgers and
@@ -127,8 +127,7 @@ class TestMirrorOnThePort(ref_repl.TestMirror):
 
 
 class TestPromotionOnThePort(ref_repl.TestPromotion):
-    # ShardedSubscriber (the serving replica's view): ROADMAP A8
-    test_subscriber_follows_simultaneous_promotions = None
+    pass
 
 
 class TestSurfacesOnThePort(ref_repl.TestSurfaces):

@@ -10,8 +10,8 @@ package's own shard-group suite and across the packages.
   of the JAX package, ``tests/ps_dcn_child.py``) run here a second time
   with the modules they test swapped for the port's copies (the reference
   module's globals by monkeypatch; its lazy imports by aliasing the JAX
-  module names to the port's).  Left out: the serving tier's
-  ``ShardedSubscriber`` cases and the k8s rendering (ROADMAP A8), and the
+  module names to the port's), the serving tier's ``ShardedSubscriber``
+  cases included.  Left out: the k8s rendering (ROADMAP A8) and the
   primary-kill soak run (``soak``).  The acceptance run watches shard 1's
   clock through SUBSCRIBE.
 - Across the packages: a port worker process trains against a JAX-package
@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import asyncframework_tpu.serving  # noqa: F401  (before the aliases)
 import test_shardgroup as ref_sg
 from asyncframework_tpu.parallel import ps_dcn as j_ps
 from asyncframework_tpu.parallel import shardgroup as j_sg
@@ -47,6 +48,7 @@ from asyncframework_tpu_torch.parallel import ps_dcn as t_ps
 from asyncframework_tpu_torch.parallel import shardgroup as t_sg
 from asyncframework_tpu_torch.solvers import SolverConfig
 from asyncframework_tpu_torch.utils import clock as t_clock
+from torch_serving_support import port_replica
 
 pytestmark = pytest.mark.shard
 
@@ -88,6 +90,7 @@ ALIASES = {
     "asyncframework_tpu.metrics.live": t_live,
     "asyncframework_tpu.metrics.prom": t_prom,
     "asyncframework_tpu.utils.clock": t_clock,
+    "asyncframework_tpu.serving.replica": port_replica,
 }
 
 
@@ -158,6 +161,13 @@ class TestTelemetryAndSLOOnThePort(ref_sg.TestTelemetryAndSLO):
 class TestRestartDoubleSpawnGuardOnThePort(
         ref_sg.TestRestartDoubleSpawnGuard):
     pass
+
+
+class TestShardedSubscriberOnThePort(ref_sg.TestShardedSubscriber):
+    """The serving tier's per-range subscription: the assembled model
+    byte-equal to a direct pull, a dark range priced and named, and a port
+    replica resolving the group and serving it (the reference's lazy
+    ``ModelReplica`` import aliased to the port's, on the CPU)."""
 
 
 class TestKillShardMidRunOnThePort(ref_sg.TestKillShardMidRun):
@@ -358,10 +368,11 @@ def test_per_shard_checkpoints_resume_in_the_other_package(tmp_path,
 
 
 def test_refused_parts_of_the_group_name_their_items():
-    """What stays refused names its item (the serving tier's
-    ``ShardedSubscriber``: A8; a sharded ASAGA group: ValueError, as in
-    the JAX package).  The warm standbys and the CTRL fan-out are ported:
-    their constructors and ``install_ctrl`` refuse nothing."""
+    """What stays refused: a sharded ASAGA group (ValueError, as in the
+    JAX package).  The warm standbys, the CTRL fan-out and the serving
+    tier's ``ShardedSubscriber`` are ported: their constructors and
+    ``install_ctrl`` refuse nothing, and a subscriber over a group builds
+    one stock delta-mode client a range, under each range's epoch."""
     cfg = _cfg("port")
     for group in (t_sg.ShardGroup(cfg, D, N, 2, standbys=1),
                   t_sg.ShardGroup(cfg, D, N, 2,
@@ -373,8 +384,21 @@ def test_refused_parts_of_the_group_name_their_items():
     assert group._ctrl == {"seq": 1, "ep": 0}
     group.stop()
     t_sg.CtrlFanout(None).stop()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8"):
-        t_sg.ShardedSubscriber(None)
+    ps_list, smap = t_sg.launch_inprocess_group(cfg, D, N, 2, device=CPU)
+    try:
+        sub = t_sg.ShardedSubscriber(smap, epochs=[3, 4])
+        assert [type(c) for c in sub.clients] == [t_ps.PSClient] * 2
+        assert [(c.port, c.epoch, c.pull_mode) for c in sub.clients] == [
+            (p.port, e, "delta") for p, e in zip(ps_list, (3, 4))]
+        assert sub.stale_ranges(1.0) == [0, 1]
+        assert sub.oldest_ok_age_ms() is None
+        ts, w, clock, k, _age, done = sub.subscribe()
+        assert (ts, clock, k, done) == (0, 0, 0, False)
+        assert w.shape == (D,) and sub.changed_since_last
+        sub.bye()
+    finally:
+        for ps in ps_list:
+            ps.stop()
     with pytest.raises(ValueError, match="asgd"):
         t_sg.ShardGroup(cfg, D, N, 2, algo="asaga")
     with pytest.raises(ValueError, match="asgd"):

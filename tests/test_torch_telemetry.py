@@ -10,12 +10,16 @@ against the JAX package's modules.
   modules they test swapped for the port's copies: the reference modules'
   globals by monkeypatch, their lazy imports by aliasing the JAX module
   names to the port's in ``sys.modules`` for the test's duration.  The
-  cases left out need what the port does not have yet: the serving plane
-  (``TestFreshnessLagSignal``, ROADMAP A8), ``bench.py``'s profile block (the port's
-  benchmark is A2's), the k8s manifests, and the multi-process chaos and
-  acceptance runs of the JAX package's cluster (A8).  A case whose body
-  names a JAX-only path (a classifier row, a JAX device, a serving
-  counter) is rewritten for the port beside it, under the same name.
+  serving plane's cases run too: the freshness-lag signal, and the
+  acceptance runs (a JAX-package PS child process, ``tests/ps_dcn_child.py``,
+  trained by the port's workers in this process while a port replica and
+  a port frontend process serve ``/metrics``; the serve-freshness SLO
+  firing across a SIGKILL of a port replica process and recovering).  The
+  cases left out need what the port does not have yet: ``bench.py``'s
+  profile block (the port's benchmark is A2b's), the k8s manifests (A8),
+  and the multi-process chaos run of the JAX package's cluster.  A case
+  whose body names a JAX-only path (a classifier row, a JAX device) is
+  rewritten for the port beside it, under the same name.
 - Across the packages: one event log replayed into both packages'
   ``LiveStateListener`` gives equal snapshots and the same sections less
   the unported ones; each package's ``/metrics`` passes the other's
@@ -79,8 +83,11 @@ from asyncframework_tpu_torch.ops import steps as t_steps
 from asyncframework_tpu_torch.parallel import ps_dcn as t_ps
 from asyncframework_tpu_torch.parallel import shardgroup as t_sg
 from asyncframework_tpu_torch.parallel import supervisor as t_sup
+from asyncframework_tpu_torch.serving import ServingFrontend as TFrontend
+from asyncframework_tpu_torch.serving import metrics as t_smetrics
 from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 from asyncframework_tpu_torch.utils.clock import ManualClock
+from torch_serving_support import port_subprocess
 
 CPU = torch.device("cpu")
 
@@ -131,7 +138,9 @@ def _port_modules(monkeypatch):
             LiveUIServer=t_live.LiveUIServer,
             start_telemetry_from_conf=t_live.start_telemetry_from_conf,
             faults=t_faults, reset_breakers=t_breakers, ps_dcn=t_ps,
-            make_cfg=_port_cfg, ManualClock=ManualClock).items():
+            make_cfg=_port_cfg, ManualClock=ManualClock,
+            ShardedDataset=TDataset, ServingFrontend=TFrontend,
+            smetrics=t_smetrics, subprocess=port_subprocess).items():
         monkeypatch.setattr(ref_tel, name, value)
     for name, value in dict(
             AsyncConf=t_conf.AsyncConf, set_global_conf=t_conf.set_global_conf,
@@ -223,25 +232,23 @@ class TestSLOStateMachineOnThePort(ref_tel.TestSLOStateMachine):
 
 
 @pytest.mark.usefixtures("_telemetry_conf")
+class TestFreshnessLagSignalOnThePort(ref_tel.TestFreshnessLagSignal):
+    pass
+
+
+@pytest.mark.usefixtures("_telemetry_conf")
 class TestPromExpositionOnThePort(ref_tel.TestPromExposition):
     def test_render_passes_strict_parser_with_labels(self):
-        """The reference case less its serving counters (ROADMAP A8): a
-        registered family of the port stands in for them."""
+        """The reference case (its serving counters and gauges included),
+        and the pipeline family beside them."""
+        super().test_render_passes_strict_parser_with_labels()
         t_ps._pl_fold({"prefetch_hits": 4})
-        t_ts.convergence().add(100.0, 3, loss=0.25, grad_norm=1.5)
-        body = t_prom.render({"role": "test", "run_id": "rid1"})
-        parsed = t_prom.parse_exposition(body)
-        key = ("async_process_info", (("role", "test"), ("run_id", "rid1")))
-        assert parsed[key] == 1.0
+        parsed = t_prom.parse_exposition(
+            t_prom.render({"role": "test", "run_id": "rid1"}))
         assert any(name.startswith("async_pipeline_") and
                    name.endswith("_total") for (name, _l) in parsed)
-        assert not any(name.startswith("async_serving_")
-                       for (name, _l) in parsed)
-        assert any(name == "async_convergence_loss" for (name, _l) in parsed)
-        slo_states = {dict(l)["rule"]: v for (n, l), v in parsed.items()
-                      if n == "async_slo_state"}
-        assert "updates_floor" in slo_states
-        assert set(slo_states.values()) <= {-1.0, 0.0, 1.0, 2.0}
+        assert any(name.startswith("async_serving_") and
+                   not name.endswith("_total") for (name, _l) in parsed)
 
 
 #: providers outside the port's registry, with the reason (the reference's
@@ -415,6 +422,15 @@ class TestCollectorInProcessOnThePort(ref_obs.TestCollectorInProcess):
     pass
 
 
+# ----------------------- tests/test_telemetry.py's acceptance runs, ported
+@pytest.mark.usefixtures("_telemetry_conf")
+class TestAcceptanceOnThePort(ref_tel.TestAcceptance):
+    """The JAX package's PS child process trained by the port's workers in
+    this process, with the port's replica and frontend processes (their
+    ``/metrics`` parsed strictly); the serve-freshness SLO across a
+    SIGKILL of a port replica process behind the port's frontend."""
+
+
 # ------------------------------------------------------ across the packages
 def test_registry_families_are_the_jax_packages_in_order():
     port = list(t_registry.families())
@@ -423,7 +439,8 @@ def test_registry_families_are_the_jax_packages_in_order():
     assert not set(port) & set(t_registry.UNPORTED_FAMILIES)
     assert [f for f in jax_fams if f not in t_registry.UNPORTED_FAMILIES] \
         == port
-    assert set(t_registry.UNPORTED_FAMILIES.values()) == {"A8", "A9"}
+    assert set(t_registry.UNPORTED_FAMILIES.values()) == {"A9"}
+    assert {"serving", "relay"} <= set(port)
     assert t_registry.DYNAMIC_SERIES_FAMILIES \
         == j_registry.DYNAMIC_SERIES_FAMILIES
 
@@ -441,7 +458,7 @@ def test_each_packages_exposition_passes_the_others_parser():
         port_names = {n for (n, _l) in t_prom.parse_exposition(port_body)}
         jax_names = {n for (n, _l) in j_prom.parse_exposition(jax_body)}
         # the port's metrics are the JAX package's, less the unported
-        # families' (and the serving gauges)
+        # families'
         assert port_names <= jax_names
         unported = [n for n in jax_names - port_names
                     if not any(n.startswith(f"async_{f}_")
@@ -472,7 +489,7 @@ def test_fold_trajectory_gives_equal_convergence_in_both_packages():
 #: snapshot fields that read the wall clock or the process
 WALL_CLOCK = ("elapsed_s", "updates_per_sec", "run_id")
 #: the JAX package's sections of subsystems the port does not have yet
-UNPORTED_SECTIONS = {"serving", "shuffle"}
+UNPORTED_SECTIONS = {"shuffle"}
 
 
 def _event_log(tmp_path):
