@@ -169,3 +169,112 @@ def assembled_ps_model(directory) -> Tuple[np.ndarray, list, list]:
     clocks = [int(meta["clock"]) for meta, _a in shards.values()]
     epochs = [int(meta.get("epoch", 0)) for meta, _a in shards.values()]
     return w, clocks, epochs
+
+
+# ------------------------------------------------------------ fitted models
+#: each fitted model's fields, the same names and host layout in both
+#: packages' ``ml`` modules (each one its class's constructor's keyword
+#: arguments): numpy arrays, Python scalars, and the weight trajectory as
+#: ``[(ms, w)]``
+LINEAR_MODEL = ("weights", "intercept", "loss_history", "weight_history")
+KMEANS_MODEL = ("centers", "cost", "iterations")
+ALS_MODEL = ("user_factors", "item_factors", "rank")
+PCA_MODEL = ("components", "explained_variance", "mean")
+WORD2VEC_MODEL = ("vocab", "vectors")
+LDA_MODEL = ("topics", "doc_topics", "alpha", "log_perplexity_history")
+
+
+def _host(value):
+    """A field as a host value: an array copied (the two models share no
+    buffer), a list or tuple element by element, anything else as it is."""
+    if isinstance(value, np.ndarray):
+        return value.copy()
+    if isinstance(value, (list, tuple)):
+        return type(value)(_host(v) for v in value)
+    return value
+
+
+def _fields(model, names) -> dict:
+    return {name: _host(getattr(model, name)) for name in names}
+
+
+def linear_model_from_reference(model):
+    """A JAX package's fitted linear model (``LinearModel``,
+    ``LogisticRegressionModel`` or ``SVMModel``) as the port's class of
+    the same name."""
+    from asyncframework_tpu_torch.ml import models
+
+    return getattr(models, type(model).__name__)(**_fields(model,
+                                                           LINEAR_MODEL))
+
+
+def linear_model_to_reference(model) -> dict:
+    """The port's fitted linear model as the JAX package's constructor
+    arguments (``LogisticRegressionModel(**fields)``, ...)."""
+    return _fields(model, LINEAR_MODEL)
+
+
+def kmeans_model_from_reference(model):
+    """A JAX package's ``KMeansModel`` as the port's."""
+    from asyncframework_tpu_torch.ml.clustering import KMeansModel
+
+    return KMeansModel(**_fields(model, KMEANS_MODEL))
+
+
+def kmeans_model_to_reference(model) -> dict:
+    """The port's ``KMeansModel`` as the JAX package's constructor
+    arguments."""
+    return _fields(model, KMEANS_MODEL)
+
+
+def als_model_from_reference(model):
+    """A JAX package's ``ALSModel`` (its factors) as the port's."""
+    from asyncframework_tpu_torch.ml.recommendation import ALSModel
+
+    return ALSModel(**_fields(model, ALS_MODEL))
+
+
+def als_model_to_reference(model) -> dict:
+    """The port's ``ALSModel`` as the JAX package's constructor
+    arguments."""
+    return _fields(model, ALS_MODEL)
+
+
+def pca_model_from_reference(model):
+    """A JAX package's ``PCAModel`` as the port's."""
+    from asyncframework_tpu_torch.ml.decomposition import PCAModel
+
+    return PCAModel(**_fields(model, PCA_MODEL))
+
+
+def pca_model_to_reference(model) -> dict:
+    """The port's ``PCAModel`` as the JAX package's constructor
+    arguments."""
+    return _fields(model, PCA_MODEL)
+
+
+def word2vec_model_from_reference(model):
+    """A JAX package's ``Word2VecModel`` (vocabulary and vectors) as the
+    port's."""
+    from asyncframework_tpu_torch.ml.word2vec import Word2VecModel
+
+    return Word2VecModel(**_fields(model, WORD2VEC_MODEL))
+
+
+def word2vec_model_to_reference(model) -> dict:
+    """The port's ``Word2VecModel`` as the JAX package's constructor
+    arguments."""
+    return _fields(model, WORD2VEC_MODEL)
+
+
+def lda_model_from_reference(model):
+    """A JAX package's ``LDAModel`` (its topics) as the port's."""
+    from asyncframework_tpu_torch.ml.lda import LDAModel
+
+    return LDAModel(**_fields(model, LDA_MODEL))
+
+
+def lda_model_to_reference(model) -> dict:
+    """The port's ``LDAModel`` as the JAX package's constructor
+    arguments."""
+    return _fields(model, LDA_MODEL)

@@ -159,6 +159,18 @@ def _as_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def as_rows(X, y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``X`` and ``y`` as tensors: host arrays become f32; a tensor stays
+    where it is, f32 or bf16 ``X`` read in place."""
+    Xt = X if isinstance(X, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(X, np.float32))
+    if Xt.dtype not in (torch.float32, torch.bfloat16):
+        Xt = Xt.float()
+    yt = y if isinstance(y, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(y, np.float32))
+    return Xt, yt.float()
+
+
 def _place(block: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``block`` on ``device``, contiguous; a view where it already is."""
     return block.to(device).contiguous()

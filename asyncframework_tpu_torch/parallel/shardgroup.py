@@ -1754,6 +1754,14 @@ class ShardGroup:
         line = self._procs[index].next_line(1, timeout_s)
         return json.loads(line) if line else None
 
+    def final_result_of(self, index: int,
+                        timeout_s: float) -> Optional[dict]:
+        """The child's counts after its last apply (the line after its
+        result, printed once it is told to stop: :meth:`stop` first);
+        None on timeout."""
+        line = self._procs[index].next_line(2, timeout_s)
+        return json.loads(line) if line else None
+
     def standby_result_of(self, index: int,
                           timeout_s: float) -> Optional[dict]:
         """Shard ``index``'s current standby's result JSON line (printed
@@ -1984,6 +1992,21 @@ class CtrlFanout:
                 pass  # a dark shard re-learns ctrl from the next send
 
 
+def _quiesce(ps, timeout_s: float = 5.0, settle_s: float = 0.05) -> None:
+    """Wait, at most ``timeout_s``, until every push ``ps`` has counted
+    is applied (accepted or dropped) and no push has come for
+    ``settle_s``."""
+    deadline = time.monotonic() + timeout_s
+    last = None
+    while time.monotonic() < deadline:
+        pushes = int(sum(ps.pushes_by_wid.values()))
+        now = (pushes, ps.accepted + ps.dropped)
+        if now == last and pushes == now[1]:
+            return
+        last = now
+        time.sleep(settle_s)
+
+
 def _child_main() -> int:
     """Env-driven shard process entry (``python -m
     asyncframework_tpu_torch.parallel.shardgroup``): the role
@@ -2159,6 +2182,15 @@ def _child_main() -> int:
     # (bounded so a controller that died without SIGTERM cannot strand
     # an orphan serving forever)
     term.wait(timeout=float(os.environ.get("ASYNC_SHARD_LINGER_S", "600")))
+    # the counts after the last apply: a push in flight when FINISH came
+    # lands after the result line above, so the launcher reads these
+    # (ShardGroup.final_result_of) once it has stopped the group
+    _quiesce(ps)
+    print(json.dumps({"role": result["role"], "shard": index, "final": True,
+                      "accepted": ps.accepted, "dropped": ps.dropped,
+                      "clock": ps._clock,
+                      "pushes": int(sum(ps.pushes_by_wid.values()))}),
+          flush=True)
     if controller is not None:
         controller.stop()
     if ctrl_fanout is not None:

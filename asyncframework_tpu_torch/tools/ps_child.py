@@ -432,6 +432,13 @@ def run_group(name: str, algo: str, device, nprocs: int, shards: int,
                "wire_bytes_diagnostic": diag_bytes,
                **ps_summary(ps, marks, t_done, n, total)}
         linger()
+        # each secondary's counts after its last apply (ROADMAP C13): a
+        # push in flight at FINISH lands after its result line
+        group.stop()
+        for i in range(1, shards):
+            final = group.final_result_of(i, timeout_s=10.0) or {}
+            members[i].update({k: final[k] for k in (
+                "accepted", "dropped", "clock", "pushes") if k in final})
     finally:
         if reader is not None:
             reader.stop()

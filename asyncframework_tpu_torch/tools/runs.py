@@ -64,6 +64,14 @@ def counts() -> dict:
             "xt_coeff_plain": mg.xt_coeff_reference.calls}
 
 
+def b1_forms(c: dict) -> dict:
+    """B1's launches in ``counts()`` ``c`` by form: ``masked_grad`` counts
+    every form, so the full masked form is what the other forms leave."""
+    others = ("saga_grad", "saga_slots_grad", "xt_coeff")
+    return {"full": c["masked_grad"] - sum(c[f] for f in others),
+            **{f: c[f] for f in others}}
+
+
 def zero_counts() -> None:
     for fn in (mg.masked_grad, mg.saga_grad, mg.saga_slots_grad,
                mg.xt_coeff, sg.compacted_grad, sg.saga_slots_grad,

@@ -41,7 +41,11 @@ exits non-zero without a result line):
    launch is captured by a CUDA graph; and the DCN ASAGA worker's per-slot
    forms, B1's ``saga_slots_grad`` at 5,408 slots of an epsilon shard
    (``sparse_step_capacity(0.1, 50,000)``) and S1's ``saga_slots_grad`` at
-   rcv1's 4,752-slot task, each against its plain version;
+   rcv1's 4,752-slot task, each against its plain version; and the ML
+   library's two B1 forms at epsilon's whole 400,000 x 2,000 f32 (one
+   rank): the logistic full form (``logreg_epsilon_full``) and
+   ``xt_coeff`` (``xt_epsilon_full``, with the SVM iteration's matmul pair
+   ``X w``, ``X^T c`` timed beside the library's ``X^T c``);
 3. main path -- ASGD ``run()`` and ``run_sync()`` on the full-size epsilon
    deployment (400,000 x 2,000 f32, 8 workers, b = 0.1) generated on the
    card, with every kernel's launch count set to 0 just before and read
@@ -257,7 +261,20 @@ exits non-zero without a result line):
    processes) join the kernel line's count.  No kernel is new here: the
    predict is ``mm_f32``'s f32 ``gemv`` (TF32 off), as the JAX package's
    is XLA's;
-17. the ``total`` line (seconds, and each phase's), the
+17. ml -- the ML library's core (``tools/ml.py``), one ``ml`` line an
+   arm, each arm's data generated on the card at a published shape:
+   ``LogisticRegression()`` at epsilon's shape at fractions 1.0 and 0.1
+   (one B1 logistic full-form launch an iteration, the loss falling, at
+   1.0 ``w`` within 1e-3 of a float64 recomputation), ``LinearSVM`` (one
+   ``xt_coeff`` launch an iteration, the float64 gate), ``LBFGS`` (20
+   iterations, its objective at most the 100 ``GradientDescent``
+   iterations', one B1 launch an evaluation), ``PCA(10)`` (the captured
+   variance within 1e-4 of a float64 ``eigh``), ``KMeans(k=10)`` at
+   mnist8m's shape in f32 (25.4 GB; the cost within 1e-4 of a float64
+   recomputation and below the seeded centres', peak device bytes under
+   40 GB) and ``ALS`` at MovieLens-1M's shape (held-out RMSE below half
+   the global mean's, a half step within 1e-4 of a float64 solve);
+18. the ``total`` line (seconds, and each phase's), the
    ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -408,6 +425,7 @@ B1_ROUTES = {
     "saga_mnist8m_shard": "staged", "xt_mnist8m_shard": "staged",
     "mesh_rank_block": "staged", "saga_minibatch_rank": "staged",
     "f_file_idx_2048x2000": "tiled", "f_file_idx_4096x500": "tiled",
+    "logreg_epsilon_full": "staged", "xt_epsilon_full": "staged",
 }
 
 
@@ -525,6 +543,11 @@ def saga_case(name, n, d, dtype, torch, mg, flush, gen, b):
         def library():
             return (X.float().T @ c,) if dtype != torch.float32 else (X.T @ c,)
 
+        def library_pair():
+            # an SVM iteration's products (ml/gradient.py): the margin, then
+            # X^T c
+            return (X @ w.to(dtype)).float(), library()[0]
+
         bytes_moved = n * d * es + n * 4 + d * 4
         tol_rel = TOL_REL["float32"]  # c is not rounded to bf16
     (got, route), again, ref = routed(mg, kernel), kernel(), plain()
@@ -554,6 +577,8 @@ def saga_case(name, n, d, dtype, torch, mg, flush, gen, b):
         "bound_us": max(byte_s, flop_s) * 1e6,
         "bound_by": "bytes" if byte_s >= flop_s else "operations",
     })
+    if not name.startswith("saga"):
+        rec["library_pair_ms"] = median_ms(library_pair, torch, flush)
     emit(rec)
     if not ok or not bit_equal:
         raise RuntimeError(f"{rec['form']} disagrees with its plain version: {rec}")
@@ -566,6 +591,10 @@ def saga_case(name, n, d, dtype, torch, mg, flush, gen, b):
 # chunk_attention against its plain version: both sum D products and Tk
 # exponentials in f32, in different orders (the kernel also rescales online)
 ATT_TOL = {"o": 1e-4, "m": 1e-5, "l": 1e-5}
+# an unmasked block this long is also held against float64 on its first
+# heads: there the plain version's own rounding is most of the margin
+# (ROADMAP C15; tools/probe_chunk_attention.py)
+F64_MIN_TK, F64_HEADS = 4_096, 2
 
 
 def needed_pairs(mask, tq, tk, torch) -> int:
@@ -642,6 +671,15 @@ def attention_case(name, B, tq, tk, H, D, dtype, mask_kind, torch, ca, flush,
         rec[f"{key}_max_rel_err"] = rel
         rec[f"{key}_tol_rel"] = ATT_TOL[key]
         ok = ok and rel <= ATT_TOL[key] and bool(torch.isfinite(a).all())
+    if mask is None and tk >= F64_MIN_TK:
+        from asyncframework_tpu_torch.tools import probe_chunk_attention as pca
+        o64 = pca.f64_heads(q, k, v, F64_HEADS)[0]
+        for who, trip in (("kernel", got), ("plain", ref)):
+            rec[f"o_vs_f64_rel_{who}"] = pca.rel(trip[0][:, :, :F64_HEADS],
+                                                 o64)
+        rec["o_vs_f64_heads"] = F64_HEADS
+        ok = ok and rec["o_vs_f64_rel_kernel"] <= ATT_TOL["o"]
+        del o64
     if mask_kind == "random":
         # the TPU kernel's padded-Tk count for a row with no unmasked key
         rec["masked_row_l_ok"] = bool((got[2][:, :, tq // 2]
@@ -2519,6 +2557,19 @@ def serving_phase(card):
     return launches
 
 
+def ml_phase(card):
+    """Phase 17 (``tools/ml.py``): the ML library's arms on this card;
+    returns the B1 launches on the path by form."""
+    import torch
+
+    from asyncframework_tpu_torch.tools import ml
+
+    out = ml.phase(torch.device("cuda", 0), card, emit=lambda line: print(
+        line, flush=True))
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -2631,6 +2682,19 @@ def main() -> int:
     recs["s_saga_slots_rcv1"] = s1_saga_slots_case(
         "s_saga_slots_rcv1", 87_205, 80, 75, 47_236, 0.05, 4_752, torch, sg,
         flush, gen)
+    torch.cuda.empty_cache()
+    # phase 17's two B1 forms on the whole epsilon deployment (one rank):
+    # LogisticRegression's and LBFGS's logistic full form at fraction 1.0,
+    # LinearSVM's xt_coeff; drawn from a generator of their own, so the
+    # cases above keep their inputs
+    gen_ml = torch.Generator(device=dev)
+    gen_ml.manual_seed(17)
+    recs["logreg_epsilon_full"] = kernel_case(
+        "logreg_epsilon_full", 400_000, 2_000, f32, torch, mg, flush, gen_ml,
+        1.0, None, "logistic")
+    torch.cuda.empty_cache()
+    recs["xt_epsilon_full"] = saga_case("xt_epsilon_full", 400_000, 2_000,
+                                        f32, torch, mg, flush, gen_ml, 0.1)
     torch.cuda.empty_cache()
     del flush
 
@@ -2769,7 +2833,12 @@ def main() -> int:
 
     lap("serving")
 
-    # ------------------------------------------------------ 17. results
+    # --------------------------------------------------------------- 17. ml
+    ml_launches = ml_phase(card)
+
+    lap("ml")
+
+    # ------------------------------------------------------ 18. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
           "phase_seconds": laps})
     print(card, flush=True)
@@ -2837,6 +2906,16 @@ def main() -> int:
               + entry_launches["saga_grad_minibatch"],
               mesh_recs["saga_minibatch_rank"],
               mesh_recs["saga_minibatch_rank"]["bound_us"] / 1e3),
+        # phase 17: the ML library's gradients on the whole epsilon
+        # deployment (captured an iteration x iterations; LBFGS's eager
+        # evaluations one each)
+        entry("masked_grad.logistic_full", "masked_grad.cu", b1,
+              ml_launches["masked_grad_logistic"],
+              recs["logreg_epsilon_full"],
+              recs["logreg_epsilon_full"]["bound_us"] / 1e3),
+        entry("masked_grad.xt_coeff.svm", "masked_grad.cu", b1,
+              ml_launches["xt_coeff"], recs["xt_epsilon_full"],
+              recs["xt_epsilon_full"]["bound_us"] / 1e3),
         entry("chunk_attention", "chunk_attention.cu",
               "asyncframework_tpu/ops/pallas_kernels.py:155", att_launches,
               f_rec, f_rec["bound_ms"]),

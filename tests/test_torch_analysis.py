@@ -86,6 +86,14 @@ def _port_modules(monkeypatch):
     yield
 
 
+@pytest.fixture(scope="module")
+def whole_tree():
+    """One lint of the port's whole tree, read by every test below that
+    reads its findings (its raw findings are its findings and its
+    suppressed ones)."""
+    return run_lint(REPO)
+
+
 def _ctx(tmp_path, files):
     root, paths = _make_tree(tmp_path, files)
     return LintContext(root, paths=paths)
@@ -226,10 +234,10 @@ class TestAllowlistPolicyOnThePort(ref_lint.TestAllowlistPolicy):
 
 
 class TestWholeTreeSelfLintOnThePort(ref_lint.TestWholeTreeSelfLint):
-    def test_whole_tree_self_lints_clean(self):
+    def test_whole_tree_self_lints_clean(self, whole_tree):
         """Every rule over the port's tree (the package and
         ``chip_smoke.py``), zero findings beyond the allowlist."""
-        result = run_lint(REPO)
+        result = whole_tree
         assert result.ok, "\n".join(f.format() for f in result.findings)
         assert result.files_scanned > 90
         assert all(f.path.startswith(PKG + "/") or f.path == "chip_smoke.py"
@@ -364,9 +372,14 @@ def test_rules_check_the_ports_tables_and_paths():
     assert not any(p.startswith("asyncframework_tpu/") for p in paths)
 
 
-def test_pending_paths_are_skipped_by_name_and_item():
+def test_pending_paths_are_skipped_by_name_and_item(whole_tree, monkeypatch,
+                                                    capsys):
     """Each module a rule names that the port lacks is declared with its
-    ROADMAP item, reported by the CLI, and skipped without a crash."""
+    ROADMAP item, reported by the CLI, and skipped without a crash.  The
+    CLI renders the module's one lint of the tree (its subprocess run is
+    ``test_cli_json_clean_and_machine_readable``)."""
+    from asyncframework_tpu_torch.analysis import cli as t_cli
+
     pending = dict(t_core.pending_paths(REPO))
     assert pending == {
         f"{PKG}/streaming/log_net.py": "A10",
@@ -382,17 +395,17 @@ def test_pending_paths_are_skipped_by_name_and_item():
     assert ported <= rule_paths
     assert set(pending) >= rule_paths - ported
     assert not set(pending) & ported
-    proc = subprocess.run([sys.executable, "-m", f"{PKG}.analysis.cli"],
-                          capture_output=True, text=True, timeout=300,
-                          cwd=REPO)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    monkeypatch.setattr(t_core, "run_lint", lambda *_a, **_k: whole_tree)
+    rc = t_cli.main(["--root", REPO])
+    out = capsys.readouterr().out
+    assert rc == 0, out
     for path, item in pending.items():
-        assert f"{path}: not ported yet (ROADMAP {item})" in proc.stdout
-    assert "async-lint: clean" in proc.stdout
+        assert f"{path}: not ported yet (ROADMAP {item})" in out
+    assert "async-lint: clean" in out
     for path in (t_rules_conf.CLI_PATH, f"{PKG}/deploy/master.py",
                  f"{PKG}/relaycast/node.py", f"{PKG}/relaycast/source.py"):
         assert os.path.isfile(os.path.join(REPO, path))
-        assert f"{path}: not ported yet" not in proc.stdout
+        assert f"{path}: not ported yet" not in out
 
 
 def test_allowlist_is_the_retargeted_reference_and_the_refused_ops():
@@ -408,9 +421,9 @@ def test_allowlist_is_the_retargeted_reference_and_the_refused_ops():
     assert all(reason.strip() for reason in mine.values())
 
 
-def test_no_fence_gate_or_setmap_finding_before_the_allowlist():
-    result = run_lint(REPO, allowlist=[])
-    raw = {(f.rule, f.token) for f in result.findings}
+def test_no_fence_gate_or_setmap_finding_before_the_allowlist(whole_tree):
+    raw = {(f.rule, f.token) for f in whole_tree.findings} | {
+        (f.rule, f.token) for f, _allow in whole_tree.suppressed}
     assert not any(rule == "proto-fence-gate" for rule, _t in raw), raw
     assert ("proto-unhandled-op", "SETMAP") not in raw
     # PROMOTE, REPL_APPEND, REPL_SYNC and SUBSCRIBE are handled now

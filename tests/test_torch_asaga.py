@@ -24,6 +24,7 @@ from asyncframework_tpu.ops import gradients as jgrad
 from asyncframework_tpu.ops import steps as jsteps
 from asyncframework_tpu.solvers import ASAGA as JaxASAGA
 from asyncframework_tpu.solvers import SolverConfig as JaxConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from asyncframework_tpu_torch.convert import saga_state_from_reference
 from asyncframework_tpu_torch.ops import gradients as tgrad
 from asyncframework_tpu_torch.ops import masked_grad as mg

@@ -20,6 +20,7 @@ from asyncframework_tpu.data import make_classification, make_regression
 from asyncframework_tpu.solvers import ASGD as JaxASGD
 from asyncframework_tpu.solvers import SolverConfig as JaxConfig
 from asyncframework_tpu.solvers import instrumentation as jax_inst
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from asyncframework_tpu_torch.convert import dataset_from_reference
 from asyncframework_tpu_torch.solvers import ASGD, SolverConfig
 from asyncframework_tpu_torch.solvers import instrumentation as port_inst

@@ -79,14 +79,15 @@ def _spawn(packages, argv, timeout_s=240.0):
             out[i] = p.communicate(timeout=timeout_s)
         except subprocess.TimeoutExpired:
             p.kill()
-            out[i] = p.communicate()
+            out[i] = p.communicate(timeout=30)
 
     threads = [threading.Thread(target=drain, args=(i, p), daemon=True)
                for i, p in enumerate(procs)]
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout_s + 60)
+        assert not t.is_alive(), "a CLI process outlived its kill"
     return [(p.returncode, o, e) for p, (o, e) in zip(procs, out)]
 
 

@@ -28,6 +28,7 @@ from asyncframework_tpu_torch.ops.masked_grad import (
     xt_coeff_reference,
 )
 from asyncframework_tpu_torch.ops.steps import compact_mask
+from torch_procs import kill_and_reap, readline_within
 
 pytestmark = pytest.mark.cuda
 
@@ -1542,7 +1543,7 @@ def test_replica_process_predict_matches_the_cpu(dev, loss):
          "--loss", loss], env=env, cwd=repo, stdout=subprocess.PIPE,
         stderr=subprocess.DEVNULL, text=True)
     try:
-        port = json.loads(proc.stdout.readline())["port"]
+        port = json.loads(readline_within(proc))["port"]
         pusher = ps_dcn.PSClient("127.0.0.1", ps.port, pull_mode="full")
         for _ in range(3):
             pts, _w, _a, _c = pusher.pull(0)
@@ -1577,6 +1578,158 @@ def test_replica_process_predict_matches_the_cpu(dev, loss):
             else:
                 np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-6)
     finally:
-        proc.kill()
-        proc.wait()
+        kill_and_reap(proc)
         ps.stop()
+
+
+# ------------------------------------------------------------ the ML library
+def _ml_problem(n, d, seed=0, labels=False):
+    rs = np.random.default_rng(seed)
+    X = (rs.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    y = X @ rs.normal(size=d).astype(np.float32) * 4.0
+    if labels:
+        y = (rs.random(n) < 1.0 / (1.0 + np.exp(-y))).astype(np.float32)
+    return X, y.astype(np.float32)
+
+
+@pytest.mark.parametrize("name,form", [
+    ("LeastSquaresGradient", "saga_grad"), ("LogisticGradient", "masked_grad"),
+    ("HingeGradient", "xt_coeff")])
+def test_ml_gradient_is_one_b1_launch_and_matches_the_cpu(dev, name, form):
+    from asyncframework_tpu_torch import ml
+    from asyncframework_tpu_torch.tools import runs
+
+    X, y = _ml_problem(4_096, 300, labels=name != "LeastSquaresGradient")
+    w = np.random.default_rng(1).normal(size=300).astype(np.float32) * 0.1
+    mask = (np.random.default_rng(2).random(4_096) < 0.5).astype(np.float32)
+    grad = getattr(ml, name)()
+    cpu = grad.local(*(torch.from_numpy(a) for a in (X, y, w, mask)))
+    runs.zero_counts()
+    gpu = grad.local(*(torch.from_numpy(a).to(dev) for a in (X, y, w, mask)))
+    c = runs.counts()
+    full = "full" if form == "masked_grad" else form
+    assert runs.b1_forms(c) == {f: int(f == full)
+                                for f in runs.b1_forms(c)}, c
+    assert sum(v for k, v in c.items() if k.endswith("_plain")) == 0
+    _close(gpu[0], cpu[0], 1e-4)
+    _close(gpu[1], cpu[1], 1e-5)
+
+
+@pytest.mark.parametrize("estimator", ["LinearRegression", "LogisticRegression",
+                                       "LinearSVM"])
+def test_ml_sgd_estimator_on_the_card_matches_the_cpu(dev, estimator):
+    """Captured as CUDA graphs on the card (one B1 launch an iteration),
+    eager on the CPU: the same iterations at fraction 1.0."""
+    from asyncframework_tpu_torch import ml
+    from asyncframework_tpu_torch.parallel import make_mesh
+    from asyncframework_tpu_torch.tools import runs
+
+    X, y = _ml_problem(20_000, 500, labels=estimator != "LinearRegression")
+    kw = dict(num_iterations=40, reg_param=0.01, step_size=1.0)
+    cpu = getattr(ml, estimator)(**kw).fit(
+        X, y, mesh=make_mesh(1, devices=[torch.device("cpu")]))
+    est = getattr(ml, estimator)(**kw)
+    runs.zero_counts()
+    gpu = est.fit(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev))
+    info = est.optimizer.last_run
+    assert info["graph_replays"] > 0
+    form = {"LinearRegression": "saga_grad", "LogisticRegression": "full",
+            "LinearSVM": "xt_coeff"}[estimator]
+    forms = runs.b1_forms(runs.counts())
+    assert forms == {f: info["enqueued_iterations"] * (f == form)
+                     for f in forms}, forms
+    np.testing.assert_allclose(gpu.weights, cpu.weights, rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(gpu.loss_history, cpu.loss_history,
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_ml_lbfgs_on_the_card_matches_the_cpu(dev):
+    from asyncframework_tpu_torch import ml
+    from asyncframework_tpu_torch.parallel import make_mesh
+    from asyncframework_tpu_torch.tools import runs
+
+    X, y = _ml_problem(20_000, 200, labels=True)
+    cpu_w, cpu_h = ml.LBFGS(ml.LogisticGradient(), max_iterations=6).optimize(
+        X, y, mesh=make_mesh(1, devices=[torch.device("cpu")]))
+    lb = ml.LBFGS(ml.LogisticGradient(), max_iterations=6)
+    runs.zero_counts()
+    w, h = lb.optimize(X, y)
+    forms = runs.b1_forms(runs.counts())
+    assert forms == {f: lb.last_run["evaluations"] * (f == "full")
+                     for f in forms}, forms
+    # f32 sums over 20,000 rows in two orders: the objective agrees; the
+    # two-loop recursion carries the difference into the flat directions
+    # of w, so w is held by its norm
+    assert len(h) == len(cpu_h)
+    np.testing.assert_allclose(h, cpu_h, rtol=1e-4)
+    assert np.linalg.norm(w - cpu_w) <= 1e-2 * np.linalg.norm(cpu_w)
+
+
+def test_ml_library_on_the_card_matches_the_cpu(dev):
+    """Statistics, PCA, SVD, the distributed matrices, k-means, an ALS
+    half step, a Word2Vec step and an LDA fit: the card against the CPU on
+    the same inputs."""
+    from asyncframework_tpu_torch import ml
+    from asyncframework_tpu_torch.ml import recommendation, word2vec
+    from asyncframework_tpu_torch.parallel import make_mesh
+
+    cpu = torch.device("cpu")
+    rs = np.random.default_rng(0)
+    A = (rs.normal(size=(2_048, 24)) * np.linspace(3, 0.3, 24)).astype(
+        np.float32)
+    for dv in (dev, cpu):
+        assert ml.col_stats(A, device=dv).count == 2_048
+    np.testing.assert_allclose(ml.col_stats(A, device=dev).variance,
+                               ml.col_stats(A, device=cpu).variance,
+                               rtol=1e-5)
+    np.testing.assert_allclose(ml.corr(A, device=dev), ml.corr(A, device=cpu),
+                               atol=1e-5)
+    kde = [ml.KernelDensity(0.5, device=dv).set_sample(A[:, 0]).estimate(
+        np.linspace(-3, 3, 9)) for dv in (dev, cpu)]
+    np.testing.assert_allclose(kde[0], kde[1], rtol=1e-5)
+    assert ml.chi_sq_test([16, 18, 16, 14, 12, 12], device=dev).statistic \
+        == pytest.approx(ml.chi_sq_test([16, 18, 16, 14, 12, 12],
+                                        device=cpu).statistic, rel=1e-6)
+    pcs = [ml.PCA(4).fit(A, device=dv) for dv in (dev, cpu)]
+    np.testing.assert_allclose(pcs[0].explained_variance,
+                               pcs[1].explained_variance, rtol=1e-4)
+    _u, s_gpu, _v = ml.svd(A, 6, device=dev)
+    _u, s_cpu, _v = ml.svd(A, 6, device=cpu)
+    np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-4)
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    _q, R4 = ml.RowMatrix(A, mesh4).tall_skinny_qr()
+    _q, R1 = ml.RowMatrix(A, device=cpu).tall_skinny_qr()
+    _close(R4, R1, 1e-3)
+    B = rs.normal(size=(24, 37)).astype(np.float32)
+    C = ml.BlockMatrix.from_dense(A, 512, devices=[dev]).multiply(
+        ml.BlockMatrix.from_dense(B, 512, devices=[dev]))
+    np.testing.assert_allclose(C.to_local(), A @ B, rtol=1e-3, atol=1e-3)
+    km = [ml.KMeans(5, seed=1).fit(A, make_mesh(2, devices=[dv] * 2))
+          for dv in (dev, cpu)]
+    np.testing.assert_allclose(km[0].centers, km[1].centers, rtol=1e-4,
+                               atol=1e-4)
+    R = rs.normal(size=(60, 40)).astype(np.float32)
+    mask = (rs.random((60, 40)) < 0.5).astype(np.float32)
+    F = rs.normal(size=(40, 5)).astype(np.float32)
+    halves = [recommendation._half_step(*(torch.from_numpy(a).to(dv)
+                                          for a in (F, R, mask)), 0.1)
+              for dv in (dev, cpu)]
+    _close(halves[0], halves[1], 1e-4)
+    V, d, Bsz, K = 30, 8, 64, 4
+    state = [rs.normal(size=(V, d)).astype(np.float32) for _ in range(2)]
+    idx = [rs.integers(0, V, Bsz), rs.integers(0, V, Bsz),
+           rs.integers(0, V, (Bsz, K))]
+    outs = []
+    for dv in (dev, cpu):
+        W_in, W_out = (torch.from_numpy(s.copy()).to(dv) for s in state)
+        word2vec._sgns_step(W_in, W_out, *(torch.from_numpy(i).to(dv)
+                                           for i in idx), 0.3)
+        outs.append((W_in, W_out))
+    _close(outs[0][0], outs[1][0], 1e-5)
+    _close(outs[0][1], outs[1][1], 1e-5)
+    docs = rs.poisson(1.0, size=(100, 30)).astype(np.float32)
+    ldas = [ml.LDA(k=3, max_iterations=5, seed=0).fit(docs, device=dv)
+            for dv in (dev, cpu)]
+    np.testing.assert_allclose(ldas[0].topics, ldas[1].topics, rtol=1e-3,
+                               atol=1e-6)

@@ -38,6 +38,7 @@ from asyncframework_tpu.ops import steps as jsteps
 from asyncframework_tpu.solvers import ASAGA as JaxASAGA
 from asyncframework_tpu.solvers import ASGD as JaxASGD
 from asyncframework_tpu.solvers import SolverConfig as JaxConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from asyncframework_tpu_torch.data.sharded import ShardedDataset
 from asyncframework_tpu_torch.data.sparse import SparseShardedDataset
 from asyncframework_tpu_torch.ops import steps as tsteps

@@ -344,3 +344,59 @@ def test_the_lint_and_the_shard_group_are_scanned():
                 "analysis/rules_protocol.py", "analysis/rules_threads.py",
                 "parallel/shardgroup.py", "convert.py", "tools/dcn.py"):
         assert rel in scanned, rel
+
+
+def test_the_ml_library_is_scanned():
+    """Every module of the ML library (``ml/*``) is among the sources both
+    guards above read."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("ml/__init__.py", "ml/gradient.py", "ml/updater.py",
+                "ml/optimization.py", "ml/models.py", "ml/stat.py",
+                "ml/decomposition.py", "ml/linalg_distributed.py",
+                "ml/clustering.py", "ml/recommendation.py",
+                "ml/word2vec.py", "ml/lda.py", "tools/ml.py"):
+        assert rel in scanned, rel
+
+
+def test_ml_estimators_refuse_the_cpu():
+    """Without a card every estimator raises unless it is given a CPU mesh
+    or device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is the GPU")
+    import numpy as np
+
+    from asyncframework_tpu_torch import ml
+
+    X = np.ones((16, 4), np.float32)
+    y = np.zeros(16, np.float32)
+    refused = [
+        lambda: ml.GradientDescent().optimize(X, y),
+        lambda: ml.LBFGS().optimize(X, y),
+        lambda: ml.LogisticRegression().fit(X, y),
+        lambda: ml.LinearSVM().fit(X, y),
+        lambda: ml.SoftmaxRegression().fit(X, np.zeros(16, np.int64)),
+        lambda: ml.KMeans(2).fit(X),
+        lambda: ml.BisectingKMeans(2).fit(X),
+        lambda: ml.StreamingKMeans(2),
+        lambda: ml.PowerIterationClustering(2).fit_predict(np.ones((4, 4))),
+        lambda: ml.col_stats(X),
+        lambda: ml.corr(X),
+        lambda: ml.chi_sq_test([1.0, 2.0]),
+        lambda: ml.KernelDensity().set_sample(y),
+        lambda: ml.PCA(2).fit(X),
+        lambda: ml.svd(X, 2),
+        lambda: ml.RowMatrix(X),
+        lambda: ml.CoordinateMatrix([0], [0], [1.0], (1, 1)),
+        lambda: ml.BlockMatrix.from_dense(X),
+        lambda: ml.ALS(rank=2).fit(X),
+        lambda: ml.Word2Vec().fit([["a", "b", "a", "b"]]),
+        lambda: ml.LDA(2).fit(X),
+    ]
+    for fn in refused:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    from asyncframework_tpu_torch.parallel import make_mesh
+
+    cpu = torch.device("cpu")
+    assert ml.col_stats(X, device=cpu).count == 16
+    assert ml.KMeans(2).fit(X, make_mesh(1, devices=[cpu])).k == 2

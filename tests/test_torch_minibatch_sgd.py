@@ -200,12 +200,13 @@ def test_convergence_tol_cut_matches_the_jax_package(devices8, problem):
 # ---------------------------------------------------- the port's own path
 def test_each_rank_gradient_is_one_b1_call_a_iteration(problem):
     """Least squares on a 1-D mesh: one ``saga_grad`` a rank an iteration
-    (its plain version on the CPU, counted); 2-D and logistic: the
-    margin, then one ``xt_coeff`` a rank."""
+    (its plain version on the CPU, counted); logistic on a 1-D mesh: the
+    margin, then one full masked ``masked_grad`` a rank; 2-D: the margin,
+    then one ``xt_coeff`` a rank."""
     X, y, _ = problem
     for loss, axes, form in (
             ("least_squares", ((8,), ("dp",)), mg.saga_grad_reference),
-            ("logistic", ((8,), ("dp",)), mg.xt_coeff_reference),
+            ("logistic", ((8,), ("dp",)), mg.masked_grad_reference),
             ("least_squares", ((4, 2), ("dp", "md")),
              mg.xt_coeff_reference)):
         sizes, names = axes
@@ -219,7 +220,9 @@ def test_each_rank_gradient_is_one_b1_call_a_iteration(problem):
         calls = (mg.saga_grad_reference.calls - before[0],
                  mg.xt_coeff_reference.calls - before[1],
                  mg.masked_grad_reference.calls - before[2])
-        want = (56, 0, 0) if form is mg.saga_grad_reference else (0, 56, 0)
+        want = {mg.saga_grad_reference: (56, 0, 0),
+                mg.xt_coeff_reference: (0, 56, 0),
+                mg.masked_grad_reference: (0, 0, 56)}[form]
         assert calls == want, (loss, names, calls)
         assert sgd.last_run == {"iterations": 7, "graph_replays": 0,
                                 "enqueued_iterations": 7, "ranks": 8,

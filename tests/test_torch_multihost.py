@@ -64,7 +64,7 @@ def _spawn_group(n: int, ranks: int = 2, train: bool = False,
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=30)
 
 
 def _check_bringup(results, n: int, ranks: int = 2):

@@ -42,6 +42,7 @@ from asyncframework_tpu_torch.ops import steps as tsteps
 from asyncframework_tpu_torch.parallel import ps_dcn as tps
 from asyncframework_tpu_torch.parallel import shardgroup as tshard
 from asyncframework_tpu_torch.solvers import SolverConfig as TConfig
+from torch_procs import readline_within
 
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -354,7 +355,7 @@ def test_kill9_ps_midrun_restart_resumes_and_converges(algo, tmp_path,
                              stderr=subprocess.PIPE, text=True)
     restarted = None
     try:
-        port = json.loads(first.stdout.readline())["port"]
+        port = json.loads(readline_within(first))["port"]
         cfg = TConfig(**_kw(num_iterations=400, gamma=gamma,
                             run_timeout_s=240.0))
         ds = _port_ds()
@@ -373,7 +374,7 @@ def test_kill9_ps_midrun_restart_resumes_and_converges(algo, tmp_path,
         first.wait(timeout=10)
         restarted = subprocess.Popen(CHILD, env=dict(env, PS_BIND_PORT=str(
             port)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        assert json.loads(restarted.stdout.readline())["port"] == port
+        assert json.loads(readline_within(restarted))["port"] == port
         t_w.join(timeout=240)
         assert not t_w.is_alive(), "workers never finished after the restart"
         out, err = restarted.communicate(timeout=120)
@@ -401,7 +402,7 @@ def test_two_worker_processes_converge():
                           text=True)
     workers = []
     try:
-        port = json.loads(ps.stdout.readline())["port"]
+        port = json.loads(readline_within(ps))["port"]
         workers = [subprocess.Popen(
             CHILD, env=dict(env, PS_ROLE="worker", PS_PORT=str(port),
                             PS_WORKER_ID=str(i)),

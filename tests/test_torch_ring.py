@@ -64,8 +64,11 @@ def test_ring_matches_jax_and_reference(meshes, kernel, shape, causal):
     q, k, v = _qkv(0, shape)
     got = ring_attention(*map(torch.from_numpy, (q, k, v)), mesh,
                          causal=causal, block_kernel=kernel)
-    want = jax_ring(q, k, v, jmesh, causal=causal,
-                    block_kernel=JAX_KERNEL[kernel])
+    # jitted: one XLA program, where the eager shard_map ring compiles
+    # op by op
+    want = jax.jit(lambda q, k, v: jax_ring(
+        q, k, v, jmesh, causal=causal,
+        block_kernel=JAX_KERNEL[kernel]))(q, k, v)
     assert got.shape == shape and got.dtype == torch.float32
     _close(got, want)
     _close(got, jax_reference(q, k, v, causal=causal))
@@ -84,8 +87,9 @@ def test_ulysses_matches_jax_and_reference(meshes, kernel, shape, block,
     got = ulysses_attention(*map(torch.from_numpy, (q, k, v)), mesh,
                             causal=causal, block_kernel=kernel,
                             pallas_block=block)
-    want = jax_ulysses(q, k, v, jmesh, causal=causal,
-                       block_kernel=JAX_KERNEL[kernel], pallas_block=block)
+    want = jax.jit(lambda q, k, v: jax_ulysses(
+        q, k, v, jmesh, causal=causal, block_kernel=JAX_KERNEL[kernel],
+        pallas_block=block))(q, k, v)
     _close(got, want)
     _close(got, jax_reference(q, k, v, causal=causal))
 
@@ -212,7 +216,9 @@ def test_gradient_matches_jax_grad_of_the_ring(meshes):
     def loss(q, k, v):
         return jnp.sum(jax_ring(q, k, v, jmesh, causal=True) ** 2)
 
-    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    # jitted: one XLA program (the eager gradient of the shard_map ring
+    # compiles op by op, ~20x slower on the CPU)
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(q, k, v)
     ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     (ring_attention(*ts, mesh, causal=True) ** 2).sum().backward()
     for t, w in zip(ts, want):

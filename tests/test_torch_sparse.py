@@ -42,6 +42,7 @@ from asyncframework_tpu.ops import steps as jsteps
 from asyncframework_tpu.solvers import ASAGA as JaxASAGA
 from asyncframework_tpu.solvers import ASGD as JaxASGD
 from asyncframework_tpu.solvers import SolverConfig as JaxConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from asyncframework_tpu_torch.convert import (
     saga_state_from_reference,
     sparse_dataset_from_reference,

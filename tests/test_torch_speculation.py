@@ -293,7 +293,8 @@ def test_accumulator_thread_safety_and_task_updates(pkg):
     for t in ts:
         t.start()
     for t in ts:
-        t.join()
+        t.join(60)
+        assert not t.is_alive()
     assert total.value == 40_000.0
     sm = mod(pkg, "engine.scheduler")
     sched = sm.JobScheduler(num_workers=4)
