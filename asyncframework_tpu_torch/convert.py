@@ -5,7 +5,11 @@ same state pass it as numpy: the JAX package's model and per-worker shards,
 taken out with ``np.asarray``, become the port's tensors here.  Solver and
 DCN parameter-server checkpoints share one layout across the packages
 (:data:`MODEL_STATE`, :data:`PS_STATE`), a sharded group's per-shard ones too
-(:func:`shard_checkpoints`).
+(:func:`shard_checkpoints`).  Fitted ML models cross in both directions
+through the ``.npz`` layout the two packages' ``ml/persistence.py`` share
+(:func:`fitted_model_from_reference`, every family that format covers;
+:func:`transformer_from_reference`, a pipeline's fitted stages); the one
+model outside that format, ``ChiSqSelectorModel``, by its field.
 """
 
 from __future__ import annotations
@@ -172,18 +176,6 @@ def assembled_ps_model(directory) -> Tuple[np.ndarray, list, list]:
 
 
 # ------------------------------------------------------------ fitted models
-#: each fitted model's fields, the same names and host layout in both
-#: packages' ``ml`` modules (each one its class's constructor's keyword
-#: arguments): numpy arrays, Python scalars, and the weight trajectory as
-#: ``[(ms, w)]``
-LINEAR_MODEL = ("weights", "intercept", "loss_history", "weight_history")
-KMEANS_MODEL = ("centers", "cost", "iterations")
-ALS_MODEL = ("user_factors", "item_factors", "rank")
-PCA_MODEL = ("components", "explained_variance", "mean")
-WORD2VEC_MODEL = ("vocab", "vectors")
-LDA_MODEL = ("topics", "doc_topics", "alpha", "log_perplexity_history")
-
-
 def _host(value):
     """A field as a host value: an array copied (the two models share no
     buffer), a list or tuple element by element, anything else as it is."""
@@ -198,83 +190,63 @@ def _fields(model, names) -> dict:
     return {name: _host(getattr(model, name)) for name in names}
 
 
-def linear_model_from_reference(model):
-    """A JAX package's fitted linear model (``LinearModel``,
-    ``LogisticRegressionModel`` or ``SVMModel``) as the port's class of
-    the same name."""
-    from asyncframework_tpu_torch.ml import models
+def fitted_model_from_reference(model, device=None):
+    """A fitted model of the JAX package's ``ml`` -- a tree, forest or
+    boosted ensemble, a naive Bayes, isotonic or mixture model, a
+    ``PipelineModel`` (its scalers, IDF model and final model), or any
+    model its persistence covers -- as the port's class of the same name:
+    the same fields through the shared ``.npz`` layout
+    (``ml/persistence.py``), the tensors a model holds on ``device``."""
+    from asyncframework_tpu_torch.ml import persistence
 
-    return getattr(models, type(model).__name__)(**_fields(model,
-                                                           LINEAR_MODEL))
-
-
-def linear_model_to_reference(model) -> dict:
-    """The port's fitted linear model as the JAX package's constructor
-    arguments (``LogisticRegressionModel(**fields)``, ...)."""
-    return _fields(model, LINEAR_MODEL)
+    return persistence.model_restore(persistence.model_payload(model),
+                                     device)
 
 
-def kmeans_model_from_reference(model):
-    """A JAX package's ``KMeansModel`` as the port's."""
-    from asyncframework_tpu_torch.ml.clustering import KMeansModel
+def fitted_model_to_reference(model) -> dict:
+    """The port's fitted model as the JAX package's persistence payload:
+    the entries of the ``.npz`` file that ``save_model`` writes (so
+    ``np.savez(path, **payload)`` is a file the JAX package's
+    ``load_model`` reads), and what its ``ml.persistence._model_restore``
+    builds the model of the same name from in memory."""
+    from asyncframework_tpu_torch.ml import persistence
 
-    return KMeansModel(**_fields(model, KMEANS_MODEL))
+    return persistence.model_payload(model)
 
 
-def kmeans_model_to_reference(model) -> dict:
-    """The port's ``KMeansModel`` as the JAX package's constructor
+def transformer_from_reference(stage, device=None):
+    """A fitted transformer of the JAX package (``StandardScaler``,
+    ``MinMaxScaler``, ``Normalizer``, ``IDFModel``) as the port's, which
+    transforms on ``device`` (the CUDA device when None)."""
+    from asyncframework_tpu_torch.ml import persistence
+
+    return persistence.transformer_restore(
+        persistence.transformer_payload(stage, ""), "", device)
+
+
+def transformer_to_reference(stage) -> dict:
+    """The port's fitted transformer as the JAX package's pipeline-stage
+    payload: ``asyncframework_tpu.ml.persistence._transformer_restore(
+    payload, "")`` builds the JAX package's stage from it."""
+    from asyncframework_tpu_torch.ml import persistence
+
+    return persistence.transformer_payload(stage, "")
+
+
+#: a ``ChiSqSelectorModel``'s fields (outside the persistence format)
+CHISQ_SELECTOR_MODEL = ("selected",)
+
+
+def chisq_selector_model_from_reference(model, device=None):
+    """A JAX package's ``ChiSqSelectorModel`` as the port's, selecting on
+    ``device`` (the CUDA device when None)."""
+    from asyncframework_tpu_torch.ml.feature import ChiSqSelectorModel
+
+    return ChiSqSelectorModel(**_fields(model, CHISQ_SELECTOR_MODEL),
+                              device=device)
+
+
+def chisq_selector_model_to_reference(model) -> dict:
+    """The port's ``ChiSqSelectorModel`` as the JAX package's constructor
     arguments."""
-    return _fields(model, KMEANS_MODEL)
-
-
-def als_model_from_reference(model):
-    """A JAX package's ``ALSModel`` (its factors) as the port's."""
-    from asyncframework_tpu_torch.ml.recommendation import ALSModel
-
-    return ALSModel(**_fields(model, ALS_MODEL))
-
-
-def als_model_to_reference(model) -> dict:
-    """The port's ``ALSModel`` as the JAX package's constructor
-    arguments."""
-    return _fields(model, ALS_MODEL)
-
-
-def pca_model_from_reference(model):
-    """A JAX package's ``PCAModel`` as the port's."""
-    from asyncframework_tpu_torch.ml.decomposition import PCAModel
-
-    return PCAModel(**_fields(model, PCA_MODEL))
-
-
-def pca_model_to_reference(model) -> dict:
-    """The port's ``PCAModel`` as the JAX package's constructor
-    arguments."""
-    return _fields(model, PCA_MODEL)
-
-
-def word2vec_model_from_reference(model):
-    """A JAX package's ``Word2VecModel`` (vocabulary and vectors) as the
-    port's."""
-    from asyncframework_tpu_torch.ml.word2vec import Word2VecModel
-
-    return Word2VecModel(**_fields(model, WORD2VEC_MODEL))
-
-
-def word2vec_model_to_reference(model) -> dict:
-    """The port's ``Word2VecModel`` as the JAX package's constructor
-    arguments."""
-    return _fields(model, WORD2VEC_MODEL)
-
-
-def lda_model_from_reference(model):
-    """A JAX package's ``LDAModel`` (its topics) as the port's."""
-    from asyncframework_tpu_torch.ml.lda import LDAModel
-
-    return LDAModel(**_fields(model, LDA_MODEL))
-
-
-def lda_model_to_reference(model) -> dict:
-    """The port's ``LDAModel`` as the JAX package's constructor
-    arguments."""
-    return _fields(model, LDA_MODEL)
+    return _fields(model, CHISQ_SELECTOR_MODEL)

@@ -274,7 +274,27 @@ exits non-zero without a result line):
    recomputation and below the seeded centres', peak device bytes under
    40 GB) and ``ALS`` at MovieLens-1M's shape (held-out RMSE below half
    the global mean's, a half step within 1e-4 of a float64 solve);
-18. the ``total`` line (seconds, and each phase's), the
+18. ml_breadth -- the ML library's breadth (``tools/ml.py``'s
+   ``breadth_phase``), one ``ml_breadth`` line an arm, the data generated
+   on the card from a fixed seed at published shapes: (a)
+   ``pipeline_cv_epsilon``, a 3-fold ``CrossValidator`` over
+   ``Pipeline([StandardScaler(), LogisticRegression(reg_param)])`` at
+   epsilon's shape split by ``train_test_split`` (one B1 logistic launch
+   an iteration in every fit, ``best_score`` its folds' mean, the scaler
+   within 1e-5 of float64, the held-out AUC within 1e-4 of a float64
+   recomputation, a saved and loaded ``PipelineModel`` predicting bit
+   for bit); (b) ``trees_covtype`` at Covertype's shape, ``DecisionTree``
+   twice, ``RandomForest`` and one-against-rest ``GradientBoostedTrees``
+   twice (the root histogram equal to numpy's ``bincount``, both refits
+   identical, accuracy above the majority class's share, the boosting
+   loss falling, the card's predictions the host traversal's); (c)
+   ``text_20ng``, ``HashingTF(2^16)`` -> ``IDF`` -> ``NaiveBayes`` at 20
+   Newsgroups' shape (the counts' total the token count, naive Bayes
+   within 1e-5 of float64, accuracy above 1/20); (d) ``gmm_covtype``,
+   ``GaussianMixture(k=7)`` on Covertype's continuous columns (the
+   log-likelihood never falling, the returned parameters' within 1e-4 of
+   ``torch.distributions``' float64 density).  Arm (a)'s B1 launches join the logistic full form's count;
+19. the ``total`` line (seconds, and each phase's), the
    ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -2570,6 +2590,19 @@ def ml_phase(card):
     return out["launches"]
 
 
+def ml_breadth_phase(card):
+    """Phase 18 (``tools/ml.py::breadth_phase``): the library's breadth on
+    this card; returns the B1 launches on the path by form."""
+    import torch
+
+    from asyncframework_tpu_torch.tools import ml
+
+    out = ml.breadth_phase(torch.device("cuda", 0), card,
+                           emit=lambda line: print(line, flush=True))
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -2838,7 +2871,12 @@ def main() -> int:
 
     lap("ml")
 
-    # ------------------------------------------------------ 18. results
+    # ------------------------------------------------------ 18. ml_breadth
+    breadth_launches = ml_breadth_phase(card)
+
+    lap("ml_breadth")
+
+    # ------------------------------------------------------ 19. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
           "phase_seconds": laps})
     print(card, flush=True)
@@ -2906,11 +2944,12 @@ def main() -> int:
               + entry_launches["saga_grad_minibatch"],
               mesh_recs["saga_minibatch_rank"],
               mesh_recs["saga_minibatch_rank"]["bound_us"] / 1e3),
-        # phase 17: the ML library's gradients on the whole epsilon
-        # deployment (captured an iteration x iterations; LBFGS's eager
-        # evaluations one each)
+        # phases 17-18: the ML library's gradients on the whole epsilon
+        # deployment and on its cross-validation folds (captured an
+        # iteration x iterations; LBFGS's eager evaluations one each)
         entry("masked_grad.logistic_full", "masked_grad.cu", b1,
-              ml_launches["masked_grad_logistic"],
+              ml_launches["masked_grad_logistic"]
+              + breadth_launches["masked_grad_logistic"],
               recs["logreg_epsilon_full"],
               recs["logreg_epsilon_full"]["bound_us"] / 1e3),
         entry("masked_grad.xt_coeff.svm", "masked_grad.cu", b1,

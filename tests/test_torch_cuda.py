@@ -1733,3 +1733,114 @@ def test_ml_library_on_the_card_matches_the_cpu(dev):
             for dv in (dev, cpu)]
     np.testing.assert_allclose(ldas[0].topics, ldas[1].topics, rtol=1e-3,
                                atol=1e-6)
+
+
+# ------------------------------------------------- the ML library's breadth
+def test_ml_regression_tree_refits_on_the_card_are_identical(dev):
+    """Fixed-point histogram sums: two fits of the same data on the card
+    grow the same tree, and it is the CPU's."""
+    from asyncframework_tpu_torch import ml
+
+    rs = np.random.default_rng(0)
+    X = rs.normal(size=(50_000, 20)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) + X[:, 1] * X[:, 2]
+         + 0.1 * rs.normal(size=50_000)).astype(np.float32)
+    Xd = torch.from_numpy(X).to(dev)
+    fits = [ml.DecisionTree("regression", max_depth=6, device=dev).fit(Xd, y)
+            for _ in range(2)]
+    fits.append(ml.DecisionTree("regression", max_depth=6,
+                                device=torch.device("cpu")).fit(X, y))
+    for t in fits[1:]:
+        for field in ("feature", "threshold", "prediction"):
+            np.testing.assert_array_equal(getattr(t, field),
+                                          getattr(fits[0], field))
+    gbts = [ml.GradientBoostedTrees("regression", num_iterations=4,
+                                    device=dev).fit(Xd, y) for _ in range(2)]
+    for a, b in zip(gbts[0].trees, gbts[1].trees):
+        np.testing.assert_array_equal(a.feature, b.feature)
+        np.testing.assert_array_equal(a.prediction, b.prediction)
+    np.testing.assert_array_equal(fits[0].predict(Xd).cpu().numpy(),
+                                  fits[0].predict(X))
+
+
+def test_ml_cross_validator_indexes_a_cuda_tensor_on_the_card(
+        dev, monkeypatch):
+    """Every fold's rows are gathered on the card: no estimator sees a host
+    array, and nothing copies the matrix to the host on the way."""
+    from asyncframework_tpu_torch import ml
+
+    rs = np.random.default_rng(1)
+    X = torch.from_numpy(rs.normal(size=(3_000, 16)).astype(
+        np.float32)).to(dev)
+    y = (X[:, 0] > 0).float()
+    seen = []
+
+    class Probe:
+        def __init__(self, reg_param):
+            self.inner = ml.LogisticRegression(reg_param=reg_param,
+                                               num_iterations=5)
+
+        def fit(self, Xf, yf):
+            seen.append((Xf.device.type, yf.device.type, tuple(Xf.shape)))
+            return self.inner.fit(Xf, yf)
+
+    fold_numel = X.shape[0] // 3 * X.shape[1]
+    original = {name: getattr(torch.Tensor, name)
+                for name in ("cpu", "__array__")}
+
+    def guarded(name):
+        def call(self, *args, **kwargs):
+            if self.numel() >= fold_numel:
+                raise AssertionError(f"a fold's rows went to the host "
+                                     f"({name})")
+            return original[name](self, *args, **kwargs)
+        return call
+
+    for name in original:
+        monkeypatch.setattr(torch.Tensor, name, guarded(name))
+    cv = ml.CrossValidator(Probe, {"reg_param": [0.0, 0.1]},
+                           ml.accuracy_scorer, num_folds=3).fit(X, y)
+    assert len(seen) == 7
+    assert all((xd, yd) == ("cuda", "cuda") for xd, yd, _ in seen)
+    assert seen[-1][2] == tuple(X.shape)
+    assert 0.5 < cv.best_score <= 1.0
+
+
+def test_ml_load_model_defaults_to_the_card(dev, tmp_path):
+    from asyncframework_tpu_torch import ml
+
+    rs = np.random.default_rng(2)
+    X = rs.poisson(2.0, size=(500, 12)).astype(np.float32)
+    y = rs.integers(0, 3, 500)
+    cpu = torch.device("cpu")
+    nb = ml.NaiveBayes(device=cpu).fit(X, y)
+    pipe = ml.Pipeline([ml.IDF(device=cpu).fit(X),
+                        ml.NaiveBayes(device=cpu)]).fit(X, y)
+    loaded = ml.load_model(ml.save_model(nb, tmp_path / "nb"))
+    assert loaded.log_pi.device.type == "cuda"
+    np.testing.assert_array_equal(loaded.predict(X), nb.predict(X))
+    lp = ml.load_model(ml.save_model(pipe, tmp_path / "pipe"))
+    assert lp.transformers[0].idf.device.type == "cuda"
+    assert lp.model.log_theta.device.type == "cuda"
+    out = lp.predict(torch.from_numpy(X).to(dev))
+    assert out.device.type == "cuda"
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  pipe.predict(torch.from_numpy(X)).numpy())
+
+
+def test_ml_gaussian_mixture_on_the_card_matches_the_cpu(dev):
+    """More rows than a CUDA grid's 65,535 blocks in one dimension: the
+    EM steps on the card agree with the CPU's."""
+    from asyncframework_tpu_torch import ml
+
+    rs = np.random.default_rng(3)
+    X = np.vstack([rs.normal(c, s, size=(40_000, 4)) for c, s in
+                   ((-4.0, 1.0), (3.0, 2.0), (9.0, 0.5))]).astype(np.float32)
+    fits = [ml.GaussianMixture(3, seed=1, max_iterations=20,
+                               device=dv).fit(X)
+            for dv in (dev, torch.device("cpu"))]
+    assert np.isfinite(fits[0].log_likelihood)
+    np.testing.assert_allclose(fits[0].means, fits[1].means, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(fits[0].log_likelihood,
+                               fits[1].log_likelihood, rtol=1e-5)

@@ -21,6 +21,7 @@ import torch
 import jax
 
 from asyncframework_tpu import ml as jml
+from asyncframework_tpu.ml import persistence as jpersistence
 from asyncframework_tpu.parallel import make_mesh as jmake_mesh
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from asyncframework_tpu_torch import convert
@@ -415,7 +416,7 @@ def test_linear_models_carry_across_both_ways(classification_problem, jmesh,
     X, y, _ = classification_problem
     jm = jml.LogisticRegression(step_size=2.0, num_iterations=20).fit(
         X, y, mesh=jmesh)
-    tm = convert.linear_model_from_reference(jm)
+    tm = convert.fitted_model_from_reference(jm, torch.device("cpu"))
     assert type(tm).__name__ == "LogisticRegressionModel"
     np.testing.assert_array_equal(tm.predict(X), jm.predict(X))
     np.testing.assert_allclose(tm.predict_proba(X), jm.predict_proba(X),
@@ -423,6 +424,7 @@ def test_linear_models_carry_across_both_ways(classification_problem, jmesh,
     assert len(tm.weight_history) == len(jm.weight_history)
     sm = LinearSVM(num_iterations=20, fit_intercept=True).fit(X, y,
                                                              mesh=mesh)
-    back = jml.models.SVMModel(**convert.linear_model_to_reference(sm))
+    back = jpersistence._model_restore(convert.fitted_model_to_reference(sm))
+    assert type(back) is jml.models.SVMModel
     np.testing.assert_array_equal(back.predict(X), sm.predict(X))
     assert back.intercept == sm.intercept

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from asyncframework_tpu import ml as jml
 from asyncframework_tpu.ml import clustering as jclustering
 from asyncframework_tpu.ml import lda as jlda
+from asyncframework_tpu.ml import persistence as jpersistence
 from asyncframework_tpu.ml import recommendation as jrec
 from asyncframework_tpu.parallel import make_mesh as jmake_mesh
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -242,12 +243,13 @@ class TestPCAandSVD:
 
     def test_pca_model_carries_across_both_ways(self, clf):
         jm = jml.PCA(3).fit(clf)
-        tm = convert.pca_model_from_reference(jm)
+        tm = convert.fitted_model_from_reference(jm, CPU)
         np.testing.assert_allclose(tm.transform(clf[:9]),
                                    np.asarray(jm.transform(clf[:9])),
                                    rtol=1e-5, atol=1e-5)
-        back = jml.PCAModel(**convert.pca_model_to_reference(
+        back = jpersistence._model_restore(convert.fitted_model_to_reference(
             PCA(3).fit(clf, device=CPU)))
+        assert type(back) is jml.PCAModel
         assert back.components.shape == (3, 12)
 
 
@@ -437,10 +439,11 @@ class TestKMeans:
     def test_model_carries_across_both_ways(self, mesh8, jmesh8):
         X, _ = _blobs(3, 50, 4, 8.0, 2)
         jm = jml.KMeans(k=3, seed=0).fit(X, mesh=jmesh8)
-        tm = convert.kmeans_model_from_reference(jm)
+        tm = convert.fitted_model_from_reference(jm, CPU)
         np.testing.assert_array_equal(tm.predict(X), jm.predict(X))
-        back = jclustering.KMeansModel(**convert.kmeans_model_to_reference(
+        back = jpersistence._model_restore(convert.fitted_model_to_reference(
             KMeans(k=3, seed=0).fit(X, mesh8)))
+        assert type(back) is jclustering.KMeansModel
         np.testing.assert_array_equal(back.predict(X), tm.predict(X))
 
 
@@ -695,10 +698,11 @@ class TestALS:
     def test_model_carries_across_both_ways(self, planted):
         R, mask = planted
         jm = jml.ALS(rank=3, num_iterations=3).fit(R, mask)
-        tm = convert.als_model_from_reference(jm)
+        tm = convert.fitted_model_from_reference(jm, CPU)
         np.testing.assert_array_equal(tm.predict_all(), jm.predict_all())
-        back = jml.ALSModel(**convert.als_model_to_reference(
+        back = jpersistence._model_restore(convert.fitted_model_to_reference(
             ALS(rank=3, num_iterations=3).fit(R, mask, device=CPU)))
+        assert type(back) is jml.ALSModel
         assert back.rmse(R, mask) < 1.0
 
 
@@ -776,9 +780,11 @@ class TestWord2Vec:
             Word2Vec(min_count=100).fit([["a", "b"]], device=CPU)
         ref = jml.Word2Vec(vector_size=8, num_iterations=1, seed=0).fit(sents)
         assert ref.vocab == model.vocab
-        tm = convert.word2vec_model_from_reference(ref)
+        tm = convert.fitted_model_from_reference(ref, CPU)
         assert tm.find_synonyms("chip", 3) == ref.find_synonyms("chip", 3)
-        back = jml.Word2VecModel(**convert.word2vec_model_to_reference(model))
+        back = jpersistence._model_restore(
+            convert.fitted_model_to_reference(model))
+        assert type(back) is jml.Word2VecModel
         np.testing.assert_array_equal(back.transform("milk"),
                                       model.transform("milk"))
 
@@ -821,11 +827,12 @@ class TestLDA:
                                    atol=1e-6)
         np.testing.assert_allclose(tm.log_perplexity_history,
                                    jm.log_perplexity_history, rtol=1e-5)
-        back = jlda.LDAModel(**convert.lda_model_to_reference(tm))
+        back = jpersistence._model_restore(convert.fitted_model_to_reference(tm))
+        assert type(back) is jlda.LDAModel
         np.testing.assert_allclose(
             back.transform(X[:10]),
-            convert.lda_model_from_reference(jm).transform(X[:10],
-                                                           device=CPU),
+            convert.fitted_model_from_reference(jm, CPU).transform(
+                X[:10], device=CPU),
             rtol=1e-3, atol=1e-5)
 
     def test_recovers_planted_topics(self):
