@@ -185,6 +185,17 @@ HEARTBEAT_TIMEOUT_MS = ConfigEntry(
 MAX_SLOT_FAILURES = ConfigEntry(
     "async.max.slot.failures", 2, int,
     "Repeated executor deaths on a slot before its shard re-homes.")
+SHUFFLE_SPILL_BYTES = ConfigEntry(
+    "async.shuffle.spill.bytes", 256 * 1024 * 1024, int,
+    "Driver-side shuffle routing buffer bound; past it routed entries "
+    "spill to disk runs (0 = unbounded) -- "
+    "SortShuffleManager/UnifiedMemoryManager role.")
+SHUFFLE_DATA_PLANE = ConfigEntry(
+    "async.shuffle.data.plane", "auto", str,
+    "Array-pair reduce_by_key route: 'device' (one sort and segment reduce "
+    "on the partitions' device), 'host' (vectorized numpy sort/bincount), "
+    "or 'auto' -- device for CUDA tensors, host otherwise (see "
+    "ops/shuffle.py).")
 # ------------------------------------------------------- controller tunables
 # The two engine knobs the adaptive controller actuates besides the DCN
 # plane's (parallel/controller.py): declared with their hard bounds.

@@ -7,9 +7,13 @@ DCN parameter-server checkpoints share one layout across the packages
 (:data:`MODEL_STATE`, :data:`PS_STATE`), a sharded group's per-shard ones too
 (:func:`shard_checkpoints`).  Fitted ML models cross in both directions
 through the ``.npz`` layout the two packages' ``ml/persistence.py`` share
-(:func:`fitted_model_from_reference`, every family that format covers;
+(:func:`fitted_model_from_reference`, every family that format covers,
+the graph library's ``SVDPlusPlusModel`` too;
 :func:`transformer_from_reference`, a pipeline's fitted stages); the one
-model outside that format, ``ChiSqSelectorModel``, by its field.
+model outside that format, ``ChiSqSelectorModel``, by its field.  A
+``Graph`` crosses as its numpy fields (:func:`graph_from_reference`,
+:func:`graph_to_reference`), a ``DistributedDataset`` as its partitions'
+host elements (:func:`dataset_payloads`, :func:`payload_to_host`).
 """
 
 from __future__ import annotations
@@ -250,3 +254,74 @@ def chisq_selector_model_to_reference(model) -> dict:
     """The port's ``ChiSqSelectorModel`` as the JAX package's constructor
     arguments."""
     return _fields(model, CHISQ_SELECTOR_MODEL)
+
+
+# --------------------------------------------------- graphs and datasets
+def _to_host(x) -> np.ndarray:
+    """A tensor or any array (a ``jax.Array`` through its ``__array__``)
+    as an owned host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.array(x)
+
+
+def _array_or_none(x):
+    return None if x is None else _to_host(x)
+
+
+def graph_from_reference(graph, device=None):
+    """A JAX package's ``Graph`` as the port's, on ``device`` (the card
+    when None): its endpoints, vertex count and attributes as numpy, and
+    its original vertex ids (``from_edge_ids``) when it has them."""
+    from asyncframework_tpu_torch.graph import Graph
+
+    out = Graph(_to_host(graph.src), _to_host(graph.dst), graph.num_vertices,
+                _array_or_none(graph.vertex_attr),
+                _array_or_none(graph.edge_attr), device=device)
+    ids = getattr(graph, "vertex_ids", None)
+    if ids is not None:
+        out.vertex_ids = np.asarray(ids)
+    return out
+
+
+def graph_to_reference(graph) -> Tuple[dict, Optional[np.ndarray]]:
+    """The port's ``Graph`` as ``(kwargs, vertex_ids)``: the JAX package's
+    ``Graph(**kwargs)`` arguments as numpy (int32 endpoints), and the
+    original vertex ids to set as its ``vertex_ids`` (None for dense
+    ids)."""
+    kwargs = {
+        "src": _to_host(graph.src), "dst": _to_host(graph.dst),
+        "num_vertices": int(graph.num_vertices),
+        "vertex_attr": _array_or_none(graph.vertex_attr),
+        "edge_attr": _array_or_none(graph.edge_attr),
+    }
+    ids = getattr(graph, "vertex_ids", None)
+    return kwargs, None if ids is None else np.asarray(ids)
+
+
+def payload_to_host(element):
+    """A dataset element with every tensor or array in it as host numpy,
+    tuples (namedtuples too), lists and dicts rebuilt around them -- the
+    form either package's ``checkpoint()`` pickles and either package's
+    ``from_partitions`` takes."""
+    from asyncframework_tpu_torch.data.dataset import _payload_to_host
+
+    return _payload_to_host(element)
+
+
+def dataset_payloads(dataset) -> Dict[int, list]:
+    """Either package's ``DistributedDataset`` as ``{partition id: host
+    elements}`` (one job on its scheduler), for the other package's
+    ``DistributedDataset.from_partitions``."""
+    per = dataset._run_sync(lambda wid: (lambda w=wid: dataset._compute(w)))
+    return {wid: [payload_to_host(e) for e in per[wid]]
+            for wid in sorted(per)}
+
+
+def distributed_dataset_from_reference(scheduler, dataset):
+    """A JAX package's ``DistributedDataset`` as the port's on
+    ``scheduler``: every partition's elements, arrays as numpy."""
+    from asyncframework_tpu_torch.data.dataset import DistributedDataset
+
+    return DistributedDataset.from_partitions(scheduler,
+                                              dataset_payloads(dataset))

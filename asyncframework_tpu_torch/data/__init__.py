@@ -1,4 +1,6 @@
-"""Device-resident datasets, loaders and synthetic generators."""
+"""Device-resident datasets, loaders and synthetic generators, and the
+user-facing partitioned collection (``DistributedDataset``) with its
+random generators."""
 
 from asyncframework_tpu_torch.data.libsvm import (
     load_libsvm,
@@ -21,8 +23,12 @@ from asyncframework_tpu_torch.data.synthetic import (
     make_regression,
     make_sparse_regression,
 )
+from asyncframework_tpu_torch.data.dataset import DistributedDataset
+from asyncframework_tpu_torch.data import random as random_datasets
 
 __all__ = [
+    "DistributedDataset",
+    "random_datasets",
     "Shard",
     "ShardedDataset",
     "SparseShard",

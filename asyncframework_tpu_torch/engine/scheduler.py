@@ -47,6 +47,9 @@ class JobScheduler:
         blacklist: Optional[BlacklistTracker] = None,
     ):
         self.num_workers = num_workers
+        #: the executors' devices as given (None: the executors hold none);
+        #: ``DistributedDataset.from_array_pairs`` places blocks on them
+        self.devices = list(devices) if devices else None
         self.max_task_failures = max_task_failures
         self._clock = clock or SystemClock()
         self._mode = SYNC

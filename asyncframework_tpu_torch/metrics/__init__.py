@@ -12,8 +12,7 @@ crash flight recorder (``flightrec.py``), the continuous profiler
 (``profiler.py``), the cluster observer (``observer.py``), ``async-top``
 (``top.py``) and the run-history index (``history.py``).  An event log,
 a ``/metrics`` body, a flight dump or a ``cv`` sample written by either
-package is read by the other.  The part of a subsystem this package does
-not have yet (shuffle) is left out, naming its ROADMAP item.
+package is read by the other.
 """
 
 from asyncframework_tpu_torch.metrics.bus import (

@@ -18,9 +18,8 @@ Zero dependencies, nothing on the hot path: the listener runs on the bus's
 single drain thread; HTTP reads take the same lock only per request.
 
 A copy of the JAX package's ``metrics/live.py``: one event log replayed
-into either package's :class:`LiveStateListener` gives the same snapshot.
-The section of a subsystem this package does not have yet is left out:
-``shuffle`` (ROADMAP A9).
+into either package's :class:`LiveStateListener` gives the same snapshot,
+every section included.
 """
 
 from __future__ import annotations
@@ -320,8 +319,10 @@ class LiveStateListener(Listener):
                 "speculative_launches": self.speculative_launches,
                 "last_objective": self.last_objective,
                 "workers": {str(k): dict(v) for k, v in self.workers.items()},
-                # (the JAX package's ``shuffle`` section comes with
-                # data/spill.py, ROADMAP A9)
+                # driver-side shuffle accounting (SortShuffleManager /
+                # UnifiedMemoryManager observability role); per-run delta
+                # of the process-global totals
+                "shuffle": _delta(fams["shuffle"], self._bases["shuffle"]),
                 # DCN robustness counters (net/): retries taken, breaker
                 # trips, dedup hits, faults fired -- the failure-handling
                 # subsystem's health at a glance (per-run delta)

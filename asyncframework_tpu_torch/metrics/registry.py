@@ -28,9 +28,9 @@ Providers are referenced by (module, attr) strings and resolved lazily:
 importing this registry must not import heavy modules.
 
 A copy of the JAX package's ``metrics/registry.py``.  Each family points
-at this package's own module, in the JAX package's order; the families of
-subsystems this package does not have yet are left out and named in
-:data:`UNPORTED_FAMILIES` with their ROADMAP item.
+at this package's own module, in the JAX package's order; a family of a
+subsystem this package did not have yet would be left out and named in
+:data:`UNPORTED_FAMILIES` with its ROADMAP item (none is, now).
 """
 
 from __future__ import annotations
@@ -91,10 +91,8 @@ def reset_all() -> None:
 
 
 #: the JAX package's families whose subsystems this package does not have
-#: yet, each with the ROADMAP item that ports it
-UNPORTED_FAMILIES: Dict[str, str] = OrderedDict((
-    ("shuffle", "A9"),       # data/spill.py
-))
+#: yet, each with the ROADMAP item that ports it (none is left)
+UNPORTED_FAMILIES: Dict[str, str] = OrderedDict()
 
 
 # --------------------------------------------------------------------------
@@ -124,6 +122,11 @@ _register(CounterFamily(
     "gray_totals", "reset_gray_totals",
     doc="Gray-failure detection: latency-suspicion transitions "
         "(net/health.py RttSuspector).",
+))
+_register(CounterFamily(
+    "shuffle", "asyncframework_tpu_torch.data.spill",
+    "shuffle_totals", "reset_shuffle_totals",
+    doc="Driver-side shuffle routing/spill accounting (data/spill.py).",
 ))
 _register(CounterFamily(
     "pipeline", "asyncframework_tpu_torch.parallel.ps_dcn",

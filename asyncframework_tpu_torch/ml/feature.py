@@ -5,10 +5,11 @@ Counterpart of ``asyncframework_tpu/ml/feature.py`` (parity: MLlib
 ``HashingTF``, ``IDF``, ``ElementwiseProduct``, ``ChiSqSelector``).  The
 scalers' fit statistics are the port's ``col_stats`` (one pass on a
 device); every transform is elementwise on the device and hands the next
-stage a tensor.  ``HashingTF`` hashes tokens on the host, as the reference
-does, and lands the count matrix on the device in one accumulating
-``index_put_``; ``ChiSqSelector`` builds its small contingency tables on
-the host and tests each with ``chi_sq_test_matrix``.
+stage a tensor.  ``HashingTF`` hashes tokens on the host with
+``data/pairs.py``'s ``portable_hash``, as the reference does, and lands
+the count matrix on the device in one accumulating ``index_put_``;
+``ChiSqSelector`` builds its small contingency tables on the host and
+tests each with ``chi_sq_test_matrix``.
 
 Every transformer and selector takes ``device`` (the CUDA device by
 default; raises without one): its fit and transform run there, and a
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from asyncframework_tpu_torch.data.pairs import portable_hash
 from asyncframework_tpu_torch.ml.stat import (
     chi_sq_test_matrix,
     col_stats,
@@ -122,43 +124,6 @@ class Normalizer:
         return X / torch.where(n > 0, n, 1.0)
 
 
-# The JAX package hashes with ``data/pairs.py::portable_hash`` over
-# ``storage/kvstore.py::string_hash_code``; both modules are ROADMAP A9
-# items the port lacks, so it keeps this private copy of the two pure
-# functions until that item brings them in.
-def _string_hash_code(s) -> int:
-    """Java ``String.hashCode`` semantics over the UTF-8 bytes: int32
-    rolling ``h = 31*h + byte`` with wraparound."""
-    h = 0
-    for b in (s.encode() if isinstance(s, str) else s):
-        h = (h * 31 + b) & 0xFFFFFFFF
-    return h - 0x100000000 if h >= 0x80000000 else h
-
-
-def _portable_hash(key) -> int:
-    """Process-stable hash (Python's ``hash`` is salted for str/bytes)."""
-    if key is None:
-        return 0
-    if isinstance(key, bool):
-        return int(key)
-    if isinstance(key, int):
-        return key
-    if isinstance(key, str):
-        return _string_hash_code(key)
-    if isinstance(key, bytes):
-        return _string_hash_code(key.decode("utf-8", "surrogateescape"))
-    if isinstance(key, float):
-        return hash(key)  # floats are not salted
-    if isinstance(key, tuple):
-        h = 0x345678
-        for item in key:
-            h = (h * 1000003) ^ _portable_hash(item)
-        return h
-    raise TypeError(
-        f"unhashable/unstable key type for partitioning: {type(key).__name__}"
-    )
-
-
 class HashingTF:
     """Term-frequency vectors by the hashing trick.
 
@@ -181,7 +146,7 @@ class HashingTF:
 
     def indices(self, doc) -> np.ndarray:
         return np.asarray(
-            [_portable_hash(t) % self.num_features for t in doc], np.int32
+            [portable_hash(t) % self.num_features for t in doc], np.int32
         )
 
     def transform(self, docs) -> torch.Tensor:
@@ -199,10 +164,10 @@ class HashingTF:
 
         def bucket(t) -> int:
             if type(t) is not str:
-                return _portable_hash(t) % nf
+                return portable_hash(t) % nf
             b = buckets.get(t)
             if b is None:
-                b = buckets[t] = _portable_hash(t) % nf
+                b = buckets[t] = portable_hash(t) % nf
             return b
 
         t0 = time.perf_counter()

@@ -18,8 +18,8 @@ naive Bayes model's, an IDF model's) on ``device`` (the CUDA device by
 default; raises without one); models of host arrays load as host arrays,
 and a loaded transformer transforms on ``device``.
 
-``SVDPlusPlusModel`` (``graph/algorithms.py`` in the JAX package) is
-refused both ways until ROADMAP A9's ``graph`` item is ported.
+``SVDPlusPlusModel`` (``graph/algorithms.py``) is a model of host arrays:
+its file holds the same five fields in both packages.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from asyncframework_tpu_torch.graph.algorithms import SVDPlusPlusModel
 from asyncframework_tpu_torch.ml.bayes import NaiveBayesModel
 from asyncframework_tpu_torch.ml.boosting import GradientBoostedTreesModel
 from asyncframework_tpu_torch.ml.clustering import KMeansModel
@@ -51,12 +52,6 @@ from asyncframework_tpu_torch.ml.stat import on_device
 from asyncframework_tpu_torch.ml.tree import DecisionTreeModel
 from asyncframework_tpu_torch.ml.word2vec import Word2VecModel
 from asyncframework_tpu_torch.utils.devices import resolve_devices
-
-
-def _refuse_svdpp() -> None:
-    raise NotImplementedError(
-        "SVDPlusPlusModel persistence needs graph/algorithms.py, which the "
-        "port lacks (ROADMAP A9: graph/{graph,pregel,algorithms}.py)")
 
 
 def _kinds(model: Any) -> set:
@@ -146,7 +141,11 @@ def model_payload(model: Any) -> Dict[str, Any]:
         payload["vocab"] = np.asarray(model.vocab, dtype=np.str_)
         payload["vectors"] = np.asarray(model.vectors)
     elif "SVDPlusPlusModel" in kinds:
-        _refuse_svdpp()
+        payload["user_vectors"] = np.asarray(model.user_vectors)
+        payload["item_vectors"] = np.asarray(model.item_vectors)
+        payload["user_bias"] = np.asarray(model.user_bias)
+        payload["item_bias"] = np.asarray(model.item_bias)
+        payload["mean"] = np.float64(model.mean)
     elif "SoftmaxRegressionModel" in kinds:
         payload["W"] = model.W
         payload["b"] = model.b
@@ -327,7 +326,13 @@ def model_restore(z: Dict[str, Any], device=None) -> Any:
             vectors=np.asarray(z["vectors"]),
         )
     if cls == "SVDPlusPlusModel":
-        _refuse_svdpp()
+        return SVDPlusPlusModel(
+            user_vectors=np.asarray(z["user_vectors"]),
+            item_vectors=np.asarray(z["item_vectors"]),
+            user_bias=np.asarray(z["user_bias"]),
+            item_bias=np.asarray(z["item_bias"]),
+            mean=float(z["mean"]),
+        )
     if cls == "SoftmaxRegressionModel":
         return SoftmaxRegressionModel(
             W=np.asarray(z["W"]), b=np.asarray(z["b"]),

@@ -1,8 +1,10 @@
-"""Build the native C++ sources (wire codecs, LibSVM parser) at first use.
+"""Build the native C++ sources (wire codecs, LibSVM parser, key/value
+store) at first use.
 
 Counterpart of ``asyncframework_tpu/native_build.py``, for the port's copies
-of ``net/`` and the dense LibSVM loader (``data/libsvm.py``):
-``native/{wirecodec,wiredelta,shmring,libsvm_parser}.cc`` are compiled with
+of ``net/``, the dense LibSVM loader (``data/libsvm.py``) and the embedded
+store (``storage/kvstore.py``):
+``native/{wirecodec,wiredelta,shmring,libsvm_parser,kvstore}.cc`` are compiled with
 ``g++`` into ``asyncframework_tpu_torch/_build/native/`` (listed in
 ``.gitignore``), never next to their sources, and the port never loads the
 JAX package's ``native/*.so``.  The file name carries a hash of the source,
@@ -36,7 +38,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "_build", "native")
 
-SOURCES = ("wiredelta", "wirecodec", "shmring", "libsvm_parser")
+SOURCES = ("wiredelta", "wirecodec", "shmring", "libsvm_parser", "kvstore")
 
 # ------------------------------------------------------------ native totals
 # Process-global counters: native_calls.<unit> / python_calls.<unit> per

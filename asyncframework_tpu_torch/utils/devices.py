@@ -8,6 +8,7 @@ the CPU silently: without a GPU the caller must ask for the CPU with
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import List, Optional, Sequence
 
 import torch
@@ -36,6 +37,19 @@ def resolve_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
             "devices=[torch.device('cpu')] to run on the CPU"
         )
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+#: the environment variable that asks the entry points for the CPU
+FORCE_CPU_ENV = "ASYNCTPU_FORCE_CPU"
+
+
+def entry_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
+    """An entry point's devices: ``devices`` when given; else the CPU when
+    ``ASYNCTPU_FORCE_CPU`` is set (the JAX package's default device in its
+    tests); else every CUDA device, raising without one."""
+    if devices is None and os.environ.get(FORCE_CPU_ENV):
+        return [torch.device("cpu")]
+    return resolve_devices(devices)
 
 
 def device_scope(device: torch.device):

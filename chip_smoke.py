@@ -294,7 +294,28 @@ exits non-zero without a result line):
    ``GaussianMixture(k=7)`` on Covertype's continuous columns (the
    log-likelihood never falling, the returned parameters' within 1e-4 of
    ``torch.distributions``' float64 density).  Arm (a)'s B1 launches join the logistic full form's count;
-19. the ``total`` line (seconds, and each phase's), the
+19. dataset_graph -- the dataset layer and the graph library
+   (``tools/dataset_graph.py``), one ``dataset_graph`` line an arm, the
+   data generated on the card from a fixed seed at published shapes: (a)
+   ``async_reduce_epsilon``, the paper's driver loop on the dataset API
+   (``barrier(bucket_predicate)`` -> ``map_partitions`` with one B1
+   compacted launch a task -> ``async_reduce``, drained and applied under
+   tau with ``make_asgd_apply``) at epsilon's shape with phase 3's gamma
+   and budget (phase 3's objective gate, one B1 launch a task, every
+   accepted staleness within tau; updates/s beside phase 3's ``run()``);
+   (b) ``wordcount_text8``, ``reduce_by_key("sum")`` of text8's 17,005,207
+   Zipf tokens on the device plane and the host plane (both equal to
+   numpy's ``bincount``, the device plane taken for card tensors); (c)
+   ``pagerank_livejournal``, ``pagerank`` and ``connected_components`` on
+   an R-MAT graph of soc-LiveJournal1's shape (ranks summing to 1 within
+   1e-5 and within 1e-4 in L1 of a float64 power iteration, components
+   equal to scipy's); (d) ``svdpp_ml1m``, ``svd_plus_plus`` at rank 8 at
+   MovieLens-1M's shape (the loss falling, the RMSE below the global
+   mean's, a saved and loaded model predicting bit for bit); (e)
+   ``dense_graph_16k``, ``triangle_count``, ``label_propagation`` and SCC
+   at n = 2^14 without TF32 (each equal to its host check).  Arm (a)'s B1
+   launches join the compacted form's count;
+20. the ``total`` line (seconds, and each phase's), the
    ``{"kernels": [...]}`` line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -2603,6 +2624,20 @@ def ml_breadth_phase(card):
     return out["launches"]
 
 
+def dataset_graph_phase(card, run_updates_per_s):
+    """Phase 19 (``tools/dataset_graph.py``): the dataset layer and the
+    graph library on this card; returns arm (a)'s B1 launches."""
+    import torch
+
+    from asyncframework_tpu_torch.tools import dataset_graph
+
+    out = dataset_graph.phase(torch.device("cuda", 0), card,
+                              emit=lambda line: print(line, flush=True),
+                              run_updates_per_s=run_updates_per_s)
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asyncframework_tpu_torch")):
         print("chip_smoke.py: asyncframework_tpu_torch/ is not beside this "
@@ -2876,7 +2911,12 @@ def main() -> int:
 
     lap("ml_breadth")
 
-    # ------------------------------------------------------ 19. results
+    # --------------------------------------------------- 19. dataset_graph
+    dg_launches = dataset_graph_phase(card, res.updates_per_sec)
+
+    lap("dataset_graph")
+
+    # ------------------------------------------------------ 20. results
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
           "phase_seconds": laps})
     print(card, flush=True)
@@ -2901,8 +2941,9 @@ def main() -> int:
     # after; on the fused paths the launches captured a round times the
     # rounds replayed (tools/runs.py)
     emit({"kernels": [
-        # the main paths' shapes: ASGD's compacted epsilon shard (b = 0.1),
-        # ASAGA's full epsilon shard, the ring block of the long-context path
+        # the main paths' shapes: ASGD's compacted epsilon shard (b = 0.1;
+        # phase 19 (a)'s dataset-API tasks too), ASAGA's full epsilon
+        # shard, the ring block of the long-context path
         entry("masked_grad", "masked_grad.cu", b1, launches + sum(
             r["launches_on_path"]["masked_grad"]
             for r in (eps_fused, mnist_fused, mnist_run))
@@ -2910,7 +2951,7 @@ def main() -> int:
               + tel["masked_grad"] + shard_launches["masked_grad"]
               + standby_launches["masked_grad"]
               + mesh_launches["masked_grad"] + entry_launches["masked_grad"]
-              + serving_launches["masked_grad"],
+              + serving_launches["masked_grad"] + dg_launches["masked_grad"],
               recs["b_epsilon_idx"],
               recs["b_epsilon_idx"]["bound_us"] / 1e3),
         # phase 15 (e): the compacted form at the LibSVM file's task

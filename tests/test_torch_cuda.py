@@ -1844,3 +1844,87 @@ def test_ml_gaussian_mixture_on_the_card_matches_the_cpu(dev):
                                atol=1e-4)
     np.testing.assert_allclose(fits[0].log_likelihood,
                                fits[1].log_likelihood, rtol=1e-5)
+
+
+# ------------------------------------------ the dataset layer and the graph
+def test_reduce_by_key_on_card_tensors_takes_the_device_plane(dev):
+    """Card blocks take the device plane under ``auto`` (nothing leaves the
+    card to pick it), and agree key for key with the host plane."""
+    from asyncframework_tpu_torch.conf import AsyncConf, set_global_conf
+    from asyncframework_tpu_torch.data.dataset import DistributedDataset
+    from asyncframework_tpu_torch.engine.scheduler import JobScheduler
+    from asyncframework_tpu_torch.ops import shuffle
+
+    rs = np.random.default_rng(3)
+    blocks = {w: (rs.integers(0, 5_000, size=20_000),
+                  rs.integers(-9, 9, size=20_000).astype(np.int32))
+              for w in range(4)}
+    sched = JobScheduler(num_workers=4)
+    try:
+        ds = DistributedDataset.from_array_pairs(sched, blocks)
+        assert all(ds._compute(w)[0][0].is_cuda for w in range(4))
+        out = {}
+        for plane in (None, "host"):
+            set_global_conf(None if plane is None else AsyncConf(
+                {"async.shuffle.data.plane": plane}))
+            before = dict(shuffle.calls)
+            got = ds.reduce_by_key("sum")
+            out[plane] = {p: got._compute(p)[0] for p in got.partition_ids()}
+            taken = {k: shuffle.calls[k] - before[k] for k in before}
+            assert taken == ({"device": 1, "host": 0} if plane is None
+                             else {"device": 0, "host": 1})
+    finally:
+        set_global_conf(None)
+        sched.shutdown()
+    for p in range(4):
+        np.testing.assert_array_equal(out[None][p][0], out["host"][p][0])
+        np.testing.assert_array_equal(out[None][p][1], out["host"][p][1])
+
+
+def test_graph_library_on_the_card_matches_the_cpu(dev):
+    from asyncframework_tpu_torch import graph as tg
+
+    rs = np.random.default_rng(8)
+    e = rs.integers(0, 300, size=(2_000, 2)).astype(np.int32)
+    G = tg.Graph(e[:, 0], e[:, 1], 300, device=dev)
+    C = tg.Graph(e[:, 0], e[:, 1], 300, device=torch.device("cpu"))
+    assert G.src.is_cuda and G.src.dtype == torch.int32
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for algo in ("connected_components", "triangle_count",
+                     "label_propagation", "strongly_connected_components"):
+            np.testing.assert_array_equal(
+                getattr(tg, algo)(G).cpu().numpy(),
+                getattr(tg, algo)(C).numpy(), err_msg=algo)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    np.testing.assert_array_equal(tg.shortest_paths(G, [0, 7]).cpu().numpy(),
+                                  tg.shortest_paths(C, [0, 7]).numpy())
+    for strategy in ("edge_1d", "edge_2d", "random_vertex_cut",
+                     "canonical_random_vertex_cut"):
+        np.testing.assert_array_equal(
+            tg.partition_edges(G, 7, strategy).cpu().numpy(),
+            tg.partition_edges(C, 7, strategy).numpy())
+    r_g = tg.pagerank(G, num_iterations=50, tol=1e-6)
+    it_g = tg.pregel.last_iterations
+    r_c = tg.pagerank(C, num_iterations=50, tol=1e-6)
+    assert tg.pregel.last_iterations == it_g
+    np.testing.assert_allclose(r_g.cpu().numpy(), r_c.numpy(), atol=1e-6)
+
+
+def test_svd_plus_plus_on_the_card_matches_the_cpu(dev):
+    from asyncframework_tpu_torch.graph import algorithms as alg
+
+    rs = np.random.default_rng(2)
+    u = rs.integers(0, 40, size=600)
+    i = rs.integers(0, 30, size=600)
+    r = rs.normal(3.0, 1.0, size=600).astype(np.float32)
+    P0, Q0, Y0 = (torch.from_numpy(rs.normal(size=(rows, 4)).astype(
+        np.float32) * 0.05) for rows in (40, 30, 30))
+    got = alg._train_svd_plus_plus(u, i, r, P0.to(dev), Q0.to(dev),
+                                   Y0.to(dev), 100, 0.5, 0.015)
+    want = alg._train_svd_plus_plus(u, i, r, P0, Q0, Y0, 100, 0.5, 0.015)
+    for f in ("user_vectors", "item_vectors", "user_bias", "item_bias"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   atol=1e-5, err_msg=f)

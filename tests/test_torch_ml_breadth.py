@@ -39,6 +39,7 @@ from asyncframework_tpu.ml import persistence as jpersistence
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from asyncframework_tpu_torch import convert
 from asyncframework_tpu_torch import ml as tml
+from asyncframework_tpu_torch.data.pairs import portable_hash as t_portable_hash
 from asyncframework_tpu_torch.ml import feature as tfeature
 from asyncframework_tpu_torch.ml import mixture as tmixture
 from asyncframework_tpu_torch.parallel import make_mesh
@@ -187,9 +188,9 @@ class TestTFIDF:
         st.tuples(st.text(), st.integers(-2**40, 2**40)),
         st.tuples(st.binary(), st.tuples(st.text(), st.booleans()))))
     def test_hash_copy_is_portable_hash(self, key):
-        """The private copy against the JAX package's ``portable_hash``:
-        the same hash, or the same error (bytes that are not UTF-8 fail to
-        re-encode in both)."""
+        """The hash ``HashingTF`` uses (the port's ``data/pairs.py``
+        ``portable_hash``) against the JAX package's: the same hash, or the
+        same error (bytes that are not UTF-8 fail to re-encode in both)."""
         from asyncframework_tpu.data.pairs import portable_hash
 
         def outcome(fn):
@@ -198,7 +199,8 @@ class TestTFIDF:
             except UnicodeEncodeError as e:
                 return type(e)
 
-        assert outcome(tfeature._portable_hash) == outcome(portable_hash)
+        assert tfeature.portable_hash is t_portable_hash
+        assert outcome(t_portable_hash) == outcome(portable_hash)
 
     def test_tf_idf_matches_the_formula_and_the_jax_package(self):
         tf = tml.HashingTF(128, device=CPU).transform(self.DOCS)
@@ -1096,18 +1098,29 @@ class TestModelPersistence:
             tml.load_model(tmp_path / "y.npz", device=CPU)
 
     def test_svdpp_refused_naming_the_graph_item(self, tmp_path):
-        """``SVDPlusPlusModel`` lives in the JAX package's ``graph``, not
-        ported yet: the port refuses its files and its models, naming the
-        ROADMAP item."""
+        """``SVDPlusPlusModel`` (the graph library's) is no longer refused:
+        a file either package saves loads in the other, every field
+        equal, and the loaded model predicts the saver's predictions bit
+        for bit."""
         from asyncframework_tpu.graph import svd_plus_plus
+        from asyncframework_tpu_torch.graph import svd_plus_plus as t_svdpp
 
-        m = svd_plus_plus([0, 0, 1], [0, 1, 1], [5.0, 1.0, 4.0], rank=2,
-                          num_iterations=5)
-        p = jml.save_model(m, tmp_path / "svdpp")
-        with pytest.raises(NotImplementedError, match="A9"):
-            tml.load_model(p, device=CPU)
-        with pytest.raises(NotImplementedError, match="graph"):
-            tml.save_model(m, tmp_path / "again")
+        args = ([0, 0, 1], [0, 1, 1], [5.0, 1.0, 4.0])
+        fields = ("user_vectors", "item_vectors", "user_bias", "item_bias")
+        jm = svd_plus_plus(*args, rank=2, num_iterations=5)
+        tm = t_svdpp(*args, rank=2, num_iterations=5, device=CPU)
+        for saver, loader, m, name in (
+                (jml.save_model, tml.load_model, jm, "from_jax"),
+                (tml.save_model, jml.load_model, tm, "from_port")):
+            p = saver(m, tmp_path / name)
+            got = (loader(p, device=CPU) if loader is tml.load_model
+                   else loader(p))
+            assert type(got).__name__ == "SVDPlusPlusModel"
+            for f in fields:
+                np.testing.assert_array_equal(getattr(got, f), getattr(m, f))
+            assert got.mean == m.mean
+            np.testing.assert_array_equal(got.predict([0, 1], [1, 1]),
+                                          m.predict([0, 1], [1, 1]))
 
 
 # --------------------------------------------------------- no silent CPU
